@@ -9,6 +9,10 @@ carries the draw across:
 - fault state: {"lifetimes": {...}, "stuck": {...}} (f32) or the packed
   {"life_q": {...}, "stuck_bits": {...}}, keyed "layer/slot".
 
+- a sweep's state: the same, every leaf with a leading config axis,
+  plus the SGD history {"layer/slot": {"h": array}}
+  (`sweep_state_from_jax` / `sweep_state_to_jax`).
+
 The inverses serve the tests.
 """
 from __future__ import annotations
@@ -47,3 +51,47 @@ def fault_state_from_jax(state: Dict[str, Dict[str, np.ndarray]],
 def fault_state_to_jax(state) -> Dict[str, Dict[str, np.ndarray]]:
     return {group: {k: v.detach().cpu().numpy() for k, v in leaves.items()}
             for group, leaves in state.items()}
+
+
+def _same_layout(name, new, old):
+    flat = lambda tree: {k: tuple(v.shape) for k, v in _leaves(tree)}
+    if flat(new) != flat(old):
+        raise ValueError(f"sweep state: {name} does not fit the runner "
+                         f"(shapes {flat(new)} vs {flat(old)})")
+
+
+def _leaves(tree, prefix=""):
+    items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+    for k, v in items:
+        if isinstance(v, (dict, list)):
+            yield from _leaves(v, f"{prefix}{k}/")
+        elif v is not None:
+            yield f"{prefix}{k}", v
+
+
+def sweep_state_from_jax(runner, params, history, fault_states):
+    """Load a reference SweepRunner's params, history and fault_states
+    (numpy, config axis leading) into the port's `runner`, dtype for
+    dtype; the layouts must match the runner's own."""
+    dev = runner.device
+    new_params = params_from_jax(params, dev)
+    new_hist = {k: {s: torch.from_numpy(np.array(v, copy=True)).to(dev)
+                    for s, v in slots.items()}
+                for k, slots in history.items()}
+    new_fault = fault_state_from_jax(fault_states, dev)
+    for name, new, old in (("params", new_params, runner.params),
+                           ("history", new_hist, runner.history),
+                           ("fault_states", new_fault,
+                            runner.fault_states)):
+        _same_layout(name, new, old)
+    runner.params, runner.history, runner.fault_states = \
+        new_params, new_hist, new_fault
+
+
+def sweep_state_to_jax(runner):
+    """(params, history, fault_states) of a port SweepRunner as numpy,
+    in the reference runner's layout."""
+    return (params_to_jax(runner.params),
+            {k: {s: v.detach().cpu().numpy() for s, v in slots.items()}
+             for k, slots in runner.history.items()},
+            fault_state_to_jax(runner.fault_states))

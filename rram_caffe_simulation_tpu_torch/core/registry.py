@@ -42,8 +42,15 @@ class LayerContext:
     # Crossbar read: fault-target layer name -> (broken, stuck, seed,
     # sigma, q_bits, use_kernel); the layer computes its matmul through
     # fault/hw_aware.crossbar_matmul, whose forward is kernel B2 when
-    # use_kernel is set (its plain version otherwise).
+    # use_kernel is set (its plain version otherwise). Under config
+    # lanes the seed is a (C,) int32 tensor, one per lane.
     crossbar: Optional[dict] = None
+    # Config lanes (the sweep): 0 = one config; C > 0 = every learnable
+    # param carries a leading C axis and a "laned" blob holds C configs'
+    # values (Net's docstring gives the layout). `laned` flags, per
+    # bottom of the layer being applied, which bottoms are laned.
+    lanes: int = 0
+    laned: tuple = ()
 
 
 @dataclasses.dataclass
@@ -59,6 +66,11 @@ class Layer:
     # loss layers may omit `top:` (layer.hpp AutoTopBlobs)
     auto_top_blobs = False
     fault_target = False
+    # how the layer meets config lanes (Net.apply): "any" = its apply is
+    # per channel and runs on a laned blob unchanged; "own" = its apply
+    # reads ctx.lanes/ctx.laned; None = no lane rule (raises under lanes
+    # when it has params or a laned bottom)
+    lane_rule: Optional[str] = None
 
     def __init__(self, layer_param, phase: int):
         self.lp = layer_param

@@ -1,7 +1,11 @@
 """Host-side batch feeds for data-source layers (counterpart of the
 reference package's data/feed.py, its sequential Python Data path):
 a wrap-around LMDB cursor, Datum decode and the DataTransformer, one
-numpy batch dict per call. The solver moves each batch to its device."""
+numpy batch dict per call. The solver moves each batch to its device.
+
+`materialize_data_source` decodes a whole LMDB once instead (the
+sweep's device-resident dataset): batch t is then records
+(t*B + arange(B)) % N, the host cursor's wrap-around order."""
 from __future__ import annotations
 
 import os
@@ -95,3 +99,48 @@ def build_feed(net) -> Feed:
             batch.update(f())
         return batch
     return feed
+
+
+def can_materialize(layer) -> bool:
+    """Whether a layer's source decodes deterministically into whole-DB
+    arrays: a Data layer without random per-pull transforms (TRAIN-phase
+    random crop, mirror)."""
+    if layer.type_name != "Data":
+        return False
+    tp = layer.lp.transform_param
+    return not (tp.mirror or (tp.crop_size and layer.phase == proto.TRAIN))
+
+
+MATERIALIZE_MAX_BYTES = 1 << 31     # a dataset larger stays on the host
+
+
+def materialize_data_source(layer):
+    """The whole DB of a Data layer, decoded and transformed in cursor
+    order: {top: (N, ...) array}, labels as float32; None when the layer
+    cannot be materialized exactly or the data exceed
+    MATERIALIZE_MAX_BYTES."""
+    if not can_materialize(layer):
+        return None
+    dp = layer.lp.data_param
+    tops = list(layer.lp.top)
+    env = open_lmdb(dp.source)
+    try:
+        cursor = Cursor(env)
+        transformer = DataTransformer(layer.lp.transform_param,
+                                      phase=layer.phase)
+        datas, labels, total = [], [], 0
+        for _ in range(len(env)):          # the cursor wraps; count
+            arr, label = datum_to_array(
+                proto.decode_datum(cursor.next_value()))
+            arr = transformer.transform(arr)
+            total += arr.nbytes
+            if total > MATERIALIZE_MAX_BYTES:
+                return None
+            datas.append(arr)
+            labels.append(label)
+    finally:
+        env.close()
+    out = {tops[0]: np.stack(datas)}
+    if len(tops) > 1:
+        out[tops[1]] = np.asarray(labels, np.float32)
+    return out

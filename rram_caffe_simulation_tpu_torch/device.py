@@ -10,6 +10,8 @@ from __future__ import annotations
 
 import torch
 
+CUDNN_DETERMINISTIC = True
+
 
 def resolve_device(device=None) -> torch.device:
     if device is None:
@@ -28,4 +30,8 @@ def resolve_device(device=None) -> torch.device:
         # in full f32, so both stay off
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        # cuDNN's convolution backward algorithms may add with atomics,
+        # so two runs from one seed part in the last bits; the
+        # deterministic ones make a run repeat bit for bit
+        torch.backends.cudnn.deterministic = CUDNN_DETERMINISTIC
     return dev

@@ -67,6 +67,38 @@ def init_fault_state(gen: torch.Generator, param_shapes: Dict[str, tuple],
     return {"lifetimes": lifetimes, "stuck": stuck}
 
 
+def stack_fault_states(gen: torch.Generator, param_shapes: Dict[str, tuple],
+                       pattern, n_configs: int, means=None,
+                       stds=None) -> FaultState:
+    """n_configs independent draws stacked on a leading config axis
+    (the reference's stack_fault_states / draw_rescaled_state): lane c's
+    lifetimes are mean_c + std_c * z with z ~ N(0, 1), re-anchored to
+    its own (mean, std), default the pattern's; stuck values are drawn
+    per lane from the pattern's splits. Drawn lane by lane, in dict
+    order, on the CPU generator `gen`."""
+    split1, split2 = stuck_splits(pattern)
+    means = np.broadcast_to(np.asarray(
+        float(pattern.mean) if means is None else means, np.float32),
+        (n_configs,))
+    stds = np.broadcast_to(np.asarray(
+        float(pattern.std) if stds is None else stds, np.float32),
+        (n_configs,))
+    lanes = []
+    for c in range(n_configs):
+        life, stuck = {}, {}
+        for name, shape in param_shapes.items():
+            z = torch.randn(shape, generator=gen)
+            life[name] = float(means[c]) + float(stds[c]) * z
+            u = torch.rand(shape, generator=gen)
+            stuck[name] = torch.where(
+                u < split1, -1.0, torch.where(u < split2, 0.0, 1.0))
+        lanes.append((life, stuck))
+    return {"lifetimes": {k: torch.stack([ln[0][k] for ln in lanes])
+                          for k in param_shapes},
+            "stuck": {k: torch.stack([ln[1][k] for ln in lanes])
+                      for k in param_shapes}}
+
+
 def fail(fault_params: Dict[str, torch.Tensor], state: FaultState,
          fault_diffs: Dict[str, torch.Tensor],
          decrement: float = 100.0):

@@ -7,14 +7,16 @@ Two spellings with one contract:
 
 - `perturb_weight` / `quantize_ste`: plain tensor ops, used for biases
   and by the "torch" engine's reference path.
-- `crossbar_matmul`: y = x @ where(broken, stuck, quantize(w) * (1 +
-  sigma*eps)) as a `torch.autograd.Function` whose forward is kernel B2
-  (csrc/crossbar.cu) on the card and its plain version
-  (`crossbar_forward_plain`) on the CPU or when asked for by name. The
-  backward follows the reference's `_cm_bwd`: dx against the clean
-  masked weights (on the quantization grid when q_bits is set), dw
-  zeroed on broken cells, plain `torch.matmul` (the reference has no
-  backward kernel either).
+- `crossbar_matmul_lanes`: y_c = x_c @ where(broken, stuck, quantize(w)
+  * (1 + sigma*eps)) for C config lanes (the sweep's config axis; x
+  shared or per lane) as a `torch.autograd.Function` whose forward is
+  one launch of kernel B2 (csrc/crossbar.cu) on the card and its plain
+  version (`crossbar_forward_plain`) on the CPU or when asked for by
+  name. The backward follows the reference's `_cm_bwd` per lane: dx
+  against the clean masked weights (on the lane's quantization grid
+  when q_bits is set), dw zeroed on broken cells, batched
+  `torch.matmul` (the reference has no backward kernel either).
+  `crossbar_matmul` is its one-lane case, the single-config read.
 
 In-kernel noise is Philox4x32-10 keyed by the lane seed with the flat
 weight index k*N+n as counter; `philox_normal` is the same draw in
@@ -53,12 +55,19 @@ def q_levels(q_bits: int) -> float:
     return float(2 ** (q_bits - 1) - 1)
 
 
+_LEVELS = {}     # (levels, dtype, device) -> the divisor on the device
+
+
 def _grid_step(max_abs: torch.Tensor, levels: float) -> torch.Tensor:
     # the divisor is a device tensor, not a Python scalar: CUDA's div by
     # a host scalar multiplies by its reciprocal, which can differ from
-    # IEEE division in the last bit
-    return max_abs.clamp_min(1e-12) / torch.tensor(
-        levels, dtype=max_abs.dtype, device=max_abs.device)
+    # IEEE division in the last bit. It is made once per device: a fresh
+    # host-to-card copy would wait for the stream at every step
+    key = (levels, max_abs.dtype, max_abs.device)
+    if key not in _LEVELS:
+        _LEVELS[key] = torch.tensor(levels, dtype=max_abs.dtype,
+                                    device=max_abs.device)
+    return max_abs.clamp_min(1e-12) / _LEVELS[key]
 
 
 def quantize_tile(w: torch.Tensor, max_abs: torch.Tensor, levels: float):
@@ -67,15 +76,24 @@ def quantize_tile(w: torch.Tensor, max_abs: torch.Tensor, levels: float):
     return torch.round(w / s).clamp(-levels, levels) * s
 
 
-def quantize_ste(x: torch.Tensor, bits: int, max_abs=None):
+def lane_max_abs(x: torch.Tensor, lanes: int = 0) -> torch.Tensor:
+    """max |x| over the whole tensor, or per config lane (the leading
+    axis, kept for broadcasting) when `lanes` is set."""
+    if not lanes:
+        return x.detach().abs().max()
+    return x.detach().abs().amax(dim=tuple(range(1, x.dim())), keepdim=True)
+
+
+def quantize_ste(x: torch.Tensor, bits: int, max_abs=None, lanes: int = 0):
     """Symmetric uniform quantization (ADC model), straight-through:
-    the forward value is x + (q - x), the gradient is 1."""
+    the forward value is x + (q - x), the gradient is 1. With `lanes`,
+    x carries a leading config axis and each lane has its own grid."""
     if not bits:
         return x
     if bits < 2:
         raise ValueError(f"quantize_ste needs bits >= 2, got {bits}")
     if max_abs is None:
-        max_abs = x.detach().abs().max()
+        max_abs = lane_max_abs(x, lanes)
     q = quantize_tile(x.detach(), max_abs, q_levels(bits))
     return x + (q - x.detach())
 
@@ -228,18 +246,18 @@ def crossbar_forward(x, w, broken, stuck, seeds, sigma: float,
 
 
 class CrossbarMatmul(torch.autograd.Function):
-    """One config's crossbar read with the reference's straight-through
-    backward (`_cm_bwd`)."""
+    """C config lanes' crossbar reads in one launch of kernel B2, with
+    the reference's straight-through backward (`_cm_bwd`) per lane as
+    batched products: dx against the clean masked weights (on the
+    lane's quantization grid when q_bits is set), dw zeroed on broken
+    cells (the reference has no backward kernel either)."""
 
     @staticmethod
-    def forward(ctx, x, w, broken, stuck, seed, sigma, q_bits, use_kernel):
-        brokenf = broken.to(torch.float32)
-        seeds = torch.tensor([seed], dtype=torch.int32, device=w.device)
+    def forward(ctx, x, w, broken, stuck, seeds, sigma, q_bits, use_kernel):
         fwd = crossbar_forward if use_kernel else crossbar_forward_plain
-        y = fwd(x.contiguous(), w[None].contiguous(),
-                brokenf[None].contiguous(),
-                stuck.to(torch.float32)[None].contiguous(), seeds,
-                sigma, q_bits)[0]
+        y = fwd(x.contiguous(), w.contiguous(),
+                broken.to(torch.float32).contiguous(),
+                stuck.to(torch.float32).contiguous(), seeds, sigma, q_bits)
         ctx.save_for_backward(x, w, broken, stuck)
         ctx.q_bits = q_bits
         return y
@@ -249,26 +267,45 @@ class CrossbarMatmul(torch.autograd.Function):
         x, w, broken, stuck = ctx.saved_tensors
         wv = w
         if ctx.q_bits:
-            # dx flows through the values the forward used: the grid
-            # weights; dw stays straight-through to the clean masters
-            wv = quantize_tile(w, w.abs().max(), q_levels(ctx.q_bits))
+            # dx flows through the values the forward used: each lane's
+            # grid weights; dw stays straight-through to the masters
+            wv = quantize_tile(w, lane_max_abs(w, lanes=1),
+                               q_levels(ctx.q_bits))
         brk = broken.to(torch.bool)
         w_masked = torch.where(brk, stuck.to(w.dtype), wv)
-        dx = g @ w_masked.T if ctx.needs_input_grad[0] else None
-        dw = None
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = torch.matmul(g, w_masked.transpose(1, 2))
+            if x.dim() == 2:            # x shared by every lane
+                dx = dx.sum(0)
         if ctx.needs_input_grad[1]:
             dw = torch.where(brk, torch.zeros((), dtype=g.dtype,
-                                               device=g.device), x.T @ g)
+                                               device=g.device),
+                             torch.matmul(x.transpose(-2, -1), g))
         return dx, dw, None, None, None, None, None, None
+
+
+def crossbar_matmul_lanes(x, w, broken, stuck, seeds, sigma: float,
+                          q_bits: int = 0, use_kernel: bool = True):
+    """y_c = x_c @ where(broken_c, stuck_c, quantize_c(w_c) * (1 +
+    sigma*eps_c)) for C config lanes, one kernel launch whatever C is.
+
+    x (M, K) shared by every lane or (C, M, K); w, stuck (C, K, N) f32;
+    broken (C, K, N) bool or 0/1; seeds (C,) int32 (on w's device, so
+    the launch waits for no host copy). Returns (C, M, N)."""
+    return CrossbarMatmul.apply(x, w, broken, stuck, seeds, float(sigma),
+                                int(q_bits), bool(use_kernel))
 
 
 def crossbar_matmul(x, w, broken, stuck, seed: int, sigma: float,
                     q_bits: int = 0, use_kernel: bool = True):
-    """y = x @ where(broken, stuck, quantize(w) * (1 + sigma*eps)).
+    """y = x @ where(broken, stuck, quantize(w) * (1 + sigma*eps)): one
+    config's read, the one-lane case of `crossbar_matmul_lanes`.
 
     x (M, K) f32; w (K, N) f32; broken (K, N) bool or 0/1; stuck (K, N);
     seed an int; sigma, q_bits as in the reference. `use_kernel` routes
     the forward through the kernel wrapper (kernel B2 on CUDA tensors)
     or straight to the plain version."""
-    return CrossbarMatmul.apply(x, w, broken, stuck, int(seed),
-                                float(sigma), int(q_bits), bool(use_kernel))
+    seeds = torch.tensor([int(seed)], dtype=torch.int32, device=w.device)
+    return crossbar_matmul_lanes(x, w[None], broken[None], stuck[None],
+                                 seeds, sigma, q_bits, use_kernel)[0]

@@ -135,7 +135,9 @@ def build_all(libs: Iterable[CudaLibrary]) -> float:
 
 def all_libraries() -> list:
     from .fault import fused, hw_aware
-    return [hw_aware.CROSSBAR_LIB, fused.FUSED_LIB]
+    from .ops import pool_backward
+    return [hw_aware.CROSSBAR_LIB, fused.FUSED_LIB,
+            pool_backward.POOL_BWD_LIB]
 
 
 def reset_launches():

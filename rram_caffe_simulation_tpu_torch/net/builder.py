@@ -182,14 +182,23 @@ class Net:
                 for owner, slot in self._layer_slots[layer.name]]
 
     def apply(self, params, batch: Optional[dict] = None,
-              adc_bits: int = 0, crossbar: Optional[dict] = None):
+              adc_bits: int = 0, crossbar: Optional[dict] = None,
+              lanes: int = 0):
         """Run the net; returns (blobs, loss). `batch` feeds the
         data-source tops; `crossbar` routes named InnerProduct layers
-        through the crossbar read (see LayerContext.crossbar)."""
+        through the crossbar read (see LayerContext.crossbar).
+
+        `lanes` = C > 0 runs C configs at once (the sweep): every param
+        carries a leading C axis, the batch is shared, and a blob
+        computed from params is "laned": a per-config blob of shape
+        (d0, d1, ...) is held as (d0, C*d1, ...), lane-major along axis
+        1, and a per-config scalar (a loss) as (C,). The loss is then
+        one value per lane, (C,)."""
         batch = batch or {}
         ctx = LayerContext(phase=self.phase, adc_bits=adc_bits,
-                           crossbar=crossbar)
+                           crossbar=crossbar, lanes=lanes)
         blobs = {}
+        laned = set()
         for name in self.data_source_tops:
             if name in batch:
                 blobs[name] = batch[name]
@@ -199,12 +208,28 @@ class Net:
             for b in layer.lp.bottom:
                 if b not in blobs:
                     raise ValueError(f"batch missing data blob {b!r}")
+            ctx.laned = tuple(b in laned for b in layer.lp.bottom)
+            out_laned = bool(lanes) and (any(ctx.laned)
+                                         or layer.num_params() > 0)
+            if out_laned and layer.lane_rule is None:
+                raise NotImplementedError(
+                    f"layer {layer.name!r} ({layer.type_name}) has no "
+                    "config-lane rule yet")
             tops = layer.apply(self._gather_layer_params(params, layer),
                                [blobs[b] for b in layer.lp.bottom], ctx)
             for t, v in zip(layer.lp.top, tops):
                 blobs[t] = v
-        loss = torch.zeros((), dtype=torch.float32, device=self.device)
+                (laned.add if out_laned else laned.discard)(t)
+        loss = torch.zeros((lanes,) if lanes else (), dtype=torch.float32,
+                           device=self.device)
         for blob_name, w in self.loss_weights.items():
             if blob_name in blobs:
-                loss = loss + w * blobs[blob_name].sum()
+                v = blobs[blob_name]
+                if blob_name not in laned:
+                    term = v.sum()
+                elif self.blob_shapes[blob_name] == ():
+                    term = v
+                else:
+                    term = v.reshape(v.shape[0], lanes, -1).sum((0, 2))
+                loss = loss + w * term
         return blobs, loss

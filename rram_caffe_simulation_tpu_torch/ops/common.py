@@ -1,18 +1,28 @@
 """InnerProduct, the RRAM fault target (counterpart of the reference
 package's ops/common.py; reference inner_product_layer.cpp:84-139 and
 net.cpp:482-493, which makes InnerProduct params the failure-prone
-set). The weight keeps Caffe's stored shape (num_output, K)."""
+set). The weight keeps Caffe's stored shape (num_output, K).
+
+Under config lanes the weight is (C, num_output, K): a laned bottom
+(N, C*ch, ...) is read as (C, N, K) (each lane in Caffe's flatten
+order), the product is one batched matmul, or one launch of kernel B2
+through `crossbar_matmul_lanes`, and the top is laned (N, C*num_output).
+"""
 from __future__ import annotations
+
+import torch
 
 from ..core.fillers import make_filler
 from ..core.registry import Layer, register_layer
-from ..fault.hw_aware import crossbar_matmul, quantize_ste
+from ..fault.hw_aware import (crossbar_matmul, crossbar_matmul_lanes,
+                              quantize_ste)
 from ._util import flat_shape_from
 
 
 @register_layer("InnerProduct")
 class InnerProductLayer(Layer):
     fault_target = True
+    lane_rule = "own"
 
     def setup(self, bottom_shapes):
         ip = self.lp.inner_product_param
@@ -40,6 +50,8 @@ class InnerProductLayer(Layer):
         return params
 
     def apply(self, params, bottoms, ctx):
+        if ctx.lanes:
+            return self._apply_lanes(params, bottoms, ctx)
         x = bottoms[0].reshape(-1, self.K)
         w = params[0]
         cb = ctx.crossbar.get(self.name) if ctx.crossbar else None
@@ -62,3 +74,30 @@ class InnerProductLayer(Layer):
         if self.bias_term:
             y = y + params[1]
         return [y.reshape(self.out_shape)]
+
+    def _apply_lanes(self, params, bottoms, ctx):
+        C = ctx.lanes
+        if self.axis != 1:
+            raise NotImplementedError(
+                f"{self.name}: config lanes need InnerProduct axis 1")
+        x = bottoms[0]
+        M = x.shape[0]
+        x = (x.reshape(M, C, self.K).transpose(0, 1) if ctx.laned[0]
+             else x.reshape(M, self.K))
+        w = params[0]
+        cb = ctx.crossbar.get(self.name) if ctx.crossbar else None
+        turn = (lambda t: t) if self.transpose else \
+            (lambda t: t.transpose(1, 2))         # (C, K, num_output)
+        if cb is not None:
+            broken, stuck, seeds, sigma, q_bits, use_kernel = cb
+            y = crossbar_matmul_lanes(x.float(), turn(w).float(),
+                                      turn(broken), turn(stuck).float(),
+                                      seeds, sigma, q_bits,
+                                      use_kernel).to(x.dtype)
+        else:
+            y = torch.matmul(x, turn(w))
+        if ctx.adc_bits:
+            y = quantize_ste(y, ctx.adc_bits, lanes=C)
+        if self.bias_term:
+            y = y + params[1][:, None, :]
+        return [y.transpose(0, 1).reshape(M, C * self.num_output)]

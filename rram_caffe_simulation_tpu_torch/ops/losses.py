@@ -44,7 +44,10 @@ def _normalizer(mode, outer, spatial, valid):
 
 @register_layer("SoftmaxWithLoss")
 class SoftmaxWithLossLayer(Layer):
+    """Under config lanes a laned bottom (N, C*ch, ...) gives one loss
+    per lane, a (C,) top, and the prob top laned like the bottom."""
     auto_top_blobs = True
+    lane_rule = "own"
 
     def default_loss_weight(self, top_index: int) -> float:
         return 1.0 if top_index == 0 else 0.0
@@ -62,22 +65,33 @@ class SoftmaxWithLossLayer(Layer):
 
     def apply(self, params, bottoms, ctx):
         x, labels = bottoms[0].float(), bottoms[1]
-        prob = _softmax(x, self.axis)
-        pm = torch.movedim(prob, self.axis, -1)
-        lab = labels.reshape(pm.shape[:-1]).long()
+        C = ctx.lanes if ctx.lanes and ctx.laned[0] else 0
+        if C:
+            # (N, C*ch, ...) -> (C, N, ch, ...): the lane axis leads
+            x = x.reshape((x.shape[0], C, -1) + tuple(x.shape[2:]))
+            x = torch.movedim(x, 1, 0)
+        axis = self.axis + (1 if C else 0)
+        prob = _softmax(x, axis)
+        pm = torch.movedim(prob, axis, -1)
+        lab = labels.reshape(pm.shape[1 if C else 0:-1]).long()
+        lab = lab.expand(pm.shape[:-1])            # shared by every lane
         p_true = torch.gather(pm, -1, lab.unsqueeze(-1)).squeeze(-1)
         nll = -torch.log(torch.clamp_min(p_true, _FLT_MIN))
-        outer = x.shape[0]
-        spatial = x.numel() // x.shape[self.axis] // outer
+        per_lane = x[0] if C else x
+        outer = per_lane.shape[0]
+        spatial = per_lane.numel() // per_lane.shape[self.axis] // outer
         if self.ignore_label is not None:
             mask = lab != self.ignore_label
             nll = torch.where(mask, nll, torch.zeros((), device=x.device))
-            valid = mask.sum().to(x.dtype)
+            valid = (mask[0] if C else mask).sum().to(x.dtype)
         else:
             valid = float(outer * spatial)
-        loss = nll.sum() / _normalizer(self.norm_mode, outer, spatial, valid)
+        total = nll.reshape(C, -1).sum(1) if C else nll.sum()
+        loss = total / _normalizer(self.norm_mode, outer, spatial, valid)
         tops = [loss]
         if len(self.top_shapes) > 1:
+            if C:
+                prob = torch.movedim(prob, 0, 1).reshape(bottoms[0].shape)
             tops.append(prob)
         return tops
 

@@ -9,6 +9,8 @@ from ..core.registry import Layer, register_layer
 
 @register_layer("ReLU")
 class ReLULayer(Layer):
+    lane_rule = "any"
+
     def setup(self, bottom_shapes):
         self.negative_slope = self.lp.relu_param.negative_slope
         self.top_shapes = [tuple(bottom_shapes[0])]

@@ -7,8 +7,14 @@ Pooling keeps Caffe's CEIL output size: the input is padded explicitly
 the ragged last window is the one Caffe computes; AVE divides each
 window by its intersection with the padded extent [-pad, h + pad)
 (`ave_pool_divisors`), not by what `avg_pool2d(ceil_mode=True)` uses.
-MAX backward is autograd's (the reference leaves its Pallas backward
-kernel off by default).
+MAX goes through `ops/pool_backward.max_pool`, whose backward
+RRAM_POOL_BWD picks (autograd's by default, as the reference's
+default is XLA's; "cuda" is kernel B4).
+
+Config lanes (the sweep): a laned blob folds the lanes into channels,
+(N, C*ch, H, W), lane-major, so a convolution runs every lane in one
+grouped call (groups = C * group; a shared bottom feeds a group-1
+convolution directly) and pooling needs no change.
 """
 from __future__ import annotations
 
@@ -19,12 +25,15 @@ import torch.nn.functional as F
 from .. import proto
 from ..core.fillers import make_filler
 from ..core.registry import Layer, register_layer
+from .pool_backward import max_pool
 from ._util import (ave_pool_divisors, ceil_pad_hi, conv_spatial_params,
                     pool_spatial_params, pooled_size)
 
 
 @register_layer("Convolution")
 class ConvolutionLayer(Layer):
+    lane_rule = "own"
+
     def setup(self, bottom_shapes):
         cp = self.lp.convolution_param
         if cp.axis != 1:
@@ -58,10 +67,19 @@ class ConvolutionLayer(Layer):
         return params
 
     def apply(self, params, bottoms, ctx):
+        w, C = params[0], ctx.lanes
+        if C:
+            # lane c's filters become output channels c*num_output + o
+            w = w.reshape((-1,) + tuple(w.shape[2:]))
         tops = []
-        for x in bottoms:
-            y = F.conv2d(x, params[0], None, self.stride, self.pad,
-                         self.dilation, self.group)
+        for i, x in enumerate(bottoms):
+            groups = self.group
+            if C and (ctx.laned[i] or self.group > 1):
+                if not ctx.laned[i]:
+                    x = x.repeat(1, C, 1, 1)
+                groups = C * self.group
+            y = F.conv2d(x, w, None, self.stride, self.pad, self.dilation,
+                         groups)
             if self.bias_term:
                 y = y + params[1].reshape(1, -1, 1, 1)
             tops.append(y)
@@ -70,6 +88,8 @@ class ConvolutionLayer(Layer):
 
 @register_layer("Pooling")
 class PoolingLayer(Layer):
+    lane_rule = "any"
+
     def setup(self, bottom_shapes):
         pp = self.lp.pooling_param
         self.method = pp.pool
@@ -102,8 +122,7 @@ class PoolingLayer(Layer):
     def apply(self, params, bottoms, ctx):
         x = bottoms[0]
         if self.method == proto.POOL_MAX:
-            xp = F.pad(x, self.fpad, value=float("-inf"))
-            return [F.max_pool2d(xp, self.kernel, self.stride)]
+            return [max_pool(x, self.kernel, self.stride, self.fpad)]
         xp = F.pad(x, self.fpad, value=0.0)
         s = F.avg_pool2d(xp, self.kernel, self.stride, divisor_override=1)
         key = (x.device, x.dtype)

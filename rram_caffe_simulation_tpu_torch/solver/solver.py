@@ -45,6 +45,17 @@ DTYPE_POLICY_BITS = {None: 0, "": 0, "f32": 0, "float32": 0, "ternary": 2,
                      "int8": 8}
 
 
+def _lane_seeds(gen: torch.Generator, lanes: int, device) -> torch.Tensor:
+    """(lanes,) int32 crossbar seeds from the CPU generator, placed on
+    `device` without a blocking copy (a pinned buffer; a plain copy to
+    the card would wait for the stream at every step)."""
+    seeds = torch.randint(0, 2 ** 31 - 1, (lanes,), generator=gen,
+                          dtype=torch.int32)
+    if torch.device(device).type != "cuda":
+        return seeds
+    return seeds.pin_memory().to(device, non_blocking=True)
+
+
 def _train_net_param(param) -> proto.Message:
     """Solver::InitTrainNet (solver.cpp:95-130): exactly one of net /
     net_param / train_net / train_net_param."""
@@ -153,6 +164,7 @@ class Solver:
             raise ValueError("rram_forward.adc_bits = 1 gives a symmetric "
                              "quantizer zero levels; use adc_bits >= 2")
 
+        self.custom_train_feed = train_feed is not None
         self.train_feed = train_feed or build_feed(self.net)
         self._lr_fn = learning_rate_fn(param)
         self.pack_spec = None
@@ -181,9 +193,15 @@ class Solver:
     # ------------------------------------------------------------------
     def make_train_step(self, hw_engine: str = "auto", dtype_policy=None,
                         fault_format: str = "f32", pack_spec=None,
-                        fused_epilogue=None):
+                        fused_epilogue=None, lanes: int = 0):
         """Build step(params, history, fault_state, batch, it, gen) ->
         (params', history', fault_state', loss, outputs).
+
+        `lanes` = C > 0 builds the same step over C config lanes (the
+        sweep, parallel/sweep.py): params, history and fault state carry
+        a leading C axis, the batch is shared, the loss is (C,), each
+        lane has its own quantization grid and crossbar seed, and every
+        kernel launches once for all lanes (Net.apply gives the layout).
 
         `hw_engine`: "cuda" reads crossbar weights through kernel B2 and
         runs the fused tail as kernel B1 (their wrappers: on CPU tensors
@@ -274,20 +292,26 @@ class Solver:
                 for k in fault_keys:
                     broken_k, stuck_k = broken_stuck(fault_state, k)
                     if k in crossbar_keys:
-                        seed = int(torch.randint(0, 2 ** 31 - 1, (),
-                                                 generator=gen))
+                        seed = (_lane_seeds(gen, lanes, broken_k.device)
+                                if lanes else
+                                int(torch.randint(0, 2 ** 31 - 1, (),
+                                                  generator=gen)))
                         crossbar[k.rsplit("/", 1)[0]] = (
                             broken_k, stuck_k, seed, hw_sigma, q_bits,
                             use_kernel)
                     else:
                         wk = read[k]
                         if q_bits:
-                            wk = quantize_ste(wk, q_bits)
+                            wk = quantize_ste(wk, q_bits, lanes=lanes)
                         read[k] = perturb_weight(wk, broken_k, stuck_k, gen,
                                                  hw_sigma)
             blobs, loss = net.apply(self._unflat(read, params), batch,
-                                    adc_bits=adc_bits, crossbar=crossbar)
-            grads = torch.autograd.grad(loss, [leaves[k] for k in owner_keys])
+                                    adc_bits=adc_bits, crossbar=crossbar,
+                                    lanes=lanes)
+            # lanes are independent: d(sum of lane losses)/d(lane c's
+            # params) is lane c's own gradient
+            grads = torch.autograd.grad(loss.sum() if lanes else loss,
+                                        [leaves[k] for k in owner_keys])
             g = dict(zip(owner_keys, grads))
             data = {k: v.detach() for k, v in leaves.items()}
 

@@ -1,4 +1,5 @@
-"""Kernels B1 and B2 on the card against their plain PyTorch versions.
+"""Kernels B1, B2 and B4 on the card against their plain PyTorch
+versions.
 
 Every test here needs a CUDA device and skips without one. The file
 imports no JAX, so it also runs on a machine that has only PyTorch:
@@ -6,7 +7,7 @@ imports no JAX, so it also runs on a machine that has only PyTorch:
     python -m pytest --noconftest -p no:cacheprovider -m cuda \\
         tests/test_torch_kernels.py
 
-B1 must equal its plain version bit for bit. B2 is held to the f32
+B1 and B4 must equal their plain versions bit for bit. B2 is held to the f32
 summation bound K * 2^-24 * (|x| @ |w_eff|): both compute w_eff with
 the same IEEE operations and differ only in the order of the K-sum."""
 import numpy as np
@@ -16,6 +17,7 @@ import torch
 from rram_caffe_simulation_tpu_torch.fault import fused as tfused
 from rram_caffe_simulation_tpu_torch.fault import hw_aware as thw
 from rram_caffe_simulation_tpu_torch.fault import packed as tpacked
+from rram_caffe_simulation_tpu_torch.ops import pool_backward as tpool
 
 pytestmark = pytest.mark.cuda
 
@@ -121,3 +123,32 @@ def test_b2_crossbar_matmul_autograd_on_card(cuda_device):
         grads.append(torch.autograd.grad(y, (x, w), g))
     for a, b in zip(*grads):
         assert torch.equal(a, b)        # the backward is the same code
+
+
+@pytest.mark.parametrize("lead,hw,kernel,stride,fpad,const", [
+    ((100, 32), (32, 32), (3, 3), (2, 2), (0, 1, 0, 1), None),   # pool1
+    ((3, 5), (16, 16), (3, 3), (2, 2), (0, 1, 0, 1), None),
+    ((4, 3), (7, 7), (3, 3), (2, 2), (1, 1, 1, 1), None),
+    ((2, 3), (9, 11), (3, 2), (1, 2), (0, 1, 1, 1), None),
+    ((2, 3), (12, 12), (2, 2), (2, 2), (0, 0, 0, 0), None),
+    ((2, 3), (32, 32), (3, 3), (2, 2), (0, 1, 0, 1), 1.5),       # all tie
+])
+def test_b4_kernel_equals_plain(cuda_device, lead, hw, kernel, stride, fpad,
+                                const):
+    rng = np.random.RandomState(sum(hw))
+    ho = (hw[0] + fpad[2] + fpad[3] - kernel[0]) // stride[0] + 1
+    wo = (hw[1] + fpad[0] + fpad[1] - kernel[1]) // stride[1] + 1
+    x = (np.full(lead + hw, const, np.float32) if const is not None
+         else rng.randn(*lead, *hw).astype(np.float32))
+    g = rng.randn(*lead, ho, wo).astype(np.float32)
+    x, g = (torch.from_numpy(a).to(cuda_device) for a in (x, g))
+    dk = tpool.max_pool_backward(x, g, kernel, stride, fpad)
+    dp = tpool.max_pool_backward_plain(x, g, kernel, stride, fpad)
+    assert torch.equal(dk.view(torch.int32), dp.view(torch.int32))
+    # and through the layer's autograd.Function under RRAM_POOL_BWD=cuda
+    launches = tpool.POOL_BWD_LIB.launches
+    xr = x.clone().requires_grad_()
+    y = tpool._MaxPool.apply(xr, kernel, stride, fpad, "cuda")
+    (dx,) = torch.autograd.grad(y, xr, g)
+    assert tpool.POOL_BWD_LIB.launches == launches + 1
+    assert torch.equal(dx.view(torch.int32), dp.view(torch.int32))
