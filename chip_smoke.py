@@ -4,12 +4,13 @@
     python3 chip_smoke.py                 # every phase, one card
     python3 chip_smoke.py --steps 10      # a shorter slice phase
     python3 chip_smoke.py --phases 6,8    # some phases (no "ok" line)
+    python3 chip_smoke.py --phases 9      # the B2t and B3 checks alone
 
 Phases (each raises on failure; the script then exits non-zero and
 prints no "ok" line):
 
-1. the card's name and power limit; build the three kernels from csrc/
-   with nvcc (one process per source, started together), timed;
+1. the card's name and power limit; build the kernels from csrc/ with
+   nvcc (one process per source, started together), timed;
 2. kernel B1 (fused ApplyUpdate+Fail) against its plain version,
    bit for bit (`torch.equal` on the int32 view of data', and life_q'),
    at the ip1/ip2 weight and bias shapes, every mode, int16 and int32
@@ -57,12 +58,36 @@ prints no "ok" line):
    from the same state and batch at every step, life_q identical and
    losses within 1e-5 relative; lane i against a single-config Solver
    started from lane i's state each step, the same; one lane poisoned
-   with a NaN parameter is quarantined while the others stay finite.
+   with a NaN parameter is quarantined while the others stay finite;
+9. kernels B2t (tiled crossbar read, csrc/crossbar_tiled.cu
+   rram_crossbar_tiled_forward) and B3 (the implicit-im2col conv read,
+   rram_crossbar_implicit_forward) against their plain versions at the
+   tiled slice's shapes (ip1, conv2, conv3), on a strided dilated conv
+   and ragged tiles (bk 7, bn 3), C = 1 and C = 4 with x shared and per
+   lane, sigma 0 and 0.05 (host noise and in-kernel noise): equal
+   (`torch.equal`) on dyadic inputs at sigma 0, ADC 3 and 8 bits;
+   otherwise each element within the f32 summation bound of every K-tile
+   it sums plus one ADC step of each, ADC level flips on at most 1% of
+   the elements; the tiled path's in-kernel noise equals B2's for the
+   same seed and cell;
+10. the tiled single-config slice: CIFAR-10-quick with conv_also,
+   rram_forward { adc_bits: 8 tiles: "cells=128x128" }, N(1e8, 3e7),
+   ternary, packed banks, fused epilogue, conv_im2col="implicit", 50
+   steps: the step time, the device's idle share and top kernels, and the
+   launches a step (B3a 2, B2t 1, B2a 1, B1a 10); at N(300, 50) (int16
+   banks) engine "cuda" against "torch" and premat against implicit, in
+   lockstep: life_q identical every step; then a short sigma = 0.05 run;
+11. the tiled sweep at C = 64 (the same configuration, chunk 5,
+   RRAM_POOL_BWD=cuda): configs*steps/s, step time, peak memory, the
+   launches a step (B3b 2, B2t 1, B2b 1, B1b 10, B4 1), and lanes held
+   against a single-config Solver from their state (banks identical).
 
 Then a JSON line of the step's numbers, a JSON line of the sweep's, one
 JSON line of per-kernel numbers (per training step, summed over the
-step's launches; B1b, B2b and B4 at the sweep's shapes), the card's name
-and power limit, and last {"ok": true, "device": {...}}.
+step's launches; B1b, B2b and B4 at the sweep's shapes, B2t and B3a at
+the tiled slice's, B3b at the tiled sweep's), the card's name and power
+limit, and last {"ok": true, "device": {...}}. B2t has a row at each
+path's shapes: C = 1 (the tiled slice) and C lanes (the tiled sweep).
 """
 from __future__ import annotations
 
@@ -80,6 +105,7 @@ import numpy as np
 REPO = Path(__file__).resolve().parent
 PKG = "rram_caffe_simulation_tpu_torch"
 SOLVER = "models/cifar10_quick/cifar10_quick_lmdb_solver.prototxt"
+TILES = "cells=128x128"          # the smallest realistic array size
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 F32_FLOP_PER_S = 67e12           # f32 outside the tensor cores
 U32 = 2.0 ** -24                 # f32 unit roundoff
@@ -404,7 +430,10 @@ def b2_step_numbers(device, C=1):
 # ---------------------------------------------------------------------------
 # phases 4 and 5: the solver
 
-def slice_solver(mean, std, sigma=0.0, hw_engine="cuda", seed=1):
+def slice_solver(mean, std, sigma=0.0, hw_engine="cuda", seed=1,
+                 tiled=False, conv_im2col="implicit"):
+    """The slice's solver; `tiled` adds conv_also and rram_forward {
+    adc_bits: 8 tiles: "cells=128x128" } with the conv operand mode."""
     from rram_caffe_simulation_tpu_torch.solver import Solver
     from rram_caffe_simulation_tpu_torch.utils.io import read_solver_param
     sp = read_solver_param(SOLVER)
@@ -415,9 +444,15 @@ def slice_solver(mean, std, sigma=0.0, hw_engine="cuda", seed=1):
     sp.failure_pattern.std = std
     if sigma:
         sp.rram_forward.sigma = sigma
+    kw = {}
+    if tiled:
+        sp.failure_pattern.conv_also = True
+        sp.rram_forward.adc_bits = 8
+        sp.rram_forward.tiles = TILES
+        kw["conv_im2col"] = conv_im2col
     return Solver(sp, device="cuda", hw_engine=hw_engine,
                   dtype_policy="ternary", fault_format="packed",
-                  fused_epilogue=True)
+                  fused_epilogue=True, **kw)
 
 
 def phase_slice(steps, gpu):
@@ -774,11 +809,20 @@ SWEEP_STEPS = 20                 # timed steps of phase 7
 
 
 def _launches():
+    """Launches since the last reset, per kernel (per exported function:
+    B2t and B3 share a source)."""
     from rram_caffe_simulation_tpu_torch.fault import fused, hw_aware
     from rram_caffe_simulation_tpu_torch.ops import pool_backward
+    tiled = hw_aware.TILED_LIB.counts
     return {"B2": hw_aware.CROSSBAR_LIB.launches,
+            "B2t": tiled["rram_crossbar_tiled_forward"],
+            "B3": tiled["rram_crossbar_implicit_forward"],
             "B1": fused.FUSED_LIB.launches,
             "B4": pool_backward.POOL_BWD_LIB.launches}
+
+
+def _untiled(**counts):
+    return {"B2t": 0, "B3": 0, **counts}
 
 
 def _event_stepper(runner, events):
@@ -847,8 +891,8 @@ def run_sweep(C, timed_steps, gpu):
                                                  events)]
     check(losses.shape == (C,) and bool(np.isfinite(losses).all()),
           "non-finite or misshapen sweep losses")
-    check(launches == {"B2": 2 * timed_steps, "B1": 4 * timed_steps,
-                       "B4": timed_steps},
+    check(launches == _untiled(B2=2 * timed_steps, B1=4 * timed_steps,
+                               B4=timed_steps),
           f"launches {launches} in {timed_steps} steps, expected B2 2, B1 "
           "4, B4 1 per step")
     # N(1e8, 3e7) draws a few cells dead (z < -3.3); none dies in a run
@@ -956,12 +1000,12 @@ def phase_sweep_checks(steps, C=8):
             os.environ["RRAM_POOL_BWD"] = "torch"
             kernels.reset_launches()
             _, _, pf, pl, _ = pstep(*state, batch, r.iter, gen)
-            check(_launches() == {"B2": 0, "B1": 0, "B4": 0},
+            check(_launches() == _untiled(B2=0, B1=0, B4=0),
                   "the torch engine launched a kernel")
             os.environ["RRAM_POOL_BWD"] = "cuda"
             kp, kh, kf, kl, _ = r._step(*state, batch, r.iter, r.solver.gen)
             got = _launches()
-            check(got == {"B2": 2, "B1": 4, "B4": 1},
+            check(got == _untiled(B2=2, B1=4, B4=1),
                   f"sweep step launches {got}, expected B2 2, B1 4, B4 1")
             rel = ((kl - pl).abs() / pl.abs().clamp_min(1.0)).max()
             worst_lock = max(worst_lock, float(rel))
@@ -1012,6 +1056,467 @@ def phase_sweep_checks(steps, C=8):
 
 
 # ---------------------------------------------------------------------------
+# phase 9: B2t and B3
+
+CONV_GEOM = (5, 5, 1, 1, 2, 2, 1, 1)     # CIFAR-10-quick's 5x5 pad 2 convs
+# name: (x shape of one lane, geom or None for a dense (M, K) x, K, N, tiles)
+TILED_CASES = {
+    "ip1": ((100, 1024), None, 1024, 64, (128, 64, 8)),
+    "conv2": ((100, 32, 16, 16), CONV_GEOM, 800, 32, (128, 32, 8)),
+    "conv3": ((100, 32, 8, 8), CONV_GEOM, 800, 64, (128, 64, 8)),
+    "strided dilated conv": ((4, 3, 13, 11), (3, 3, 2, 1, 1, 2, 2, 1), 27,
+                             11, (7, 3, 3)),
+    "ragged ip": ((37, 50), None, 50, 11, (7, 3, 3)),
+}
+
+
+def tiled_operands(x_shape, C, x_per_lane, K, N, dyadic, seed, device):
+    """x, w, broken, stuck, eps, seeds on the card. Dyadic: x and w are
+    multiples of 2^-4 with max |w| = 0.75 in every lane, so every
+    partial sum is exact in f32 whatever the order, and the ternary grid
+    step (0.75) too."""
+    import torch
+    g = torch.Generator(device=device).manual_seed(seed)
+    xs = ((C,) if x_per_lane else ()) + tuple(x_shape)
+
+    def dy(shape, lim):
+        return torch.randint(-lim, lim + 1, shape, generator=g,
+                             device=device).float() / 16.0
+    if dyadic:
+        x, w = dy(xs, 16), dy((C, K, N), 12)
+        w[:, 0, 0] = 0.75
+    else:
+        x = torch.randn(xs, generator=g, device=device)
+        w = torch.randn((C, K, N), generator=g, device=device) * 0.1
+    broken = (torch.rand((C, K, N), generator=g, device=device)
+              < 0.1).float()
+    stuck = torch.randint(-1, 2, (C, K, N), generator=g,
+                          device=device).float()
+    eps = torch.randn((C, K, N), generator=g, device=device)
+    seeds = torch.randint(0, 2 ** 31 - 1, (C,), generator=g, device=device,
+                          dtype=torch.int32)
+    return x, w, broken, stuck, eps, seeds
+
+
+def tiled_forward(kernel, x, w, br, st, seeds, sigma, q_bits, eps, geom,
+                  tiles):
+    from rram_caffe_simulation_tpu_torch.fault import hw_aware as hw
+    if geom is None:
+        fn = hw.crossbar_forward if kernel else hw.crossbar_forward_plain
+        return fn(x, w, br, st, seeds, sigma, q_bits, eps=eps, tiles=tiles)
+    fn = hw.crossbar_conv_forward if kernel else \
+        hw.crossbar_conv_forward_plain
+    return fn(x, w, br, st, seeds, sigma, q_bits, tiles, geom, eps=eps)
+
+
+def tiled_bound(y, y_ref, rows, w_eff, tiles):
+    """(within, flip share, max |y - y_ref|): each element within the f32
+    summation bound of every K-tile it sums (2 k u (|x| @ |w_eff|) per
+    tile, plus u |y| per digital add) plus one ADC step of each tile
+    (max |partial| / levels, bounded by the |x| @ |w_eff| tile); the flip
+    share is that of elements past the summation bound alone."""
+    import torch
+    from rram_caffe_simulation_tpu_torch.fault import hw_aware as hw
+    bk, bn, adc = tiles
+    lv = hw.q_levels(adc)
+    K = w_eff.shape[-2]
+    xa, wa = rows.abs(), w_eff.abs()
+    sum_b = torch.zeros_like(y)
+    lsb = torch.zeros_like(y)
+    for k0 in range(0, K, bk):
+        k1 = min(k0 + bk, K)
+        pa = torch.matmul(xa[..., k0:k1], wa[..., k0:k1, :])
+        sum_b += 2 * (k1 - k0) * U32 * pa + U32 * y.abs()
+        if lv:
+            for n0 in range(0, w_eff.shape[-1], bn):
+                step = pa[..., n0:n0 + bn].amax(dim=(-2, -1), keepdim=True)
+                lsb[..., n0:n0 + bn] += step / lv
+    err = (y - y_ref).abs()
+    return (bool((err <= sum_b + lsb + 1e-30).all()),
+            float((err > sum_b).float().mean()), float(err.max()))
+
+
+def phase_tiled_kernels(device):
+    """B2t and B3 against their plain versions (phase 9); returns the
+    largest |kernel - plain| of B2t, of B3 at C = 1 (B3a) and at C = 4
+    (B3b) over the random-input cases."""
+    import torch
+    from rram_caffe_simulation_tpu_torch.fault import hw_aware as hw
+    from rram_caffe_simulation_tpu_torch.fault.mapping import conv_patch_rows
+    err = {"B2t": 0.0, "B3a": 0.0, "B3b": 0.0}
+    worst_flip, n_exact, n_bound, seed = 0.0, 0, 0, 900
+    for name, (xs, geom, K, N, tiles) in TILED_CASES.items():
+        for C, per_lane in ((1, False), (4, False), (4, True)):
+            for dyadic in (True, False):
+                seed += 1
+                x, w, br, st, eps, seeds = tiled_operands(
+                    xs, C, per_lane, K, N, dyadic, seed, device)
+                rows = x if geom is None else conv_patch_rows(x, geom)
+                runs = [(0.0, None, 0), (0.0, None, 2)]
+                if not dyadic:
+                    runs += [(0.05, eps, 2), (0.05, None, 2)]
+                for adc in ((3, 8) if dyadic else (tiles[2],)):
+                    t = (tiles[0], tiles[1], adc)
+                    for sigma, e, q_bits in runs:
+                        args = (x, w, br, st, seeds, sigma, q_bits, e, geom,
+                                t)
+                        yk = tiled_forward(True, *args)
+                        yp = tiled_forward(False, *args)
+                        torch.cuda.synchronize()
+                        where = (f"{name} C={C} per_lane={per_lane} "
+                                 f"dyadic={dyadic} adc={adc} sigma={sigma} "
+                                 f"host_noise={e is not None} q={q_bits}")
+                        if dyadic:
+                            check(torch.equal(yk, yp),
+                                  f"B2t/B3 differ from plain: {where}")
+                            n_exact += 1
+                            continue
+                        w_eff = hw._lane_w_eff(w, br, st, seeds, sigma,
+                                               q_bits, e)
+                        ok, flip, e_max = tiled_bound(yk, yp, rows, w_eff, t)
+                        check(ok and flip <= 0.01, f"B2t/B3 out of bound "
+                              f"(flip share {flip:.4f}, max err {e_max}): "
+                              f"{where}")
+                        worst_flip = max(worst_flip, flip)
+                        key = ("B2t" if geom is None else
+                               "B3a" if C == 1 else "B3b")
+                        err[key] = max(err[key], e_max)
+                        n_bound += 1
+                del x, w, br, st, eps, rows
+    torch.cuda.empty_cache()
+    # the tiled read's in-kernel noise is B2's: x = I, ADC off, so y is
+    # w_eff itself, through K-tiles of 7
+    K = N = 96
+    x = torch.eye(K, device=device)
+    w = torch.ones((2, K, N), device=device)
+    zero = torch.zeros_like(w)
+    seeds = torch.tensor([5, 2 ** 31 - 7], dtype=torch.int32, device=device)
+    untiled = hw.crossbar_forward(x, w, zero, zero, seeds, 0.05, 0)
+    tiled = hw.crossbar_forward(x, w, zero, zero, seeds, 0.05, 0,
+                                tiles=(7, 5, 0))
+    torch.cuda.synchronize()
+    check(torch.equal(untiled, tiled), "the tiled read's in-kernel noise "
+          "differs from B2's")
+    print(f"phase 9: B2t/B3 equal to their plain versions in {n_exact} "
+          f"dyadic cases (ADC 3 and 8 bits, sigma 0); within the tiled "
+          f"bound in {n_bound} random cases (sigma 0, 0.05 host and in-kernel"
+          f" noise; ADC flip share at most {worst_flip:.5f}, limit 0.01); "
+          f"max abs err B2t {err['B2t']:.3e}, B3a {err['B3a']:.3e}, B3b "
+          f"{err['B3b']:.3e}; in-kernel noise equal to B2's", flush=True)
+    return err
+
+
+def conv_library_fn(x, w_eff, geom, C, per_lane):
+    """F.conv2d of x with the effective weights (cuDNN; no per-tile
+    ADC): the library yardstick of B3."""
+    import torch.nn.functional as F
+    kh, kw, sh, sw, ph, pw, dh, dw = geom
+    cout = w_eff.shape[-1]
+    wk = w_eff.transpose(-1, -2).reshape(C * cout, -1, kh, kw).contiguous()
+    if per_lane:
+        n, ch, h, wd = x.shape[1:]
+        xx = x.transpose(0, 1).reshape(n, C * ch, h, wd).contiguous()
+        return lambda: F.conv2d(xx, wk, None, (sh, sw), (ph, pw), (dh, dw),
+                                C)
+    return lambda: F.conv2d(x, wk, None, (sh, sw), (ph, pw), (dh, dw))
+
+
+def tiled_step_numbers(device, names, C=1):
+    """Per-step numbers of B2t (names ip1) or B3 (conv2, conv3) at C
+    lanes (x shared at C = 1, per lane otherwise), ternary, sigma 0, as
+    on the path: kernel, plain version, library call, bound. Also the
+    largest |kernel - plain| on these inputs, each layer within the
+    tiled bound (ADC flip share at most 1%)."""
+    import torch
+    from rram_caffe_simulation_tpu_torch.fault import hw_aware as hw
+    from rram_caffe_simulation_tpu_torch.fault.mapping import conv_patch_rows
+    ms = plain = bound = lib = 0.0
+    err = 0.0
+    bound_by = "bytes"
+    iters = 50 if C == 1 else 5
+    for i, name in enumerate(names):
+        xs, geom, K, N, tiles = TILED_CASES[name]
+        x, w, br, st, _, seeds = tiled_operands(xs, C, C > 1, K, N, False,
+                                                700 + i, device)
+        w_eff = hw._lane_w_eff(w, br, st, seeds, 0.0, 2, None)
+        args = (x, w, br, st, seeds, 0.0, 2, None, geom, tiles)
+        yk = tiled_forward(True, *args)
+        yp = tiled_forward(False, *args)
+        rows = x if geom is None else conv_patch_rows(x, geom)
+        ok, flip, e_max = tiled_bound(yk, yp, rows, w_eff, tiles)
+        check(ok and flip <= 0.01, f"B2t/B3 out of bound at C={C} {name} "
+              f"(flip share {flip:.4f}, max err {e_max})")
+        err = max(err, e_max)
+        del yk, yp, rows
+        torch.cuda.empty_cache()
+        k, k_call = timed(lambda: tiled_forward(True, *args), iters)
+        p, _ = timed(lambda: tiled_forward(False, *args), max(2, iters // 5))
+        if geom is None:
+            lib_fn = (lambda: torch.matmul(x, w_eff[0])) if C == 1 else \
+                (lambda: torch.bmm(x, w_eff))
+            M = xs[0]
+            x_bytes = x.numel() * 4
+        else:
+            lib_fn = conv_library_fn(x, w_eff, geom, C, C > 1)
+            n, ch, h, wd = xs
+            M = n * ((h + 2 * geom[4] - geom[6] * (geom[0] - 1) - 1)
+                     // geom[2] + 1) * ((wd + 2 * geom[5] - geom[7]
+                                         * (geom[1] - 1) - 1) // geom[3] + 1)
+            x_bytes = x.numel() * 4 + (M + K) * 4          # + the plan
+        lb, _ = timed(lib_fn, iters)
+        nbytes = x_bytes + 4 * (3 * C * K * N + C * M * N)
+        flops = 2 * C * M * K * N
+        tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOP_PER_S * 1e3
+        print(f"  {'B2t' if geom is None else 'B3'} C={C} {name} M,K,N="
+              f"{M},{K},{N} tiles {tiles}: kernel {k:.5f} ms ({k_call:.5f} "
+              f"ms per wrapper call), plain {p:.5f} ms, library "
+              f"{lb:.5f} ms, bound {max(tb, tf):.6f} ms (bytes {nbytes}: "
+              f"{tb:.6f}; flop {flops}: {tf:.6f}); max |kernel - plain| "
+              f"{e_max:.3e}, flip share {flip:.5f}", flush=True)
+        if tf > tb:
+            bound_by = "operations"
+        ms, plain, bound, lib = ms + k, plain + p, bound + max(tb, tf), \
+            lib + lb
+        del x, w, br, st, w_eff
+    torch.cuda.empty_cache()
+    return {"ms": ms, "plain_ms": plain, "bound_ms": bound,
+            "bound_by": bound_by, "library_ms": lib}, err
+
+
+# ---------------------------------------------------------------------------
+# phases 10 and 11: the tiled slice and the tiled sweep
+
+TILED_LAYERS = {"ip1": (64, 128), "conv2": (128, 32), "conv3": (128, 64)}
+
+
+def _tiled_per_step(C=1):
+    """Launches a step of the tiled configuration (one launch per layer
+    or leaf whatever C is)."""
+    return {"B2": 1, "B2t": 1, "B3": 2, "B1": 10, "B4": 0 if C == 1 else 1}
+
+
+def phase_tiled_slice(steps, gpu):
+    import torch
+    from rram_caffe_simulation_tpu_torch import kernels
+    s = slice_solver(1e8, 3e7, tiled=True)
+    check(s._tiles_ctx() == TILED_LAYERS, f"tiles {s._tiles_ctx()}")
+    check(s._step_fn.conv_im2col_resolved == "implicit",
+          "the implicit operand did not engage")
+    check(len(s.fault_state["life_q"]) == 10, "ten fault leaves expected")
+    warm = min(2, steps - 1)
+    kernels.reset_launches()
+    losses, times = [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s.step(1)
+        times.append(time.perf_counter() - t0)
+        losses.append(s.last_loss)
+    launches = _launches()
+    losses = [float(v) for v in losses]
+    q1, dt, q3 = (float(v) for v in np.percentile(times[warm:],
+                                                  [25, 50, 75]))
+    want = {k: v * steps for k, v in _tiled_per_step().items()}
+    print(f"phase 10: tiled CIFAR-10-quick ({TILES}, ADC 8 bits, conv_also, "
+          f"implicit conv operand), batch 100, ternary, packed int32 banks, "
+          f"fused epilogue: {steps} steps, losses "
+          f"{[round(v, 5) for v in losses[:5]]} ... {losses[-1]:.5f}",
+          flush=True)
+    print(f"phase 10: step time median {dt * 1e3:.3f} ms (quartiles "
+          f"{q1 * 1e3:.3f} / {q3 * 1e3:.3f} ms, n = {steps - warm}; {gpu}); "
+          f"launches {launches}", flush=True)
+    check(all(math.isfinite(v) for v in losses), "non-finite loss")
+    check(abs(losses[0] - math.log(10)) < 0.05,
+          f"first loss {losses[0]} far from ln(10) at a near-zero init")
+    check(launches == want, f"launches {launches} in {steps} steps, "
+          f"expected {want}")
+    bd = step_breakdown(s)
+    bd["idle_share"] = max(0.0, 1 - bd["device_busy_ms"] / (dt * 1e3))
+    print(f"phase 10: host feed {bd['feed_ms']:.3f} ms; kernels on the card "
+          f"{bd['device_busy_ms']:.3f} ms/step ({bd['idle_share']:.1%} of "
+          f"the step idle); top device kernels: {bd['top']}", flush=True)
+    lock = tiled_lockstep(6)
+    s2 = slice_solver(1e8, 3e7, sigma=0.05, seed=2, tiled=True)
+    kernels.reset_launches()
+    s2.step(3)
+    torch.cuda.synchronize()
+    got = _launches()
+    check(got == {k: 3 * v for k, v in _tiled_per_step().items()}
+          and math.isfinite(s2.smoothed_loss),
+          f"sigma = 0.05 tiled run: launches {got}")
+    print(f"phase 10: sigma 0.05 tiled run, 3 steps, loss "
+          f"{s2.smoothed_loss:.5f}, launches {got}", flush=True)
+    return {"median_ms": dt * 1e3, "q1_ms": q1 * 1e3, "q3_ms": q3 * 1e3,
+            "losses_first_last": [losses[0], losses[-1]],
+            "launches": launches, **bd, **lock}
+
+
+def tiled_lockstep(steps):
+    """At N(300, 50) (int16 banks, cells die within a few writes): from
+    one state and batch each step, the "cuda" engine against "torch"
+    (plain versions) and the premat operand against implicit. life_q
+    must be identical every step; premat and implicit are the same
+    kernel over the same operand values, so their losses must be equal
+    too; the plain path's losses are reported (the ADC can move a level
+    where the two sum in other orders)."""
+    import torch
+    from rram_caffe_simulation_tpu_torch import kernels
+    a = slice_solver(300.0, 50.0, seed=5, tiled=True)
+    check(a.pack_spec["life_dtype"] == "int16", "mean 300 banks are int16")
+    opts = dict(dtype_policy="ternary", fault_format="packed",
+                pack_spec=a.pack_spec, fused_epilogue=True)
+    steps_by = {"implicit": a.make_train_step(hw_engine="cuda", **opts,
+                                              conv_im2col="implicit"),
+                "premat": a.make_train_step(hw_engine="cuda", **opts,
+                                            conv_im2col="premat"),
+                "torch": a.make_train_step(hw_engine="torch", **opts,
+                                           conv_im2col="implicit")}
+    expect = {"implicit": _tiled_per_step(),
+              "premat": {**_tiled_per_step(), "B2t": 3, "B3": 0},
+              "torch": _untiled(B2=0, B1=0, B4=0)}
+    state = (a.params, a.history, a.fault_state)
+    worst = 0.0
+    for i in range(steps):
+        batch = {k: torch.as_tensor(v).to(a.device)
+                 for k, v in a.train_feed().items()}
+        out = {}
+        for name, fn in steps_by.items():
+            gen = torch.Generator()
+            gen.set_state(a.gen.get_state())
+            kernels.reset_launches()
+            out[name] = fn(*state, batch, i, gen)
+            got = _launches()
+            check(got == expect[name], f"{name} step launches {got}")
+        ki, kp, pl = (out[n] for n in ("implicit", "premat", "torch"))
+        check(float(ki[3]) == float(kp[3]), f"step {i}: premat loss "
+              f"{float(kp[3])} != implicit {float(ki[3])}")
+        worst = max(worst, abs(float(ki[3]) - float(pl[3]))
+                    / max(1.0, abs(float(pl[3]))))
+        for k in ki[2]["life_q"]:
+            for name in ("premat", "torch"):
+                check(torch.equal(ki[2]["life_q"][k],
+                                  out[name][2]["life_q"][k]),
+                      f"step {i}: life_q of {name} differs on {k}")
+        state = ki[:3]
+        a.gen.set_state(gen.get_state())
+    a.params, a.history, a.fault_state = state
+    frac = a.broken_fraction()
+    check(frac > 0, "no cell broke")
+    print(f"phase 10: lockstep at N(300, 50), int16 banks, {steps} steps: "
+          f"life_q identical cuda vs torch engine and premat vs implicit at "
+          f"every step; premat and implicit losses equal; cuda vs torch "
+          f"loss max rel diff {worst:.2e} (reported); broken fraction "
+          f"{frac:.4f}", flush=True)
+    return {"lockstep_loss_rel_cuda_vs_torch": worst,
+            "lockstep_broken_fraction": frac}
+
+
+TILED_SWEEP_CONFIGS = 64
+
+
+def phase_tiled_sweep(C, timed_steps, gpu):
+    import torch
+    from rram_caffe_simulation_tpu_torch import kernels
+    from rram_caffe_simulation_tpu_torch.parallel import SweepRunner
+    saved = os.environ.get("RRAM_POOL_BWD")
+    os.environ["RRAM_POOL_BWD"] = "cuda"
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        r = SweepRunner(slice_solver(1e8, 3e7, tiled=True), n_configs=C,
+                        engine="cuda", packed_state=True,
+                        dtype_policy="ternary", conv_im2col="implicit")
+        setup_s = time.perf_counter() - t0
+        check(r.engine_resolved == "cuda" and r.fused_epilogue_resolved
+              and r.conv_im2col_resolved == "implicit",
+              "the tiled sweep did not resolve to cuda, fused, implicit")
+        check(r._dataset is not None, "the dataset is not on the device")
+        warm = r.step(SWEEP_CHUNK, chunk=SWEEP_CHUNK)
+        check(bool(np.isfinite(warm).all()), "non-finite warm-chunk loss")
+        events = []
+        inner, stepper = _event_stepper(r, events)
+        r._step = stepper
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        kernels.reset_launches()
+        start.record()
+        t0 = time.perf_counter()
+        losses = r.step(timed_steps, chunk=SWEEP_CHUNK)
+        wall = time.perf_counter() - t0
+        launches = _launches()
+        r._step = inner
+        step_ms = [a.elapsed_time(b) for a, b in zip([start] + events[:-1],
+                                                     events)]
+        want = {k: v * timed_steps for k, v in _tiled_per_step(C).items()}
+        check(losses.shape == (C,) and bool(np.isfinite(losses).all()),
+              "non-finite or misshapen tiled sweep losses")
+        check(launches == want, f"launches {launches} in {timed_steps} "
+              f"steps, expected {want}")
+        q1, med, q3 = (float(v) for v in np.percentile(step_ms,
+                                                       [25, 50, 75]))
+        peak = int(torch.cuda.max_memory_allocated())
+        bd = sweep_breakdown(r)
+        lanes = tiled_lane_check(r, 2)
+    finally:
+        if saved is None:
+            os.environ.pop("RRAM_POOL_BWD", None)
+        else:
+            os.environ["RRAM_POOL_BWD"] = saved
+    out = {"configs": C, "chunk": SWEEP_CHUNK, "timed_steps": timed_steps,
+           "configs_steps_per_s": C * timed_steps / wall, "wall_s": wall,
+           "step_ms_median": med, "step_ms_q1": q1, "step_ms_q3": q3,
+           "peak_mem_bytes": peak,
+           "bytes_per_step_est": r.bytes_per_step_est(),
+           "conv_patch_bytes_est": r.conv_patch_bytes_est(),
+           "setup_s": setup_s, "launches": launches, **bd,
+           "device_idle_share": max(0.0, 1 - bd["device_busy_ms"] / med),
+           "lanes_checked": lanes, "gpu": gpu}
+    del r
+    torch.cuda.empty_cache()
+    print(f"phase 11: tiled sweep, C = {C}, {TILES}, ADC 8 bits, implicit "
+          f"conv operand, N(1e8, 3e7), ternary, packed banks, fused "
+          f"epilogue, RRAM_POOL_BWD=cuda, chunk {SWEEP_CHUNK}: "
+          f"{out['configs_steps_per_s']:.1f} configs*steps/s over "
+          f"{timed_steps} steps; step median {med:.3f} ms (quartiles "
+          f"{q1:.3f} / {q3:.3f}); peak memory {peak / 1e9:.2f} GB; "
+          f"bytes_per_step_est {out['bytes_per_step_est']}; launches "
+          f"{launches}; {gpu}", flush=True)
+    print(f"phase 11: kernels on the card {bd['device_busy_ms']:.3f} ms/step "
+          f"({out['device_idle_share']:.1%} idle); top device kernels: "
+          f"{bd['top']}; lanes {lanes} equal to a single-config Solver from "
+          "their state (life_q identical)", flush=True)
+    return out
+
+
+def tiled_lane_check(r, steps):
+    """Lanes 0 and C-1 of the tiled sweep against a single-config tiled
+    Solver started from their state, one step at a time in lockstep:
+    life_q identical."""
+    import torch
+    C = r.n
+    single = slice_solver(1e8, 3e7, seed=3, tiled=True)
+    check(single.pack_spec == r._pack_spec, "pack specs differ")
+    lanes = [0, C - 1]
+    for _ in range(steps):
+        batch = r._batch(r.iter)
+        before = {i: r.lane_state(i) for i in lanes}
+        kp, kh, kf, kl, _ = r._step(r.params, r.history, r.fault_states,
+                                    batch, r.iter, r.solver.gen)
+        for i in lanes:
+            _, _, sf, sl, _ = single._step_fn(*before[i], batch, r.iter,
+                                              single.gen)
+            rel = abs(float(sl) - float(kl[i])) / max(1.0, abs(float(sl)))
+            check(rel <= 1e-4, f"lane {i}: sweep loss {float(kl[i])} vs "
+                  f"Solver {float(sl)}")
+            for k in sf["life_q"]:
+                check(torch.equal(sf["life_q"][k], kf["life_q"][k][i]),
+                      f"lane {i}: banks differ from Solver's on {k}")
+        r._commit(kp, kh, kf, kl)
+        r.iter += 1
+    return lanes
+
+
+# ---------------------------------------------------------------------------
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -1019,11 +1524,11 @@ def main(argv=None) -> int:
                    help="training steps of the slice phase (default 50)")
     p.add_argument("--transition-steps", type=int, default=6)
     p.add_argument("--phases", default="all",
-                   help="comma-separated phases 2-8 to run after the "
+                   help="comma-separated phases 2-11 to run after the "
                         "build (default all; only a full run prints the "
                         "per-kernel line and the ok line)")
     args = p.parse_args(argv)
-    every = set(range(2, 9))
+    every = set(range(2, 12))
     want = every if args.phases == "all" else {
         int(v) for v in args.phases.split(",")}
 
@@ -1071,6 +1576,13 @@ def main(argv=None) -> int:
         sweep = phase_sweep(SWEEP_CONFIGS, SWEEP_STEPS, gpu)
     if 8 in want:
         phase_sweep_checks(args.transition_steps)
+    if 9 in want:
+        err_tiled = phase_tiled_kernels(device)
+    if 10 in want:
+        tiled = phase_tiled_slice(args.steps, gpu)
+    if 11 in want:
+        tiled_sweep = phase_tiled_sweep(TILED_SWEEP_CONFIGS, SWEEP_STEPS,
+                                        gpu)
     if want != every:
         print(f"phases {sorted(want)} passed; no ok line for a partial run",
               flush=True)
@@ -1084,6 +1596,12 @@ def main(argv=None) -> int:
     b2b, err_b2b = b2_step_numbers(device, C)
     b1b, err_b1b = b1_step_numbers(device, C)
     b4 = b4_step_numbers(device, C)
+    b2t, err_b2t = tiled_step_numbers(device, ["ip1"])
+    b2tc, err_b2tc = tiled_step_numbers(device, ["ip1"],
+                                        tiled_sweep["configs"])
+    b3a, err_b3a = tiled_step_numbers(device, ["conv2", "conv3"])
+    b3b, err_b3b = tiled_step_numbers(device, ["conv2", "conv3"],
+                                      tiled_sweep["configs"])
     sl = sweep["launches"]
     rows = [
         {"name": "crossbar_forward (B2a)", "route": "cuda",
@@ -1106,6 +1624,26 @@ def main(argv=None) -> int:
          "source": f"{PKG}/csrc/pool_backward.cu",
          "replaces": "rram_caffe_simulation_tpu/ops/pool_backward.py:141",
          "launches": sl["B4"], "max_abs_err": err_b4, **b4},
+        {"name": "crossbar_forward tiled (B2t)", "route": "cuda",
+         "source": f"{PKG}/csrc/crossbar_tiled.cu",
+         "replaces": "rram_caffe_simulation_tpu/fault/hw_aware.py:318",
+         "launches": tiled["launches"]["B2t"],
+         "max_abs_err": max(err_tiled["B2t"], err_b2t), **b2t},
+        {"name": "crossbar_forward tiled over C lanes (B2t, C > 1)",
+         "route": "cuda", "source": f"{PKG}/csrc/crossbar_tiled.cu",
+         "replaces": "rram_caffe_simulation_tpu/fault/hw_aware.py:477",
+         "launches": tiled_sweep["launches"]["B2t"],
+         "max_abs_err": max(err_tiled["B2t"], err_b2tc), **b2tc},
+        {"name": "crossbar_conv_forward implicit (B3a)", "route": "cuda",
+         "source": f"{PKG}/csrc/crossbar_tiled.cu",
+         "replaces": "rram_caffe_simulation_tpu/fault/hw_aware.py:905",
+         "launches": tiled["launches"]["B3"],
+         "max_abs_err": max(err_tiled["B3a"], err_b3a), **b3a},
+        {"name": "crossbar_conv_forward implicit over C lanes (B3b)",
+         "route": "cuda", "source": f"{PKG}/csrc/crossbar_tiled.cu",
+         "replaces": "rram_caffe_simulation_tpu/fault/hw_aware.py:975",
+         "launches": tiled_sweep["launches"]["B3"],
+         "max_abs_err": max(err_tiled["B3b"], err_b3b), **b3b},
     ]
     print(json.dumps({"step": {"median_ms": step_s * 1e3,
                                "feed_ms": breakdown["feed_ms"],
@@ -1114,6 +1652,8 @@ def main(argv=None) -> int:
                       "drift": drift,
                       "b4_vs_autograd_max_abs_err": err_b4_auto}))
     print(json.dumps({"sweep": sweep}))
+    print(json.dumps({"tiled_step": tiled}))
+    print(json.dumps({"tiled_sweep": tiled_sweep}))
     print(json.dumps({"kernels": rows}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {

@@ -7,7 +7,10 @@ carries the draw across:
 - params: {layer name: [array, ...]} in Caffe layout (None for a shared
   slot) on both sides, numpy there, tensors here;
 - fault state: {"lifetimes": {...}, "stuck": {...}} (f32) or the packed
-  {"life_q": {...}, "stuck_bits": {...}}, keyed "layer/slot".
+  {"life_q": {...}, "stuck_bits": {...}}, keyed "layer/slot"; conv
+  leaves (`conv_also`) keep their stored 4-D shape in both packages
+  (the packed banks along the last axis), tiled or not, so they need no
+  format of their own.
 
 - a sweep's state: the same, every leaf with a leading config axis,
   plus the SGD history {"layer/slot": {"h": array}}

@@ -51,6 +51,17 @@ class LayerContext:
     # bottom of the layer being applied, which bottoms are laned.
     lanes: int = 0
     laned: tuple = ()
+    # Tiled crossbar mapping (fault/mapping.py): layer name -> (tr, tc)
+    # cells per tile, over the stored weight for InnerProduct, over the
+    # im2col (K, N) view for Convolution; only layers spanning more than
+    # one tile are named. Such a layer reads through per-tile ADCs.
+    tiles: Optional[dict] = None
+    # The conv operand mode of a tiled Convolution: "premat" (patch rows
+    # built once), "tilewise" (per K-tile) or "implicit" (gathered
+    # through the address plan; kernel B3); None = "premat". The solver
+    # resolves it (its argument, RRAM_CONV_IM2COL, the kernel path's
+    # rules); the layer only reads it.
+    conv_im2col: Optional[str] = None
 
 
 @dataclasses.dataclass

@@ -40,58 +40,15 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "crossbar_weff.cuh"
+
 namespace {
+
+using rram::gauss;
+using rram::w_eff;
 
 constexpr int BM = 32, BN = 32, BK = 32;
 constexpr int TX = 16, TY = 16;  // 256 threads, 2x2 outputs each
-
-__device__ __forceinline__ uint2 philox4x32_10(uint32_t seed,
-                                               unsigned long long ctr) {
-  uint32_t c0 = (uint32_t)ctr, c1 = (uint32_t)(ctr >> 32), c2 = 0, c3 = 0;
-  uint32_t k0 = seed, k1 = 0;
-#pragma unroll
-  for (int r = 0; r < 10; ++r) {
-    const uint32_t hi0 = __umulhi(0xD2511F53u, c0), lo0 = 0xD2511F53u * c0;
-    const uint32_t hi1 = __umulhi(0xCD9E8D57u, c2), lo1 = 0xCD9E8D57u * c2;
-    const uint32_t n0 = hi1 ^ c1 ^ k0, n2 = hi0 ^ c3 ^ k1;
-    c0 = n0;
-    c1 = lo1;
-    c2 = n2;
-    c3 = lo0;
-    k0 += 0x9E3779B9u;
-    k1 += 0xBB67AE85u;
-  }
-  return make_uint2(c0, c1);
-}
-
-__device__ __forceinline__ float unit_interval(uint32_t bits) {
-  const float u = __fmul_rn(__uint2float_rn(bits), 0x1p-32f);
-  return __fsub_rn(u, floorf(u));
-}
-
-// N(0, 1) by Box-Muller, the reference's `_gauss_tile` formula
-__device__ __forceinline__ float gauss(uint32_t seed,
-                                       unsigned long long ctr) {
-  const uint2 b = philox4x32_10(seed, ctr);
-  const float u1 = fmaxf(unit_interval(b.x), 1e-12f);
-  const float u2 = unit_interval(b.y);
-  const float r = sqrtf(__fmul_rn(-2.0f, logf(u1)));
-  return __fmul_rn(r, cosf(__fmul_rn(6.2831855f, u2)));
-}
-
-__device__ __forceinline__ float w_eff(float w, float broken, float stuck,
-                                       float levels, float s, bool noise,
-                                       float sigma, float eps) {
-  if (levels > 0.f) {
-    float r = rintf(__fdiv_rn(w, s));
-    r = fminf(fmaxf(r, -levels), levels);
-    w = __fadd_rn(w, __fsub_rn(__fmul_rn(r, s), w));
-  }
-  float noisy = w;
-  if (noise) noisy = __fmul_rn(w, __fadd_rn(1.0f, __fmul_rn(sigma, eps)));
-  const float sel = broken > 0.f ? stuck : noisy;
-  return __fadd_rn(w, __fsub_rn(sel, w));
-}
 
 __global__ void __launch_bounds__(TX * TY)
 crossbar_kernel(const float* __restrict__ x, long long x_lane_stride,

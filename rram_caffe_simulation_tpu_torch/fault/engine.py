@@ -14,7 +14,9 @@ A FaultState is {"lifetimes": {key: f32 tensor}, "stuck": {key: f32
 tensor}}, keyed "layer/slot" in failure_learnable_params order
 (net.cpp:482-493). The draw is the port's own (`torch.Generator`), so it
 matches the reference only in distribution; parity tests carry one
-state across with convert.py.
+state across with convert.py. Under a tile spec (fault/mapping.py)
+every crossbar tile of a param is drawn on its own, tile-major, and a
+single-tile param is drawn exactly as without one.
 """
 from __future__ import annotations
 
@@ -22,6 +24,8 @@ from typing import Dict, Tuple
 
 import numpy as np
 import torch
+
+from .mapping import tiled_draw
 
 FaultState = Dict[str, Dict[str, torch.Tensor]]
 
@@ -51,32 +55,47 @@ def stuck_splits(pattern) -> Tuple[float, float]:
     return probs[0] / total, (probs[0] + probs[1]) / total
 
 
+def _stuck_draw(split1: float, split2: float):
+    def draw(gen, shape):
+        u = torch.rand(shape, generator=gen)
+        return torch.where(u < split1, -1.0,
+                           torch.where(u < split2, 0.0, 1.0))
+    return draw
+
+
+def _draw_param(gen, shape, tiles, mean, std, stuck_draw):
+    """(lifetimes, stuck) of one param: every tile's N(0, 1) draw, then
+    every tile's uniform draw, each tile on its own."""
+    z = tiled_draw(gen, shape, tiles,
+                   lambda g, s: torch.randn(s, generator=g))
+    return mean + std * z, tiled_draw(gen, shape, tiles, stuck_draw)
+
+
 def init_fault_state(gen: torch.Generator, param_shapes: Dict[str, tuple],
-                     pattern) -> FaultState:
+                     pattern, tiles=None) -> FaultState:
     """Draw lifetimes and stuck values for every fault-target param
     (GaussianFailureMaker ctor), on the generator's device, in dict
-    order: lifetimes then stuck per param."""
-    split1, split2 = stuck_splits(pattern)
+    order: lifetimes then stuck per param. `tiles` (a mapping.TileSpec)
+    draws each crossbar tile of a >= 2-D param on its own."""
+    stuck_draw = _stuck_draw(*stuck_splits(pattern))
     mean, std = float(pattern.mean), float(pattern.std)
     lifetimes, stuck = {}, {}
     for name, shape in param_shapes.items():
-        lifetimes[name] = mean + std * torch.randn(shape, generator=gen)
-        u = torch.rand(shape, generator=gen)
-        stuck[name] = torch.where(
-            u < split1, -1.0, torch.where(u < split2, 0.0, 1.0))
+        lifetimes[name], stuck[name] = _draw_param(gen, shape, tiles, mean,
+                                                   std, stuck_draw)
     return {"lifetimes": lifetimes, "stuck": stuck}
 
 
 def stack_fault_states(gen: torch.Generator, param_shapes: Dict[str, tuple],
                        pattern, n_configs: int, means=None,
-                       stds=None) -> FaultState:
+                       stds=None, tiles=None) -> FaultState:
     """n_configs independent draws stacked on a leading config axis
     (the reference's stack_fault_states / draw_rescaled_state): lane c's
     lifetimes are mean_c + std_c * z with z ~ N(0, 1), re-anchored to
     its own (mean, std), default the pattern's; stuck values are drawn
     per lane from the pattern's splits. Drawn lane by lane, in dict
-    order, on the CPU generator `gen`."""
-    split1, split2 = stuck_splits(pattern)
+    order, on the CPU generator `gen`, tile by tile under `tiles`."""
+    stuck_draw = _stuck_draw(*stuck_splits(pattern))
     means = np.broadcast_to(np.asarray(
         float(pattern.mean) if means is None else means, np.float32),
         (n_configs,))
@@ -87,11 +106,9 @@ def stack_fault_states(gen: torch.Generator, param_shapes: Dict[str, tuple],
     for c in range(n_configs):
         life, stuck = {}, {}
         for name, shape in param_shapes.items():
-            z = torch.randn(shape, generator=gen)
-            life[name] = float(means[c]) + float(stds[c]) * z
-            u = torch.rand(shape, generator=gen)
-            stuck[name] = torch.where(
-                u < split1, -1.0, torch.where(u < split2, 0.0, 1.0))
+            life[name], stuck[name] = _draw_param(
+                gen, shape, tiles, float(means[c]), float(stds[c]),
+                stuck_draw)
         lanes.append((life, stuck))
     return {"lifetimes": {k: torch.stack([ln[0][k] for ln in lanes])
                           for k in param_shapes},

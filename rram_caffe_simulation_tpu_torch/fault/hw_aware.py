@@ -17,6 +17,16 @@ Two spellings with one contract:
   when q_bits is set), dw zeroed on broken cells, batched
   `torch.matmul` (the reference has no backward kernel either).
   `crossbar_matmul` is its one-lane case, the single-config read.
+- `tiles=(bk, bn, adc_bits)` on those functions is the tiled crossbar
+  read (fault/mapping.py): each (bk x bn) cell block of the (K, N) view
+  is one physical tile whose partial product passes its own ADC before
+  the digital sum over K-tiles. Kernel B2t (csrc/crossbar_tiled.cu) on
+  the card, `tiled_crossbar_matmul` in the plain version.
+- `crossbar_conv_matmul_lanes`: the same tiled read for a convolution
+  whose operand is gathered from the raw NCHW activation through the
+  address plan of `mapping.im2col_index_plan`, kernel B3 on the card;
+  its backward replays the reference's `_ccm_bwd` (the patch rows are
+  materialized there, the reference's first-version trade).
 
 In-kernel noise is Philox4x32-10 keyed by the lane seed with the flat
 weight index k*N+n as counter; `philox_normal` is the same draw in
@@ -30,6 +40,7 @@ import numpy as np
 import torch
 
 from .. import kernels
+from .mapping import conv_patch_rows, im2col_index_plan, pad_activation_flat
 
 _MASK32 = 0xFFFFFFFF
 _PHILOX_M = (0xD2511F53, 0xCD9E8D57)
@@ -44,6 +55,16 @@ CROSSBAR_LIB = kernels.CudaLibrary(
         _VP, ctypes.c_longlong, _VP, _VP, _VP, _VP, _VP, _VP,
         ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, _VP, _VP]})
+# (w, broken, stuck, eps, scale, seeds, sigma, levels, adc_levels, C, M,
+#  K, N, bk, bn, part, amax, out, stream) after each one's operand args
+_TILED_TAIL = [_VP] * 6 + [ctypes.c_float] * 3 + [ctypes.c_int] * 6 \
+    + [_VP] * 4
+TILED_LIB = kernels.CudaLibrary(
+    "crossbar_tiled.cu",
+    {"rram_crossbar_tiled_forward":                   # x, x_lane_stride
+        [_VP, ctypes.c_longlong] + _TILED_TAIL,
+     "rram_crossbar_implicit_forward":    # + row_base, col_off
+        [_VP, ctypes.c_longlong, _VP, _VP] + _TILED_TAIL})
 
 
 def q_levels(q_bits: int) -> float:
@@ -174,21 +195,31 @@ def _lane_scale(w, levels):
     return w.abs().amax(dim=(1, 2)) if levels else None
 
 
-def crossbar_forward_plain(x, w, broken, stuck, seeds, sigma: float,
-                           q_bits: int = 0, eps=None):
-    """The plain PyTorch version of kernel B2: an explicit quantize,
-    noise and clamp, then x @ w_eff. x is (M, K) shared by every lane or
-    (C, M, K); w, broken, stuck (C, K, N); seeds (C,); eps (C, K, N)
-    host noise, or None to draw the kernel's own Philox noise."""
+def _lane_w_eff(w, broken, stuck, seeds, sigma, q_bits, eps):
     levels = q_levels(q_bits)
     if sigma and eps is None:
         eps = philox_normal(seeds, w.shape[1], w.shape[2], w.device)
-    w_eff = effective_weight_plain(w, broken, stuck, sigma, eps, levels,
-                                   _lane_scale(w, levels))
+    return effective_weight_plain(w, broken, stuck, sigma, eps, levels,
+                                  _lane_scale(w, levels))
+
+
+def crossbar_forward_plain(x, w, broken, stuck, seeds, sigma: float,
+                           q_bits: int = 0, eps=None, tiles=None):
+    """The plain PyTorch version of kernels B2 and B2t: an explicit
+    quantize, noise and clamp, then x @ w_eff, or with `tiles` = (bk,
+    bn, adc_bits) the tiled read `tiled_crossbar_matmul`. x is (M, K)
+    shared by every lane or (C, M, K); w, broken, stuck (C, K, N); seeds
+    (C,); eps (C, K, N) host noise, or None to draw the kernel's own
+    Philox noise."""
+    w_eff = _lane_w_eff(w, broken, stuck, seeds, sigma, q_bits, eps)
+    if tiles is not None:
+        return tiled_crossbar_matmul(x, w_eff, *tiles)
     return torch.matmul(x, w_eff)
 
 
-def _check_crossbar(x, w, broken, stuck, seeds, eps):
+def _check_crossbar(x, w, broken, stuck, seeds, eps, conv: bool = False):
+    """Shapes and types of a crossbar read's operands; x is (M, K) or
+    (C, M, K), or for a conv read (N, ch, H, W) or (C, N, ch, H, W)."""
     if w.dim() != 3:
         raise ValueError(f"crossbar: w must be (C, K, N), got "
                          f"{tuple(w.shape)}")
@@ -197,8 +228,10 @@ def _check_crossbar(x, w, broken, stuck, seeds, eps):
         if tuple(t.shape) != (C, K, N):
             raise ValueError(f"crossbar: {name} shape {tuple(t.shape)} "
                              f"!= w shape {(C, K, N)}")
-    if x.dim() not in (2, 3) or x.shape[-1] != K or (
-            x.dim() == 3 and x.shape[0] != C):
+    lane_dim = 5 if conv else 3
+    if x.dim() not in (lane_dim - 1, lane_dim) or (
+            x.dim() == lane_dim and x.shape[0] != C) or (
+            not conv and x.shape[-1] != K):
         raise ValueError(f"crossbar: x shape {tuple(x.shape)} does not "
                          f"fit w {(C, K, N)}")
     if eps is not None and tuple(eps.shape) != (C, K, N):
@@ -214,31 +247,79 @@ def _check_crossbar(x, w, broken, stuck, seeds, eps):
                             f"{t.dtype}")
 
 
-def crossbar_forward(x, w, broken, stuck, seeds, sigma: float,
-                     q_bits: int = 0, eps=None) -> torch.Tensor:
-    """(C, M, N) crossbar reads of C config lanes. On CUDA tensors this
-    launches kernel B2; on CPU tensors it runs the plain version."""
-    seeds = torch.as_tensor(seeds, device=w.device)
-    _check_crossbar(x, w, broken, stuck, seeds, eps)
-    if not w.is_cuda:
-        return crossbar_forward_plain(x, w, broken, stuck, seeds, sigma,
-                                      q_bits, eps)
-    tensors = [x, w, broken, stuck] + ([eps] if eps is not None else [])
-    if any(t.device != w.device for t in tensors):
+def _check_tiles(tiles, K: int, C: int):
+    bk, bn, adc_bits = (int(v) for v in tiles)
+    if bk < 1 or bn < 1:
+        raise ValueError(f"crossbar: tiles {tuple(tiles)} need bk, bn >= 1")
+    q_levels(adc_bits)
+    if C * -(-K // bk) > 65535:
+        raise ValueError(f"crossbar: {C} lanes x {-(-K // bk)} K-tiles "
+                         "exceed the kernel grid's 65535")
+    return bk, bn, adc_bits
+
+
+def _on_card(tensors):
+    dev = tensors[0].device
+    if any(t.device != dev for t in tensors):
         raise ValueError("crossbar: operands on different devices")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("crossbar: operands must be contiguous")
+
+
+def _launch_tiled(fn, x_args, w, broken, stuck, eps, seeds, sigma, q_bits,
+                  tiles, M):
+    """One call of kernel B2t or B3 (`fn`), scratch from here: the
+    per-K-tile partials P (C, gk, M, N) and the tiles' ADC ranges."""
+    C, K, N = w.shape
+    bk, bn, adc_bits = _check_tiles(tiles, K, C)
+    gk, gn = -(-K // bk), -(-N // bn)
+    levels = q_levels(q_bits)
+    scale = _lane_scale(w, levels)
+    seeds = seeds.to(torch.int32).contiguous()
+    dev = w.device
+    part = torch.empty((C, gk, M, N), dtype=torch.float32, device=dev)
+    amax = torch.empty((C, gk, gn), dtype=torch.float32, device=dev)
+    out = torch.empty((C, M, N), dtype=torch.float32, device=dev)
+    null = ctypes.c_void_p(None)
+    TILED_LIB.call(
+        fn, *x_args, kernels.ptr(w), kernels.ptr(broken), kernels.ptr(stuck),
+        kernels.ptr(eps) if eps is not None else null,
+        kernels.ptr(scale) if scale is not None else null,
+        kernels.ptr(seeds), float(sigma), levels, q_levels(adc_bits), C, M,
+        K, N, bk, bn, kernels.ptr(part), kernels.ptr(amax),
+        kernels.ptr(out), kernels.stream_ptr(dev))
+    return out
+
+
+def crossbar_forward(x, w, broken, stuck, seeds, sigma: float,
+                     q_bits: int = 0, eps=None, tiles=None) -> torch.Tensor:
+    """(C, M, N) crossbar reads of C config lanes. On CUDA tensors this
+    launches kernel B2, or B2t with `tiles` = (bk, bn, adc_bits); on CPU
+    tensors it runs the plain version."""
+    seeds = torch.as_tensor(seeds, device=w.device)
+    _check_crossbar(x, w, broken, stuck, seeds, eps)
+    if tiles is not None:
+        _check_tiles(tiles, w.shape[1], w.shape[0])
+    if not w.is_cuda:
+        return crossbar_forward_plain(x, w, broken, stuck, seeds, sigma,
+                                      q_bits, eps, tiles)
+    _on_card([x, w, broken, stuck] + ([eps] if eps is not None else []))
     C, K, N = w.shape
     M = x.shape[-2]
+    lane_stride = M * K if x.dim() == 3 else 0
+    if tiles is not None:
+        return _launch_tiled("rram_crossbar_tiled_forward",
+                             [kernels.ptr(x), lane_stride], w, broken, stuck,
+                             eps, seeds, sigma, q_bits, tiles, M)
     levels = q_levels(q_bits)
     seeds = seeds.to(torch.int32).contiguous()
     scale = _lane_scale(w, levels)
     out = torch.empty((C, M, N), dtype=torch.float32, device=w.device)
     null = ctypes.c_void_p(None)
     CROSSBAR_LIB.call(
-        "rram_crossbar_forward", kernels.ptr(x),
-        M * K if x.dim() == 3 else 0, kernels.ptr(w), kernels.ptr(broken),
-        kernels.ptr(stuck), kernels.ptr(eps) if eps is not None else null,
+        "rram_crossbar_forward", kernels.ptr(x), lane_stride, kernels.ptr(w),
+        kernels.ptr(broken), kernels.ptr(stuck),
+        kernels.ptr(eps) if eps is not None else null,
         kernels.ptr(scale) if scale is not None else null,
         kernels.ptr(seeds), float(sigma), levels, C, M, K, N,
         kernels.ptr(out), kernels.stream_ptr(w.device))
@@ -253,59 +334,283 @@ class CrossbarMatmul(torch.autograd.Function):
     cells (the reference has no backward kernel either)."""
 
     @staticmethod
-    def forward(ctx, x, w, broken, stuck, seeds, sigma, q_bits, use_kernel):
+    def forward(ctx, x, w, broken, stuck, seeds, sigma, q_bits, use_kernel,
+                tiles):
         fwd = crossbar_forward if use_kernel else crossbar_forward_plain
         y = fwd(x.contiguous(), w.contiguous(),
                 broken.to(torch.float32).contiguous(),
-                stuck.to(torch.float32).contiguous(), seeds, sigma, q_bits)
+                stuck.to(torch.float32).contiguous(), seeds, sigma, q_bits,
+                tiles=tiles)
         ctx.save_for_backward(x, w, broken, stuck)
         ctx.q_bits = q_bits
         return y
 
     @staticmethod
     def backward(ctx, g):
+        # the per-tile ADC is a forward-only read effect: the backward is
+        # the untiled one (the reference's _cm_bwd)
         x, w, broken, stuck = ctx.saved_tensors
-        wv = w
-        if ctx.q_bits:
-            # dx flows through the values the forward used: each lane's
-            # grid weights; dw stays straight-through to the masters
-            wv = quantize_tile(w, lane_max_abs(w, lanes=1),
-                               q_levels(ctx.q_bits))
-        brk = broken.to(torch.bool)
-        w_masked = torch.where(brk, stuck.to(w.dtype), wv)
-        dx = dw = None
-        if ctx.needs_input_grad[0]:
-            dx = torch.matmul(g, w_masked.transpose(1, 2))
-            if x.dim() == 2:            # x shared by every lane
-                dx = dx.sum(0)
-        if ctx.needs_input_grad[1]:
-            dw = torch.where(brk, torch.zeros((), dtype=g.dtype,
-                                               device=g.device),
-                             torch.matmul(x.transpose(-2, -1), g))
-        return dx, dw, None, None, None, None, None, None
+        dx, dw = _masked_backward(g, x, w, broken, stuck, ctx.q_bits,
+                                  ctx.needs_input_grad[:2])
+        return dx, dw, None, None, None, None, None, None, None
+
+
+def _masked_backward(g, x, w, broken, stuck, q_bits, needs):
+    """`_cm_bwd` per lane: dx = g @ w_masked^T against the clean masked
+    weights (on the lane's grid when q_bits is set; summed over lanes
+    when x is shared), dw = x^T @ g zeroed on broken cells."""
+    wv = w
+    if q_bits:
+        # dx flows through the values the forward used: each lane's
+        # grid weights; dw stays straight-through to the masters
+        wv = quantize_tile(w, lane_max_abs(w, lanes=1), q_levels(q_bits))
+    brk = broken.to(torch.bool)
+    w_masked = torch.where(brk, stuck.to(w.dtype), wv)
+    dx = dw = None
+    if needs[0]:
+        dx = torch.matmul(g, w_masked.transpose(1, 2))
+        if x.dim() == 2:            # x shared by every lane
+            dx = dx.sum(0)
+    if needs[1]:
+        dw = torch.where(brk, torch.zeros((), dtype=g.dtype,
+                                           device=g.device),
+                         torch.matmul(x.transpose(-2, -1), g))
+    return dx, dw
 
 
 def crossbar_matmul_lanes(x, w, broken, stuck, seeds, sigma: float,
-                          q_bits: int = 0, use_kernel: bool = True):
+                          q_bits: int = 0, use_kernel: bool = True,
+                          tiles=None):
     """y_c = x_c @ where(broken_c, stuck_c, quantize_c(w_c) * (1 +
-    sigma*eps_c)) for C config lanes, one kernel launch whatever C is.
+    sigma*eps_c)) for C config lanes, one kernel launch whatever C is;
+    with `tiles` = (bk, bn, adc_bits) the tiled read (kernel B2t).
 
     x (M, K) shared by every lane or (C, M, K); w, stuck (C, K, N) f32;
     broken (C, K, N) bool or 0/1; seeds (C,) int32 (on w's device, so
     the launch waits for no host copy). Returns (C, M, N)."""
+    tiles = None if tiles is None else tuple(int(v) for v in tiles)
     return CrossbarMatmul.apply(x, w, broken, stuck, seeds, float(sigma),
-                                int(q_bits), bool(use_kernel))
+                                int(q_bits), bool(use_kernel), tiles)
 
 
 def crossbar_matmul(x, w, broken, stuck, seed: int, sigma: float,
-                    q_bits: int = 0, use_kernel: bool = True):
+                    q_bits: int = 0, use_kernel: bool = True, tiles=None):
     """y = x @ where(broken, stuck, quantize(w) * (1 + sigma*eps)): one
     config's read, the one-lane case of `crossbar_matmul_lanes`.
 
     x (M, K) f32; w (K, N) f32; broken (K, N) bool or 0/1; stuck (K, N);
-    seed an int; sigma, q_bits as in the reference. `use_kernel` routes
-    the forward through the kernel wrapper (kernel B2 on CUDA tensors)
-    or straight to the plain version."""
+    seed an int; sigma, q_bits as in the reference; tiles (bk, bn,
+    adc_bits) or None. `use_kernel` routes the forward through the
+    kernel wrapper (kernel B2/B2t on CUDA tensors) or straight to the
+    plain version."""
     seeds = torch.tensor([int(seed)], dtype=torch.int32, device=w.device)
     return crossbar_matmul_lanes(x, w[None], broken[None], stuck[None],
-                                 seeds, sigma, q_bits, use_kernel)[0]
+                                 seeds, sigma, q_bits, use_kernel, tiles)[0]
+
+
+# ---------------------------------------------------------------------------
+# the tiled read's plain version, and the conv operand
+
+def adc_read(part: torch.Tensor, adc_bits: int) -> torch.Tensor:
+    """One tile's partial product through its own ADC (`_adc_read`):
+    quantize_ste with the max |part| over its last two axes (all M rows,
+    the tile's columns), per leading index (a config lane)."""
+    if not adc_bits:
+        return part
+    amax = part.detach().abs().amax(dim=(-2, -1), keepdim=True)
+    q = quantize_tile(part.detach(), amax, q_levels(adc_bits))
+    return part + (q - part.detach())
+
+
+def tiled_crossbar_matmul_slabs(x_slab, w_eff, bk: int, bn: int,
+                                adc_bits: int):
+    """The tiled read with a lazy operand: `x_slab(k0, k1)` gives the
+    (..., M, k1-k0) columns [k0, k1) of the conceptual (..., M, K)
+    operand. y[..., jt] = sum over kt, ascending, of adc_read(slab_kt @
+    w_eff[kt, jt]). w_eff (K, N) or (C, K, N); differentiable
+    (adc_read's straight-through identity)."""
+    bk, bn = int(bk), int(bn)
+    K, N = w_eff.shape[-2:]
+    accs = [None] * len(range(0, N, bn))
+    for k0 in range(0, K, bk):
+        k1 = min(k0 + bk, K)
+        slab = x_slab(k0, k1)
+        for j, n0 in enumerate(range(0, N, bn)):
+            part = adc_read(torch.matmul(slab, w_eff[..., k0:k1, n0:n0 + bn]),
+                            adc_bits)
+            accs[j] = part if accs[j] is None else accs[j] + part
+    return accs[0] if len(accs) == 1 else torch.cat(accs, dim=-1)
+
+
+def tiled_crossbar_matmul(x, w_eff, bk: int, bn: int, adc_bits: int):
+    """The tiled crossbar read over an already effective weight
+    (`tiled_crossbar_matmul` of the reference): each (bk x bn) block of
+    w_eff is one crossbar tile whose partial product passes its own
+    adc_bits ADC before the sum over K-tiles. x (..., M, K)."""
+    return tiled_crossbar_matmul_slabs(
+        lambda k0, k1: x[..., k0:k1].contiguous(), w_eff, bk, bn, adc_bits)
+
+
+def reference_crossbar_matmul(x, w, broken, stuck, gen, sigma: float,
+                              q_bits: int = 0, tiles=None):
+    """The read in the reference's pure spelling (`quantize_ste`, then
+    `perturb_weight`, then the plain or tiled product): equal to the
+    kernels' at sigma = 0; a different noise stream otherwise."""
+    wq = quantize_ste(w, q_bits) if q_bits else w
+    w_eff = perturb_weight(wq, broken, stuck, gen, sigma)
+    if tiles is not None:
+        return tiled_crossbar_matmul(x, w_eff, *tiles)
+    return x @ w_eff
+
+
+_PLANS = {}      # (x shape, geom, device) -> the plan on that device
+
+
+def implicit_plan(x_shape, geom, device):
+    """(row_base, col_off, M, K) of `mapping.im2col_index_plan`, the two
+    int32 vectors on `device`, made once per shape and geometry."""
+    key = (tuple(int(d) for d in x_shape), tuple(geom), str(device))
+    if key not in _PLANS:
+        rb, co, m, k, _ = im2col_index_plan(x_shape, geom)
+        _PLANS[key] = (torch.from_numpy(rb).to(device),
+                       torch.from_numpy(co).to(device), m, k)
+    return _PLANS[key]
+
+
+CONV_OPERANDS = ("premat", "tilewise", "implicit")
+
+
+def conv_operand_slabs(x, geom, operand: str):
+    """slab(k0, k1) -> the (..., M, k1-k0) columns of a conv's im2col
+    operand, x (N, ch, H, W) or (C, N, ch, H, W). "premat" cuts them from
+    the patch rows built once; "tilewise" extracts the channels covering
+    [k0, k1) per call; "implicit" gathers them from the padded flat
+    activation through the address plan. All three are exact gathers,
+    so the slabs are equal byte for byte."""
+    if operand == "premat":
+        rows = conv_patch_rows(x, geom)
+        return lambda k0, k1: rows[..., k0:k1].contiguous()
+    if operand == "tilewise":
+        khw = geom[0] * geom[1]
+
+        def slab(k0, k1):
+            ch0, ch1 = k0 // khw, -(-k1 // khw)
+            rows = conv_patch_rows(x[..., ch0:ch1, :, :], geom)
+            return rows[..., k0 - ch0 * khw:k1 - ch0 * khw].contiguous()
+        return slab
+    if operand == "implicit":
+        rb, co, _, _ = implicit_plan(x.shape[-4:], geom, x.device)
+        xflat = pad_activation_flat(x, geom)
+        rb = rb.long()[:, None]
+        co = co.long()
+        return lambda k0, k1: xflat[..., rb + co[None, k0:k1]]
+    raise ValueError(f"conv_im2col={operand!r}: expected one of "
+                     f"{CONV_OPERANDS}")
+
+
+def crossbar_conv_forward_plain(x, w, broken, stuck, seeds, sigma: float,
+                                q_bits: int, tiles, geom, eps=None,
+                                operand: str = "implicit"):
+    """The plain PyTorch version of kernel B3: the lanes' w_eff, then the
+    tiled read over the conv operand slabs (`conv_operand_slabs`). x
+    (N, ch, H, W) shared or (C, N, ch, H, W); w, broken, stuck (C, K, N)
+    im2col views. Returns (C, M, N)."""
+    w_eff = _lane_w_eff(w, broken, stuck, seeds, sigma, q_bits, eps)
+    return tiled_crossbar_matmul_slabs(conv_operand_slabs(x, geom, operand),
+                                       w_eff, *tiles)
+
+
+def crossbar_conv_forward(x, w, broken, stuck, seeds, sigma: float,
+                          q_bits: int, tiles, geom, eps=None):
+    """(C, M, N) tiled crossbar reads of a conv, its operand gathered
+    from the raw activation x ((N, ch, H, W) shared or (C, N, ch, H, W)
+    per lane) under the conv geometry `geom`. On CUDA tensors this
+    launches kernel B3; on CPU tensors it runs the plain version."""
+    seeds = torch.as_tensor(seeds, device=w.device)
+    _check_crossbar(x, w, broken, stuck, seeds, eps, conv=True)
+    C, K, N = w.shape
+    _check_tiles(tiles, K, C)
+    if not w.is_cuda:
+        return crossbar_conv_forward_plain(x, w, broken, stuck, seeds, sigma,
+                                           q_bits, tiles, geom, eps)
+    _on_card([x, w, broken, stuck] + ([eps] if eps is not None else []))
+    rb, co, M, Kp = implicit_plan(x.shape[-4:], geom, w.device)
+    if Kp != K:
+        raise ValueError(f"crossbar conv: the plan's K {Kp} != w's {K}")
+    xflat = pad_activation_flat(x, geom).contiguous()
+    lane_stride = xflat.shape[-1] if x.dim() == 5 else 0
+    return _launch_tiled("rram_crossbar_implicit_forward",
+                         [kernels.ptr(xflat), lane_stride, kernels.ptr(rb),
+                          kernels.ptr(co)], w, broken, stuck, eps, seeds,
+                         sigma, q_bits, tiles, M)
+
+
+class CrossbarConvMatmul(torch.autograd.Function):
+    """C config lanes' tiled crossbar reads of a convolution in one
+    launch of kernel B3 (or the plain version over the "implicit" or
+    "tilewise" operand), with the reference's `_ccm_bwd`: the patch rows
+    are built here, dx flows back through their extraction (F.unfold's
+    backward, exactly as the premat path's), dw = rows^T @ g with
+    broken cells zeroed."""
+
+    @staticmethod
+    def forward(ctx, x, w, broken, stuck, seeds, sigma, q_bits, tiles, geom,
+                use_kernel, operand):
+        args = (x.contiguous(), w.contiguous(),
+                broken.to(torch.float32).contiguous(),
+                stuck.to(torch.float32).contiguous(), seeds, sigma, q_bits,
+                tiles, geom)
+        y = (crossbar_conv_forward(*args) if use_kernel
+             else crossbar_conv_forward_plain(*args, operand=operand))
+        ctx.save_for_backward(x, w, broken, stuck)
+        ctx.q_bits, ctx.geom = q_bits, geom
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, broken, stuck = ctx.saved_tensors
+        with torch.enable_grad():
+            xr = x.detach().requires_grad_()
+            rows = conv_patch_rows(xr, ctx.geom)
+        # rows, not rows.detach(): torch.matmul picks its algorithm by
+        # the operands' requires_grad, and the premat path's saved rows
+        # require grad; so dw sums in the premat path's order
+        dxm, dw = _masked_backward(g, rows, w, broken, stuck, ctx.q_bits,
+                                   ctx.needs_input_grad[:2])
+        dx = None
+        if dxm is not None:
+            (dx,) = torch.autograd.grad(rows, xr, dxm)
+        return dx, dw, None, None, None, None, None, None, None, None, None
+
+
+def crossbar_conv_matmul_lanes(x, w, broken, stuck, seeds, sigma: float,
+                               q_bits: int, tiles, geom,
+                               use_kernel: bool = True,
+                               operand: str = "implicit"):
+    """The tiled crossbar read of a convolution for C config lanes, its
+    operand never materialized (kernel B3): x (N, ch, H, W) shared or
+    (C, N, ch, H, W); w, stuck (C, K, N) im2col views, broken bool or
+    0/1; seeds (C,) int32; tiles (bk, bn, adc_bits); geom
+    `mapping.conv_geom`. Returns (C, N*OH*OW, N_out)."""
+    if operand not in ("tilewise", "implicit"):
+        raise ValueError(f"crossbar_conv_matmul: operand {operand!r} "
+                         "(premat goes through crossbar_matmul)")
+    if use_kernel and operand != "implicit":
+        raise ValueError("crossbar_conv_matmul: kernel B3 gathers its "
+                         f"operand implicitly; operand {operand!r} is a "
+                         "plain-path mode (use_kernel=False)")
+    return CrossbarConvMatmul.apply(
+        x, w, broken, stuck, seeds, float(sigma), int(q_bits),
+        tuple(int(v) for v in tiles), tuple(int(v) for v in geom),
+        bool(use_kernel), operand)
+
+
+def crossbar_conv_matmul(x, w, broken, stuck, seed: int, sigma: float,
+                         q_bits: int, tiles, geom, use_kernel: bool = True,
+                         operand: str = "implicit"):
+    """One config's `crossbar_conv_matmul_lanes`: x (N, ch, H, W), w,
+    broken, stuck (K, N_out). Returns (N*OH*OW, N_out)."""
+    seeds = torch.tensor([int(seed)], dtype=torch.int32, device=w.device)
+    return crossbar_conv_matmul_lanes(x, w[None], broken[None], stuck[None],
+                                      seeds, sigma, q_bits, tiles, geom,
+                                      use_kernel, operand)[0]

@@ -5,7 +5,10 @@ interface (`-gencode arch=compute_90a,code=sm_90a`, no fast-math), which
 ctypes loads; pointers and the stream pass as `c_void_p`. The build
 runs at first use, into build/torch_kernels/ of the checkout, under a
 name that hashes the source and flags, so an edited source never loads
-a stale library. `build_all` starts one nvcc per source at once.
+a stale library (the hash covers csrc/*.cuh, the headers the sources
+share). `build_all` starts one nvcc per source at once. Launches are
+counted per exported C function, so two kernels that share a source
+keep their own counts.
 
 Nothing here runs at import: the CPU tests import every module on a
 host with no nvcc and no card.
@@ -45,14 +48,15 @@ def nvcc_path() -> str:
 
 class CudaLibrary:
     """One csrc/ source, its build, its loaded library and the launch
-    count of its kernel. `functions` maps each exported C function to
-    its ctypes argtypes (every function returns cudaGetLastError())."""
+    count of each exported C function (`counts`; `launches` is their
+    sum). `functions` maps each exported C function to its ctypes
+    argtypes (every function returns cudaGetLastError())."""
 
     def __init__(self, source: str, functions: Dict[str, Sequence]):
         self.source = CSRC / source
         self.functions = dict(functions)
         self.flags = ARCH_FLAGS + BASE_FLAGS
-        self.launches = 0
+        self.counts = dict.fromkeys(self.functions, 0)
         self.build_seconds: Optional[float] = None
         self.ptxas_log = ""
         self._lib = None
@@ -61,10 +65,19 @@ class CudaLibrary:
         self._t0 = 0.0
 
     @property
+    def launches(self) -> int:
+        return sum(self.counts.values())
+
+    def reset(self):
+        self.counts = dict.fromkeys(self.functions, 0)
+
+    @property
     def so_path(self) -> Path:
-        h = hashlib.sha1(self.source.read_bytes()
-                         + " ".join(self.flags).encode()).hexdigest()[:12]
-        return BUILD_DIR / f"{self.source.stem}-{h}.so"
+        h = hashlib.sha1(self.source.read_bytes())
+        for header in sorted(CSRC.glob("*.cuh")):
+            h.update(header.read_bytes())
+        h.update(" ".join(self.flags).encode())
+        return BUILD_DIR / f"{self.source.stem}-{h.hexdigest()[:12]}.so"
 
     def start_build(self):
         """Start nvcc unless the library is already built."""
@@ -110,7 +123,7 @@ class CudaLibrary:
         if rc != 0:
             raise RuntimeError(f"{name} ({self.source.name}) launch "
                                f"failed: cudaError {rc}")
-        self.launches += 1
+        self.counts[name] += 1
 
 
 def stream_ptr(device: torch.device) -> ctypes.c_void_p:
@@ -136,10 +149,10 @@ def build_all(libs: Iterable[CudaLibrary]) -> float:
 def all_libraries() -> list:
     from .fault import fused, hw_aware
     from .ops import pool_backward
-    return [hw_aware.CROSSBAR_LIB, fused.FUSED_LIB,
+    return [hw_aware.CROSSBAR_LIB, hw_aware.TILED_LIB, fused.FUSED_LIB,
             pool_backward.POOL_BWD_LIB]
 
 
 def reset_launches():
     for lib in all_libraries():
-        lib.launches = 0
+        lib.reset()

@@ -183,10 +183,13 @@ class Net:
 
     def apply(self, params, batch: Optional[dict] = None,
               adc_bits: int = 0, crossbar: Optional[dict] = None,
-              lanes: int = 0):
+              lanes: int = 0, tiles: Optional[dict] = None,
+              conv_im2col: Optional[str] = None):
         """Run the net; returns (blobs, loss). `batch` feeds the
-        data-source tops; `crossbar` routes named InnerProduct layers
-        through the crossbar read (see LayerContext.crossbar).
+        data-source tops; `crossbar` routes named fault-target layers
+        through the crossbar read, `tiles` names the layers read through
+        tiles and `conv_im2col` their conv operand mode (see
+        LayerContext).
 
         `lanes` = C > 0 runs C configs at once (the sweep): every param
         carries a leading C axis, the batch is shared, and a blob
@@ -196,7 +199,8 @@ class Net:
         one value per lane, (C,)."""
         batch = batch or {}
         ctx = LayerContext(phase=self.phase, adc_bits=adc_bits,
-                           crossbar=crossbar, lanes=lanes)
+                           crossbar=crossbar, lanes=lanes, tiles=tiles,
+                           conv_im2col=conv_im2col)
         blobs = {}
         laned = set()
         for name in self.data_source_tops:

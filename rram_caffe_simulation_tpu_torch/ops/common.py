@@ -7,6 +7,11 @@ Under config lanes the weight is (C, num_output, K): a laned bottom
 (N, C*ch, ...) is read as (C, N, K) (each lane in Caffe's flatten
 order), the product is one batched matmul, or one launch of kernel B2
 through `crossbar_matmul_lanes`, and the top is laned (N, C*num_output).
+
+A layer the tile mapping names (ctx.tiles, cells per tile over the
+stored weight) reads its (K, N) view through per-tile ADCs: kernel B2t
+on the crossbar read, `tiled_crossbar_matmul` without one. Its
+whole-output ADC is then skipped (the tiles have paid theirs).
 """
 from __future__ import annotations
 
@@ -15,7 +20,7 @@ import torch
 from ..core.fillers import make_filler
 from ..core.registry import Layer, register_layer
 from ..fault.hw_aware import (crossbar_matmul, crossbar_matmul_lanes,
-                              quantize_ste)
+                              quantize_ste, tiled_crossbar_matmul)
 from ._util import flat_shape_from
 
 
@@ -49,25 +54,38 @@ class InnerProductLayer(Layer):
                                                       (self.num_output,)))
         return params
 
+    def _kernel_tiles(self, ctx):
+        """(bk, bn, adc_bits) over the (K, N) view, or None untiled: the
+        tile's (rows, cols) over the stored weight swap under Caffe's
+        (num_output, K) layout."""
+        tl = ctx.tiles.get(self.name) if ctx.tiles else None
+        if tl is None:
+            return None
+        bk, bn = (tl[0], tl[1]) if self.transpose else (tl[1], tl[0])
+        return int(bk), int(bn), int(ctx.adc_bits)
+
     def apply(self, params, bottoms, ctx):
         if ctx.lanes:
             return self._apply_lanes(params, bottoms, ctx)
         x = bottoms[0].reshape(-1, self.K)
         w = params[0]
         cb = ctx.crossbar.get(self.name) if ctx.crossbar else None
+        tiles = self._kernel_tiles(ctx)
+        wv = w if self.transpose else w.t()
         if cb is not None:
             # the crossbar read runs on the (K, N) view; broken and stuck
             # are shaped like the stored weight and turn the same way
             broken, stuck, seed, sigma, q_bits, use_kernel = cb
-            if self.transpose:
-                wv, bv, sv = w, broken, stuck
-            else:
-                wv, bv, sv = w.t(), broken.t(), stuck.t()
-            y = crossbar_matmul(x.float(), wv.float(), bv, sv.float(), seed,
-                                sigma, q_bits, use_kernel).to(x.dtype)
+            if not self.transpose:
+                broken, stuck = broken.t(), stuck.t()
+            y = crossbar_matmul(x.float(), wv.float(), broken, stuck.float(),
+                                seed, sigma, q_bits, use_kernel,
+                                tiles).to(x.dtype)
+        elif tiles is not None:
+            y = tiled_crossbar_matmul(x, wv, *tiles)
         else:
-            y = x @ (w if self.transpose else w.t())
-        if ctx.adc_bits:
+            y = x @ wv
+        if ctx.adc_bits and tiles is None:
             # the bitline currents (pre-bias; the bias is digital) read
             # through an adc_bits-wide converter
             y = quantize_ste(y, ctx.adc_bits)
@@ -86,6 +104,7 @@ class InnerProductLayer(Layer):
              else x.reshape(M, self.K))
         w = params[0]
         cb = ctx.crossbar.get(self.name) if ctx.crossbar else None
+        tiles = self._kernel_tiles(ctx)
         turn = (lambda t: t) if self.transpose else \
             (lambda t: t.transpose(1, 2))         # (C, K, num_output)
         if cb is not None:
@@ -93,10 +112,12 @@ class InnerProductLayer(Layer):
             y = crossbar_matmul_lanes(x.float(), turn(w).float(),
                                       turn(broken), turn(stuck).float(),
                                       seeds, sigma, q_bits,
-                                      use_kernel).to(x.dtype)
+                                      use_kernel, tiles).to(x.dtype)
+        elif tiles is not None:
+            y = tiled_crossbar_matmul(x, turn(w), *tiles)
         else:
             y = torch.matmul(x, turn(w))
-        if ctx.adc_bits:
+        if ctx.adc_bits and tiles is None:
             y = quantize_ste(y, ctx.adc_bits, lanes=C)
         if self.bias_term:
             y = y + params[1][:, None, :]

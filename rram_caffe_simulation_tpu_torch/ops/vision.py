@@ -15,6 +15,16 @@ Config lanes (the sweep): a laned blob folds the lanes into channels,
 (N, C*ch, H, W), lane-major, so a convolution runs every lane in one
 grouped call (groups = C * group; a shared bottom feeds a group-1
 convolution directly) and pooling needs no change.
+
+A Convolution the tile mapping names (ctx.tiles, cells per tile over
+its im2col (K, N) = (C_in*kh*kw, C_out) view) is the explicit im2col
+GEMM read through per-tile ADCs, its operand by ctx.conv_im2col:
+"premat" (patch rows built once; kernel B2t on the crossbar read),
+"tilewise" (per-K-tile slabs; the plain read) or "implicit" (gathered
+from the raw activation; kernel B3). The three give equal bytes. A
+laned bottom is read per lane as (C, N, ch, H, W), contiguous, for one
+launch; the (C, N*OH*OW, C_out) result goes back to (N, C*C_out, OH,
+OW). Grouped convolution has no im2col crossbar view and is refused.
 """
 from __future__ import annotations
 
@@ -25,6 +35,12 @@ import torch.nn.functional as F
 from .. import proto
 from ..core.fillers import make_filler
 from ..core.registry import Layer, register_layer
+from ..fault.hw_aware import (CONV_OPERANDS, conv_operand_slabs,
+                              crossbar_conv_matmul,
+                              crossbar_conv_matmul_lanes, crossbar_matmul,
+                              crossbar_matmul_lanes,
+                              tiled_crossbar_matmul_slabs)
+from ..fault.mapping import conv_geom, conv_patch_rows, to_im2col
 from .pool_backward import max_pool
 from ._util import (ave_pool_divisors, ceil_pad_hi, conv_spatial_params,
                     pool_spatial_params, pooled_size)
@@ -51,6 +67,7 @@ class ConvolutionLayer(Layer):
         out = tuple((spatial[i] + 2 * self.pad[i]
                      - (self.dilation[i] * (self.kernel[i] - 1) + 1))
                     // self.stride[i] + 1 for i in range(len(spatial)))
+        self.out_hw = out
         self.top_shapes = [(n, self.num_output) + out] * max(1, len(
             self.lp.top))
         return self.top_shapes
@@ -66,8 +83,63 @@ class ConvolutionLayer(Layer):
                                                       (self.num_output,)))
         return params
 
+    def _crossbar_conv(self, x, w, ctx, tl, laned):
+        """The tiled crossbar read of this layer: the im2col operand
+        against the (K, C_out) weight view, per-(K, N)-tile ADC partial
+        sums accumulated over K-tiles. `tl` = (bk, bn) cells per tile
+        over the view."""
+        if self.group != 1:
+            raise ValueError(
+                f"layer {self.name!r}: grouped convolution "
+                f"(group={self.group}) is not mappable onto the im2col "
+                "crossbar view — each group is a separate GEMM and the "
+                "tile grid would straddle group boundaries; train this "
+                "layer untiled (tile_spec='1x1') or ungrouped")
+        mode = ctx.conv_im2col or "premat"
+        if mode not in CONV_OPERANDS:
+            raise ValueError(f"conv_im2col={mode!r}: expected one of "
+                             f"{CONV_OPERANDS}")
+        C = ctx.lanes
+        n, _, h, wd = x.shape
+        if C and laned:
+            x = x.reshape(n, C, -1, h, wd).transpose(0, 1).contiguous()
+        geom = conv_geom(self.kernel, self.stride, self.pad, self.dilation)
+        tiles = (int(tl[0]), int(tl[1]), int(ctx.adc_bits))
+        wv = to_im2col(w, 4)                     # (C, K, C_out) / (K, C_out)
+        cb = ctx.crossbar.get(self.name) if ctx.crossbar else None
+        if cb is not None:
+            broken, stuck, seed, sigma, q_bits, use_kernel = cb
+            bv, sv = to_im2col(broken, 4), to_im2col(stuck, 4).float()
+            if mode != "premat":
+                fn = crossbar_conv_matmul_lanes if C else crossbar_conv_matmul
+                y = fn(x, wv.float(), bv, sv, seed, sigma, q_bits, tiles,
+                       geom, use_kernel, mode)
+            else:
+                fn = crossbar_matmul_lanes if C else crossbar_matmul
+                y = fn(conv_patch_rows(x, geom), wv.float(), bv, sv, seed,
+                       sigma, q_bits, use_kernel, tiles)
+        else:
+            # no crossbar read armed: the stored weight through the tiles
+            y = tiled_crossbar_matmul_slabs(
+                conv_operand_slabs(x, geom, mode), wv, *tiles)
+        oh, ow = self.out_hw
+        if C:
+            return y.reshape(C, n, oh, ow, -1).permute(1, 0, 4, 2, 3) \
+                .reshape(n, -1, oh, ow)
+        return y.reshape(n, oh, ow, -1).permute(0, 3, 1, 2).contiguous()
+
     def apply(self, params, bottoms, ctx):
         w, C = params[0], ctx.lanes
+        tl = ctx.tiles.get(self.name) if ctx.tiles else None
+        if tl is not None:
+            tops = []
+            for i, x in enumerate(bottoms):
+                y = self._crossbar_conv(x, w, ctx, tl,
+                                        bool(C) and ctx.laned[i])
+                if self.bias_term:
+                    y = y + params[1].reshape(1, -1, 1, 1)
+                tops.append(y)
+            return tops
         if C:
             # lane c's filters become output channels c*num_output + o
             w = w.reshape((-1,) + tuple(w.shape[2:]))

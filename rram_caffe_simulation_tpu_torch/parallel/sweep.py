@@ -21,11 +21,16 @@ whole LMDB lives on the device and step t gathers records
 (t*B + arange(B)) % N there, the host cursor's order; losses stay on
 the device until a chunk of `chunk` iterations ends.
 
+The solver's tile spec carries over: every lane draws each crossbar
+tile on its own, and a tiled layer's read is one launch of kernel B2t
+(InnerProduct, premat conv) or B3 (`conv_im2col="implicit"`) over all
+lanes.
+
 Not ported yet, each refused by name: mesh, config_block,
 remat_segments, compute_dtype, pipeline_depth, stall_timeout_s,
-health_every, conv_im2col, self-healing, checkpoint/restore and fault
-state files. The genetic strategy never reaches a sweep: the port's
-Solver refuses every failure strategy.
+health_every, self-healing, checkpoint/restore and fault state files.
+The genetic strategy never reaches a sweep: the port's Solver refuses
+every failure strategy.
 """
 from __future__ import annotations
 
@@ -44,8 +49,7 @@ SWEEP_ENGINES = ("auto", "cuda", "torch")
 # with the value that means "off"
 UNPORTED_OPTIONS = {"mesh": None, "config_block": 0, "remat_segments": 0,
                     "compute_dtype": None, "pipeline_depth": None,
-                    "stall_timeout_s": None, "health_every": 0,
-                    "conv_im2col": None}
+                    "stall_timeout_s": None, "health_every": 0}
 
 
 def _not_ported(what: str):
@@ -64,13 +68,16 @@ class SweepRunner:
 
     `engine`: "cuda" runs kernels B2/B1 (their wrappers take the plain
     versions on CPU tensors), "torch" the plain versions by name, "auto"
-    is "cuda" on a CUDA device. `packed_state`, `dtype_policy` and
-    `fused_epilogue` are the solver's step options."""
+    is "cuda" on a CUDA device. `packed_state`, `dtype_policy`,
+    `fused_epilogue` and `conv_im2col` are the solver's step options;
+    `conv_im2col_requested/_resolved/_reason` record the conv operand
+    mode that runs."""
 
     def __init__(self, solver, n_configs: int, means=None, stds=None,
                  preload: bool = True, engine: str = "auto",
                  packed_state: bool = False, dtype_policy=None,
-                 fused_epilogue=None, device=None, **options):
+                 fused_epilogue=None, device=None, conv_im2col=None,
+                 **options):
         for name, value in options.items():
             if name not in UNPORTED_OPTIONS:
                 raise TypeError(f"SweepRunner got an unexpected option "
@@ -103,7 +110,8 @@ class SweepRunner:
         flat = solver._flat(solver.params)
         shapes = {k: tuple(flat[k].shape) for k in solver._fault_keys}
         state = fault_engine.stack_fault_states(
-            solver.gen, shapes, pattern, self.n, means=means, stds=stds)
+            solver.gen, shapes, pattern, self.n, means=means, stds=stds,
+            tiles=solver.tile_spec)
         self._pack_spec = None
         if packed_state:
             # counter dtype sized from every configured (mean, std)
@@ -131,8 +139,11 @@ class SweepRunner:
             hw_engine=engine, dtype_policy=dtype_policy,
             fault_format="packed" if packed_state else "f32",
             pack_spec=self._pack_spec, fused_epilogue=fused_epilogue,
-            lanes=self.n)
+            lanes=self.n, conv_im2col=conv_im2col)
         self.engine_resolved = self._step.hw_engine_resolved
+        self.conv_im2col_requested = self._step.conv_im2col_requested
+        self.conv_im2col_resolved = self._step.conv_im2col_resolved
+        self.conv_im2col_reason = self._step.conv_im2col_reason
         self.fused_epilogue_resolved = self._step.fused_epilogue_resolved
         self.fused_epilogue_reason = self._step.fused_epilogue_reason
 
@@ -238,16 +249,44 @@ class SweepRunner:
         """Device-memory bytes one sweep iteration must move for its
         resident state: every state leaf (params, history, fault banks,
         the quarantine mask) read and written once, plus the batch
-        gathered from the device dataset. Activations are left out, as
-        the reference leaves them out (its conv-patch term is 0 without
-        tiled convolutions)."""
+        gathered from the device dataset, plus the tiled convolutions'
+        operands (`conv_patch_bytes_est`). Other activations are left
+        out, as the reference leaves them out."""
         total = 2 * sum(t.numel() * t.element_size()
                         for t in self._state_tensors())
         if self._dataset is not None:
             total += self._ds_batch * sum(
                 a[0].numel() * a.element_size()
                 for a in self._dataset.values())
-        return int(total)
+        return int(total + self.conv_patch_bytes_est())
+
+    def conv_patch_bytes_est(self) -> int:
+        """Bytes of the conv operands one step builds for its tiled
+        Convolutions, by resolved mode (the reference's estimate): premat
+        lanes*M*K*4 (the patch rows), tilewise lanes*M*min(bk, K)*4 (one
+        K-tile slab), implicit lanes*N*C_in*Hp*Wp*4 (the padded flat
+        activation the gather reads). Forward only: the implicit
+        backward builds premat-shaped rows, counted nowhere, like every
+        other activation."""
+        solver = self.solver
+        tiles_ctx = solver._tiles_ctx()
+        mode = self.conv_im2col_resolved or "premat"
+        total = 0
+        for lname, tl in (tiles_ctx or {}).items():
+            layer = solver.net.layer_by_name[lname]
+            if layer.type_name != "Convolution":
+                continue
+            n, _, oh, ow = layer.top_shapes[0]
+            m, kdim = n * oh * ow, int(np.prod(layer.weight_shape[1:]))
+            if mode == "premat":
+                total += m * kdim * 4
+            elif mode == "tilewise":
+                total += m * min(int(tl[0]), kdim) * 4
+            else:
+                _, c_in, h, w = solver.net.blob_shapes[layer.lp.bottom[0]]
+                total += (n * c_in * (h + 2 * layer.pad[0])
+                          * (w + 2 * layer.pad[1]) * 4)
+        return int(total * self.n)
 
     def lane_state(self, i: int):
         """(params, history, fault_state) of lane i, copies without the

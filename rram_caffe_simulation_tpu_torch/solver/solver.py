@@ -14,14 +14,24 @@ through `crossbar_matmul` (kernel B2 on the "cuda" engine), biases
 through `quantize_ste`/`perturb_weight`; with packed banks and the
 fused epilogue, ApplyUpdate+Fail of every fault leaf is kernel B1.
 
+`failure_pattern.conv_also` makes Convolution params fault targets too.
+A tile spec (`Solver(tile_spec=)`, else `rram_forward.tiles`; see
+fault/mapping.py) draws every crossbar tile's faults on its own and
+reads every layer spanning more than one tile through per-tile ADCs:
+InnerProduct through kernel B2t, a tiled Convolution through B2t over
+its patch rows ("premat") or B3 over the raw activation ("implicit"),
+by `conv_im2col` (constructor, else RRAM_CONV_IM2COL, else "premat").
+An untiled conv fault target is read like a bias.
+
 Not ported yet (a solver asking for one raises, except test nets:
 test_interval is not acted on): snapshot/restore, test nets, metrics,
 watchdog, health, data/tensor/pipeline parallelism, a sub-f32 compute
-dtype, iter_size > 1, clip_gradients, L1 regularization, the five
-other update rules and tiled crossbars.
+dtype, iter_size > 1, clip_gradients, L1 regularization and the five
+other update rules.
 """
 from __future__ import annotations
 
+import os
 import time
 from typing import Callable, Dict, Optional
 
@@ -34,7 +44,8 @@ from ..device import resolve_device
 from ..fault import engine as fault_engine
 from ..fault import packed as fault_packed
 from ..fault.fused import fused_update_fail, fused_update_fail_plain
-from ..fault.hw_aware import perturb_weight, quantize_ste
+from ..fault.hw_aware import CONV_OPERANDS, perturb_weight, quantize_ste
+from ..fault.mapping import TileSpec, conv_geom
 from ..net.builder import Net
 from ..utils.io import read_net_param, read_solver_param
 from . import updates as U
@@ -81,7 +92,8 @@ class Solver:
                  train_feed: Optional[Callable] = None,
                  fail_decrement: Optional[float] = None,
                  hw_engine: str = "auto", dtype_policy=None,
-                 fault_format: str = "f32", fused_epilogue=None):
+                 fault_format: str = "f32", fused_epilogue=None,
+                 tile_spec=None, conv_im2col=None):
         if isinstance(param, str):
             param = read_solver_param(param)
         self.param = param
@@ -103,9 +115,17 @@ class Solver:
             raise NotImplementedError(
                 "failure strategies (threshold, remapping, genetic) are "
                 "not ported; ApplyStrategy is a no-op in this slice")
-        if param.HasField("rram_forward") and param.rram_forward.tiles \
-                not in ("", "1x1"):
-            raise NotImplementedError("tiled crossbars are not ported")
+        # the constructor's spec wins over the proto's rram_forward.tiles
+        if tile_spec is None and param.HasField("rram_forward"):
+            tile_spec = param.rram_forward.tiles or None
+        self.tile_spec = TileSpec.parse(tile_spec)
+        if conv_im2col is not None:
+            conv_im2col = str(conv_im2col).strip().lower()
+            if conv_im2col not in CONV_OPERANDS:
+                raise ValueError(f"Solver(conv_im2col={conv_im2col!r}): "
+                                 "expected 'premat', 'tilewise' or "
+                                 "'implicit'")
+        self.conv_im2col = conv_im2col
         self.iter = 0
         self.losses: list = []
         self.smoothed_loss = 0.0
@@ -137,8 +157,15 @@ class Solver:
                             for r in self.net.failure_param_refs]
         pattern = param.failure_pattern
         if param.HasField("failure_pattern") and pattern.conv_also:
-            raise NotImplementedError("failure_pattern.conv_also (conv "
-                                      "crossbars) is not ported")
+            # conv params are crossbar cells too (the fork's fault-prone
+            # set is InnerProduct-only, net.cpp:485-493); the port has no
+            # Deconvolution layer yet
+            for r in self._owner_refs:
+                layer = self.net.layer_by_name[r.layer_name]
+                k = fault_engine.param_key(r.layer_name, r.slot)
+                if layer.type_name == "Convolution" \
+                        and k not in self._fault_keys:
+                    self._fault_keys.append(k)
         refs = self.net.failure_param_refs
         self._crossbar_keys = {
             fault_engine.param_key(refs[i].layer_name, refs[i].slot)
@@ -148,17 +175,20 @@ class Solver:
                 and pattern.type == "gaussian"):
             flat = self._flat(self.params)
             shapes = {k: tuple(flat[k].shape) for k in self._fault_keys}
-            state = fault_engine.init_fault_state(self.gen, shapes, pattern)
+            state = fault_engine.init_fault_state(self.gen, shapes, pattern,
+                                                  tiles=self.tile_spec)
             self.fault_state = {g: {k: v.to(self.device)
                                     for k, v in grp.items()}
                                 for g, grp in state.items()}
+        self._check_tile_coverage()
         if (param.HasField("rram_forward")
                 and (param.rram_forward.sigma or param.rram_forward.adc_bits)
                 and self.fault_state is None):
             raise ValueError(
                 "rram_forward is configured but no fault engine is active "
                 "— it requires failure_pattern { type: 'gaussian' } and at "
-                "least one InnerProduct layer")
+                "least one fault-target layer (InnerProduct, or Convolution "
+                "with failure_pattern { conv_also: true })")
         if param.HasField("rram_forward") and \
                 param.rram_forward.adc_bits == 1:
             raise ValueError("rram_forward.adc_bits = 1 gives a symmetric "
@@ -179,6 +209,52 @@ class Solver:
             fused_epilogue=fused_epilogue)
 
     # ------------------------------------------------------------------
+    def _check_tile_coverage(self):
+        """A non-default tile spec needs a fault engine, and every conv
+        fault target must have an im2col crossbar view: no grouped
+        convolution."""
+        ts = self.tile_spec
+        if ts.is_default:
+            return
+        spec = ts.canonical()
+        if self.fault_state is None:
+            raise ValueError(
+                f"tile_spec {spec!r} is configured but no fault engine is "
+                "active — tiled crossbar mapping needs failure_pattern "
+                "{ type: 'gaussian' } and at least one fault-target layer")
+        flat = self._flat(self.params)
+        for k in self._fault_keys:
+            if flat[k].dim() <= 2:
+                continue
+            lname = k.rsplit("/", 1)[0]
+            layer = self.net.layer_by_name[lname]
+            if layer.group != 1:
+                raise ValueError(
+                    f"tile_spec {spec!r} cannot map fault-target layer "
+                    f"{lname!r}: grouped convolution (group={layer.group}) "
+                    "— each group is a separate im2col GEMM, so one tile "
+                    "grid would straddle group boundaries; train it "
+                    "untiled (tile_spec='1x1') or ungrouped")
+
+    def _tiles_ctx(self) -> Optional[dict]:
+        """{layer: (tr, tc) cells per tile} of every fault-target weight
+        the spec splits into more than one tile: InnerProduct over its
+        stored shape (the layer turns it to the (K, N) view), Convolution
+        over its im2col view. None when nothing is tiled, so a 1x1 spec
+        runs the untiled program."""
+        ts = self.tile_spec
+        if ts.is_default or self.fault_state is None:
+            return None
+        flat = self._flat(self.params)
+        out = {}
+        for k in self._fault_keys:
+            shape = tuple(flat[k].shape)
+            # FC weights and conv kernels; biases are one tile
+            if (k in self._crossbar_keys or len(shape) > 2) \
+                    and ts.n_tiles(shape) > 1:
+                out[k.rsplit("/", 1)[0]] = ts.tile_dims(shape)
+        return out or None
+
     def _flat(self, params) -> Dict[str, torch.Tensor]:
         return {fault_engine.param_key(r.layer_name, r.slot):
                 params[r.layer_name][r.slot] for r in self._owner_refs}
@@ -193,7 +269,8 @@ class Solver:
     # ------------------------------------------------------------------
     def make_train_step(self, hw_engine: str = "auto", dtype_policy=None,
                         fault_format: str = "f32", pack_spec=None,
-                        fused_epilogue=None, lanes: int = 0):
+                        fused_epilogue=None, lanes: int = 0,
+                        conv_im2col=None):
         """Build step(params, history, fault_state, batch, it, gen) ->
         (params', history', fault_state', loss, outputs).
 
@@ -212,7 +289,10 @@ class Solver:
         `fault_format` "packed" runs on the packed banks (with the
         `pack_spec` they were built with). `fused_epilogue`: None fuses
         when the crossbar read and the packed banks line up, True
-        requires it, False keeps the unfused tail."""
+        requires it, False keeps the unfused tail. `conv_im2col`
+        (premat | tilewise | implicit) overrides the solver's; the step
+        records what it asked for and what runs
+        (`step.conv_im2col_requested/_resolved/_reason`)."""
         param = self.param
         if hw_engine not in HW_ENGINES:
             raise ValueError(f"unknown hw_engine {hw_engine!r} (expected "
@@ -240,9 +320,18 @@ class Solver:
         adc_bits = int(rf.adc_bits) if rf is not None and has_fault else 0
         crossbar_on = bool(hw_sigma) or bool(q_bits)
         use_kernel = engine == "cuda"
-        # weights are read through the crossbar kernel, biases through the
-        # plain quantize/perturb (the reference's solver.py:723, :890-899)
-        crossbar_keys = self._crossbar_keys if crossbar_on else set()
+        # weights are read through the crossbar kernel, biases and untiled
+        # conv kernels through the plain quantize/perturb (the reference's
+        # solver.py:723, :757-768, :890-899)
+        tiles_ctx = self._tiles_ctx() if has_fault else None
+        crossbar_keys = set(self._crossbar_keys) if crossbar_on else set()
+        if crossbar_on and tiles_ctx:
+            flat = self._flat(self.params)
+            crossbar_keys |= {k for k in self._fault_keys
+                              if k.rsplit("/", 1)[0] in tiles_ctx
+                              and flat[k].dim() > 2}
+        conv_mode, conv_resolved, conv_reason = self._resolve_conv_mode(
+            conv_im2col, tiles_ctx, use_kernel and crossbar_on)
         fused_reason = None
         if fused_epilogue is False:
             fused_on, fused_reason = False, "disabled (fused_epilogue=False)"
@@ -307,7 +396,8 @@ class Solver:
                                                  hw_sigma)
             blobs, loss = net.apply(self._unflat(read, params), batch,
                                     adc_bits=adc_bits, crossbar=crossbar,
-                                    lanes=lanes)
+                                    lanes=lanes, tiles=tiles_ctx,
+                                    conv_im2col=conv_resolved)
             # lanes are independent: d(sum of lane losses)/d(lane c's
             # params) is lane c's own gradient
             grads = torch.autograd.grad(loss.sum() if lanes else loss,
@@ -362,7 +452,51 @@ class Solver:
         step.hw_engine_resolved = engine if crossbar_on else None
         step.fused_epilogue_resolved = fused_on
         step.fused_epilogue_reason = None if fused_on else fused_reason
+        step.conv_im2col_requested = conv_mode
+        step.conv_im2col_resolved = conv_resolved
+        step.conv_im2col_reason = conv_reason
         return step
+
+    def _resolve_conv_mode(self, requested, tiles_ctx, use_kernel: bool):
+        """(requested, resolved, reason) of the conv operand mode:
+        make_train_step's argument, else the solver's, else
+        RRAM_CONV_IM2COL, else "premat". Resolved is None when no tiled
+        Convolution exists; "tilewise" on the kernel path runs as
+        premat."""
+        mode = requested if requested is not None else self.conv_im2col
+        if mode is None:
+            mode = os.environ.get("RRAM_CONV_IM2COL", "").strip().lower() \
+                or None
+        mode = str(mode).strip().lower() if mode else "premat"
+        if mode not in CONV_OPERANDS:
+            raise ValueError(f"conv_im2col / RRAM_CONV_IM2COL={mode!r}: "
+                             "expected 'premat', 'tilewise' or 'implicit'")
+        conv_tiled = [ln for ln in (tiles_ctx or {})
+                      if self.net.layer_by_name[ln].type_name
+                      == "Convolution"]
+        if not conv_tiled:
+            return mode, None, (None if mode == "premat" else (
+                f"conv_im2col={mode!r} is inert: no tiled Convolution "
+                "fault target in this net"))
+        if use_kernel and mode == "tilewise":
+            return mode, "premat", (
+                "tilewise is a plain-path operand mode; the B2t kernel "
+                "already streams the premat rows K-tile by K-tile — "
+                "resolved to premat")
+        if mode == "implicit":
+            for ln in conv_tiled:
+                layer = self.net.layer_by_name[ln]
+                try:
+                    conv_geom(layer.kernel, layer.stride, layer.pad,
+                              layer.dilation)
+                except ValueError as e:
+                    return mode, "premat", (f"implicit im2col unsupported "
+                                            f"— {ln}: {e}; resolved to "
+                                            "premat")
+            return mode, "implicit", (
+                "backward materializes im2col patch rows (patches-based "
+                "VJP, v1); forward gathers in-kernel")
+        return mode, mode, None
 
     # ------------------------------------------------------------------
     def _next_batch(self) -> dict:

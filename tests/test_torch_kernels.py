@@ -1,5 +1,5 @@
-"""Kernels B1, B2 and B4 on the card against their plain PyTorch
-versions.
+"""Kernels B1, B2, B2t, B3 and B4 on the card against their plain
+PyTorch versions.
 
 Every test here needs a CUDA device and skips without one. The file
 imports no JAX, so it also runs on a machine that has only PyTorch:
@@ -9,7 +9,12 @@ imports no JAX, so it also runs on a machine that has only PyTorch:
 
 B1 and B4 must equal their plain versions bit for bit. B2 is held to the f32
 summation bound K * 2^-24 * (|x| @ |w_eff|): both compute w_eff with
-the same IEEE operations and differ only in the order of the K-sum."""
+the same IEEE operations and differ only in the order of the K-sum.
+B2t and B3 (the tiled reads, per-tile ADC) must equal their plain
+versions on dyadic inputs (every partial sum exact in any order); on
+random inputs each element stays within the summation bound of every
+K-tile plus one ADC step of each, level flips on at most 1% of the
+elements."""
 import numpy as np
 import pytest
 import torch
@@ -123,6 +128,134 @@ def test_b2_crossbar_matmul_autograd_on_card(cuda_device):
         grads.append(torch.autograd.grad(y, (x, w), g))
     for a, b in zip(*grads):
         assert torch.equal(a, b)        # the backward is the same code
+
+
+def tiled_case(device, x_shape, C, K, N, dyadic, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+    if dyadic:
+        dy = lambda shape, lim: torch.randint(
+            -lim, lim + 1, shape, generator=g, device=device).float() / 16
+        x, w = dy(x_shape, 16), dy((C, K, N), 12)
+        w[:, 0, 0] = 0.75
+    else:
+        x = torch.randn(x_shape, generator=g, device=device)
+        w = torch.randn((C, K, N), generator=g, device=device) * 0.1
+    broken = (torch.rand((C, K, N), generator=g, device=device)
+              < 0.1).float()
+    stuck = torch.randint(-1, 2, (C, K, N), generator=g,
+                          device=device).float()
+    seeds = torch.arange(3, 3 + C, dtype=torch.int32, device=device)
+    return x, w, broken, stuck, seeds
+
+
+def within_tiled_bound(y, yp, rows, w_eff, tiles):
+    bk, bn, adc = tiles
+    lv = thw.q_levels(adc)
+    sum_b = torch.zeros_like(y)
+    lsb = torch.zeros_like(y)
+    for k0 in range(0, w_eff.shape[-2], bk):
+        pa = torch.matmul(rows[..., k0:k0 + bk].abs(),
+                          w_eff[..., k0:k0 + bk, :].abs())
+        sum_b += 2 * min(bk, w_eff.shape[-2] - k0) * 2.0 ** -24 * pa \
+            + 2.0 ** -24 * y.abs()
+        for n0 in range(0, w_eff.shape[-1], bn):
+            if lv:
+                lsb[..., n0:n0 + bn] += pa[..., n0:n0 + bn].amax(
+                    dim=(-2, -1), keepdim=True) / lv
+    err = (y - yp).abs()
+    return bool((err <= sum_b + lsb + 1e-30).all()) and \
+        float((err > sum_b).float().mean()) <= 0.01
+
+
+CONV_CASES = [  # x shape (one lane), geom, K, N, tiles
+    ((8, 32, 16, 16), (5, 5, 1, 1, 2, 2, 1, 1), 800, 32, (128, 32, 8)),
+    ((3, 3, 13, 11), (3, 3, 2, 1, 1, 2, 2, 1), 27, 11, (7, 3, 3)),
+]
+
+
+@pytest.mark.parametrize("dyadic", [True, False])
+@pytest.mark.parametrize("lanes", ["one", "shared", "per_lane"])
+def test_b2t_kernel_matches_plain(cuda_device, dyadic, lanes):
+    C = 1 if lanes == "one" else 4
+    for M, K, N, tiles in ((100, 1024, 64, (128, 64, 8)),
+                           (37, 50, 11, (7, 3, 3))):
+        x, w, br, st, seeds = tiled_case(
+            cuda_device, ((C,) if lanes == "per_lane" else ()) + (M, K), C,
+            K, N, dyadic, M)
+        for adc in (3, 8):
+            t = (tiles[0], tiles[1], adc)
+            for sigma in ((0.0,) if dyadic else (0.0, 0.05)):
+                y = thw.crossbar_forward(x, w, br, st, seeds, sigma, 2,
+                                         tiles=t)
+                yp = thw.crossbar_forward_plain(x, w, br, st, seeds, sigma,
+                                                2, tiles=t)
+                if dyadic:
+                    assert torch.equal(y, yp)
+                else:
+                    w_eff = thw._lane_w_eff(w, br, st, seeds, sigma, 2, None)
+                    assert within_tiled_bound(y, yp, x, w_eff, t)
+
+
+@pytest.mark.parametrize("dyadic", [True, False])
+@pytest.mark.parametrize("lanes", ["one", "shared", "per_lane"])
+def test_b3_kernel_matches_plain(cuda_device, dyadic, lanes):
+    from rram_caffe_simulation_tpu_torch.fault.mapping import conv_patch_rows
+    C = 1 if lanes == "one" else 4
+    for xs, geom, K, N, tiles in CONV_CASES:
+        x, w, br, st, seeds = tiled_case(
+            cuda_device, ((C,) if lanes == "per_lane" else ()) + xs, C, K,
+            N, dyadic, K)
+        for sigma in ((0.0,) if dyadic else (0.0, 0.05)):
+            args = (x, w, br, st, seeds, sigma, 2, tiles, geom)
+            y = thw.crossbar_conv_forward(*args)
+            yp = thw.crossbar_conv_forward_plain(*args)
+            if dyadic:
+                assert torch.equal(y, yp)
+            else:
+                w_eff = thw._lane_w_eff(w, br, st, seeds, sigma, 2, None)
+                assert within_tiled_bound(y, yp, conv_patch_rows(x, geom),
+                                          w_eff, tiles)
+
+
+def test_tiled_launches_are_counted_per_function(cuda_device):
+    x, w, br, st, seeds = tiled_case(cuda_device, (3, 2, 7, 7), 2, 18, 4,
+                                     True, 0)
+    lib = thw.TILED_LIB
+    before = dict(lib.counts)
+    thw.crossbar_conv_forward(x, w, br, st, seeds, 0.0, 0, (8, 3, 3),
+                              (3, 3, 1, 1, 1, 1, 1, 1))
+    thw.crossbar_forward(torch.ones(5, 18, device=cuda_device), w, br, st,
+                         seeds, 0.0, 0, tiles=(8, 3, 3))
+    assert lib.counts["rram_crossbar_implicit_forward"] == \
+        before["rram_crossbar_implicit_forward"] + 1
+    assert lib.counts["rram_crossbar_tiled_forward"] == \
+        before["rram_crossbar_tiled_forward"] + 1
+
+
+def test_b3_autograd_on_card_equals_premat(cuda_device):
+    """The implicit read's backward (patch rows built in the backward)
+    against the premat path's on the card: dx and dw equal."""
+    from rram_caffe_simulation_tpu_torch.fault.mapping import conv_patch_rows
+    geom = (3, 3, 2, 2, 1, 1, 1, 1)
+    rng = np.random.RandomState(1)
+    t = lambda a: torch.from_numpy(a).to(cuda_device)
+    x0 = rng.randn(4, 3, 9, 9).astype(np.float32)
+    w0 = (rng.randn(27, 5) * 0.3).astype(np.float32)
+    broken = t(rng.rand(27, 5) < 0.1)
+    stuck = t(rng.choice([-1.0, 0.0, 1.0], size=(27, 5)).astype(np.float32))
+    g = t(rng.randn(4 * 5 * 5, 5).astype(np.float32))
+    grads = []
+    for implicit in (True, False):
+        x, w = t(x0).requires_grad_(), t(w0).requires_grad_()
+        if implicit:
+            y = thw.crossbar_conv_matmul(x, w, broken, stuck, 3, 0.0, 2,
+                                         (8, 3, 8), geom)
+        else:
+            y = thw.crossbar_matmul(conv_patch_rows(x, geom), w, broken,
+                                    stuck, 3, 0.0, 2, tiles=(8, 3, 8))
+        grads.append(torch.autograd.grad(y, (x, w), g))
+    for a, b in zip(*grads):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("lead,hw,kernel,stride,fpad,const", [

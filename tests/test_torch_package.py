@@ -49,8 +49,13 @@ def test_port_imports_no_jax_and_no_reference_package():
                      or n.startswith("google.protobuf")
                      or n == "rram_caffe_simulation_tpu"
                      or n.startswith("rram_caffe_simulation_tpu."))
-        print(len(names), bad)
-        sys.exit(1 if bad or len(names) < 20 else 0)
+        # the modules of every slice, the tiled path's included
+        need = {p.__name__ + "." + m for m in (
+            "fault.mapping", "fault.hw_aware", "fault.engine",
+            "fault.fused", "ops.vision", "ops.common", "ops.pool_backward",
+            "parallel.sweep", "solver.solver", "kernels", "convert")}
+        print(len(names), bad, sorted(need - set(names)))
+        sys.exit(1 if bad or len(names) < 20 or need - set(names) else 0)
     """)
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=_env(),
                        capture_output=True, text=True, timeout=120)

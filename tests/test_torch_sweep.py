@@ -355,8 +355,7 @@ def test_batched_crossbar_matches_reference_vmap(q_bits, x_per_lane):
 @pytest.mark.parametrize("option,value", [
     ("mesh", object()), ("config_block", 2), ("remat_segments", 2),
     ("compute_dtype", "bfloat16"), ("pipeline_depth", 1),
-    ("stall_timeout_s", 5.0), ("health_every", 4),
-    ("conv_im2col", "implicit")])
+    ("stall_timeout_s", 5.0), ("health_every", 4)])
 def test_unported_options_raise_by_name(option, value):
     s = port_solver(cycling(batches(1)))
     with pytest.raises(NotImplementedError, match=option):
