@@ -4,7 +4,9 @@
     python3 chip_smoke.py                 # every phase, one card
     python3 chip_smoke.py --steps 10      # a shorter slice phase
     python3 chip_smoke.py --phases 6,8    # some phases (no "ok" line)
+    python3 chip_smoke.py --phases 3      # the B2 checks alone
     python3 chip_smoke.py --phases 9      # the B2t and B3 checks alone
+    python3 chip_smoke.py --b2-path       # only time B2 through its wrapper
 
 Phases (each raises on failure; the script then exits non-zero and
 prints no "ok" line):
@@ -16,11 +18,18 @@ prints no "ok" line):
    at the ip1/ip2 weight and bias shapes, every mode, int16 and int32
    banks, C = 1 and C = 4, counters within a few writes of zero;
 3. kernel B2 (crossbar GEMM) against its plain version at the ip1/ip2
-   shapes, C = 1 and C = 4 (x shared and per lane), q_bits 0/2/8,
-   sigma 0 and host noise, within the f32 summation-order bound
-   K * 2^-24 * (|x| @ |w_eff|) (no TF32 anywhere); then the in-kernel
-   Philox draw: moments, reproducibility, independence across seeds
-   and lanes, and agreement with its tensor-op twin;
+   shapes and at ragged ones (1x7x3, 5x18x7, 100x1000x10, 130x257x65),
+   C = 1 and C = 4 (x shared and per lane), q_bits 0/2/8, sigma 0 and
+   host noise, within the f32 summation-order bound K * 2^-24 * (|x| @
+   |w_eff|) (no TF32 anywhere); every storage layout the wrapper takes
+   (dense, Caffe's stored (C, num_output, K) turned by view with x as
+   the (M, C, K) view, rows off the 16-byte grid, mixed; broken as bool
+   or uint8) equal to the dense f32 call bit for bit, the scale reduced
+   inside the call equal to w.abs().amax, and a second call equal to the
+   first (the split-K order is fixed); then the in-kernel Philox draw:
+   moments, reproducibility, independence across seeds and lanes,
+   agreement with its tensor-op twin, and the same draw on every
+   layout;
 4. the single-config slice: CIFAR-10-quick from its solver prototxt,
    lifetimes N(1e8, 3e7), ternary crossbar read, packed banks, fused
    epilogue, batch 100 from the in-repo LMDB, on the "cuda" engine;
@@ -85,8 +94,10 @@ prints no "ok" line):
 Then a JSON line of the step's numbers, a JSON line of the sweep's, one
 JSON line of per-kernel numbers (per training step, summed over the
 step's launches; B1b, B2b and B4 at the sweep's shapes, B2t and B3a at
-the tiled slice's, B3b at the tiled sweep's), the card's name and power
-limit, and last {"ok": true, "device": {...}}. B2t has a row at each
+the tiled slice's, B3b at the tiled sweep's; the B2 rows also carry
+`path_ms`, the reads through the wrapper from operands laid out as the
+InnerProduct layer hands them over, and its bound `path_bound_ms`), the
+card's name and power limit, and last {"ok": true, "device": {...}}. B2t has a row at each
 path's shapes: C = 1 (the tiled slice) and C lanes (the tiled sweep).
 """
 from __future__ import annotations
@@ -160,6 +171,21 @@ def device_ms(fn, iters=50):
     us = sum(ev.time_range.elapsed_us() for ev in prof.events()
              if ev.device_type == DeviceType.CUDA)
     return us / 1e3 / iters if us > 0 else None
+
+
+def device_activity_names(fn, iters=5):
+    """Names of the device activities (kernels, memsets, copies) of
+    `iters` calls of fn, by the profiler."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return {ev.name for ev in prof.events()
+            if ev.device_type == DeviceType.CUDA}
 
 
 def timed(fn, iters=100):
@@ -295,31 +321,86 @@ def b2_bound(x, w):
     return K * U32 * torch.matmul(x.abs(), w.abs()) + 1e-30
 
 
+B2_RAGGED = ((1, 7, 3), (5, 18, 7), (100, 1000, 10), (130, 257, 65))
+
+
+def b2_layouts(x, w, br, st, eps):
+    """The same operand values in every storage layout the B2 wrapper
+    takes, as name -> (x, w, broken, stuck, eps) views; broken is bool
+    in all of them."""
+    import torch
+
+    def turned(t):      # Caffe's stored (C, num_output, K), viewed (C, K, N)
+        return t.transpose(1, 2).contiguous().transpose(1, 2)
+
+    def folded(t):      # a laned activation's (M, C, K), viewed (C, M, K)
+        return (t.transpose(0, 1).contiguous().transpose(0, 1)
+                if t.dim() == 3 else t)
+
+    def padded(t):      # rows and base off the 16-byte grid: scalar loads
+        big = torch.zeros(t.shape[:-1] + (t.shape[-1] + 3,), dtype=t.dtype,
+                          device=t.device)
+        big[..., 1:-2] = t
+        return big[..., 1:-2]
+
+    bb = br > 0
+    return {
+        "dense, broken bool": (x, w, bb, st, eps),
+        "stored (C, N, K) turned, x folded (M, C, K)":
+            (folded(x), turned(w), turned(bb), turned(st), turned(eps)),
+        "unaligned rows": tuple(padded(t) for t in (x, w, bb, st, eps)),
+        "mixed (w, eps turned; broken uint8)":
+            (x, turned(w), bb.to(torch.uint8), st, turned(eps)),
+    }
+
+
 def phase_b2(device):
+    """B2 against its plain version within the f32 summation bound at the
+    path's and at ragged shapes; every storage layout against the dense
+    f32 call, the fused scale against w.abs().amax and a second call
+    against the first, all bit for bit."""
+    import torch
     from rram_caffe_simulation_tpu_torch.fault import hw_aware as hw
     worst = 0.0
-    n = 0
-    for (M, K, N) in B2_SHAPES.values():
+    n = n_layout = 0
+    for (M, K, N) in tuple(B2_SHAPES.values()) + B2_RAGGED:
         for C, xb in ((1, False), (4, False), (4, True)):
             x, w, br, st, seeds, eps = b2_inputs(M, K, N, C, xb, n, device)
+            amax = w.abs().amax(dim=(1, 2))
+            layouts = b2_layouts(x, w, br, st, eps)
             for q_bits in (0, 2, 8):
                 for sigma, e in ((0.0, None), (0.05, eps)):
+                    where = (f"M,K,N={M},{K},{N} C={C} x_batched={xb} "
+                             f"q_bits={q_bits} sigma={sigma}")
                     yk = hw.crossbar_forward(x, w, br, st, seeds, sigma,
                                              q_bits, eps=e)
                     yp = hw.crossbar_forward_plain(x, w, br, st, seeds,
                                                    sigma, q_bits, eps=e)
                     w_eff = hw.effective_weight_plain(
-                        w, br, st, sigma, e, hw.q_levels(q_bits),
-                        w.abs().amax(dim=(1, 2)))
+                        w, br, st, sigma, e, hw.q_levels(q_bits), amax)
                     err = (yk - yp).abs()
                     ok = bool((err <= b2_bound(x, w_eff)).all())
                     worst = max(worst, float(err.max()))
-                    check(ok, f"B2 out of bound: M,K,N={M},{K},{N} C={C} "
-                              f"x_batched={xb} q_bits={q_bits} "
-                              f"sigma={sigma}: max err {float(err.max())}")
+                    check(ok, f"B2 out of bound: {where}: max err "
+                              f"{float(err.max())}")
                     n += 1
-    print(f"phase 3: B2 within the f32 summation bound in {n} cases, "
-          f"max abs err {worst:.3e}", flush=True)
+                    for name, (lx, lw, lb, ls, le) in layouts.items():
+                        for _ in range(2):      # the second call: same bits
+                            y, scale = hw.crossbar_forward_scaled(
+                                lx, lw, lb, ls, seeds, sigma, q_bits,
+                                eps=le if e is not None else None)
+                            check(torch.equal(y, yk), f"B2 on layout "
+                                  f"'{name}' differs from the dense f32 "
+                                  f"call: {where}")
+                            check((scale is None) if not q_bits else
+                                  torch.equal(scale, amax), f"B2's fused "
+                                  f"scale != w.abs().amax: '{name}' {where}")
+                        n_layout += 1
+    print(f"phase 3: B2 within the f32 summation bound in {n} cases (the "
+          f"path's shapes and ragged {B2_RAGGED}), max abs err {worst:.3e}; "
+          f"{n_layout} layout cases (dense, stored and turned, unaligned, "
+          f"mixed; broken bool or uint8) equal to the dense f32 call bit for "
+          f"bit, twice each, fused scale equal to w.abs().amax", flush=True)
     phase_noise(device)
     return worst
 
@@ -352,6 +433,20 @@ def phase_noise(device):
     twin = hw.philox_normal(seeds, K, N, device)
     check(float((e1 - twin).abs().max()) < 1e-3,
           "in-kernel noise disagrees with its tensor-op twin")
+    # the counter is the flat index of the (K, N) view, whatever the
+    # storage: every layout draws the same noise (ragged K, N too)
+    Kr, Nr = 70, 19
+    xr = torch.eye(Kr, device=device)
+    wr = torch.ones((C, Kr, Nr), device=device)
+    zr = torch.zeros_like(wr)
+    dense = hw.crossbar_forward(xr, wr, zr, zr, seeds, sigma, 0)
+    for name, (lx, lw, lb, ls, _) in b2_layouts(xr, wr, zr, zr, zr).items():
+        check(torch.equal(hw.crossbar_forward(lx, lw, lb, ls, seeds, sigma,
+                                              0), dense),
+              f"in-kernel noise depends on the storage layout: '{name}'")
+    check(float(((dense - 1.0) / sigma - hw.philox_normal(
+        seeds, Kr, Nr, device)).abs().max()) < 1e-3,
+        "in-kernel noise at a ragged shape disagrees with philox_normal")
     print(f"phase 3: in-kernel noise over {K * N} cells/lane: mean "
           f"{[round(v, 4) for v in mean.tolist()]}, std "
           f"{[round(v, 4) for v in std.tolist()]}, max |r| between "
@@ -365,8 +460,7 @@ def b2_inputs_dev(M, K, N, C, seed, device):
     g = torch.Generator(device=device).manual_seed(seed)
     x = torch.randn((C, M, K), generator=g, device=device)
     w = torch.randn((C, K, N), generator=g, device=device) * 0.1
-    broken = (torch.rand((C, K, N), generator=g, device=device)
-              < 0.1).float()
+    broken = torch.rand((C, K, N), generator=g, device=device) < 0.1
     stuck = torch.randint(-1, 2, (C, K, N), generator=g,
                           device=device).float()
     seeds = torch.randint(0, 2 ** 31 - 1, (C,), generator=g, device=device,
@@ -377,9 +471,11 @@ def b2_inputs_dev(M, K, N, C, seed, device):
 def b2_step_numbers(device, C=1):
     """Per-step B2 numbers at the two InnerProduct reads (ternary grid,
     sigma 0, as on the path): one config with x shared (C = 1), or the
-    sweep's C lanes with x per lane, one launch per layer. The library
-    call is torch.matmul (torch.bmm over the lanes) of x and w_eff.
-    Also the largest |kernel - plain|, each case within its bound."""
+    sweep's C lanes with x per lane, one launch per layer, on dense
+    (C, K, N) operands with broken as bool (one byte a cell, as the
+    solver derives it). The library call is torch.matmul (torch.bmm over
+    the lanes) of x and w_eff. Also the largest |kernel - plain|, each
+    case within its bound."""
     import torch
     from rram_caffe_simulation_tpu_torch.fault import hw_aware as hw
     ms = plain = bound = lib = 0.0
@@ -392,6 +488,7 @@ def b2_step_numbers(device, C=1):
                                                device)
         else:
             x, w, br, st, seeds = b2_inputs_dev(M, K, N, C, 200 + i, device)
+        br = br > 0
         w_eff = hw.effective_weight_plain(w, br, st, 0.0, None, 1.0,
                                           w.abs().amax(dim=(1, 2)))
         yk = hw.crossbar_forward(x, w, br, st, seeds, 0.0, 2)
@@ -411,7 +508,7 @@ def b2_step_numbers(device, C=1):
         p, _ = timed(lambda: hw.crossbar_forward_plain(x, w, br, st, seeds,
                                                        0.0, 2), iters)
         lb, _ = timed(lib_fn, iters)
-        nbytes = 4 * (x.numel() + 3 * C * K * N + C * M * N)
+        nbytes = 4 * x.numel() + 9 * C * K * N + 4 * C * M * N
         flops = 2 * C * M * K * N
         tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOP_PER_S * 1e3
         print(f"  B2 C={C} M,K,N={M},{K},{N}: kernel {k:.5f} ms ({k_call:.5f}"
@@ -425,6 +522,80 @@ def b2_step_numbers(device, C=1):
             lib + lb
     return {"ms": ms, "plain_ms": plain, "bound_ms": bound,
             "bound_by": bound_by, "library_ms": lib}, err
+
+
+B2_PATH_KERNELS = ("crossbar_kernel", "lane_absmax_kernel", "Memset",
+                   "Memcpy HtoD")
+
+
+def b2_path_numbers(device, C=1, own_kernels_only=True):
+    """`path_ms`: the device time of one step's two crossbar reads through
+    `crossbar_matmul` (C = 1) or `crossbar_matmul_lanes`, wrapper passes
+    included, from operands laid out as ops/common.py hands them over:
+    the weight, the bool broken mask and the stuck values in Caffe's
+    stored (C, num_output, K), turned by view; x (M, K), or under lanes
+    the (M, C, K) view of the folded (M, C*K) activation. Its bound
+    counts the bytes as stored (broken one byte a cell). With
+    `own_kernels_only` every device activity of the reads must be B2's
+    own (its passes, its memset, the seed's host-to-card copy): no copy,
+    cast or amax kernel of the wrapper."""
+    import torch
+    from rram_caffe_simulation_tpu_torch.fault import hw_aware as hw
+    ms = bound = 0.0
+    names = set()
+    iters = 100 if C == 1 else 20
+    for i, (M, K, N) in enumerate(B2_SHAPES.values()):
+        g = torch.Generator(device=device).manual_seed(250 + i)
+        w = torch.randn((C, N, K), generator=g, device=device) * 0.1
+        broken = torch.rand((C, N, K), generator=g, device=device) < 0.1
+        stuck = torch.randint(-1, 2, (C, N, K), generator=g,
+                              device=device).float()
+        if C == 1:
+            x = torch.randn((M, K), generator=g, device=device)
+            fn = lambda: hw.crossbar_matmul(x, w[0].t(), broken[0].t(),
+                                            stuck[0].t(), 7, 0.0, 2)
+        else:
+            xf = torch.randn((M, C * K), generator=g, device=device)
+            x = xf.reshape(M, C, K).transpose(0, 1)
+            seeds = torch.arange(C, dtype=torch.int32, device=device)
+            fn = lambda: hw.crossbar_matmul_lanes(
+                x, w.transpose(1, 2), broken.transpose(1, 2),
+                stuck.transpose(1, 2), seeds, 0.0, 2)
+        with torch.no_grad():
+            y = fn()
+            yp = hw.crossbar_forward_plain(
+                x, w.transpose(1, 2), broken.transpose(1, 2),
+                stuck.transpose(1, 2), torch.zeros(C, dtype=torch.int32,
+                                                   device=device), 0.0, 2)
+            w_eff = hw._lane_w_eff(w.transpose(1, 2), broken.transpose(1, 2),
+                                   stuck.transpose(1, 2), None, 0.0, 2, None)
+            check(bool(((y - (yp[0] if C == 1 else yp)).abs()
+                        <= b2_bound(x, w_eff)).all()),
+                  f"B2 on the path's layout out of bound at C={C} "
+                  f"M,K,N={M},{K},{N}")
+            del y, yp, w_eff
+            k, _ = timed(fn, iters)
+            seen = device_activity_names(fn, 20)
+            if not seen:        # a short window can come back empty
+                seen = device_activity_names(fn, 200)
+        check(any("crossbar_kernel" in n for n in seen),
+              f"the profiler did not see B2 among {sorted(seen)}")
+        names |= seen
+        nbytes = 4 * x.numel() + 9 * C * K * N + 4 * C * M * N
+        tb = nbytes / HBM_BYTES_PER_S * 1e3
+        tf = 2 * C * M * K * N / F32_FLOP_PER_S * 1e3
+        print(f"  B2 path C={C} M,K,N={M},{K},{N}: {k:.5f} ms on the card a "
+              f"read, wrapper passes included; bound {max(tb, tf):.6f} ms "
+              f"(bytes as stored {nbytes})", flush=True)
+        ms, bound = ms + k, bound + max(tb, tf)
+    foreign = sorted(n for n in names
+                     if not any(own in n for own in B2_PATH_KERNELS))
+    print(f"  B2 path C={C}: device activities of a read: {sorted(names)}",
+          flush=True)
+    if own_kernels_only:
+        check(not foreign, f"the B2 wrapper launched kernels that are not "
+              f"its own on the path's layout: {foreign}")
+    return {"path_ms": ms, "path_bound_ms": bound}
 
 
 # ---------------------------------------------------------------------------
@@ -1527,6 +1698,10 @@ def main(argv=None) -> int:
                    help="comma-separated phases 2-11 to run after the "
                         "build (default all; only a full run prints the "
                         "per-kernel line and the ok line)")
+    p.add_argument("--b2-path", action="store_true",
+                   help="after the build, only time the crossbar reads "
+                        "through the wrapper on the path's layouts (C = 1 "
+                        "and the sweep's C) and print them as JSON")
     args = p.parse_args(argv)
     every = set(range(2, 12))
     want = every if args.phases == "all" else {
@@ -1560,7 +1735,17 @@ def main(argv=None) -> int:
         print(f"phase 1: built {lib.source.name} {took}: "
               f"{' | '.join(regs)}", flush=True)
     print(f"phase 1: kernels built in {t:.1f} s (parallel nvcc)", flush=True)
+    from rram_caffe_simulation_tpu_torch.fault import hw_aware
+    print("phase 1: B2's GEMM pass, resident blocks per SM by tile rows: "
+          + ", ".join(
+              f"{bm}: {hw_aware.CROSSBAR_LIB.lib().rram_crossbar_blocks_per_sm(bm, 0)}"
+              for bm in (128, 112, 32)), flush=True)
 
+    if args.b2_path:
+        print(json.dumps({"b2_path": {
+            str(C): b2_path_numbers(device, C, own_kernels_only=False)
+            for C in (1, SWEEP_CONFIGS)}, "gpu": gpu}))
+        return 0
     if 2 in want:
         err_b1 = phase_b1(device)
     if 3 in want:
@@ -1592,8 +1777,10 @@ def main(argv=None) -> int:
     print("per-step kernel numbers (ms on the card, summed over the "
           "step's launches):", flush=True)
     b2, _ = b2_step_numbers(device)
+    b2.update(b2_path_numbers(device))
     b1, _ = b1_step_numbers(device)
     b2b, err_b2b = b2_step_numbers(device, C)
+    b2b.update(b2_path_numbers(device, C))
     b1b, err_b1b = b1_step_numbers(device, C)
     b4 = b4_step_numbers(device, C)
     b2t, err_b2t = tiled_step_numbers(device, ["ip1"])

@@ -5,38 +5,75 @@
 // `_make_batched_kernel` (config grid, `_pallas_forward_batched`), with
 // their host-noise twins. Per weight cell, the effective read `_w_eff`:
 //   1. optional quantization onto the 2^(q-1)-1 level grid with the lane's
-//      whole-matrix max-abs (`scale`, reduced outside the kernel as the
-//      reference does): w = w + (clip(rint(w/s), -l, l)*s - w),
+//      whole-matrix max-abs: w = w + (clip(rint(w/s), -l, l)*s - w),
 //      s = max(scale, 1e-12)/l;
 //   2. forward-only conductance noise (sigma != 0): noisy = w*(1 + sigma*eps);
 //   3. the stuck clamp in straight-through form: w + (sel - w) with
-//      sel = broken > 0 ? stuck : noisy.
-// eps comes from `eps` (C,K,N) when given (host-noise mode, for exact
-// comparison), else from Philox4x32-10 drawn here: key = (lane seed, 0),
-// counter = flat weight index k*N+n, Box-Muller on the first two words.
-// Every M-block therefore sees the same weight noise whatever the tiling,
-// which is what the TPU kernel's per-(j,k)-tile seeding guarantees.
+//      sel = broken ? stuck : noisy.
+// eps comes from `eps` when given (host-noise mode, for exact comparison),
+// else from Philox4x32-10 drawn here: key = (lane seed, 0), counter = the
+// flat index k*N+n of the (K, N) view whatever the storage order,
+// Box-Muller on the first two words. Every block therefore sees the same
+// weight noise whatever the tiling, which is what the TPU kernel's
+// per-(j,k)-tile seeding guarantees.
 //
 // Bit-exact w_eff: the chain above uses __fdiv_rn/__fmul_rn/__fadd_rn, so
 // nvcc cannot contract it into FMAs, and rintf rounds half to even like
 // torch.round / jnp.round (roundf would round half away from zero). The
 // file must not be built with --use_fast_math. Only the K-sum of the
 // product is contracted (fmaf), so y differs from the plain version by
-// f32 summation order alone.
+// f32 summation order alone. No floating-point atomics anywhere: two calls
+// on the same inputs give the same bits.
 //
-// Layout: x (C or 1, M, K) row-major, `x_lane_stride` = M*K per lane or 0
-// when every lane shares one x; w, broken (0/1 as f32), stuck, eps
-// (C, K, N); seeds int32 (C,); scale f32 (C,); out (C, M, N).
+// Operands as they are stored. x, w, stuck, eps are f32 and broken is one
+// byte a cell (0/1); each comes with its element strides (lane, row,
+// column) over the (C, M, K) or (C, K, N) view, so Caffe's stored
+// (C, num_output, K) weight (k contiguous), its transpose (n contiguous)
+// and the (M, C, K) view of a laned activation are all read in place. A
+// lane stride of 0 shares one x among the lanes. Where the contiguous
+// stride is 1 and rows, lanes and the base are 16-byte aligned the tiles
+// come in by 16-byte cp.async; any other strides take scalar loads.
 //
-// What bounds it on an H100: at the slice's shapes (M=100, K=1024, N=64
-// and M=100, K=64, N=10) the work is ~13 MFLOP over ~1.2 MB, a few
-// microseconds at best, so launch latency dominates; past that the bound
-// is bytes (w, broken, stuck are 12 B per cell, read once per M-block).
-// The design is the simple one: a 32x32 output tile per 256-thread block,
-// the K loop inside the block (the TPU's sequential K grid axis), W_eff
-// formed once per (BK x BN) tile in shared memory and reused by all BM
-// rows. Tensor cores (wgmma, TMA) and split-K for the thin N are for a
-// later change.
+// One C call, up to three passes on the stream:
+//   a. (levels > 0) the lane's max |w|, reduced straight from w into
+//      `scale`; max is order-free, so the integer atomicMax on the float's
+//      bits that joins a lane's blocks gives the bits of w.abs().amax();
+//   b. the GEMM. A 256-thread block owns a BM x 64 output tile. Its two
+//      groups of 128 threads each sum one half of a stage's 32 k (added
+//      at the end, group 0's sum + group 1's); in a group thread (ty, tx)
+//      owns the rows ty + 16 i and the columns tx + 8 j: a BM/16 x 8
+//      register tile fed by float4 shared-memory loads along k (both
+//      tiles are kept k-minor: xs[m][k], ws[n][k]), one such load for 16
+//      FMAs, so the FMA pipe and not shared memory is the limit; the x
+//      tile's 16-byte chunks are XOR-swizzled so a warp's four rows fall
+//      into distinct banks. K advances in 32-deep stages through a ring of
+//      two buffers: the raw x, w, broken, stuck (and eps) tiles of stage
+//      t+1 are in flight (cp.async) while stage t is turned into W_eff in
+//      shared memory and multiplied;
+//   c. (split-K) every block writes its partial tile to `part`; the last
+//      block to arrive at a tile (a counter per tile, integer atomicAdd)
+//      sums the splits in ascending order, so the order is fixed.
+//
+// What bounds it on an H100, and which variant the wrapper picks:
+//   - C = 512 lanes at ip1 (M = 100, K = 1024, N = 64) moves 0.5 GB for
+//     6.7 GFLOP: bytes (0.16 ms at 3.35 TB/s) ahead of f32 FMAs (0.10 ms).
+//     A 112 x 64 tile covers a lane's whole output, so W_eff is formed
+//     once a lane and x, w, broken, stuck are read once; 512 blocks, two
+//     resident per SM. Plain fmaf on the CUDA cores: TF32 would break the
+//     f32 summation bound. On the card the three phases of a stage (loads,
+//     W_eff, product) add up rather than overlap: a stage's data is always
+//     there when asked for, but a thread that starts a cp.async stalls while
+//     the SM's outstanding requests are full, and a 33 KB stage is more
+//     than they hold, so starting the loads costs about the time the bytes
+//     take. A third stage, a warp that only loads, loads spread between the
+//     k steps, the scale reduced by the lane's own block, and one 1-D bulk
+//     copy (cp.async.bulk) for each 128-byte tile row were each slower
+//     than this form; 2-D tensor-map TMA loads of whole tiles are untried.
+//   - C = 1 is latency: 13 MFLOP over 0.7 MB. One 128 x 64 tile would
+//     leave 131 SMs idle behind 32 serial K stages, so 32-row tiles and
+//     split-K spread ip1 over 4 x 32 = 128 blocks of one stage each; the
+//     cost left is the passes themselves (a memset, the scale, the GEMM).
+#include <algorithm>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -47,88 +84,460 @@ namespace {
 using rram::gauss;
 using rram::w_eff;
 
-constexpr int BM = 32, BN = 32, BK = 32;
-constexpr int TX = 16, TY = 16;  // 256 threads, 2x2 outputs each
+constexpr int BN = 64, BK = 32;
+constexpr int THREADS = 256;     // 2 k groups x 16 (ty) x 8 (tx)
+constexpr int STAGES = 2;
+constexpr int WP = BK + 4;       // pitch of ws[n][k]: float4 reads of 8
+                                 // neighbouring n hit 8 distinct bank groups
 
-__global__ void __launch_bounds__(TX * TY)
-crossbar_kernel(const float* __restrict__ x, long long x_lane_stride,
-                const float* __restrict__ w, const float* __restrict__ broken,
-                const float* __restrict__ stuck,
-                const float* __restrict__ eps,
-                const float* __restrict__ scale,
-                const int32_t* __restrict__ seeds, float sigma,
-                float levels, int M, int K, int N,
-                float* __restrict__ out) {
-  __shared__ float xs[BM][BK + 1];
-  __shared__ float ws[BK][BN + 1];
-  const int c = blockIdx.z;
-  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
-  const int tx = threadIdx.x, ty = threadIdx.y, tid = ty * TX + tx;
-  const float* xc = x + (long long)c * x_lane_stride;
-  const long long lane = (long long)c * K * N;
-  const float s =
-      levels > 0.f ? __fdiv_rn(fmaxf(scale[c], 1e-12f), levels) : 0.f;
-  const bool noise = sigma != 0.f;
-  const uint32_t seed = (uint32_t)seeds[c];
-  float acc[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+// one strided operand: element strides over the (lane, row, column) view
+struct Operand {
+  const void* p;
+  long long sl, sr, sc;
+  int vec;     // 16-byte loads allowed along the contiguous axis
+};
 
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    for (int i = tid; i < BM * BK; i += TX * TY) {
-      const int r = i / BK, cc = i % BK, m = m0 + r, k = k0 + cc;
-      xs[r][cc] = (m < M && k < K) ? xc[(long long)m * K + k] : 0.f;
+struct Params {
+  Operand x, w, broken, stuck, eps;      // eps.p == nullptr: none given
+  const float* scale;                    // (C,) max |w| of each lane
+  const int32_t* seeds;
+  float sigma, levels;
+  int C, M, K, N;
+  int splits, tiles_per_split;           // over the K stages
+  float* part;                           // (C, splits, M, N) when splits > 1
+  unsigned* counters;                    // one per output tile
+  float* out;
+};
+
+// r + a . b, k ascending
+__device__ __forceinline__ float dot_acc(float4 a, float4 b, float r) {
+  r = fmaf(a.x, b.x, r);
+  r = fmaf(a.y, b.y, r);
+  r = fmaf(a.z, b.z, r);
+  return fmaf(a.w, b.w, r);
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           int src_bytes) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// where element (r, c) of the x tile sits: the 16-byte chunks of a row are
+// XOR-swizzled with the row's low bits, so the float4 reads of a warp (one k
+// chunk of four neighbouring rows) fall into four distinct bank groups
+__device__ __forceinline__ int swizzled(int r, int c) {
+  return r * BK + ((((c >> 2) ^ r) & 7) << 2) + (c & 3);
+}
+
+// A rows x cols tile of a 2-D strided view into dense shared memory
+// (pitch = cols; `SWZ`: the x tile's swizzled order): element (r, c) from
+// base[(r0+r)*sr + (c0+c)*sc], zero outside (rlim, clim). With `vec`
+// (sc == 1, 16-byte aligned) by cp.async.
+template <typename T, bool SWZ = false>
+__device__ __forceinline__ void load_tile(T* dst, const T* base, long long sr,
+                                          long long sc, int vec, int rows,
+                                          int cols, int r0, int c0, int rlim,
+                                          int clim, int tid) {
+  if (vec) {
+    constexpr int E = 16 / (int)sizeof(T);
+    const int cpr = cols / E;
+    for (int i = tid; i < rows * cpr; i += THREADS) {
+      const int r = i / cpr, c = (i % cpr) * E;
+      const int gr = r0 + r, gc = c0 + c;
+      int valid = gr < rlim ? clim - gc : 0;
+      valid = valid < 0 ? 0 : (valid > E ? E : valid);
+      const T* src = valid ? base + (long long)gr * sr + gc : base;
+      cp_async16(dst + (SWZ ? swizzled(r, c) : r * cols + c), src,
+                 valid * (int)sizeof(T));
     }
-    for (int i = tid; i < BK * BN; i += TX * TY) {
-      const int r = i / BN, cc = i % BN, k = k0 + r, n = n0 + cc;
-      float v = 0.f;
-      if (k < K && n < N) {
-        const long long cell = (long long)k * N + n;
-        const long long off = lane + cell;
-        float e = 0.f;
-        if (noise) e = eps != nullptr ? eps[off] : gauss(seed, cell);
-        v = w_eff(w[off], broken[off], stuck[off], levels, s, noise, sigma,
-                  e);
-      }
-      ws[r][cc] = v;
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int kk = 0; kk < BK; ++kk) {
-      const float a0 = xs[ty][kk], a1 = xs[ty + TY][kk];
-      const float b0 = ws[kk][tx], b1 = ws[kk][tx + TX];
-      acc[0][0] = fmaf(a0, b0, acc[0][0]);
-      acc[0][1] = fmaf(a0, b1, acc[0][1]);
-      acc[1][0] = fmaf(a1, b0, acc[1][0]);
-      acc[1][1] = fmaf(a1, b1, acc[1][1]);
-    }
-    __syncthreads();
-  }
-  float* oc = out + (long long)c * M * N;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int m = m0 + ty + i * TY, n = n0 + tx + j * TX;
-      if (m < M && n < N) oc[(long long)m * N + n] = acc[i][j];
+  } else {
+    for (int i = tid; i < rows * cols; i += THREADS) {
+      const int r = i / cols, c = i % cols;
+      const int gr = r0 + r, gc = c0 + c;
+      dst[SWZ ? swizzled(r, c) : r * cols + c] =
+          (gr < rlim && gc < clim)
+              ? base[(long long)gr * sr + (long long)gc * sc]
+              : T(0);
     }
   }
 }
 
+// A (BK x BN) weight-shaped tile: stored k-minor ([n][k]) when the operand's
+// n stride is not 1 (Caffe's stored layout), else n-minor ([k][n]).
+template <typename T>
+__device__ __forceinline__ void load_cell_tile(T* dst, const Operand& op,
+                                               int c, int k0, int n0, int K,
+                                               int N, int tid) {
+  const T* base = (const T*)op.p + (long long)c * op.sl;
+  if (op.sc != 1)
+    load_tile(dst, base, op.sc, op.sr, op.vec, BN, BK, n0, k0, N, K, tid);
+  else
+    load_tile(dst, base, op.sr, op.sc, op.vec, BK, BN, k0, n0, K, N, tid);
+}
+
+template <typename T>
+__device__ __forceinline__ T cell_at(const T* tile, const Operand& op, int k,
+                                     int n) {
+  return op.sc != 1 ? tile[n * BK + k] : tile[k * BN + n];
+}
+
+// max |w| of a lane as the float's bits (non-negative floats order like
+// unsigned integers; a NaN's payload orders above infinity, as amax keeps
+// it), this thread's share: elements first, first + stride, ... `dense`:
+// the lane is one run of K*N floats in memory, read flat (`vec`: by float4).
+__device__ __forceinline__ unsigned absmax_bits(const float* wc, long long sk,
+                                                long long sn, int dense,
+                                                int vec, int K, int N,
+                                                long long first,
+                                                long long stride) {
+  const long long total = (long long)K * N;
+  unsigned m = 0;
+  if (dense && vec) {
+    const float4* w4 = (const float4*)wc;
+    for (long long i = first; i < total / 4; i += stride) {
+      const float4 v = w4[i];
+      m = max(m, __float_as_uint(v.x) & 0x7fffffffu);
+      m = max(m, __float_as_uint(v.y) & 0x7fffffffu);
+      m = max(m, __float_as_uint(v.z) & 0x7fffffffu);
+      m = max(m, __float_as_uint(v.w) & 0x7fffffffu);
+    }
+    for (long long i = (total / 4) * 4 + first; i < total; i += stride)
+      m = max(m, __float_as_uint(wc[i]) & 0x7fffffffu);
+  } else if (dense) {
+    for (long long i = first; i < total; i += stride)
+      m = max(m, __float_as_uint(wc[i]) & 0x7fffffffu);
+  } else {
+    for (long long i = first; i < total; i += stride) {
+      const long long k = i / N, n = i - k * N;
+      m = max(m, __float_as_uint(wc[k * sk + n * sn]) & 0x7fffffffu);
+    }
+  }
+  return m;
+}
+
+// the block's maximum of every thread's m, in thread 0
+__device__ __forceinline__ unsigned block_max(unsigned m, unsigned* warp_max,
+                                              int tid) {
+  m = __reduce_max_sync(0xffffffffu, m);
+  if ((tid & 31) == 0) warp_max[tid >> 5] = m;
+  __syncthreads();
+  if (tid == 0) {
+#pragma unroll
+    for (int i = 1; i < THREADS / 32; ++i) m = max(m, warp_max[i]);
+  }
+  return m;
+}
+
+template <int BM>
+__global__ void __launch_bounds__(THREADS, 2)
+crossbar_kernel(const __grid_constant__ Params p) {
+  constexpr int TM = BM / 16;
+  extern __shared__ float4 smem_raw[];
+  const bool has_eps = p.eps.p != nullptr;
+  // ring stage: x [BM][BK], w, stuck (, eps) [BK*BN] floats, broken bytes
+  const int stage_floats = BM * BK + (has_eps ? 3 : 2) * BK * BN + BK * BN / 4;
+  float* ws = (float*)smem_raw;                     // [BN][WP], W_eff
+  float* ring = ws + BN * WP;
+
+  // two groups of 128 threads, each summing one half of a stage's 32 k;
+  // in a group thread (ty, tx) owns rows ty + 16 i and columns tx + 8 j
+  const int tid = threadIdx.x, grp = tid >> 7;
+  const int tx = tid & 7, ty = (tid >> 3) & 15;
+  const int c = blockIdx.x / p.splits, split = blockIdx.x - c * p.splits;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.z * BN;
+  const int M = p.M, K = p.K, N = p.N;
+  const int ktiles = (K + BK - 1) / BK;
+  const int t_begin = split * p.tiles_per_split;
+  const int t_end = min(t_begin + p.tiles_per_split, ktiles);
+  const int ntiles = t_end - t_begin;
+
+  const float* xc = (const float*)p.x.p + (long long)c * p.x.sl;
+  const float levels = p.levels;
+  const float s =
+      levels > 0.f ? __fdiv_rn(fmaxf(p.scale[c], 1e-12f), levels) : 0.f;
+  const bool noise = p.sigma != 0.f;
+  const uint32_t seed = (uint32_t)p.seeds[c];
+  // k-major thread-to-cell map where w is stored k-minor: shared-memory
+  // reads of the raw tile and writes of ws[n][k] both run along k
+  const bool k_minor = p.w.sc != 1;
+
+  auto load_stage = [&](int t) {
+    float* xs = ring + (t % STAGES) * stage_floats;
+    const int k0 = (t_begin + t) * BK;
+    float* wr = xs + BM * BK;
+    float* sr = wr + BK * BN;
+    float* er = sr + BK * BN;
+    uint8_t* br = (uint8_t*)(er + (has_eps ? BK * BN : 0));
+    load_tile<float, true>(xs, xc, p.x.sr, p.x.sc, p.x.vec, BM, BK, m0, k0, M,
+                           K, tid);
+    load_cell_tile(wr, p.w, c, k0, n0, K, N, tid);
+    load_cell_tile(sr, p.stuck, c, k0, n0, K, N, tid);
+    load_cell_tile(br, p.broken, c, k0, n0, K, N, tid);
+    if (has_eps) load_cell_tile(er, p.eps, c, k0, n0, K, N, tid);
+  };
+
+  float acc[TM][8];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+
+  for (int t = 0; t < STAGES - 1; ++t) {
+    if (t < ntiles) load_stage(t);
+    cp_async_commit();
+  }
+  for (int t = 0; t < ntiles; ++t) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();      // stage t landed; everyone is done with t-1
+    if (t + STAGES - 1 < ntiles) load_stage(t + STAGES - 1);
+    cp_async_commit();
+
+    const float* xs = ring + (t % STAGES) * stage_floats;
+    const int k0 = (t_begin + t) * BK;
+    const float* wr = xs + BM * BK;
+    const float* sr = wr + BK * BN;
+    const float* er = sr + BK * BN;
+    const uint8_t* br = (const uint8_t*)(er + (has_eps ? BK * BN : 0));
+#pragma unroll
+    for (int u = 0; u < BK * BN / THREADS; ++u) {
+      const int i = tid + u * THREADS;
+      const int k = k_minor ? (i & (BK - 1)) : (i / BN);
+      const int n = k_minor ? (i / BK) : (i & (BN - 1));
+      float v = 0.f;
+      if (k0 + k < K && n0 + n < N) {
+        float e = 0.f;
+        if (noise)
+          e = has_eps ? cell_at(er, p.eps, k, n)
+                      : gauss(seed, (unsigned long long)(k0 + k) * N + n0 + n);
+        v = w_eff(cell_at(wr, p.w, k, n),
+                  cell_at(br, p.broken, k, n) ? 1.f : 0.f,
+                  cell_at(sr, p.stuck, k, n), levels, s, noise, p.sigma, e);
+      }
+      ws[n * WP + k] = v;
+    }
+    __syncthreads();
+
+    const float* xg = xs + ty * BK;       // rows ty + 16 i share ty's swizzle
+    const float* wg = ws + tx * WP + grp * (BK / 2);
+#pragma unroll
+    for (int kk = 0; kk < BK / 2; kk += 4) {
+      const int xk = ((((grp * (BK / 2) + kk) >> 2) ^ ty) & 7) << 2;
+      float4 b[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) b[j] = *(const float4*)&wg[8 * j * WP + kk];
+#pragma unroll
+      for (int i = 0; i < TM; ++i) {
+        const float4 a = *(const float4*)&xg[16 * i * BK + xk];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = dot_acc(a, b[j], acc[i][j]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // the two k halves, added in a fixed order: group 0's + group 1's
+  float* red = ring;                    // TM * 8 * 128 floats fit the ring
+  const int t128 = tid & 127;
+  if (grp == 1) {
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) red[(i * 8 + j) * 128 + t128] = acc[i][j];
+  }
+  __syncthreads();
+
+  const bool split_k = p.splits > 1;
+  float* dst = split_k
+                   ? p.part + ((long long)c * p.splits + split) * M * N
+                   : p.out + (long long)c * M * N;
+  if (grp == 0) {
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int m = m0 + ty + 16 * i, n = n0 + tx + 8 * j;
+        if (m < M && n < N)
+          dst[(long long)m * N + n] =
+              __fadd_rn(acc[i][j], red[(i * 8 + j) * 128 + t128]);
+      }
+  }
+  if (!split_k) return;
+
+  // the last block to arrive at this output tile sums the splits, ascending
+  __shared__ bool last;
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) {
+    unsigned* ctr = p.counters +
+                    ((long long)c * gridDim.y + blockIdx.y) * gridDim.z +
+                    blockIdx.z;
+    last = atomicAdd(ctr, 1u) == (unsigned)p.splits - 1;
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  const float* pc = p.part + (long long)c * p.splits * M * N;
+  float* oc = p.out + (long long)c * M * N;
+  for (int i = tid; i < BM * BN; i += THREADS) {
+    const int m = m0 + i / BN, n = n0 + (i & (BN - 1));
+    if (m < M && n < N) {
+      const long long at = (long long)m * N + n;
+      float sum = __ldcg(pc + at);
+      for (int sp = 1; sp < p.splits; ++sp)
+        sum = __fadd_rn(sum, __ldcg(pc + (long long)sp * M * N + at));
+      oc[at] = sum;
+    }
+  }
+}
+
+__global__ void __launch_bounds__(THREADS)
+lane_absmax_kernel(const float* __restrict__ w, long long sl, long long sk,
+                   long long sn, int dense, int vec, int K, int N,
+                   unsigned* __restrict__ scale_bits) {
+  const int c = blockIdx.y, tid = threadIdx.x;
+  unsigned m = absmax_bits(w + (long long)c * sl, sk, sn, dense, vec, K, N,
+                           (long long)blockIdx.x * THREADS + tid,
+                           (long long)gridDim.x * THREADS);
+  __shared__ unsigned warp_max[THREADS / 32];
+  m = block_max(m, warp_max, tid);
+  if (tid == 0) {
+    if (gridDim.x == 1)
+      scale_bits[c] = m;
+    else
+      atomicMax(scale_bits + c, m);
+  }
+}
+
+template <int BM>
+int smem_bytes(bool has_eps) {
+  const int stage_floats =
+      BM * BK + (has_eps ? 3 : 2) * BK * BN + BK * BN / 4;
+  return (BN * WP + STAGES * stage_floats) * (int)sizeof(float);
+}
+
+template <int BM>
+int blocks_per_sm(bool has_eps) {
+  const int smem = smem_bytes<BM>(has_eps);
+  int blocks = 0;
+  cudaError_t err = cudaFuncSetAttribute(
+      crossbar_kernel<BM>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, crossbar_kernel<BM>, THREADS, smem);
+  return err == cudaSuccess ? blocks : -(int)err;
+}
+
+template <int BM>
+cudaError_t launch_gemm(const Params& p, cudaStream_t stream) {
+  const int smem = smem_bytes<BM>(p.eps.p != nullptr);
+  cudaError_t err = cudaFuncSetAttribute(
+      crossbar_kernel<BM>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(p.C * p.splits, (p.M + BM - 1) / BM, (p.N + BN - 1) / BN);
+  crossbar_kernel<BM><<<grid, THREADS, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+Operand operand(const void* ptr, const long long* strides, int elem) {
+  Operand o{ptr, strides[0], strides[1], strides[2], 0};
+  // the contiguous axis is the column, or the row of a k-minor weight view
+  const long long other = o.sc == 1 ? o.sr : o.sc;
+  const long long unit = o.sc == 1 ? o.sc : o.sr;
+  const int per = 16 / elem;
+  o.vec = ptr != nullptr && unit == 1 && other % per == 0 &&
+          o.sl % per == 0 && (uintptr_t)ptr % 16 == 0;
+  return o;
+}
+
 }  // namespace
 
-extern "C" int rram_crossbar_forward(const void* x, long long x_lane_stride,
-                                     const void* w, const void* broken,
-                                     const void* stuck, const void* eps,
-                                     const void* scale, const void* seeds,
-                                     float sigma, float levels, int C, int M,
-                                     int K, int N, void* out, void* stream) {
-  if (C > 0 && M > 0 && N > 0) {
-    const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, C);
-    const dim3 block(TX, TY);
-    crossbar_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-        (const float*)x, x_lane_stride, (const float*)w,
-        (const float*)broken, (const float*)stuck, (const float*)eps,
-        (const float*)scale, (const int32_t*)seeds, sigma, levels, M, K, N,
-        (float*)out);
+// Resident blocks of the GEMM pass per SM (`bm` rows a tile, with or without
+// an eps tile in the ring), or minus the CUDA error; launches nothing.
+extern "C" int rram_crossbar_blocks_per_sm(int bm, int has_eps) {
+  return bm == 128   ? blocks_per_sm<128>(has_eps)
+         : bm == 112 ? blocks_per_sm<112>(has_eps)
+                     : blocks_per_sm<32>(has_eps);
+}
+
+// Strides are in elements, (lane, row, column) of the (C, M, K) view of x
+// and the (C, K, N) views of w, broken (uint8), stuck and eps (nullptr:
+// none). `bm` is the output tile's rows (128, 112 or 32) and `splits` the split
+// of the K stages the caller sized `part` (C, splits, M, N) for; `scratch`
+// holds C floats of lane scales, then one counter per output tile
+// (C * ceil(M/bm) * ceil(N/64)), zeroed here when a pass needs it.
+extern "C" int rram_crossbar_forward(
+    const void* x, const long long* x_strides, const void* w,
+    const long long* w_strides, const void* broken,
+    const long long* broken_strides, const void* stuck,
+    const long long* stuck_strides, const void* eps,
+    const long long* eps_strides, const void* seeds, float sigma,
+    float levels, int C, int M, int K, int N, int bm, int splits,
+    void* scratch, void* part, void* out, void* stream_ptr) {
+  if (C <= 0 || M <= 0 || N <= 0) return (int)cudaGetLastError();
+  if ((bm != 128 && bm != 112 && bm != 32) || splits < 1)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t stream = (cudaStream_t)stream_ptr;
+  const int ktiles = (K + BK - 1) / BK;
+  if (splits > 1 && splits > ktiles) return (int)cudaErrorInvalidValue;
+
+  Params p;
+  p.x = operand(x, x_strides, 4);
+  p.w = operand(w, w_strides, 4);
+  p.broken = operand(broken, broken_strides, 1);
+  p.stuck = operand(stuck, stuck_strides, 4);
+  const long long none[3] = {0, 0, 1};
+  p.eps = operand(eps, eps ? eps_strides : none, 4);
+  // x is always kept [m][k]: its 16-byte loads need k contiguous
+  if (p.x.sc != 1) p.x.vec = 0;
+  p.scale = (const float*)scratch;
+  p.seeds = (const int32_t*)seeds;
+  p.sigma = sigma;
+  p.levels = levels;
+  p.C = C, p.M = M, p.K = K, p.N = N;
+  p.splits = splits;
+  p.tiles_per_split = (ktiles + splits - 1) / splits;
+  if (splits > 1 && (long long)p.tiles_per_split * (splits - 1) >= ktiles)
+    return (int)cudaErrorInvalidValue;           // an empty split
+  p.part = (float*)part;
+  p.counters = (unsigned*)scratch + C;
+  p.out = (float*)out;
+
+  // the scale pass: blocks of at least 4096 cells, enough to fill the card
+  int scale_blocks = 1;
+  if (levels > 0.f) {
+    const long long most = ((long long)K * N + 4095) / 4096;
+    scale_blocks = (int)std::min<long long>((264 + C - 1) / C, most);
+    if (scale_blocks < 1) scale_blocks = 1;
   }
-  return (int)cudaGetLastError();
+  if (scale_blocks > 1 || splits > 1) {
+    const long long tiles =
+        (long long)C * ((M + bm - 1) / bm) * ((N + BN - 1) / BN);
+    cudaError_t err = cudaMemsetAsync(
+        scratch, 0, (size_t)(C + (splits > 1 ? tiles : 0)) * 4, stream);
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (levels > 0.f) {
+    const long long sk = w_strides[1], sn = w_strides[2];
+    const int dense = (sn == 1 && sk == N) || (sk == 1 && sn == K) ||
+                      (K == 1 && sn == 1) || (N == 1 && sk == 1);
+    const int vec = (uintptr_t)w % 16 == 0 && w_strides[0] % 4 == 0;
+    lane_absmax_kernel<<<dim3(scale_blocks, C), THREADS, 0, stream>>>(
+        (const float*)w, w_strides[0], sk, sn, dense, vec, K, N,
+        (unsigned*)scratch);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return (int)(bm == 128   ? launch_gemm<128>(p, stream)
+               : bm == 112 ? launch_gemm<112>(p, stream)
+                           : launch_gemm<32>(p, stream));
 }

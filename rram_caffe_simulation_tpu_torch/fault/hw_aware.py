@@ -12,7 +12,12 @@ Two spellings with one contract:
   shared or per lane) as a `torch.autograd.Function` whose forward is
   one launch of kernel B2 (csrc/crossbar.cu) on the card and its plain
   version (`crossbar_forward_plain`) on the CPU or when asked for by
-  name. The backward follows the reference's `_cm_bwd` per lane: dx
+  name. B2 reads its operands as they are stored, by their strides:
+  dense (C, K, N), Caffe's stored (C, num_output, K) turned by view,
+  x as the (M, C, K) view of a laned activation, `broken` as bool or
+  uint8 (f32 0/1 is cast once); the wrapper makes no copy of them and
+  the lanes' quantization scale is reduced inside the same call. The
+  backward follows the reference's `_cm_bwd` per lane: dx
   against the clean masked weights (on the lane's quantization grid
   when q_bits is set), dw zeroed on broken cells, batched
   `torch.matmul` (the reference has no backward kernel either).
@@ -49,12 +54,16 @@ _TWO_PI_F32 = float(np.float32(2.0 * np.pi))
 _TWO_POW_M32 = 2.0 ** -32
 
 _VP = ctypes.c_void_p
+_STRIDES = ctypes.c_longlong * 3       # (lane, row, column), in elements
+# (x, w, broken, stuck, eps) each with its strides, seeds, sigma, levels,
+# C, M, K, N, bm, splits, scratch, part, out, stream
 CROSSBAR_LIB = kernels.CudaLibrary(
     "crossbar.cu",
-    {"rram_crossbar_forward": [
-        _VP, ctypes.c_longlong, _VP, _VP, _VP, _VP, _VP, _VP,
-        ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, _VP, _VP]})
+    {"rram_crossbar_forward":
+        [_VP, _STRIDES] * 5 + [_VP, ctypes.c_float, ctypes.c_float]
+        + [ctypes.c_int] * 6 + [_VP] * 4,
+     # (bm, has_eps) -> resident GEMM blocks per SM; launches nothing
+     "rram_crossbar_blocks_per_sm": [ctypes.c_int, ctypes.c_int]})
 # (w, broken, stuck, eps, scale, seeds, sigma, levels, adc_levels, C, M,
 #  K, N, bk, bn, part, amax, out, stream) after each one's operand args
 _TILED_TAIL = [_VP] * 6 + [ctypes.c_float] * 3 + [ctypes.c_int] * 6 \
@@ -208,10 +217,15 @@ def crossbar_forward_plain(x, w, broken, stuck, seeds, sigma: float,
     """The plain PyTorch version of kernels B2 and B2t: an explicit
     quantize, noise and clamp, then x @ w_eff, or with `tiles` = (bk,
     bn, adc_bits) the tiled read `tiled_crossbar_matmul`. x is (M, K)
-    shared by every lane or (C, M, K); w, broken, stuck (C, K, N); seeds
-    (C,); eps (C, K, N) host noise, or None to draw the kernel's own
-    Philox noise."""
-    w_eff = _lane_w_eff(w, broken, stuck, seeds, sigma, q_bits, eps)
+    shared by every lane or (C, M, K); w, stuck (C, K, N) f32 and broken
+    (C, K, N) bool, uint8 or f32 0/1, in any strides; seeds (C,); eps
+    (C, K, N) host noise, or None to draw the kernel's own Philox
+    noise."""
+    # the product runs on dense copies, so its summation order does not
+    # depend on how the caller's views are laid out
+    w_eff = _lane_w_eff(w, broken, stuck, seeds, sigma, q_bits,
+                        eps).contiguous()
+    x = x.contiguous()
     if tiles is not None:
         return tiled_crossbar_matmul(x, w_eff, *tiles)
     return torch.matmul(x, w_eff)
@@ -239,12 +253,14 @@ def _check_crossbar(x, w, broken, stuck, seeds, eps, conv: bool = False):
     if tuple(seeds.shape) != (C,):
         raise ValueError(f"crossbar: seeds shape {tuple(seeds.shape)}, "
                          f"expected ({C},)")
-    for name, t in (("x", x), ("w", w), ("broken", broken),
-                    ("stuck", stuck)) + ((("eps", eps),) if eps is not None
-                                         else ()):
+    for name, t in (("x", x), ("w", w), ("stuck", stuck)) + (
+            (("eps", eps),) if eps is not None else ()):
         if t.dtype != torch.float32:
             raise TypeError(f"crossbar: {name} must be float32, got "
                             f"{t.dtype}")
+    if broken.dtype not in (torch.float32, torch.bool, torch.uint8):
+        raise TypeError("crossbar: broken must be bool, uint8 or float32 "
+                        f"0/1, got {broken.dtype}")
 
 
 def _check_tiles(tiles, K: int, C: int):
@@ -258,12 +274,22 @@ def _check_tiles(tiles, K: int, C: int):
     return bk, bn, adc_bits
 
 
-def _on_card(tensors):
+def _one_device(tensors):
     dev = tensors[0].device
     if any(t.device != dev for t in tensors):
         raise ValueError("crossbar: operands on different devices")
+
+
+def _on_card(tensors):
+    _one_device(tensors)
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("crossbar: operands must be contiguous")
+
+
+def _dense_f32(*tensors):
+    """Dense f32 copies for kernels B2t and B3, which index their
+    operands as contiguous arrays."""
+    return [t.to(torch.float32).contiguous() for t in tensors]
 
 
 def _launch_tiled(fn, x_args, w, broken, stuck, eps, seeds, sigma, q_bits,
@@ -291,39 +317,117 @@ def _launch_tiled(fn, x_args, w, broken, stuck, eps, seeds, sigma, q_bits,
     return out
 
 
+B2_BK, B2_BN = 32, 64       # kernel B2's K stage and output tile columns
+B2_FILL = 132               # blocks that fill the card (an H100's SMs)
+
+
+def b2_plan(C: int, M: int, K: int, N: int):
+    """(bm, splits) of kernel B2 for a shape: the output tile's rows and
+    the split of the K stages. 128-row tiles with no split once they
+    fill the card by themselves (the sweep: a lane's whole output is one
+    tile, so W_eff is formed once a lane; 112 rows where they cover M in
+    as many tiles, with less padding); else 32-row tiles and split-K
+    until about B2_FILL blocks run. It depends on the shape alone, so a
+    call's summation order is fixed."""
+    cols = -(-N // B2_BN)
+    stages = -(-K // B2_BK)
+    if C * -(-M // 128) * cols >= B2_FILL:
+        # 112 rows where that takes no more tiles (M = 100: one tile)
+        return (112 if -(-M // 112) == -(-M // 128) else 128), 1
+    blocks = C * -(-M // 32) * cols
+    splits = max(1, min(stages, -(-B2_FILL // blocks)))
+    if splits > 1:
+        splits = -(-stages // -(-stages // splits))     # no empty split
+    return 32, splits
+
+
+def _strides(t: torch.Tensor):
+    """Element strides (lane, row, column); a tensor without the lane
+    axis is shared by every lane (stride 0)."""
+    st = t.stride()
+    return _STRIDES(*((0,) + st if t.dim() < 3 else st))
+
+
+def _launch_b2(x, w, broken, stuck, seeds, sigma, q_bits, eps):
+    """One call of kernel B2 on operands as they are stored; returns
+    (out, the lanes' max |w| the call reduced, or None at q_bits 0).
+    Scratch from here: the scales and the split-K tile counters, and the
+    split-K partials (C, splits, M, N)."""
+    C, K, N = w.shape
+    M = x.shape[-2]
+    levels = q_levels(q_bits)
+    bm, splits = b2_plan(C, M, K, N)
+    if C * splits >= 2 ** 31 or -(-M // bm) > 65535 or -(-N // B2_BN) > 65535:
+        raise ValueError(f"crossbar: shape C,M,K,N = {(C, M, K, N)} exceeds "
+                         "the kernel grid")
+    if broken.dtype == torch.float32:
+        broken = broken > 0                 # one byte a cell for the kernel
+    seeds = seeds.to(torch.int32).contiguous()
+    dev = w.device
+    tiles = C * -(-M // bm) * -(-N // B2_BN)
+    scratch = torch.empty(C + tiles, dtype=torch.float32, device=dev)
+    part = (torch.empty((C, splits, M, N), dtype=torch.float32, device=dev)
+            if splits > 1 else None)
+    out = torch.empty((C, M, N), dtype=torch.float32, device=dev)
+    null = ctypes.c_void_p(None)
+    CROSSBAR_LIB.call(
+        "rram_crossbar_forward", kernels.ptr(x), _strides(x),
+        kernels.ptr(w), _strides(w), kernels.ptr(broken), _strides(broken),
+        kernels.ptr(stuck), _strides(stuck),
+        kernels.ptr(eps) if eps is not None else null,
+        _strides(eps) if eps is not None else _STRIDES(0, 0, 1),
+        kernels.ptr(seeds), float(sigma), levels, C, M, K, N, bm, splits,
+        kernels.ptr(scratch), kernels.ptr(part) if part is not None else null,
+        kernels.ptr(out), kernels.stream_ptr(dev))
+    return out, (scratch[:C] if levels else None)
+
+
+def crossbar_forward_scaled(x, w, broken, stuck, seeds, sigma: float,
+                            q_bits: int = 0, eps=None):
+    """`crossbar_forward` (untiled) and the lanes' quantization scales
+    max |w_c| (C,) that the read used (None at q_bits 0): on CUDA tensors
+    both come out of one call of kernel B2, on CPU tensors from the
+    plain version."""
+    seeds = torch.as_tensor(seeds, device=w.device)
+    _check_crossbar(x, w, broken, stuck, seeds, eps)
+    if not w.is_cuda:
+        return (crossbar_forward_plain(x, w, broken, stuck, seeds, sigma,
+                                       q_bits, eps),
+                _lane_scale(w, q_levels(q_bits)))
+    _one_device([x, w, broken, stuck] + ([eps] if eps is not None else []))
+    return _launch_b2(x, w, broken, stuck, seeds, sigma, q_bits, eps)
+
+
 def crossbar_forward(x, w, broken, stuck, seeds, sigma: float,
                      q_bits: int = 0, eps=None, tiles=None) -> torch.Tensor:
     """(C, M, N) crossbar reads of C config lanes. On CUDA tensors this
     launches kernel B2, or B2t with `tiles` = (bk, bn, adc_bits); on CPU
-    tensors it runs the plain version."""
+    tensors it runs the plain version.
+
+    x (M, K) shared by every lane or (C, M, K); w, stuck (C, K, N) f32;
+    broken (C, K, N) bool, uint8 or f32 0/1. B2 takes them in any
+    strides and copies nothing (fastest where the contiguous axis has
+    stride 1 and rows start 16-byte aligned: dense (C, K, N), a
+    transposed view of Caffe's (C, num_output, K), the (M, C, K) view of
+    a laned activation); B2t works on dense f32 copies."""
+    if tiles is None:
+        return crossbar_forward_scaled(x, w, broken, stuck, seeds, sigma,
+                                       q_bits, eps)[0]
     seeds = torch.as_tensor(seeds, device=w.device)
     _check_crossbar(x, w, broken, stuck, seeds, eps)
-    if tiles is not None:
-        _check_tiles(tiles, w.shape[1], w.shape[0])
+    _check_tiles(tiles, w.shape[1], w.shape[0])
     if not w.is_cuda:
         return crossbar_forward_plain(x, w, broken, stuck, seeds, sigma,
                                       q_bits, eps, tiles)
-    _on_card([x, w, broken, stuck] + ([eps] if eps is not None else []))
-    C, K, N = w.shape
+    _one_device([x, w, broken, stuck] + ([eps] if eps is not None else []))
+    x, w, broken, stuck = _dense_f32(x, w, broken, stuck)
+    if eps is not None:
+        eps = eps.contiguous()
     M = x.shape[-2]
-    lane_stride = M * K if x.dim() == 3 else 0
-    if tiles is not None:
-        return _launch_tiled("rram_crossbar_tiled_forward",
-                             [kernels.ptr(x), lane_stride], w, broken, stuck,
-                             eps, seeds, sigma, q_bits, tiles, M)
-    levels = q_levels(q_bits)
-    seeds = seeds.to(torch.int32).contiguous()
-    scale = _lane_scale(w, levels)
-    out = torch.empty((C, M, N), dtype=torch.float32, device=w.device)
-    null = ctypes.c_void_p(None)
-    CROSSBAR_LIB.call(
-        "rram_crossbar_forward", kernels.ptr(x), lane_stride, kernels.ptr(w),
-        kernels.ptr(broken), kernels.ptr(stuck),
-        kernels.ptr(eps) if eps is not None else null,
-        kernels.ptr(scale) if scale is not None else null,
-        kernels.ptr(seeds), float(sigma), levels, C, M, K, N,
-        kernels.ptr(out), kernels.stream_ptr(w.device))
-    return out
+    lane_stride = M * w.shape[1] if x.dim() == 3 else 0
+    return _launch_tiled("rram_crossbar_tiled_forward",
+                         [kernels.ptr(x), lane_stride], w, broken, stuck,
+                         eps, seeds, sigma, q_bits, tiles, M)
 
 
 class CrossbarMatmul(torch.autograd.Function):
@@ -336,11 +440,9 @@ class CrossbarMatmul(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w, broken, stuck, seeds, sigma, q_bits, use_kernel,
                 tiles):
+        # no copy here: B2 reads the views as they are stored
         fwd = crossbar_forward if use_kernel else crossbar_forward_plain
-        y = fwd(x.contiguous(), w.contiguous(),
-                broken.to(torch.float32).contiguous(),
-                stuck.to(torch.float32).contiguous(), seeds, sigma, q_bits,
-                tiles=tiles)
+        y = fwd(x, w, broken, stuck, seeds, sigma, q_bits, tiles=tiles)
         ctx.save_for_backward(x, w, broken, stuck)
         ctx.q_bits = q_bits
         return y
@@ -386,8 +488,9 @@ def crossbar_matmul_lanes(x, w, broken, stuck, seeds, sigma: float,
     with `tiles` = (bk, bn, adc_bits) the tiled read (kernel B2t).
 
     x (M, K) shared by every lane or (C, M, K); w, stuck (C, K, N) f32;
-    broken (C, K, N) bool or 0/1; seeds (C,) int32 (on w's device, so
-    the launch waits for no host copy). Returns (C, M, N)."""
+    broken (C, K, N) bool or 0/1, all as views in any strides (see
+    `crossbar_forward`); seeds (C,) int32 (on w's device, so the launch
+    waits for no host copy). Returns (C, M, N)."""
     tiles = None if tiles is None else tuple(int(v) for v in tiles)
     return CrossbarMatmul.apply(x, w, broken, stuck, seeds, float(sigma),
                                 int(q_bits), bool(use_kernel), tiles)

@@ -9,7 +9,9 @@ imports no JAX, so it also runs on a machine that has only PyTorch:
 
 B1 and B4 must equal their plain versions bit for bit. B2 is held to the f32
 summation bound K * 2^-24 * (|x| @ |w_eff|): both compute w_eff with
-the same IEEE operations and differ only in the order of the K-sum.
+the same IEEE operations and differ only in the order of the K-sum; its
+storage layouts, its fused scale and a repeated call must give the same
+bits.
 B2t and B3 (the tiled reads, per-tile ADC) must equal their plain
 versions on dyadic inputs (every partial sum exact in any order); on
 random inputs each element stays within the summation bound of every
@@ -95,6 +97,115 @@ def test_b2_kernel_matches_plain(cuda_device, q_bits, C, M, K, N):
             # in-kernel noise: libm's log/cos may differ by an ulp
             slack = 4.0 if (sigma and e is None) else 1.0
             assert within_sum_bound(y, yp, xin, w_eff, slack)
+
+
+B2_RAGGED = [(1, 7, 3), (5, 18, 7), (100, 1000, 10), (130, 257, 65),
+             (100, 1024, 64), (100, 64, 10)]
+
+
+def b2_case(device, C, M, K, N, x_batched, seed):
+    rng = np.random.RandomState(seed)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    x = t(rng.randn(*((C, M, K) if x_batched else (M, K)))
+          .astype(np.float32))
+    w = t((rng.randn(C, K, N) * 0.3).astype(np.float32))
+    broken = t(rng.rand(C, K, N) < 0.15)
+    stuck = t(rng.choice([-1.0, 0.0, 1.0], size=(C, K, N)).astype(np.float32))
+    eps = t(rng.randn(C, K, N).astype(np.float32))
+    seeds = t(np.arange(7, 7 + C, dtype=np.int32))
+    return x, w, broken, stuck, eps, seeds
+
+
+def b2_layouts(x, w, broken, stuck, eps):
+    """The operands in every storage layout the wrapper takes (see
+    chip_smoke.b2_layouts): stored (C, N, K) turned by view with x as the
+    (M, C, K) view, rows off the 16-byte grid, a mix with uint8 broken,
+    and broken as f32 0/1."""
+    turned = lambda t: t.transpose(1, 2).contiguous().transpose(1, 2)
+    folded = lambda t: (t.transpose(0, 1).contiguous().transpose(0, 1)
+                        if t.dim() == 3 else t)
+
+    def padded(t):
+        big = torch.zeros(t.shape[:-1] + (t.shape[-1] + 3,), dtype=t.dtype,
+                          device=t.device)
+        big[..., 1:-2] = t
+        return big[..., 1:-2]
+
+    return {"stored": (folded(x), turned(w), turned(broken), turned(stuck),
+                       turned(eps)),
+            "unaligned": tuple(padded(t) for t in (x, w, broken, stuck, eps)),
+            "mixed": (x, turned(w), broken.to(torch.uint8), stuck,
+                      turned(eps)),
+            "broken_f32": (x, w, broken.float(), stuck, eps)}
+
+
+@pytest.mark.parametrize("M,K,N", B2_RAGGED)
+@pytest.mark.parametrize("C,x_batched", [(1, False), (4, False), (4, True)])
+def test_b2_ragged_shapes_layouts_and_repeat(cuda_device, M, K, N, C,
+                                             x_batched):
+    """Ragged shapes within the summation bound of the plain version;
+    every layout equal to the dense call bit for bit; the scale reduced
+    inside the call equal to w.abs().amax; a second call equal to the
+    first (split-K sums in a fixed order)."""
+    x, w, br, st, eps, seeds = b2_case(cuda_device, C, M, K, N, x_batched,
+                                       M + K)
+    amax = w.abs().amax(dim=(1, 2))
+    for q_bits in (0, 2):
+        for sigma, e in ((0.0, None), (0.05, eps)):
+            y, scale = thw.crossbar_forward_scaled(x, w, br, st, seeds,
+                                                   sigma, q_bits, eps=e)
+            yp = thw.crossbar_forward_plain(x, w, br, st, seeds, sigma,
+                                            q_bits, eps=e)
+            w_eff = thw.effective_weight_plain(
+                w, br, st, sigma, e, thw.q_levels(q_bits), amax)
+            assert within_sum_bound(y, yp, x, w_eff)
+            assert (scale is None) if not q_bits else torch.equal(scale, amax)
+            again = thw.crossbar_forward(x, w, br, st, seeds, sigma, q_bits,
+                                         eps=e)
+            assert torch.equal(again, y)
+            for name, (lx, lw, lb, ls, le) in b2_layouts(x, w, br, st,
+                                                         eps).items():
+                yl, sl = thw.crossbar_forward_scaled(
+                    lx, lw, lb, ls, seeds, sigma, q_bits,
+                    eps=le if e is not None else None)
+                assert torch.equal(yl, y), name
+                assert (sl is None) if not q_bits else torch.equal(sl, amax)
+
+
+@pytest.mark.parametrize("M,K,N", [(100, 1024, 64), (100, 64, 10),
+                                   (33, 70, 19)])
+def test_b2_shared_x_equals_per_lane_x(cuda_device, M, K, N):
+    """One x shared by the lanes (lane stride 0) against the same x
+    copied to every lane: the same kernel variant, the same bits."""
+    C = 4
+    x, w, br, st, _, seeds = b2_case(cuda_device, C, M, K, N, False, 3)
+    shared = thw.crossbar_forward(x, w, br, st, seeds, 0.05, 2)
+    per_lane = thw.crossbar_forward(x.expand(C, M, K).contiguous(), w, br,
+                                    st, seeds, 0.05, 2)
+    assert torch.equal(shared, per_lane)
+    # and an expanded view (lane stride 0 in a 3-D x) is read in place
+    assert torch.equal(thw.crossbar_forward(x.expand(C, M, K), w, br, st,
+                                            seeds, 0.05, 2), shared)
+
+
+@pytest.mark.parametrize("M,K,N", [(100, 1024, 64), (100, 64, 10),
+                                   (33, 70, 19)])
+def test_b2_one_lane_against_lane_0_of_four(cuda_device, M, K, N):
+    """Where C = 1 splits K over more blocks than C = 4 does (ip1), the
+    two sum in other orders and stay within the summation bound of each
+    other; where the plan is the same they give the same bits. Their
+    w_eff and noise are the same either way."""
+    x, w, br, st, _, seeds = b2_case(cuda_device, 4, M, K, N, False, 5)
+    four = thw.crossbar_forward(x, w, br, st, seeds, 0.05, 2)
+    one = thw.crossbar_forward(x, w[:1], br[:1], st[:1], seeds[:1], 0.05, 2)
+    if thw.b2_plan(1, M, K, N) == thw.b2_plan(4, M, K, N):
+        assert torch.equal(one, four[:1])
+    noise = thw.philox_normal(seeds[:1], K, N, cuda_device)
+    w_eff = thw.effective_weight_plain(w[:1], br[:1], st[:1], 0.05, noise,
+                                       1.0, w[:1].abs().amax(dim=(1, 2)))
+    # twice the bound (each side is one summation away from exact), and
+    # the in-kernel noise against its tensor-op twin: libm's last ulp
+    assert within_sum_bound(one, four[:1], x, w_eff, slack=8.0)
 
 
 def test_b2_in_kernel_noise_statistics(cuda_device):
