@@ -7,6 +7,8 @@
     python3 chip_smoke.py --phases 3      # the B2 checks alone
     python3 chip_smoke.py --phases 9      # the B2t and B3 checks alone
     python3 chip_smoke.py --b2-path       # only time B2 through its wrapper
+    python3 chip_smoke.py --b2t-path      # only time B2t (wrapper, kernel,
+                                          # tile rows)
 
 Phases (each raises on failure; the script then exits non-zero and
 prints no "ok" line):
@@ -68,17 +70,23 @@ prints no "ok" line):
    losses within 1e-5 relative; lane i against a single-config Solver
    started from lane i's state each step, the same; one lane poisoned
    with a NaN parameter is quarantined while the others stay finite;
-9. kernels B2t (tiled crossbar read, csrc/crossbar_tiled.cu
+9. kernels B2t (tiled crossbar read, csrc/crossbar.cu
    rram_crossbar_tiled_forward) and B3 (the implicit-im2col conv read,
-   rram_crossbar_implicit_forward) against their plain versions at the
-   tiled slice's shapes (ip1, conv2, conv3), on a strided dilated conv
-   and ragged tiles (bk 7, bn 3), C = 1 and C = 4 with x shared and per
-   lane, sigma 0 and 0.05 (host noise and in-kernel noise): equal
+   csrc/crossbar_tiled.cu rram_crossbar_implicit_forward) against their
+   plain versions at the tiled slice's shapes (ip1, conv2, conv3), on a
+   strided dilated conv and ragged tiles (bk 7, bn 3), and for B2t at the
+   edges of its tiling (M 1, 128 and 129; K 1000 with bk 128 and 96; N
+   10 and 130 with bn 64; N 64 with bn 32), C = 1 and C = 4 with x shared
+   and per lane, sigma 0 and 0.05 (host noise and in-kernel noise): equal
    (`torch.equal`) on dyadic inputs at sigma 0, ADC 3 and 8 bits;
    otherwise each element within the f32 summation bound of every K-tile
    it sums plus one ADC step of each, ADC level flips on at most 1% of
-   the elements; the tiled path's in-kernel noise equals B2's for the
-   same seed and cell;
+   the elements; B2t on every storage layout its wrapper takes (dense,
+   stored and turned with x folded, unaligned rows, mixed; broken bool,
+   uint8 or f32) equal to the dense call, twice each, and at each tile
+   height of its GEMM pass (32, 112, 128 rows); the tiled path's
+   in-kernel noise equals B2's for the same seed and cell at each tile
+   height;
 10. the tiled single-config slice: CIFAR-10-quick with conv_also,
    rram_forward { adc_bits: 8 tiles: "cells=128x128" }, N(1e8, 3e7),
    ternary, packed banks, fused epilogue, conv_im2col="implicit", 50
@@ -94,9 +102,9 @@ prints no "ok" line):
 Then a JSON line of the step's numbers, a JSON line of the sweep's, one
 JSON line of per-kernel numbers (per training step, summed over the
 step's launches; B1b, B2b and B4 at the sweep's shapes, B2t and B3a at
-the tiled slice's, B3b at the tiled sweep's; the B2 rows also carry
-`path_ms`, the reads through the wrapper from operands laid out as the
-InnerProduct layer hands them over, and its bound `path_bound_ms`), the
+the tiled slice's, B3b at the tiled sweep's; the B2 and B2t rows also
+carry `path_ms`, the reads through the wrapper from operands laid out as
+the InnerProduct layer hands them over, and its bound `path_bound_ms`), the
 card's name and power limit, and last {"ok": true, "device": {...}}. B2t has a row at each
 path's shapes: C = 1 (the tiled slice) and C lanes (the tiled sweep).
 """
@@ -156,9 +164,13 @@ def event_ms(fn, iters=100, warmup=10):
     return s.elapsed_time(e) / iters
 
 
-def device_ms(fn, iters=50):
-    """Kernel time on the card per call (CUPTI through torch.profiler);
-    None if the profiler saw no device activity."""
+def device_ms(fn, iters=50, count=None):
+    """Kernel time on the card per call (CUPTI through torch.profiler):
+    each device activity's mean duration times its launches a call (its
+    count over `iters`, rounded up), summed over the activities, so the
+    events a window loses do not pull the time down; None if the
+    profiler saw no device activity. With `count`, also the number of
+    device activities whose name holds it."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -168,9 +180,14 @@ def device_ms(fn, iters=50):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    us = sum(ev.time_range.elapsed_us() for ev in prof.events()
-             if ev.device_type == DeviceType.CUDA)
-    return us / 1e3 / iters if us > 0 else None
+    evs = [ev for ev in prof.events() if ev.device_type == DeviceType.CUDA]
+    by_name = {}
+    for ev in evs:
+        by_name.setdefault(ev.name, []).append(ev.time_range.elapsed_us())
+    us = sum(sum(d) / len(d) * math.ceil(len(d) / iters)
+             for d in by_name.values())
+    ms = us / 1e3 if us > 0 else None
+    return ms if count is None else (ms, sum(count in ev.name for ev in evs))
 
 
 def device_activity_names(fn, iters=5):
@@ -526,6 +543,7 @@ def b2_step_numbers(device, C=1):
 
 B2_PATH_KERNELS = ("crossbar_kernel", "lane_absmax_kernel", "Memset",
                    "Memcpy HtoD")
+B2T_PATH_KERNELS = B2_PATH_KERNELS + ("adc_sum_kernel",)   # its second pass
 
 
 def b2_path_numbers(device, C=1, own_kernels_only=True):
@@ -596,6 +614,69 @@ def b2_path_numbers(device, C=1, own_kernels_only=True):
         check(not foreign, f"the B2 wrapper launched kernels that are not "
               f"its own on the path's layout: {foreign}")
     return {"path_ms": ms, "path_bound_ms": bound}
+
+
+def b2t_path_numbers(device, C=1, own_kernels_only=True):
+    """B2t's `path_ms`: the device time of one step's tiled ip1 read
+    through `crossbar_matmul` (C = 1) or `crossbar_matmul_lanes` with
+    ip1's tiles, wrapper passes included, from operands laid out as
+    ops/common.py hands them over (as in `b2_path_numbers`). Its bound
+    counts the bytes as stored (broken one byte a cell). With
+    `own_kernels_only` every device activity of the read must be B2t's
+    own (the scale and GEMM passes of crossbar.cu's core, the two-pass
+    pass's adc_sum_kernel, its memset, the seed's host-to-card copy): no
+    copy, cast or amax kernel of the wrapper. Also
+    runs on an older checkout of the package (copy this script beside
+    it), for the before numbers."""
+    import torch
+    from rram_caffe_simulation_tpu_torch.fault import hw_aware as hw
+    M, K, N = B2_SHAPES["ip1"]
+    tiles = TILED_CASES["ip1"][4]
+    g = torch.Generator(device=device).manual_seed(260)
+    w = torch.randn((C, N, K), generator=g, device=device) * 0.1
+    broken = torch.rand((C, N, K), generator=g, device=device) < 0.1
+    stuck = torch.randint(-1, 2, (C, N, K), generator=g,
+                          device=device).float()
+    seeds = torch.arange(C, dtype=torch.int32, device=device)
+    wv, bv, sv = (t.transpose(1, 2) for t in (w, broken, stuck))
+    if C == 1:
+        x = torch.randn((M, K), generator=g, device=device)
+        fn = lambda: hw.crossbar_matmul(x, wv[0], bv[0], sv[0], 0, 0.0, 2,
+                                        tiles=tiles)[None]
+    else:
+        xf = torch.randn((M, C * K), generator=g, device=device)
+        x = xf.reshape(M, C, K).transpose(0, 1)
+        fn = lambda: hw.crossbar_matmul_lanes(x, wv, bv, sv, seeds, 0.0, 2,
+                                              tiles=tiles)
+    iters = 100 if C == 1 else 20
+    with torch.no_grad():
+        y = fn()
+        yp = hw.crossbar_forward_plain(x, wv, bv, sv, seeds, 0.0, 2,
+                                       tiles=tiles)
+        w_eff = hw._lane_w_eff(wv, bv, sv, seeds, 0.0, 2, None)
+        ok, flip, e_max = tiled_bound(y, yp, x, w_eff, tiles)
+        check(ok and flip <= 0.01, f"B2t on the path's layout out of bound "
+              f"at C={C} (flip share {flip:.4f}, max err {e_max})")
+        del y, yp, w_eff
+        k, _ = timed(fn, iters)
+        seen = device_activity_names(fn, 20)
+        if not seen:        # a short window can come back empty
+            seen = device_activity_names(fn, 200)
+    foreign = sorted(n for n in seen
+                     if not any(own in n for own in B2T_PATH_KERNELS))
+    nbytes = 4 * x.numel() + 9 * C * K * N + 4 * C * M * N
+    tb = nbytes / HBM_BYTES_PER_S * 1e3
+    tf = 2 * C * M * K * N / F32_FLOP_PER_S * 1e3
+    print(f"  B2t path C={C} M,K,N={M},{K},{N} tiles {tiles}: {k:.5f} ms on "
+          f"the card a read, wrapper passes included; bound "
+          f"{max(tb, tf):.6f} ms (bytes as stored {nbytes}); device "
+          f"activities {sorted(seen)}", flush=True)
+    if own_kernels_only:
+        check(any("crossbar_kernel" in n for n in seen),
+              f"the profiler did not see B2t among {sorted(seen)}")
+        check(not foreign, f"the B2t wrapper launched kernels that are not "
+              f"its own on the path's layout: {foreign}")
+    return {"path_ms": k, "path_bound_ms": max(tb, tf)}
 
 
 # ---------------------------------------------------------------------------
@@ -981,13 +1062,13 @@ SWEEP_STEPS = 20                 # timed steps of phase 7
 
 def _launches():
     """Launches since the last reset, per kernel (per exported function:
-    B2t and B3 share a source)."""
+    B2 and B2t share a source)."""
     from rram_caffe_simulation_tpu_torch.fault import fused, hw_aware
     from rram_caffe_simulation_tpu_torch.ops import pool_backward
-    tiled = hw_aware.TILED_LIB.counts
-    return {"B2": hw_aware.CROSSBAR_LIB.launches,
-            "B2t": tiled["rram_crossbar_tiled_forward"],
-            "B3": tiled["rram_crossbar_implicit_forward"],
+    crossbar = hw_aware.CROSSBAR_LIB.counts
+    return {"B2": crossbar["rram_crossbar_forward"],
+            "B2t": crossbar["rram_crossbar_tiled_forward"],
+            "B3": hw_aware.TILED_LIB.counts["rram_crossbar_implicit_forward"],
             "B1": fused.FUSED_LIB.launches,
             "B4": pool_backward.POOL_BWD_LIB.launches}
 
@@ -1238,6 +1319,16 @@ TILED_CASES = {
     "strided dilated conv": ((4, 3, 13, 11), (3, 3, 2, 1, 1, 2, 2, 1), 27,
                              11, (7, 3, 3)),
     "ragged ip": ((37, 50), None, 50, 11, (7, 3, 3)),
+    # B2t at the edges of its tiling: M 1, 128 and 129 (one row block or
+    # two), a short last K-tile (K 1000, bk 128) and bk 96, N 10 and 130
+    # with bn 64, two N-tiles in a 64-column block (N 64, bn 32), one
+    # K-tile
+    "M 1, K 1000": ((1, 1000), None, 1000, 64, (128, 64, 8)),
+    "one K-tile": ((100, 64), None, 64, 10, (128, 64, 8)),
+    "M 128, bk 96, N 10": ((128, 1000), None, 1000, 10, (96, 64, 8)),
+    "N 130": ((100, 256), None, 256, 130, (128, 64, 8)),
+    "N 64, bn 32": ((100, 300), None, 300, 64, (128, 32, 8)),
+    "M 129": ((129, 1024), None, 1024, 64, (128, 64, 8)),
 }
 
 
@@ -1307,6 +1398,9 @@ def tiled_bound(y, y_ref, rows, w_eff, tiles):
             float((err > sum_b).float().mean()), float(err.max()))
 
 
+B2T_ROWS = (32, 112, 128)        # the tile heights of B2t's GEMM pass
+
+
 def phase_tiled_kernels(device):
     """B2t and B3 against their plain versions (phase 9); returns the
     largest |kernel - plain| of B2t, of B3 at C = 1 (B3a) and at C = 4
@@ -1315,7 +1409,8 @@ def phase_tiled_kernels(device):
     from rram_caffe_simulation_tpu_torch.fault import hw_aware as hw
     from rram_caffe_simulation_tpu_torch.fault.mapping import conv_patch_rows
     err = {"B2t": 0.0, "B3a": 0.0, "B3b": 0.0}
-    worst_flip, n_exact, n_bound, seed = 0.0, 0, 0, 900
+    worst_flip, n_exact, n_bound, n_layout, seed = 0.0, 0, 0, 0, 900
+    planned = set()
     for name, (xs, geom, K, N, tiles) in TILED_CASES.items():
         for C, per_lane in ((1, False), (4, False), (4, True)):
             for dyadic in (True, False):
@@ -1323,6 +1418,10 @@ def phase_tiled_kernels(device):
                 x, w, br, st, eps, seeds = tiled_operands(
                     xs, C, per_lane, K, N, dyadic, seed, device)
                 rows = x if geom is None else conv_patch_rows(x, geom)
+                layouts = {} if geom is not None else b2_layouts(
+                    x, w, br, st, eps)
+                if geom is None:
+                    planned.add(hw.b2t_plan(C, xs[0], K, N, tiles[0]))
                 runs = [(0.0, None, 0), (0.0, None, 2)]
                 if not dyadic:
                     runs += [(0.05, eps, 2), (0.05, None, 2)]
@@ -1337,6 +1436,23 @@ def phase_tiled_kernels(device):
                         where = (f"{name} C={C} per_lane={per_lane} "
                                  f"dyadic={dyadic} adc={adc} sigma={sigma} "
                                  f"host_noise={e is not None} q={q_bits}")
+                        # B2t at every tile height: the plan's bits
+                        for bm in (B2T_ROWS if geom is None else ()):
+                            check(torch.equal(hw._launch_b2t(
+                                x, w, br, st, seeds, sigma, q_bits, e, t,
+                                bm=bm), yk), f"B2t on {bm}-row tiles "
+                                f"differs from the plan's: {where}")
+                        # B2t reads every layout in place: the dense f32
+                        # call's bits, twice each (a fixed summation order)
+                        for lname, (lx, lw, lb, ls, le) in layouts.items():
+                            for _ in range(2):
+                                check(torch.equal(tiled_forward(
+                                    True, lx, lw, lb, ls, seeds, sigma,
+                                    q_bits, le if e is not None else None,
+                                    None, t), yk), f"B2t on layout "
+                                    f"'{lname}' differs from the dense f32 "
+                                    f"call: {where}")
+                            n_layout += 1
                         if dyadic:
                             check(torch.equal(yk, yp),
                                   f"B2t/B3 differ from plain: {where}")
@@ -1356,24 +1472,34 @@ def phase_tiled_kernels(device):
                 del x, w, br, st, eps, rows
     torch.cuda.empty_cache()
     # the tiled read's in-kernel noise is B2's: x = I, ADC off, so y is
-    # w_eff itself, through K-tiles of 7
+    # w_eff itself, at each of B2t's tile heights
     K = N = 96
     x = torch.eye(K, device=device)
     w = torch.ones((2, K, N), device=device)
     zero = torch.zeros_like(w)
     seeds = torch.tensor([5, 2 ** 31 - 7], dtype=torch.int32, device=device)
     untiled = hw.crossbar_forward(x, w, zero, zero, seeds, 0.05, 0)
-    tiled = hw.crossbar_forward(x, w, zero, zero, seeds, 0.05, 0,
-                                tiles=(7, 5, 0))
-    torch.cuda.synchronize()
-    check(torch.equal(untiled, tiled), "the tiled read's in-kernel noise "
-          "differs from B2's")
+    for tiles in ((7, 5, 0), (32, 32, 0), (96, 32, 0)):
+        check(torch.equal(untiled, hw.crossbar_forward(
+            x, w, zero, zero, seeds, 0.05, 0, tiles=tiles)),
+            f"the tiled read's in-kernel noise differs from B2's (tiles "
+            f"{tiles})")
+        for bm in B2T_ROWS:
+            check(torch.equal(untiled, hw._launch_b2t(
+                x, w, zero, zero, seeds, 0.05, 0, None, tiles, bm=bm)),
+                f"the tiled read's in-kernel noise differs from B2's on "
+                f"{bm}-row tiles (tiles {tiles})")
     print(f"phase 9: B2t/B3 equal to their plain versions in {n_exact} "
           f"dyadic cases (ADC 3 and 8 bits, sigma 0); within the tiled "
           f"bound in {n_bound} random cases (sigma 0, 0.05 host and in-kernel"
           f" noise; ADC flip share at most {worst_flip:.5f}, limit 0.01); "
+          f"B2t equal at tile rows {list(B2T_ROWS)} (the plan took "
+          f"{sorted(planned)}); {n_layout} B2t layout "
+          f"cases (dense, stored and turned with x folded, unaligned, mixed; "
+          f"broken bool, uint8, f32) equal to the dense call, twice each; "
           f"max abs err B2t {err['B2t']:.3e}, B3a {err['B3a']:.3e}, B3b "
-          f"{err['B3b']:.3e}; in-kernel noise equal to B2's", flush=True)
+          f"{err['B3b']:.3e}; in-kernel noise equal to B2's at every tile "
+          f"height", flush=True)
     return err
 
 
@@ -1392,23 +1518,28 @@ def conv_library_fn(x, w_eff, geom, C, per_lane):
     return lambda: F.conv2d(x, wk, None, (sh, sw), (ph, pw), (dh, dw))
 
 
-def tiled_step_numbers(device, names, C=1):
+def tiled_step_numbers(device, names, C=1, broken_byte=True):
     """Per-step numbers of B2t (names ip1) or B3 (conv2, conv3) at C
     lanes (x shared at C = 1, per lane otherwise), ternary, sigma 0, as
-    on the path: kernel, plain version, library call, bound. Also the
-    largest |kernel - plain| on these inputs, each layer within the
-    tiled bound (ADC flip share at most 1%)."""
+    on the path: kernel, plain version, library call, bound. The kernel
+    is profiled over 25 calls at C = 1, 10 for B2t at C > 1 and 2 for B3
+    there (14 ms a call). B2t gets `broken` as one byte a cell, as the
+    solver has it, unless `broken_byte` is false (an older checkout's
+    native f32 mask). Also the largest |kernel - plain| on these inputs,
+    each layer within the tiled bound (ADC flip share at most 1%)."""
     import torch
     from rram_caffe_simulation_tpu_torch.fault import hw_aware as hw
     from rram_caffe_simulation_tpu_torch.fault.mapping import conv_patch_rows
     ms = plain = bound = lib = 0.0
     err = 0.0
     bound_by = "bytes"
-    iters = 50 if C == 1 else 5
     for i, name in enumerate(names):
         xs, geom, K, N, tiles = TILED_CASES[name]
+        iters = 50 if C == 1 else 20 if geom is None else 5
         x, w, br, st, _, seeds = tiled_operands(xs, C, C > 1, K, N, False,
                                                 700 + i, device)
+        if geom is None and broken_byte:
+            br = br > 0
         w_eff = hw._lane_w_eff(w, br, st, seeds, 0.0, 2, None)
         args = (x, w, br, st, seeds, 0.0, 2, None, geom, tiles)
         yk = tiled_forward(True, *args)
@@ -1435,15 +1566,19 @@ def tiled_step_numbers(device, names, C=1):
                                          * (geom[1] - 1) - 1) // geom[3] + 1)
             x_bytes = x.numel() * 4 + (M + K) * 4          # + the plan
         lb, _ = timed(lib_fn, iters)
-        nbytes = x_bytes + 4 * (3 * C * K * N + C * M * N)
+        # B2t reads broken as a byte a cell, B3 as f32
+        f32_bytes = x_bytes + 4 * (3 * C * K * N + C * M * N)
+        nbytes = f32_bytes - (3 * C * K * N if geom is None else 0)
         flops = 2 * C * M * K * N
         tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOP_PER_S * 1e3
+        f32_note = (f"; {max(f32_bytes / HBM_BYTES_PER_S * 1e3, tf):.6f} with "
+                    f"broken f32" if geom is None else "")
         print(f"  {'B2t' if geom is None else 'B3'} C={C} {name} M,K,N="
               f"{M},{K},{N} tiles {tiles}: kernel {k:.5f} ms ({k_call:.5f} "
               f"ms per wrapper call), plain {p:.5f} ms, library "
               f"{lb:.5f} ms, bound {max(tb, tf):.6f} ms (bytes {nbytes}: "
-              f"{tb:.6f}; flop {flops}: {tf:.6f}); max |kernel - plain| "
-              f"{e_max:.3e}, flip share {flip:.5f}", flush=True)
+              f"{tb:.6f}; flop {flops}: {tf:.6f}{f32_note}); max |kernel - "
+              f"plain| {e_max:.3e}, flip share {flip:.5f}", flush=True)
         if tf > tb:
             bound_by = "operations"
         ms, plain, bound, lib = ms + k, plain + p, bound + max(tb, tf), \
@@ -1452,6 +1587,48 @@ def tiled_step_numbers(device, names, C=1):
     torch.cuda.empty_cache()
     return {"ms": ms, "plain_ms": plain, "bound_ms": bound,
             "bound_by": bound_by, "library_ms": lib}, err
+
+
+def b2t_row_numbers(device, windows=5):
+    """Kernel B2t's GEMM pass at 32 and 112 tile rows against each other
+    at ip1's shape (tiles (128, 64, 8), ternary, sigma 0, broken a byte)
+    for C = 1 (x shared) and the tiled sweep's 64 lanes (x per lane):
+    device ms of one call in each of `windows` profiled windows of 20
+    calls, the heights taken in turn, with the GEMM launches each window
+    saw (20 when none was lost), beside `b2t_plan`'s choice. These are
+    the measurements the plan follows; the heights give the same bits
+    (phase 9)."""
+    import torch
+    from rram_caffe_simulation_tpu_torch.fault import hw_aware as hw
+    M, K, N = B2_SHAPES["ip1"]
+    tiles = TILED_CASES["ip1"][4]
+    out = {}
+    for C in (1, TILED_SWEEP_CONFIGS):
+        x, w, br, st, _, seeds = tiled_operands((M, K), C, C > 1, K, N,
+                                                False, 710, device)
+        br = br > 0
+        ms, seen = {32: [], 112: []}, {32: [], 112: []}
+        for _ in range(windows):
+            for bm in ms:
+                t, n = device_ms(lambda: hw._launch_b2t(
+                    x, w, br, st, seeds, 0.0, 2, None, tiles, bm=bm), 20,
+                    count="crossbar_kernel")
+                check(t is not None, f"the profiler saw no B2t call at {bm} "
+                      f"rows")
+                ms[bm].append(t)
+                seen[bm].append(n)
+        plan = hw.b2t_plan(C, M, K, N, tiles[0])
+        print(f"  B2t tile rows C={C} ip1, ms a call in {windows} windows "
+              f"(GEMM launches seen of 20): " + "; ".join(
+                  f"{bm} rows " + ", ".join(
+                      f"{v:.5f} ({n})" for v, n in zip(ms[bm], seen[bm]))
+                  for bm in ms)
+              + f"; the plan takes {plan} rows", flush=True)
+        out[str(C)] = {"plan": plan, **{str(bm): ms[bm] for bm in ms},
+                       "launches_seen": {str(bm): seen[bm] for bm in ms}}
+        del x, w, br, st
+        torch.cuda.empty_cache()
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1702,6 +1879,11 @@ def main(argv=None) -> int:
                    help="after the build, only time the crossbar reads "
                         "through the wrapper on the path's layouts (C = 1 "
                         "and the sweep's C) and print them as JSON")
+    p.add_argument("--b2t-path", action="store_true",
+                   help="after the build, only time the tiled ip1 read "
+                        "through the wrapper on the path's layouts (C = 1 "
+                        "and the tiled sweep's C), the kernel alone and "
+                        "its tile heights, and print them as JSON")
     args = p.parse_args(argv)
     every = set(range(2, 12))
     want = every if args.phases == "all" else {
@@ -1746,6 +1928,17 @@ def main(argv=None) -> int:
             str(C): b2_path_numbers(device, C, own_kernels_only=False)
             for C in (1, SWEEP_CONFIGS)}, "gpu": gpu}))
         return 0
+    if args.b2t_path:
+        lanes = (1, TILED_SWEEP_CONFIGS)
+        current = hasattr(hw_aware, "b2t_plan")      # else an older checkout
+        res = {"b2t_path": {str(C): b2t_path_numbers(
+            device, C, own_kernels_only=False) for C in lanes},
+            "b2t_kernel": {str(C): tiled_step_numbers(
+                device, ["ip1"], C, broken_byte=current)[0] for C in lanes}}
+        if current:
+            res["b2t_rows"] = b2t_row_numbers(device)
+        print(json.dumps({**res, "gpu": gpu}))
+        return 0
     if 2 in want:
         err_b1 = phase_b1(device)
     if 3 in want:
@@ -1784,8 +1977,11 @@ def main(argv=None) -> int:
     b1b, err_b1b = b1_step_numbers(device, C)
     b4 = b4_step_numbers(device, C)
     b2t, err_b2t = tiled_step_numbers(device, ["ip1"])
+    b2t.update(b2t_path_numbers(device))
     b2tc, err_b2tc = tiled_step_numbers(device, ["ip1"],
                                         tiled_sweep["configs"])
+    b2tc.update(b2t_path_numbers(device, tiled_sweep["configs"]))
+    b2t_rows = b2t_row_numbers(device)
     b3a, err_b3a = tiled_step_numbers(device, ["conv2", "conv3"])
     b3b, err_b3b = tiled_step_numbers(device, ["conv2", "conv3"],
                                       tiled_sweep["configs"])
@@ -1812,12 +2008,12 @@ def main(argv=None) -> int:
          "replaces": "rram_caffe_simulation_tpu/ops/pool_backward.py:141",
          "launches": sl["B4"], "max_abs_err": err_b4, **b4},
         {"name": "crossbar_forward tiled (B2t)", "route": "cuda",
-         "source": f"{PKG}/csrc/crossbar_tiled.cu",
+         "source": f"{PKG}/csrc/crossbar.cu",
          "replaces": "rram_caffe_simulation_tpu/fault/hw_aware.py:318",
          "launches": tiled["launches"]["B2t"],
          "max_abs_err": max(err_tiled["B2t"], err_b2t), **b2t},
         {"name": "crossbar_forward tiled over C lanes (B2t, C > 1)",
-         "route": "cuda", "source": f"{PKG}/csrc/crossbar_tiled.cu",
+         "route": "cuda", "source": f"{PKG}/csrc/crossbar.cu",
          "replaces": "rram_caffe_simulation_tpu/fault/hw_aware.py:477",
          "launches": tiled_sweep["launches"]["B2t"],
          "max_abs_err": max(err_tiled["B2t"], err_b2tc), **b2tc},
@@ -1841,6 +2037,7 @@ def main(argv=None) -> int:
     print(json.dumps({"sweep": sweep}))
     print(json.dumps({"tiled_step": tiled}))
     print(json.dumps({"tiled_sweep": tiled_sweep}))
+    print(json.dumps({"b2t_rows": b2t_rows}))
     print(json.dumps({"kernels": rows}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {

@@ -1,9 +1,15 @@
-// Crossbar read GEMM: y_c = x_c @ W_eff_c for every config lane c.
+// Crossbar read GEMM: y_c = x_c @ W_eff_c for every config lane c (B2), and
+// the tiled read on the same core (B2t): y_c[:, jt] = sum over kt, ascending,
+// of adc(x_c[:, kt] @ W_eff_c[kt, jt]) over the layer's bk x bn crossbar
+// tiles, adc being the tile's own ADC (quantize_ste at adc_levels with the
+// partial's max-abs over ALL M rows and the tile's columns).
 //
 // Replaces the Pallas kernels of rram_caffe_simulation_tpu/fault/hw_aware.py:
 // `_make_crossbar_kernel` (one config, launched by `_pallas_forward`) and
 // `_make_batched_kernel` (config grid, `_pallas_forward_batched`), with
-// their host-noise twins. Per weight cell, the effective read `_w_eff`:
+// their host-noise twins, untiled (B2) and tiled (B2t: `_tile_blocks` :318,
+// `_m_block` :308, `_adc_read` :212, `_apply_tile` :229). Per weight cell,
+// the effective read `_w_eff`:
 //   1. optional quantization onto the 2^(q-1)-1 level grid with the lane's
 //      whole-matrix max-abs: w = w + (clip(rint(w/s), -l, l)*s - w),
 //      s = max(scale, 1e-12)/l;
@@ -73,8 +79,34 @@
 //     leave 131 SMs idle behind 32 serial K stages, so 32-row tiles and
 //     split-K spread ip1 over 4 x 32 = 128 blocks of one stage each; the
 //     cost left is the passes themselves (a memset, the scale, the GEMM).
+//
+// B2t is the same call (scale pass, then the GEMM pass over K-tiles, the
+// stages cut at a K-tile's edge so bk need not be a multiple of 32) with
+// another epilogue: a block per (lane, K-tile, row block, column block)
+// writes its raw partial to `part` and joins its N-tiles' max |partial| by
+// integer atomicMax on the bits (order-free, so deterministic); then
+// rram::adc_sum_kernel quantizes each partial with `_adc_read`'s
+// straight-through __f*_rn chain and sums the K-tiles in ascending order,
+// ((q0 + q1) + q2) + ..., the plain version's. Each K-tile's partial is
+// summed in the same order whatever C or the tile rows (`hw_aware.b2t_plan`,
+// the shape alone), and no float is ever added atomically.
+// What bounds B2t on an H100: a block spends 6-9 us on a 32-deep stage
+// whether it has its SM alone or shares it (the loads, W_eff and the FMAs
+// add up, as for B2), so time follows the stages a block runs in series
+// and the blocks a wave holds. At C = 1 (ip1: M 100, K 1024, N 64, tiles
+// 128 x 64: 0.7 MB and 13 MFLOP, ~0.3 us of card time) that is latency: a
+// memset, the scale pass, 8 K-tile blocks of four stages (times the row
+// blocks) and the second pass. At C = 64 bytes (26 MB of x, 38 MB of cells
+// at 9 bytes a cell: ~20 us) lead f32 FMAs (~13 us), but 512 blocks of
+// four stages are two waves of that stage cost: the core's own throughput
+// bounds it. The tile ADC inside the block was built and measured twice
+// and is gone (PERF.md): one block a lane walking its K-tiles serialises
+// them (0.28 ms at C = 1, 0.25 at C = 64, no faster at C = 512), and each
+// K-tile's ADC in its own block with the last block of a column summing
+// them was slower than two passes at C = 1 and 64.
 #include <algorithm>
 #include <cstdint>
+#include <initializer_list>
 #include <cuda_runtime.h>
 
 #include "crossbar_weff.cuh"
@@ -90,6 +122,13 @@ constexpr int STAGES = 2;
 constexpr int WP = BK + 4;       // pitch of ws[n][k]: float4 reads of 8
                                  // neighbouring n hit 8 distinct bank groups
 
+// What a block does with its product
+enum Epilogue {
+  kPlain,   // B2: y, or a split-K partial summed by the last block
+  kTile,    // B2t: one K-tile's raw partial and its N-tiles' max |p|;
+            //   rram::adc_sum_kernel does the ADC and the sum
+};
+
 // one strided operand: element strides over the (lane, row, column) view
 struct Operand {
   const void* p;
@@ -103,8 +142,12 @@ struct Params {
   const int32_t* seeds;
   float sigma, levels;
   int C, M, K, N;
-  int splits, tiles_per_split;           // over the K stages
-  float* part;                           // (C, splits, M, N) when splits > 1
+  int splits, tiles_per_split;           // B2: over the K stages
+  int bk, bn, gk, gn;                    // B2t: the crossbar tiles
+  float adc_levels;                      // B2t: 0 = no ADC
+  unsigned* amax;                        // B2t: (C, gk, gn)
+  float* part;                           // B2 split-K: (C, splits, M, N);
+                                         // B2t: (C, gk, M, N)
   unsigned* counters;                    // one per output tile
   float* out;
 };
@@ -172,16 +215,17 @@ __device__ __forceinline__ void load_tile(T* dst, const T* base, long long sr,
 }
 
 // A (BK x BN) weight-shaped tile: stored k-minor ([n][k]) when the operand's
-// n stride is not 1 (Caffe's stored layout), else n-minor ([k][n]).
+// n stride is not 1 (Caffe's stored layout), else n-minor ([k][n]); zero
+// from k = k_end on.
 template <typename T>
 __device__ __forceinline__ void load_cell_tile(T* dst, const Operand& op,
-                                               int c, int k0, int n0, int K,
-                                               int N, int tid) {
+                                               int c, int k0, int n0,
+                                               int k_end, int N, int tid) {
   const T* base = (const T*)op.p + (long long)c * op.sl;
   if (op.sc != 1)
-    load_tile(dst, base, op.sc, op.sr, op.vec, BN, BK, n0, k0, N, K, tid);
+    load_tile(dst, base, op.sc, op.sr, op.vec, BN, BK, n0, k0, N, k_end, tid);
   else
-    load_tile(dst, base, op.sr, op.sc, op.vec, BK, BN, k0, n0, K, N, tid);
+    load_tile(dst, base, op.sr, op.sc, op.vec, BK, BN, k0, n0, k_end, N, tid);
 }
 
 template <typename T>
@@ -237,7 +281,7 @@ __device__ __forceinline__ unsigned block_max(unsigned m, unsigned* warp_max,
   return m;
 }
 
-template <int BM>
+template <int BM, Epilogue EPI>
 __global__ void __launch_bounds__(THREADS, 2)
 crossbar_kernel(const __grid_constant__ Params p) {
   constexpr int TM = BM / 16;
@@ -252,13 +296,11 @@ crossbar_kernel(const __grid_constant__ Params p) {
   // in a group thread (ty, tx) owns rows ty + 16 i and columns tx + 8 j
   const int tid = threadIdx.x, grp = tid >> 7;
   const int tx = tid & 7, ty = (tid >> 3) & 15;
-  const int c = blockIdx.x / p.splits, split = blockIdx.x - c * p.splits;
+  // blockIdx.x: (lane, split) for B2, (lane, K-tile) for B2t
+  const int per_lane = EPI == kPlain ? p.splits : p.gk;
+  const int c = blockIdx.x / per_lane, sub = blockIdx.x - c * per_lane;
   const int m0 = blockIdx.y * BM, n0 = blockIdx.z * BN;
   const int M = p.M, K = p.K, N = p.N;
-  const int ktiles = (K + BK - 1) / BK;
-  const int t_begin = split * p.tiles_per_split;
-  const int t_end = min(t_begin + p.tiles_per_split, ktiles);
-  const int ntiles = t_end - t_begin;
 
   const float* xc = (const float*)p.x.p + (long long)c * p.x.sl;
   const float levels = p.levels;
@@ -270,39 +312,56 @@ crossbar_kernel(const __grid_constant__ Params p) {
   // reads of the raw tile and writes of ws[n][k] both run along k
   const bool k_minor = p.w.sc != 1;
 
-  auto load_stage = [&](int t) {
+  // stage t of the k range from k_lo: the raw tiles, zero from k_end on
+  auto load_stage = [&](int t, int k_lo, int k_end) {
     float* xs = ring + (t % STAGES) * stage_floats;
-    const int k0 = (t_begin + t) * BK;
+    const int k0 = k_lo + t * BK;
     float* wr = xs + BM * BK;
     float* sr = wr + BK * BN;
     float* er = sr + BK * BN;
     uint8_t* br = (uint8_t*)(er + (has_eps ? BK * BN : 0));
     load_tile<float, true>(xs, xc, p.x.sr, p.x.sc, p.x.vec, BM, BK, m0, k0, M,
-                           K, tid);
-    load_cell_tile(wr, p.w, c, k0, n0, K, N, tid);
-    load_cell_tile(sr, p.stuck, c, k0, n0, K, N, tid);
-    load_cell_tile(br, p.broken, c, k0, n0, K, N, tid);
-    if (has_eps) load_cell_tile(er, p.eps, c, k0, n0, K, N, tid);
+                           k_end, tid);
+    load_cell_tile(wr, p.w, c, k0, n0, k_end, N, tid);
+    load_cell_tile(sr, p.stuck, c, k0, n0, k_end, N, tid);
+    load_cell_tile(br, p.broken, c, k0, n0, k_end, N, tid);
+    if (has_eps) load_cell_tile(er, p.eps, c, k0, n0, k_end, N, tid);
   };
 
+  constexpr bool tiled = EPI == kTile;
+  const long long MN = (long long)M * N;
+  __shared__ bool last;
   float acc[TM][8];
+  // the k range: B2's split of the K stages, or B2t's K-tile `sub` (its
+  // last stage cut at its edge)
+  int k_lo, k_end;
+  if constexpr (tiled) {
+    k_lo = sub * p.bk;
+    k_end = min(k_lo + p.bk, K);
+  } else {
+    const int t_begin = sub * p.tiles_per_split;
+    k_lo = t_begin * BK;
+    k_end = min(min(t_begin + p.tiles_per_split, (K + BK - 1) / BK) * BK,
+                K);
+  }
+  const int ntiles = (k_end - k_lo + BK - 1) / BK;
 #pragma unroll
   for (int i = 0; i < TM; ++i)
 #pragma unroll
     for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
 
   for (int t = 0; t < STAGES - 1; ++t) {
-    if (t < ntiles) load_stage(t);
+    if (t < ntiles) load_stage(t, k_lo, k_end);
     cp_async_commit();
   }
   for (int t = 0; t < ntiles; ++t) {
     cp_async_wait<STAGES - 2>();
-    __syncthreads();      // stage t landed; everyone is done with t-1
-    if (t + STAGES - 1 < ntiles) load_stage(t + STAGES - 1);
+    __syncthreads();    // stage t landed; everyone is done with t-1
+    if (t + STAGES - 1 < ntiles) load_stage(t + STAGES - 1, k_lo, k_end);
     cp_async_commit();
 
     const float* xs = ring + (t % STAGES) * stage_floats;
-    const int k0 = (t_begin + t) * BK;
+    const int k0 = k_lo + t * BK;
     const float* wr = xs + BM * BK;
     const float* sr = wr + BK * BN;
     const float* er = sr + BK * BN;
@@ -313,11 +372,12 @@ crossbar_kernel(const __grid_constant__ Params p) {
       const int k = k_minor ? (i & (BK - 1)) : (i / BN);
       const int n = k_minor ? (i / BK) : (i & (BN - 1));
       float v = 0.f;
-      if (k0 + k < K && n0 + n < N) {
+      if (k0 + k < k_end && n0 + n < N) {
         float e = 0.f;
         if (noise)
-          e = has_eps ? cell_at(er, p.eps, k, n)
-                      : gauss(seed, (unsigned long long)(k0 + k) * N + n0 + n);
+          e = has_eps
+                  ? cell_at(er, p.eps, k, n)
+                  : gauss(seed, (unsigned long long)(k0 + k) * N + n0 + n);
         v = w_eff(cell_at(wr, p.w, k, n),
                   cell_at(br, p.broken, k, n) ? 1.f : 0.f,
                   cell_at(sr, p.stuck, k, n), levels, s, noise, p.sigma, e);
@@ -326,7 +386,7 @@ crossbar_kernel(const __grid_constant__ Params p) {
     }
     __syncthreads();
 
-    const float* xg = xs + ty * BK;       // rows ty + 16 i share ty's swizzle
+    const float* xg = xs + ty * BK;     // rows ty + 16 i share ty's swizzle
     const float* wg = ws + tx * WP + grp * (BK / 2);
 #pragma unroll
     for (int kk = 0; kk < BK / 2; kk += 4) {
@@ -346,7 +406,7 @@ crossbar_kernel(const __grid_constant__ Params p) {
   __syncthreads();
 
   // the two k halves, added in a fixed order: group 0's + group 1's
-  float* red = ring;                    // TM * 8 * 128 floats fit the ring
+  float* red = ring;                  // TM * 8 * 128 floats fit the ring
   const int t128 = tid & 127;
   if (grp == 1) {
 #pragma unroll
@@ -356,45 +416,101 @@ crossbar_kernel(const __grid_constant__ Params p) {
   }
   __syncthreads();
 
-  const bool split_k = p.splits > 1;
-  float* dst = split_k
-                   ? p.part + ((long long)c * p.splits + split) * M * N
-                   : p.out + (long long)c * M * N;
-  if (grp == 0) {
+  if constexpr (!tiled) {
+    float* dst = p.splits > 1
+                     ? p.part + ((long long)c * p.splits + sub) * MN
+                     : p.out + c * MN;
+    if (grp == 0) {
 #pragma unroll
-    for (int i = 0; i < TM; ++i)
+      for (int i = 0; i < TM; ++i)
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int m = m0 + ty + 16 * i, n = n0 + tx + 8 * j;
-        if (m < M && n < N)
-          dst[(long long)m * N + n] =
-              __fadd_rn(acc[i][j], red[(i * 8 + j) * 128 + t128]);
+        for (int j = 0; j < 8; ++j) {
+          const int m = m0 + ty + 16 * i, n = n0 + tx + 8 * j;
+          if (m < M && n < N)
+            dst[(long long)m * N + n] =
+                __fadd_rn(acc[i][j], red[(i * 8 + j) * 128 + t128]);
+        }
+    }
+  } else {
+    // the K-tile's raw partial to `part`; at adc_levels > 0 also its
+    // N-tiles' max |partial| to `amax`
+    __shared__ unsigned colmax[BN];   // max |partial| bits of a column
+    if (grp == 0) {
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          acc[i][j] = __fadd_rn(acc[i][j], red[(i * 8 + j) * 128 + t128]);
+    }
+    if (p.adc_levels > 0.f) {
+      // max |partial| of each column over the block's rows (an integer
+      // max on the bits: order-free), then of each N-tile's columns
+      if (tid < BN) colmax[tid] = 0u;
+      __syncthreads();
+      if (grp == 0) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          unsigned mx = 0u;
+          const int n = n0 + tx + 8 * j;
+#pragma unroll
+          for (int i = 0; i < TM; ++i)
+            if (m0 + ty + 16 * i < M && n < N)
+              mx = max(mx, __float_as_uint(fabsf(acc[i][j])));
+          // the warp's four ty share a column: lanes 8 and 16 apart
+          mx = max(mx, __shfl_xor_sync(0xffffffffu, mx, 8));
+          mx = max(mx, __shfl_xor_sync(0xffffffffu, mx, 16));
+          if ((tid & 31) < 8) atomicMax(&colmax[tx + 8 * j], mx);
+        }
       }
+      __syncthreads();
+      if (tid < BN && n0 + tid < N) {
+        const int jt = (n0 + tid) / p.bn;
+        const int lo = max(jt * p.bn, n0) - n0;
+        const int hi = min(min((jt + 1) * p.bn, N), n0 + BN) - n0;
+        unsigned mx = 0u;
+        for (int q = lo; q < hi; ++q) mx = max(mx, colmax[q]);
+        // one global max per N-tile the block touches, by its first
+        // column here; the tile's other blocks join by atomicMax
+        if (tid == lo)
+          atomicMax(p.amax + ((long long)c * p.gk + sub) * p.gn + jt, mx);
+      }
+    }
+    if (grp == 0) {
+      float* dst = p.part + ((long long)c * p.gk + sub) * MN;
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int m = m0 + ty + 16 * i, n = n0 + tx + 8 * j;
+          if (m < M && n < N) dst[(long long)m * N + n] = acc[i][j];
+        }
+    }
   }
-  if (!split_k) return;
 
-  // the last block to arrive at this output tile sums the splits, ascending
-  __shared__ bool last;
+  // B2 split-K: the last block to arrive at this output tile sums the
+  // splits, ascending
+  const int parts = p.splits;
+  if (tiled || parts == 1) return;
   __threadfence();
   __syncthreads();
   if (tid == 0) {
     unsigned* ctr = p.counters +
                     ((long long)c * gridDim.y + blockIdx.y) * gridDim.z +
                     blockIdx.z;
-    last = atomicAdd(ctr, 1u) == (unsigned)p.splits - 1;
+    last = atomicAdd(ctr, 1u) == (unsigned)parts - 1;
   }
   __syncthreads();
   if (!last) return;
   __threadfence();
-  const float* pc = p.part + (long long)c * p.splits * M * N;
-  float* oc = p.out + (long long)c * M * N;
+  const float* pc = p.part + (long long)c * parts * MN;
+  float* oc = p.out + c * MN;
   for (int i = tid; i < BM * BN; i += THREADS) {
     const int m = m0 + i / BN, n = n0 + (i & (BN - 1));
     if (m < M && n < N) {
       const long long at = (long long)m * N + n;
       float sum = __ldcg(pc + at);
-      for (int sp = 1; sp < p.splits; ++sp)
-        sum = __fadd_rn(sum, __ldcg(pc + (long long)sp * M * N + at));
+      for (int sp = 1; sp < parts; ++sp)
+        sum = __fadd_rn(sum, __ldcg(pc + (long long)sp * MN + at));
       oc[at] = sum;
     }
   }
@@ -430,21 +546,22 @@ int blocks_per_sm(bool has_eps) {
   const int smem = smem_bytes<BM>(has_eps);
   int blocks = 0;
   cudaError_t err = cudaFuncSetAttribute(
-      crossbar_kernel<BM>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      crossbar_kernel<BM, kPlain>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &blocks, crossbar_kernel<BM>, THREADS, smem);
+        &blocks, crossbar_kernel<BM, kPlain>, THREADS, smem);
   return err == cudaSuccess ? blocks : -(int)err;
 }
 
-template <int BM>
-cudaError_t launch_gemm(const Params& p, cudaStream_t stream) {
+template <int BM, Epilogue EPI>
+cudaError_t launch_gemm(const Params& p, dim3 grid, cudaStream_t stream) {
   const int smem = smem_bytes<BM>(p.eps.p != nullptr);
   cudaError_t err = cudaFuncSetAttribute(
-      crossbar_kernel<BM>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      crossbar_kernel<BM, EPI>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(p.C * p.splits, (p.M + BM - 1) / BM, (p.N + BN - 1) / BN);
-  crossbar_kernel<BM><<<grid, THREADS, smem, stream>>>(p);
+  crossbar_kernel<BM, EPI><<<grid, THREADS, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -459,6 +576,75 @@ Operand operand(const void* ptr, const long long* strides, int elem) {
   return o;
 }
 
+// The operands and the lane constants shared by B2 and B2t; scratch starts
+// with the C lane scales.
+Params make_params(const void* x, const long long* x_strides, const void* w,
+                   const long long* w_strides, const void* broken,
+                   const long long* broken_strides, const void* stuck,
+                   const long long* stuck_strides, const void* eps,
+                   const long long* eps_strides, const void* seeds,
+                   float sigma, float levels, int C, int M, int K, int N,
+                   void* scratch, void* part, void* out) {
+  Params p{};
+  p.x = operand(x, x_strides, 4);
+  p.w = operand(w, w_strides, 4);
+  p.broken = operand(broken, broken_strides, 1);
+  p.stuck = operand(stuck, stuck_strides, 4);
+  const long long none[3] = {0, 0, 1};
+  p.eps = operand(eps, eps ? eps_strides : none, 4);
+  // x is always kept [m][k]: its 16-byte loads need k contiguous
+  if (p.x.sc != 1) p.x.vec = 0;
+  p.scale = (const float*)scratch;
+  p.seeds = (const int32_t*)seeds;
+  p.sigma = sigma;
+  p.levels = levels;
+  p.C = C, p.M = M, p.K = K, p.N = N;
+  p.splits = 1;
+  p.part = (float*)part;
+  p.counters = (unsigned*)scratch + C;
+  p.out = (float*)out;
+  return p;
+}
+
+// Zero the first `zero` words of scratch when a pass needs them, then (at
+// levels > 0) the scale pass: blocks of at least 4096 cells, enough to fill
+// the card; several blocks a lane join by atomicMax on zeroed words.
+cudaError_t scale_pass(const void* w, const long long* w_strides,
+                       float levels, int C, int K, int N, long long zero,
+                       void* scratch, cudaStream_t stream) {
+  int scale_blocks = 1;
+  if (levels > 0.f) {
+    const long long most = ((long long)K * N + 4095) / 4096;
+    scale_blocks = (int)std::min<long long>((264 + C - 1) / C, most);
+    if (scale_blocks < 1) scale_blocks = 1;
+  }
+  if (scale_blocks > 1 || zero > C) {
+    cudaError_t err = cudaMemsetAsync(
+        scratch, 0, (size_t)std::max<long long>(zero, C) * 4, stream);
+    if (err != cudaSuccess) return err;
+  }
+  if (levels > 0.f) {
+    const long long sk = w_strides[1], sn = w_strides[2];
+    const int dense = (sn == 1 && sk == N) || (sk == 1 && sn == K) ||
+                      (K == 1 && sn == 1) || (N == 1 && sk == 1);
+    const int vec = (uintptr_t)w % 16 == 0 && w_strides[0] % 4 == 0;
+    lane_absmax_kernel<<<dim3(scale_blocks, C), THREADS, 0, stream>>>(
+        (const float*)w, w_strides[0], sk, sn, dense, vec, K, N,
+        (unsigned*)scratch);
+    return cudaGetLastError();
+  }
+  return cudaSuccess;
+}
+
+template <Epilogue EPI>
+cudaError_t launch_rows(int bm, const Params& p, dim3 grid,
+                        cudaStream_t stream) {
+  return bm == 128   ? launch_gemm<128, EPI>(p, grid, stream)
+         : bm == 112 ? launch_gemm<112, EPI>(p, grid, stream)
+         : bm == 32  ? launch_gemm<32, EPI>(p, grid, stream)
+                     : cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // Resident blocks of the GEMM pass per SM (`bm` rows a tile, with or without
@@ -469,11 +655,11 @@ extern "C" int rram_crossbar_blocks_per_sm(int bm, int has_eps) {
                      : blocks_per_sm<32>(has_eps);
 }
 
-// Strides are in elements, (lane, row, column) of the (C, M, K) view of x
-// and the (C, K, N) views of w, broken (uint8), stuck and eps (nullptr:
-// none). `bm` is the output tile's rows (128, 112 or 32) and `splits` the split
-// of the K stages the caller sized `part` (C, splits, M, N) for; `scratch`
-// holds C floats of lane scales, then one counter per output tile
+// B2. Strides are in elements, (lane, row, column) of the (C, M, K) view of
+// x and the (C, K, N) views of w, broken (uint8), stuck and eps (nullptr:
+// none). `bm` is the output tile's rows (128, 112 or 32) and `splits` the
+// split of the K stages the caller sized `part` (C, splits, M, N) for;
+// `scratch` holds C floats of lane scales, then one counter per output tile
 // (C * ceil(M/bm) * ceil(N/64)), zeroed here when a pass needs it.
 extern "C" int rram_crossbar_forward(
     const void* x, const long long* x_strides, const void* w,
@@ -490,54 +676,65 @@ extern "C" int rram_crossbar_forward(
   const int ktiles = (K + BK - 1) / BK;
   if (splits > 1 && splits > ktiles) return (int)cudaErrorInvalidValue;
 
-  Params p;
-  p.x = operand(x, x_strides, 4);
-  p.w = operand(w, w_strides, 4);
-  p.broken = operand(broken, broken_strides, 1);
-  p.stuck = operand(stuck, stuck_strides, 4);
-  const long long none[3] = {0, 0, 1};
-  p.eps = operand(eps, eps ? eps_strides : none, 4);
-  // x is always kept [m][k]: its 16-byte loads need k contiguous
-  if (p.x.sc != 1) p.x.vec = 0;
-  p.scale = (const float*)scratch;
-  p.seeds = (const int32_t*)seeds;
-  p.sigma = sigma;
-  p.levels = levels;
-  p.C = C, p.M = M, p.K = K, p.N = N;
+  Params p = make_params(x, x_strides, w, w_strides, broken, broken_strides,
+                         stuck, stuck_strides, eps, eps_strides, seeds, sigma,
+                         levels, C, M, K, N, scratch, part, out);
   p.splits = splits;
   p.tiles_per_split = (ktiles + splits - 1) / splits;
   if (splits > 1 && (long long)p.tiles_per_split * (splits - 1) >= ktiles)
     return (int)cudaErrorInvalidValue;           // an empty split
-  p.part = (float*)part;
-  p.counters = (unsigned*)scratch + C;
-  p.out = (float*)out;
 
-  // the scale pass: blocks of at least 4096 cells, enough to fill the card
-  int scale_blocks = 1;
-  if (levels > 0.f) {
-    const long long most = ((long long)K * N + 4095) / 4096;
-    scale_blocks = (int)std::min<long long>((264 + C - 1) / C, most);
-    if (scale_blocks < 1) scale_blocks = 1;
-  }
-  if (scale_blocks > 1 || splits > 1) {
-    const long long tiles =
-        (long long)C * ((M + bm - 1) / bm) * ((N + BN - 1) / BN);
-    cudaError_t err = cudaMemsetAsync(
-        scratch, 0, (size_t)(C + (splits > 1 ? tiles : 0)) * 4, stream);
-    if (err != cudaSuccess) return (int)err;
-  }
-  if (levels > 0.f) {
-    const long long sk = w_strides[1], sn = w_strides[2];
-    const int dense = (sn == 1 && sk == N) || (sk == 1 && sn == K) ||
-                      (K == 1 && sn == 1) || (N == 1 && sk == 1);
-    const int vec = (uintptr_t)w % 16 == 0 && w_strides[0] % 4 == 0;
-    lane_absmax_kernel<<<dim3(scale_blocks, C), THREADS, 0, stream>>>(
-        (const float*)w, w_strides[0], sk, sn, dense, vec, K, N,
-        (unsigned*)scratch);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  return (int)(bm == 128   ? launch_gemm<128>(p, stream)
-               : bm == 112 ? launch_gemm<112>(p, stream)
-                           : launch_gemm<32>(p, stream));
+  const long long tiles =
+      (long long)C * ((M + bm - 1) / bm) * ((N + BN - 1) / BN);
+  cudaError_t err = scale_pass(w, w_strides, levels, C, K, N,
+                               C + (splits > 1 ? tiles : 0), scratch, stream);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(C * splits, (M + bm - 1) / bm, (N + BN - 1) / BN);
+  return (int)launch_rows<kPlain>(bm, p, grid, stream);
+}
+
+// B2t: the same operands and strides; bk x bn crossbar tiles of the (K, N)
+// view, each partial through its own ADC of `adc_levels` (0: none), the
+// K-tiles summed in ascending order. `bm` is the GEMM pass's tile rows (128,
+// 112 or 32). `scratch` holds C lane scales, then the tiles' maxima
+// (C * gk * gn); `part` is the K-tiles' raw partials (C, gk, M, N).
+extern "C" int rram_crossbar_tiled_forward(
+    const void* x, const long long* x_strides, const void* w,
+    const long long* w_strides, const void* broken,
+    const long long* broken_strides, const void* stuck,
+    const long long* stuck_strides, const void* eps,
+    const long long* eps_strides, const void* seeds, float sigma,
+    float levels, float adc_levels, int C, int M, int K, int N, int bk,
+    int bn, int bm, void* scratch, void* part, void* out,
+    void* stream_ptr) {
+  if (C <= 0 || M <= 0 || N <= 0) return (int)cudaGetLastError();
+  if (K <= 0 || bk <= 0 || bn <= 0 || (bm != 128 && bm != 112 && bm != 32))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t stream = (cudaStream_t)stream_ptr;
+  bk = std::min(bk, K);      // one K-tile either way; keeps kt * bk in range
+
+  Params p = make_params(x, x_strides, w, w_strides, broken, broken_strides,
+                         stuck, stuck_strides, eps, eps_strides, seeds, sigma,
+                         levels, C, M, K, N, scratch, part, out);
+  p.bk = bk, p.bn = bn;
+  p.gk = (K + bk - 1) / bk, p.gn = (N + bn - 1) / bn;
+  p.adc_levels = adc_levels;
+  p.amax = (unsigned*)scratch + C;
+  // a K-tile's stages start at kt * bk: 16-byte loads along k need bk a
+  // multiple of the elements in 16 bytes
+  if (p.x.sc == 1 && bk % 4) p.x.vec = 0;
+  for (Operand* o : {&p.w, &p.stuck, &p.eps})
+    if (o->sc != 1 && bk % 4) o->vec = 0;
+  if (p.broken.sc != 1 && bk % 16) p.broken.vec = 0;
+
+  const int cols = (N + BN - 1) / BN;
+  cudaError_t err = scale_pass(w, w_strides, levels, C, K, N,
+                               C + (long long)C * p.gk * p.gn, scratch,
+                               stream);
+  if (err != cudaSuccess) return (int)err;
+  err = launch_rows<kTile>(bm, p, dim3(C * p.gk, (M + bm - 1) / bm, cols),
+                           stream);
+  if (err != cudaSuccess) return (int)err;
+  return (int)rram::launch_adc_sum((const float*)part, p.amax, adc_levels, C,
+                                   M, N, bn, p.gk, p.gn, (float*)out, stream);
 }

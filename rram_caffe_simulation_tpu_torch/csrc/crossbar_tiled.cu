@@ -1,23 +1,17 @@
-// Tiled crossbar read: y_c[:, jt] = sum over kt, ascending, of
-// adc(x_c[:, kt] @ W_eff_c[kt, jt]) for every config lane c, where (kt, jt)
-// runs over the layer's crossbar tiles (bk x bn cells of the (K, N) view) and
-// adc is the tile's own ADC: quantize_ste at adc_levels with the partial
-// product's max-abs over ALL M rows and the tile's columns.
+// Implicit-im2col tiled crossbar read of a convolution (B3): y_c[:, jt] =
+// sum over kt, ascending, of adc(x_c[:, kt] @ W_eff_c[kt, jt]) for every
+// config lane c, where (kt, jt) runs over the layer's crossbar tiles (bk x
+// bn cells of the (K, N) im2col view), adc is the tile's own ADC
+// (quantize_ste at adc_levels with the partial product's max-abs over ALL M
+// rows and the tile's columns), and the operand is gathered from the raw
+// activation: element (m, k) is xflat[lane * x_lane_stride + row_base[m] +
+// col_off[k]] of the zero-padded, flattened NCHW activation (the patch
+// matrix never exists); rows >= M and columns >= K are exact zeros.
 //
-// Replaces the tiled mode of the Pallas kernels in
-// rram_caffe_simulation_tpu/fault/hw_aware.py:
-//   B2t  `_make_crossbar_kernel` / `_make_batched_kernel` with tiles=
-//        (`_tile_blocks` :318, `_m_block` :308, `_adc_read` :212,
-//        `_apply_tile` :229), launched by `_pallas_forward[_batched]`;
-//        exported here as rram_crossbar_tiled_forward, x dense (M, K);
-//   B3   `_make_implicit_kernel` (:743) / `_make_implicit_batched_kernel`
-//        (:814) with `_gather_block` (:725), launched by
-//        `_pallas_forward_implicit[_batched]` (:905, :975); exported as
-//        rram_crossbar_implicit_forward: operand element (m, k) is
-//        xflat[lane * x_lane_stride + row_base[m] + col_off[k]] of the
-//        zero-padded, flattened NCHW activation (the patch matrix never
-//        exists); rows >= M and columns >= K are exact zeros.
-// The two differ only in the operand load (template parameter kImplicit).
+// Replaces `_make_implicit_kernel` (:743) / `_make_implicit_batched_kernel`
+// (:814) with `_gather_block` (:725) of rram_caffe_simulation_tpu/fault/
+// hw_aware.py, launched by `_pallas_forward_implicit[_batched]` (:905,
+// :975). The dense tiled read (B2t) runs on B2's GEMM core in crossbar.cu.
 //
 // The TPU kernel pins M to one block so its in-block max-abs is the whole
 // partial's. On the card that would leave conv2 with 7 blocks on 132 SMs, so
@@ -31,20 +25,19 @@
 //     atomicMax on the float's bits (values are >= 0, so integer order is
 //     float order; a NaN partial gives NaN bits, as jnp.max does; max is
 //     order-free, so the pass is deterministic);
-//   pass 2 (one thread per (c, m, n)): y = sum over kt ascending of
-//     p + (q(p) - p), q = clip(rint(p / s), -l, l) * s, s = max(amax,
-//     1e-12) / l: `_adc_read`'s straight-through spelling, __f*_rn as in
-//     B2 so nothing contracts into an FMA. adc_levels = 0 sums the raw
-//     partials.
+//   pass 2 (rram::adc_sum_kernel, one thread per (c, m, n)): y = sum over kt
+//     ascending of the partials through `_adc_read`'s straight-through
+//     spelling, __f*_rn as in B2 so nothing contracts into an FMA.
+//     adc_levels = 0 sums the raw partials.
 // bk and bn are arbitrary (not multiples of the block), so a block can span
 // two N-tiles; padding rows/columns never enter a max.
 //
 // What bounds it on an H100: conv2's read (M 25,600, K 800, N 32) is 1.31
 // GFLOP, ~0.020 ms at 67 TFLOP/s f32, against ~3.4 MB of operands: compute-
-// bound. ip1's (100 x 1024 x 64) is bytes-bound like B2. This first version
-// uses CUDA-core fmaf on a 64x32 block tile (4x2 outputs a thread) and round-
-// trips P (4 B per partial per K-tile) through device memory; wgmma/TMA and
-// keeping the partials on chip are for a later change.
+// bound. This first version uses CUDA-core fmaf on a 64x32 block tile (4x2
+// outputs a thread) and round-trips P (4 B per partial per K-tile) through
+// device memory; B2t's GEMM core, its tile epilogue and operand strides
+// (crossbar.cu) are its next step.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -59,7 +52,6 @@ constexpr int BM = 64, BN = 32, BK = 32;
 constexpr int TX = 16, TY = 16;            // 256 threads
 constexpr int RM = BM / TY, RN = BN / TX;  // 4 x 2 outputs a thread
 
-template <bool kImplicit>
 __global__ void __launch_bounds__(TX * TY)
 partials_kernel(const float* __restrict__ x, long long x_lane_stride,
                 const int32_t* __restrict__ row_base,
@@ -87,10 +79,8 @@ partials_kernel(const float* __restrict__ x, long long x_lane_stride,
   const bool noise = sigma != 0.f;
   const uint32_t seed = (uint32_t)seeds[c];
   if (tid < BN) colmax[tid] = 0u;
-  if (kImplicit) {
-    for (int i = tid; i < BM; i += TX * TY)
-      rb[i] = m0 + i < M ? (long long)row_base[m0 + i] : 0;
-  }
+  for (int i = tid; i < BM; i += TX * TY)
+    rb[i] = m0 + i < M ? (long long)row_base[m0 + i] : 0;
   float acc[RM][RN];
 #pragma unroll
   for (int i = 0; i < RM; ++i)
@@ -98,15 +88,12 @@ partials_kernel(const float* __restrict__ x, long long x_lane_stride,
     for (int j = 0; j < RN; ++j) acc[i][j] = 0.f;
 
   for (int k0 = k_lo; k0 < k_hi; k0 += BK) {
-    if (kImplicit) {
-      if (tid < BK) co[tid] = k0 + tid < k_hi ? col_off[k0 + tid] : 0;
-      __syncthreads();
-    }
+    if (tid < BK) co[tid] = k0 + tid < k_hi ? col_off[k0 + tid] : 0;
+    __syncthreads();
     for (int i = tid; i < BM * BK; i += TX * TY) {
       const int r = i / BK, cc = i % BK, m = m0 + r, k = k0 + cc;
       float v = 0.f;
-      if (m < M && k < k_hi)
-        v = kImplicit ? xc[rb[r] + co[cc]] : xc[(long long)m * K + k];
+      if (m < M && k < k_hi) v = xc[rb[r] + co[cc]];
       xs[r][cc] = v;
     }
     for (int i = tid; i < BK * BN; i += TX * TY) {
@@ -167,39 +154,18 @@ partials_kernel(const float* __restrict__ x, long long x_lane_stride,
   }
 }
 
-__global__ void adc_sum_kernel(const float* __restrict__ part,
-                               const unsigned int* __restrict__ amax,
-                               float adc_levels, int C, int M, int N, int bn,
-                               int gk, int gn, float* __restrict__ out) {
-  const long long mn = (long long)M * N, total = C * mn;
-  for (long long idx = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-       idx < total; idx += (long long)gridDim.x * blockDim.x) {
-    const long long c = idx / mn, rem = idx - c * mn;
-    const int t = (int)(rem % N) / bn;
-    float y = 0.f;
-    for (int kt = 0; kt < gk; ++kt) {
-      float p = part[(c * gk + kt) * mn + rem];
-      if (adc_levels > 0.f) {
-        float a = __uint_as_float(amax[(c * gk + kt) * gn + t]);
-        a = a < 1e-12f ? 1e-12f : a;     // clamp_min: a NaN stays NaN
-        const float s = __fdiv_rn(a, adc_levels);
-        float r = rintf(__fdiv_rn(p, s));
-        r = fminf(fmaxf(r, -adc_levels), adc_levels);
-        p = __fadd_rn(p, __fsub_rn(__fmul_rn(r, s), p));
-      }
-      y = kt == 0 ? p : __fadd_rn(y, p);
-    }
-    out[idx] = y;
-  }
-}
+}  // namespace
 
-template <bool kImplicit>
-int launch(const void* x, long long x_lane_stride, const void* row_base,
-           const void* col_off, const void* w, const void* broken,
-           const void* stuck, const void* eps, const void* scale,
-           const void* seeds, float sigma, float levels, float adc_levels,
-           int C, int M, int K, int N, int bk, int bn, void* part, void* amax,
-           void* out, void* stream) {
+// xflat (C or 1, F) the zero-padded flat activation, x_lane_stride = F or
+// 0 (shared x); row_base (M,), col_off (K,) int32 offsets inside a lane;
+// w, broken, stuck (and eps) dense f32 (C, K, N); scale (C,) the lanes'
+// max |w|; part (C, gk, M, N) and amax (C, gk, gn) scratch.
+extern "C" int rram_crossbar_implicit_forward(
+    const void* x, long long x_lane_stride, const void* row_base,
+    const void* col_off, const void* w, const void* broken, const void* stuck,
+    const void* eps, const void* scale, const void* seeds, float sigma,
+    float levels, float adc_levels, int C, int M, int K, int N, int bk,
+    int bn, void* part, void* amax, void* out, void* stream) {
   if (C <= 0 || M <= 0 || N <= 0 || K <= 0 || bk <= 0 || bn <= 0)
     return (int)cudaGetLastError();
   const cudaStream_t st = (cudaStream_t)stream;
@@ -208,7 +174,7 @@ int launch(const void* x, long long x_lane_stride, const void* row_base,
       amax, 0, sizeof(unsigned int) * (size_t)C * gk * gn, st);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((M + BM - 1) / BM, (N + BN - 1) / BN, C * gk);
-  partials_kernel<kImplicit><<<grid, dim3(TX, TY), 0, st>>>(
+  partials_kernel<<<grid, dim3(TX, TY), 0, st>>>(
       (const float*)x, x_lane_stride, (const int32_t*)row_base,
       (const int32_t*)col_off, (const float*)w, (const float*)broken,
       (const float*)stuck, (const float*)eps, (const float*)scale,
@@ -216,38 +182,7 @@ int launch(const void* x, long long x_lane_stride, const void* row_base,
       (float*)part, (unsigned int*)amax);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const long long total = (long long)C * M * N;
-  const int threads = 256;
-  const long long want = (total + threads - 1) / threads;
-  const int blocks = (int)(want < 132LL * 64 ? want : 132LL * 64);
-  adc_sum_kernel<<<blocks, threads, 0, st>>>(
-      (const float*)part, (const unsigned int*)amax, adc_levels, C, M, N, bn,
-      gk, gn, (float*)out);
-  return (int)cudaGetLastError();
-}
-
-}  // namespace
-
-// B2t: x (C or 1, M, K) row-major, x_lane_stride = M*K or 0 (shared x).
-extern "C" int rram_crossbar_tiled_forward(
-    const void* x, long long x_lane_stride, const void* w, const void* broken,
-    const void* stuck, const void* eps, const void* scale, const void* seeds,
-    float sigma, float levels, float adc_levels, int C, int M, int K, int N,
-    int bk, int bn, void* part, void* amax, void* out, void* stream) {
-  return launch<false>(x, x_lane_stride, nullptr, nullptr, w, broken, stuck,
-                       eps, scale, seeds, sigma, levels, adc_levels, C, M, K,
-                       N, bk, bn, part, amax, out, stream);
-}
-
-// B3: xflat (C or 1, F) the zero-padded flat activation, x_lane_stride = F
-// or 0 (shared x); row_base (M,), col_off (K,) int32 offsets inside a lane.
-extern "C" int rram_crossbar_implicit_forward(
-    const void* xflat, long long x_lane_stride, const void* row_base,
-    const void* col_off, const void* w, const void* broken, const void* stuck,
-    const void* eps, const void* scale, const void* seeds, float sigma,
-    float levels, float adc_levels, int C, int M, int K, int N, int bk,
-    int bn, void* part, void* amax, void* out, void* stream) {
-  return launch<true>(xflat, x_lane_stride, row_base, col_off, w, broken,
-                      stuck, eps, scale, seeds, sigma, levels, adc_levels, C,
-                      M, K, N, bk, bn, part, amax, out, stream);
+  return (int)rram::launch_adc_sum((const float*)part,
+                                   (const unsigned int*)amax, adc_levels, C,
+                                   M, N, bn, gk, gn, (float*)out, st);
 }

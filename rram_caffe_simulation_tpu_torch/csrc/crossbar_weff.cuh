@@ -1,8 +1,10 @@
-// The effective crossbar read of one weight cell, shared by the crossbar
-// kernels (crossbar.cu: B2; crossbar_tiled.cu: B2t and B3): Philox4x32-10
-// noise on the flat weight index and the reference's `_w_eff` in its
-// straight-through spelling (rram_caffe_simulation_tpu/fault/hw_aware.py).
-// See crossbar.cu for why every step is spelled __f*_rn and rintf.
+// What the crossbar kernels share (crossbar.cu: B2 and B2t;
+// crossbar_tiled.cu: B3): the effective read of one weight cell
+// (Philox4x32-10 noise on the flat weight index and the reference's
+// `_w_eff` in its straight-through spelling), one tile partial's ADC
+// (`_adc_read`) and the two-pass tiled read's second pass
+// (rram_caffe_simulation_tpu/fault/hw_aware.py). See crossbar.cu for why
+// every step is spelled __f*_rn and rintf.
 #pragma once
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -55,6 +57,61 @@ __device__ __forceinline__ float w_eff(float w, float broken, float stuck,
   if (noise) noisy = __fmul_rn(w, __fadd_rn(1.0f, __fmul_rn(sigma, eps)));
   const float sel = broken > 0.f ? stuck : noisy;
   return __fadd_rn(w, __fsub_rn(sel, w));
+}
+
+// A tile's ADC step from the max |partial| over its rows and columns:
+// max(amax, 1e-12) / levels, clamp_min's way (a NaN max stays NaN)
+__device__ __forceinline__ float adc_step(float amax, float levels) {
+  return __fdiv_rn(amax < 1e-12f ? 1e-12f : amax, levels);
+}
+
+// p through the ADC of step s in `_adc_read`'s straight-through spelling
+// p + (clip(rint(p / s), -l, l) * s - p)
+__device__ __forceinline__ float adc_quantize(float p, float s,
+                                              float levels) {
+  float r = rintf(__fdiv_rn(p, s));
+  r = fminf(fmaxf(r, -levels), levels);
+  return __fadd_rn(p, __fsub_rn(__fmul_rn(r, s), p));
+}
+
+// The second pass of a two-pass tiled read, one thread per (c, m, n):
+// y = sum over kt ascending of adc(part[c, kt, m, n]) with the step of
+// tile (c, kt, n / bn) from amax (the float bits of its max |partial|);
+// adc_levels = 0 sums the raw partials.
+__global__ void adc_sum_kernel(const float* __restrict__ part,
+                               const unsigned int* __restrict__ amax,
+                               float adc_levels, int C, int M, int N, int bn,
+                               int gk, int gn, float* __restrict__ out) {
+  const long long mn = (long long)M * N, total = C * mn;
+  for (long long idx = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+       idx < total; idx += (long long)gridDim.x * blockDim.x) {
+    const long long c = idx / mn, rem = idx - c * mn;
+    const int t = (int)(rem % N) / bn;
+    float y = 0.f;
+    for (int kt = 0; kt < gk; ++kt) {
+      float p = part[(c * gk + kt) * mn + rem];
+      if (adc_levels > 0.f)
+        p = adc_quantize(
+            p, adc_step(__uint_as_float(amax[(c * gk + kt) * gn + t]),
+                        adc_levels),
+            adc_levels);
+      y = kt == 0 ? p : __fadd_rn(y, p);
+    }
+    out[idx] = y;
+  }
+}
+
+// adc_sum_kernel's launch: one thread an output, at most 64 blocks an SM
+inline cudaError_t launch_adc_sum(const float* part, const unsigned* amax,
+                                  float adc_levels, int C, int M, int N,
+                                  int bn, int gk, int gn, float* out,
+                                  cudaStream_t stream) {
+  const long long total = (long long)C * M * N;
+  const long long want = (total + 255) / 256;
+  const int blocks = (int)(want < 132LL * 64 ? want : 132LL * 64);
+  adc_sum_kernel<<<blocks, 256, 0, stream>>>(part, amax, adc_levels, C, M, N,
+                                             bn, gk, gn, out);
+  return cudaGetLastError();
 }
 
 }  // namespace rram

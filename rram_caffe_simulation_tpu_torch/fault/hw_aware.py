@@ -25,8 +25,10 @@ Two spellings with one contract:
 - `tiles=(bk, bn, adc_bits)` on those functions is the tiled crossbar
   read (fault/mapping.py): each (bk x bn) cell block of the (K, N) view
   is one physical tile whose partial product passes its own ADC before
-  the digital sum over K-tiles. Kernel B2t (csrc/crossbar_tiled.cu) on
-  the card, `tiled_crossbar_matmul` in the plain version.
+  the digital sum over K-tiles. Kernel B2t (csrc/crossbar.cu, B2's GEMM
+  core with a tile-ADC epilogue; its tile rows from `b2t_plan`) on the card,
+  reading the operands as B2 does, `tiled_crossbar_matmul` in the plain
+  version.
 - `crossbar_conv_matmul_lanes`: the same tiled read for a convolution
   whose operand is gathered from the raw NCHW activation through the
   address plan of `mapping.im2col_index_plan`, kernel B3 on the card;
@@ -55,25 +57,26 @@ _TWO_POW_M32 = 2.0 ** -32
 
 _VP = ctypes.c_void_p
 _STRIDES = ctypes.c_longlong * 3       # (lane, row, column), in elements
-# (x, w, broken, stuck, eps) each with its strides, seeds, sigma, levels,
-# C, M, K, N, bm, splits, scratch, part, out, stream
+# (x, w, broken, stuck, eps) each with its strides, then seeds, sigma,
+# levels; B2: C, M, K, N, bm, splits; B2t: adc_levels, C, M, K, N, bk, bn,
+# bm; then scratch, part, out, stream
+_OPERANDS = [_VP, _STRIDES] * 5 + [_VP, ctypes.c_float, ctypes.c_float]
 CROSSBAR_LIB = kernels.CudaLibrary(
     "crossbar.cu",
     {"rram_crossbar_forward":
-        [_VP, _STRIDES] * 5 + [_VP, ctypes.c_float, ctypes.c_float]
-        + [ctypes.c_int] * 6 + [_VP] * 4,
+        _OPERANDS + [ctypes.c_int] * 6 + [_VP] * 4,
+     "rram_crossbar_tiled_forward":
+        _OPERANDS + [ctypes.c_float] + [ctypes.c_int] * 7 + [_VP] * 4,
      # (bm, has_eps) -> resident GEMM blocks per SM; launches nothing
      "rram_crossbar_blocks_per_sm": [ctypes.c_int, ctypes.c_int]})
-# (w, broken, stuck, eps, scale, seeds, sigma, levels, adc_levels, C, M,
-#  K, N, bk, bn, part, amax, out, stream) after each one's operand args
-_TILED_TAIL = [_VP] * 6 + [ctypes.c_float] * 3 + [ctypes.c_int] * 6 \
-    + [_VP] * 4
+# B3: xflat, x_lane_stride, row_base, col_off, w, broken, stuck, eps,
+# scale, seeds, sigma, levels, adc_levels, C, M, K, N, bk, bn, part, amax,
+# out, stream
 TILED_LIB = kernels.CudaLibrary(
     "crossbar_tiled.cu",
-    {"rram_crossbar_tiled_forward":                   # x, x_lane_stride
-        [_VP, ctypes.c_longlong] + _TILED_TAIL,
-     "rram_crossbar_implicit_forward":    # + row_base, col_off
-        [_VP, ctypes.c_longlong, _VP, _VP] + _TILED_TAIL})
+    {"rram_crossbar_implicit_forward":
+        [_VP, ctypes.c_longlong, _VP, _VP] + [_VP] * 6
+        + [ctypes.c_float] * 3 + [ctypes.c_int] * 6 + [_VP] * 4})
 
 
 def q_levels(q_bits: int) -> float:
@@ -263,14 +266,11 @@ def _check_crossbar(x, w, broken, stuck, seeds, eps, conv: bool = False):
                         f"0/1, got {broken.dtype}")
 
 
-def _check_tiles(tiles, K: int, C: int):
+def _check_tiles(tiles):
     bk, bn, adc_bits = (int(v) for v in tiles)
     if bk < 1 or bn < 1:
         raise ValueError(f"crossbar: tiles {tuple(tiles)} need bk, bn >= 1")
     q_levels(adc_bits)
-    if C * -(-K // bk) > 65535:
-        raise ValueError(f"crossbar: {C} lanes x {-(-K // bk)} K-tiles "
-                         "exceed the kernel grid's 65535")
     return bk, bn, adc_bits
 
 
@@ -286,19 +286,16 @@ def _on_card(tensors):
         raise ValueError("crossbar: operands must be contiguous")
 
 
-def _dense_f32(*tensors):
-    """Dense f32 copies for kernels B2t and B3, which index their
-    operands as contiguous arrays."""
-    return [t.to(torch.float32).contiguous() for t in tensors]
-
-
 def _launch_tiled(fn, x_args, w, broken, stuck, eps, seeds, sigma, q_bits,
                   tiles, M):
-    """One call of kernel B2t or B3 (`fn`), scratch from here: the
-    per-K-tile partials P (C, gk, M, N) and the tiles' ADC ranges."""
+    """One call of kernel B3 (`fn`), scratch from here: the per-K-tile
+    partials P (C, gk, M, N) and the tiles' ADC ranges."""
     C, K, N = w.shape
-    bk, bn, adc_bits = _check_tiles(tiles, K, C)
+    bk, bn, adc_bits = _check_tiles(tiles)
     gk, gn = -(-K // bk), -(-N // bn)
+    if C * gk > 65535:
+        raise ValueError(f"crossbar: {C} lanes x {gk} K-tiles exceed the "
+                         "kernel grid's 65535")
     levels = q_levels(q_bits)
     scale = _lane_scale(w, levels)
     seeds = seeds.to(torch.int32).contiguous()
@@ -341,11 +338,39 @@ def b2_plan(C: int, M: int, K: int, N: int):
     return 32, splits
 
 
+def b2t_plan(C: int, M: int, K: int, N: int, bk: int) -> int:
+    """Tile rows of kernel B2t's GEMM pass for a shape and its K-tile
+    depth bk: a block per lane, K-tile, row block and column block writes
+    its raw partial; a second pass does the tile ADC and the ascending
+    sum. 112 rows where that covers M in as many tiles as 128; 32 where
+    the larger tiles leave the card short of B2_FILL blocks (more blocks
+    in flight: ip1 at C = 1). It depends on the shape alone, and every
+    tile height gives the same bits."""
+    rows = 112 if -(-M // 112) == -(-M // 128) else 128
+    if C * -(-K // bk) * -(-M // rows) * -(-N // B2_BN) < B2_FILL:
+        rows = 32
+    return rows
+
+
 def _strides(t: torch.Tensor):
     """Element strides (lane, row, column); a tensor without the lane
     axis is shared by every lane (stride 0)."""
     st = t.stride()
     return _STRIDES(*((0,) + st if t.dim() < 3 else st))
+
+
+def _operand_args(x, w, broken, stuck, eps):
+    """Kernel B2/B2t's operand arguments: each pointer with its strides
+    (broken as one byte a cell: bool or uint8, an f32 0/1 mask cast once),
+    and the byte mask, which the caller keeps alive through the call."""
+    if broken.dtype == torch.float32:
+        broken = broken > 0
+    args = []
+    for t in (x, w, broken, stuck):
+        args += [kernels.ptr(t), _strides(t)]
+    if eps is None:
+        return args + [ctypes.c_void_p(None), _STRIDES(0, 0, 1)], broken
+    return args + [kernels.ptr(eps), _strides(eps)], broken
 
 
 def _launch_b2(x, w, broken, stuck, seeds, sigma, q_bits, eps):
@@ -360,8 +385,7 @@ def _launch_b2(x, w, broken, stuck, seeds, sigma, q_bits, eps):
     if C * splits >= 2 ** 31 or -(-M // bm) > 65535 or -(-N // B2_BN) > 65535:
         raise ValueError(f"crossbar: shape C,M,K,N = {(C, M, K, N)} exceeds "
                          "the kernel grid")
-    if broken.dtype == torch.float32:
-        broken = broken > 0                 # one byte a cell for the kernel
+    operands, broken = _operand_args(x, w, broken, stuck, eps)
     seeds = seeds.to(torch.int32).contiguous()
     dev = w.device
     tiles = C * -(-M // bm) * -(-N // B2_BN)
@@ -369,17 +393,40 @@ def _launch_b2(x, w, broken, stuck, seeds, sigma, q_bits, eps):
     part = (torch.empty((C, splits, M, N), dtype=torch.float32, device=dev)
             if splits > 1 else None)
     out = torch.empty((C, M, N), dtype=torch.float32, device=dev)
-    null = ctypes.c_void_p(None)
     CROSSBAR_LIB.call(
-        "rram_crossbar_forward", kernels.ptr(x), _strides(x),
-        kernels.ptr(w), _strides(w), kernels.ptr(broken), _strides(broken),
-        kernels.ptr(stuck), _strides(stuck),
-        kernels.ptr(eps) if eps is not None else null,
-        _strides(eps) if eps is not None else _STRIDES(0, 0, 1),
-        kernels.ptr(seeds), float(sigma), levels, C, M, K, N, bm, splits,
-        kernels.ptr(scratch), kernels.ptr(part) if part is not None else null,
+        "rram_crossbar_forward", *operands, kernels.ptr(seeds), float(sigma),
+        levels, C, M, K, N, bm, splits, kernels.ptr(scratch),
+        kernels.ptr(part) if part is not None else ctypes.c_void_p(None),
         kernels.ptr(out), kernels.stream_ptr(dev))
     return out, (scratch[:C] if levels else None)
+
+
+def _launch_b2t(x, w, broken, stuck, seeds, sigma, q_bits, eps, tiles,
+                bm=None):
+    """One call of kernel B2t on operands as they are stored, its tile
+    rows from `b2t_plan` (`bm`: others, for timing them against each
+    other). Scratch from here: the scales, the tiles' maxima and the
+    K-tile partials (C, gk, M, N)."""
+    C, K, N = w.shape
+    M = x.shape[-2]
+    bk, bn, adc_bits = _check_tiles(tiles)
+    bm = bm or b2t_plan(C, M, K, N, bk)
+    gk, gn, cols = -(-K // bk), -(-N // bn), -(-N // B2_BN)
+    if C * gk >= 2 ** 31 or -(-M // bm) > 65535 or cols > 65535:
+        raise ValueError(f"crossbar: shape C,M,K,N = {(C, M, K, N)} with "
+                         f"tiles {tuple(tiles)} exceeds the kernel grid")
+    operands, broken = _operand_args(x, w, broken, stuck, eps)
+    seeds = seeds.to(torch.int32).contiguous()
+    dev = w.device
+    scratch = torch.empty(C + C * gk * gn, dtype=torch.float32, device=dev)
+    part = torch.empty((C, gk, M, N), dtype=torch.float32, device=dev)
+    out = torch.empty((C, M, N), dtype=torch.float32, device=dev)
+    CROSSBAR_LIB.call(
+        "rram_crossbar_tiled_forward", *operands, kernels.ptr(seeds),
+        float(sigma), q_levels(q_bits), q_levels(adc_bits), C, M, K, N, bk,
+        bn, bm, kernels.ptr(scratch), kernels.ptr(part), kernels.ptr(out),
+        kernels.stream_ptr(dev))
+    return out
 
 
 def crossbar_forward_scaled(x, w, broken, stuck, seeds, sigma: float,
@@ -405,33 +452,27 @@ def crossbar_forward(x, w, broken, stuck, seeds, sigma: float,
     tensors it runs the plain version.
 
     x (M, K) shared by every lane or (C, M, K); w, stuck (C, K, N) f32;
-    broken (C, K, N) bool, uint8 or f32 0/1. B2 takes them in any
-    strides and copies nothing (fastest where the contiguous axis has
+    broken (C, K, N) bool, uint8 or f32 0/1. B2 and B2t take them in any
+    strides and copy nothing (fastest where the contiguous axis has
     stride 1 and rows start 16-byte aligned: dense (C, K, N), a
     transposed view of Caffe's (C, num_output, K), the (M, C, K) view of
-    a laned activation); B2t works on dense f32 copies."""
+    a laned activation); an f32 broken is cast to one byte a cell."""
     if tiles is None:
         return crossbar_forward_scaled(x, w, broken, stuck, seeds, sigma,
                                        q_bits, eps)[0]
     seeds = torch.as_tensor(seeds, device=w.device)
     _check_crossbar(x, w, broken, stuck, seeds, eps)
-    _check_tiles(tiles, w.shape[1], w.shape[0])
+    tiles = _check_tiles(tiles)
     if not w.is_cuda:
         return crossbar_forward_plain(x, w, broken, stuck, seeds, sigma,
                                       q_bits, eps, tiles)
     _one_device([x, w, broken, stuck] + ([eps] if eps is not None else []))
-    x, w, broken, stuck = _dense_f32(x, w, broken, stuck)
-    if eps is not None:
-        eps = eps.contiguous()
-    M = x.shape[-2]
-    lane_stride = M * w.shape[1] if x.dim() == 3 else 0
-    return _launch_tiled("rram_crossbar_tiled_forward",
-                         [kernels.ptr(x), lane_stride], w, broken, stuck,
-                         eps, seeds, sigma, q_bits, tiles, M)
+    return _launch_b2t(x, w, broken, stuck, seeds, sigma, q_bits, eps, tiles)
 
 
 class CrossbarMatmul(torch.autograd.Function):
-    """C config lanes' crossbar reads in one launch of kernel B2, with
+    """C config lanes' crossbar reads in one launch of kernel B2 (B2t with
+    `tiles`), with
     the reference's straight-through backward (`_cm_bwd`) per lane as
     batched products: dx against the clean masked weights (on the
     lane's quantization grid when q_bits is set), dw zeroed on broken
@@ -440,7 +481,7 @@ class CrossbarMatmul(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w, broken, stuck, seeds, sigma, q_bits, use_kernel,
                 tiles):
-        # no copy here: B2 reads the views as they are stored
+        # no copy here: B2 and B2t read the views as they are stored
         fwd = crossbar_forward if use_kernel else crossbar_forward_plain
         y = fwd(x, w, broken, stuck, seeds, sigma, q_bits, tiles=tiles)
         ctx.save_for_backward(x, w, broken, stuck)
@@ -632,7 +673,7 @@ def crossbar_conv_forward(x, w, broken, stuck, seeds, sigma: float,
     seeds = torch.as_tensor(seeds, device=w.device)
     _check_crossbar(x, w, broken, stuck, seeds, eps, conv=True)
     C, K, N = w.shape
-    _check_tiles(tiles, K, C)
+    _check_tiles(tiles)
     if not w.is_cuda:
         return crossbar_conv_forward_plain(x, w, broken, stuck, seeds, sigma,
                                            q_bits, tiles, geom, eps)

@@ -16,7 +16,8 @@ B2t and B3 (the tiled reads, per-tile ADC) must equal their plain
 versions on dyadic inputs (every partial sum exact in any order); on
 random inputs each element stays within the summation bound of every
 K-tile plus one ADC step of each, level flips on at most 1% of the
-elements."""
+elements. B2t's storage layouts, a repeated call, its tile heights and
+one lane read alone or as lane 0 of four must give the same bits."""
 import numpy as np
 import pytest
 import torch
@@ -328,19 +329,89 @@ def test_b3_kernel_matches_plain(cuda_device, dyadic, lanes):
                                           w_eff, tiles)
 
 
+B2T_EDGES = [  # M, K, N, tiles: B2t at the edges of its tiling
+    (1, 1000, 64, (128, 64, 8)), (100, 1000, 64, (128, 64, 8)),
+    (128, 1000, 10, (96, 64, 8)), (100, 256, 130, (128, 64, 8)),
+    (100, 300, 64, (128, 32, 8)), (100, 64, 10, (128, 64, 8)),
+    (129, 1024, 64, (128, 64, 8)), (37, 50, 11, (7, 3, 3)),
+    (96, 96, 96, (7, 5, 3))]
+
+
+@pytest.mark.parametrize("M,K,N,tiles", B2T_EDGES)
+@pytest.mark.parametrize("C,x_batched", [(1, False), (4, False), (4, True)])
+def test_b2t_edge_shapes_layouts_and_repeat(cuda_device, M, K, N, tiles, C,
+                                            x_batched):
+    """B2t at the edges of its tiling (M 1, 128, 129; a short last K-tile;
+    bk 96; N 10 and 130; two N-tiles in a block; one K-tile; bn not
+    dividing 64): equal to the plain version on dyadic inputs, within the
+    tiled bound on random ones; every layout equal to the dense f32 call
+    and a second call equal to the first."""
+    xs = ((C,) if x_batched else ()) + (M, K)
+    for dyadic in (True, False):
+        x, w, br, st, seeds = tiled_case(cuda_device, xs, C, K, N, dyadic,
+                                         M + K)
+        y = thw.crossbar_forward(x, w, br, st, seeds, 0.0, 2, tiles=tiles)
+        yp = thw.crossbar_forward_plain(x, w, br, st, seeds, 0.0, 2,
+                                        tiles=tiles)
+        if dyadic:
+            assert torch.equal(y, yp)
+        else:
+            w_eff = thw._lane_w_eff(w, br, st, seeds, 0.0, 2, None)
+            assert within_tiled_bound(y, yp, x, w_eff, tiles)
+        eps = torch.randn(w.shape, device=cuda_device)
+        for sigma, e in ((0.0, None), (0.05, eps), (0.05, None)):
+            y = thw.crossbar_forward(x, w, br, st, seeds, sigma, 2, eps=e,
+                                     tiles=tiles)
+            for name, (lx, lw, lb, ls, le) in b2_layouts(x, w, br > 0, st,
+                                                         eps).items():
+                for _ in range(2):
+                    yl = thw.crossbar_forward(
+                        lx, lw, lb, ls, seeds, sigma, 2,
+                        eps=le if e is not None else None, tiles=tiles)
+                    assert torch.equal(yl, y), name
+
+
+@pytest.mark.parametrize("M,K,N,tiles", B2T_EDGES)
+def test_b2t_one_lane_against_lane_0_of_four(cuda_device, M, K, N, tiles):
+    """A lane's read does not depend on how many lanes share the call:
+    each K-tile's partial is summed in the same order, its ADC and the
+    ascending sum are the same whatever tile rows the plan takes."""
+    x, w, br, st, seeds = tiled_case(cuda_device, (M, K), 4, K, N, False, 7)
+    four = thw.crossbar_forward(x, w, br, st, seeds, 0.05, 2, tiles=tiles)
+    one = thw.crossbar_forward(x, w[:1], br[:1], st[:1], seeds[:1], 0.05, 2,
+                               tiles=tiles)
+    assert torch.equal(one, four[:1])
+
+
+@pytest.mark.parametrize("M,K,N,tiles", [(100, 1024, 64, (128, 64, 8)),
+                                         (100, 64, 10, (128, 64, 8)),
+                                         (37, 50, 11, (7, 3, 3))])
+def test_b2t_tile_rows_give_the_same_bits(cuda_device, M, K, N, tiles):
+    """The GEMM pass's tile heights (32, 112 and 128 rows) give the same
+    bits."""
+    x, w, br, st, seeds = tiled_case(cuda_device, (M, K), 3, K, N, False, 9)
+    ys = [thw._launch_b2t(x, w, br, st, seeds, 0.05, 2, None, tiles, bm=bm)
+          for bm in (112, 32, 128)]
+    for y in ys[1:]:
+        assert torch.equal(y, ys[0])
+
+
 def test_tiled_launches_are_counted_per_function(cuda_device):
     x, w, br, st, seeds = tiled_case(cuda_device, (3, 2, 7, 7), 2, 18, 4,
                                      True, 0)
-    lib = thw.TILED_LIB
-    before = dict(lib.counts)
+    before = dict(thw.TILED_LIB.counts)
+    before_b2 = dict(thw.CROSSBAR_LIB.counts)
     thw.crossbar_conv_forward(x, w, br, st, seeds, 0.0, 0, (8, 3, 3),
                               (3, 3, 1, 1, 1, 1, 1, 1))
     thw.crossbar_forward(torch.ones(5, 18, device=cuda_device), w, br, st,
                          seeds, 0.0, 0, tiles=(8, 3, 3))
-    assert lib.counts["rram_crossbar_implicit_forward"] == \
+    assert thw.TILED_LIB.counts["rram_crossbar_implicit_forward"] == \
         before["rram_crossbar_implicit_forward"] + 1
-    assert lib.counts["rram_crossbar_tiled_forward"] == \
-        before["rram_crossbar_tiled_forward"] + 1
+    # B2t shares B2's source and library, and keeps its own count
+    assert thw.CROSSBAR_LIB.counts["rram_crossbar_tiled_forward"] == \
+        before_b2["rram_crossbar_tiled_forward"] + 1
+    assert thw.CROSSBAR_LIB.counts["rram_crossbar_forward"] == \
+        before_b2["rram_crossbar_forward"]
 
 
 def test_b3_autograd_on_card_equals_premat(cuda_device):

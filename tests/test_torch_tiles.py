@@ -48,7 +48,7 @@ from rram_caffe_simulation_tpu_torch.fault import packed as tpacked
 from rram_caffe_simulation_tpu_torch.parallel import SweepRunner as TSweep
 from rram_caffe_simulation_tpu_torch.solver import Solver as TSolver
 
-from test_torch_crossbar import host_eps, t
+from test_torch_crossbar import LAYOUTS, host_eps, laid_out, operands, t
 
 U = 2.0 ** -24
 
@@ -410,6 +410,114 @@ def test_reference_crossbar_matmul_pure_spelling():
         jnp.asarray(stuck[0]), jax.random.PRNGKey(0), 0.0, 2, (6, 4, 3))
     assert got.numpy().tobytes() == plain.numpy().tobytes() \
         == np.asarray(want).tobytes()
+
+
+# ---------------------------------------------------------------------------
+# B2t's wrapper on every storage layout it takes, and its plan
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("lanes", ["single", "shared", "per_lane"])
+def test_b2t_layouts_equal_dense_and_reference(layout, lanes):
+    """crossbar_forward_plain(tiles=) and the wrapper on each layout B2t
+    reads in place (dense f32, broken bool, Caffe's stored layout turned
+    by view with x folded, unaligned rows, mixed with broken uint8): the
+    dense f32 call's bits; within the tiled bound of the reference's
+    `_pallas_forward[_batched](tiles=)` in interpret mode, host noise."""
+    C = 1 if lanes == "single" else 3
+    M, K, N = 12, 37, 10
+    tiles = (8, 3, 3)
+    sigma, q_bits = 0.05, 3
+    rng = np.random.RandomState(80 + C)
+    x, xs, w, broken, stuck, seeds = operands(rng, C, M, K, N)
+    xin = xs if lanes == "per_lane" else x
+    eps = np.stack([host_eps(int(s), K, N, tiles[0], tiles[1])
+                    for s in seeds])
+    dense = laid_out("dense", xin, w, broken, stuck, eps)
+    y0 = thw.crossbar_forward_plain(*dense[:4], t(seeds), sigma, q_bits,
+                                    eps=dense[4], tiles=tiles)
+    lx, lw, lb, ls, le = laid_out(layout, xin, w, broken, stuck, eps)
+    for fwd in (thw.crossbar_forward_plain, thw.crossbar_forward):
+        assert torch.equal(fwd(lx, lw, lb, ls, t(seeds), sigma, q_bits,
+                               eps=le, tiles=tiles), y0)
+    bf = broken.astype(np.float32)
+    if lanes == "single":
+        y_ref = np.asarray(jhw._pallas_forward(
+            jnp.asarray(xin), jnp.asarray(w[0]), jnp.asarray(bf[0]),
+            jnp.asarray(stuck[0]), int(seeds[0]), sigma, q_bits,
+            tiles))[None]
+    else:
+        y_ref = np.asarray(jhw._pallas_forward_batched(
+            jnp.asarray(xin), jnp.asarray(w), jnp.asarray(bf),
+            jnp.asarray(stuck), jnp.asarray(seeds), sigma, q_bits, tiles))
+    w_eff = plain_weff(w, bf, stuck, seeds, sigma, q_bits, eps)
+    xb = np.broadcast_to(xin, (C, M, K))
+    tiled_bound(y0.numpy(), y_ref, np.abs(xb), np.abs(w_eff),
+                adc_steps(xb, w_eff, tiles), tiles)
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("x_batched", [False, True])
+@pytest.mark.parametrize("use_kernel", [False, True])
+def test_b2t_matmul_lanes_layouts_forward_and_grads(layout, x_batched,
+                                                    use_kernel):
+    """`crossbar_matmul_lanes(tiles=)` on each layout: y, dx and dw carry
+    the bits of the call on dense f32 copies."""
+    C, M, K, N = 3, 10, 24, 12
+    tiles = (7, 5, 3)
+    rng = np.random.RandomState(90)
+    x, xs, w, broken, stuck, seeds = operands(rng, C, M, K, N)
+    xin = xs if x_batched else x
+    g = t(rng.randn(C, M, N).astype(np.float32))
+    outs = []
+    for lay in ("dense", layout):
+        lx, lw, lb, ls, _ = laid_out(lay, xin, w, broken, stuck, w)
+        lx = lx.detach().requires_grad_()
+        lw = lw.detach().requires_grad_()
+        y = thw.crossbar_matmul_lanes(lx, lw, lb, ls, t(seeds), 0.0, 2,
+                                      use_kernel, tiles)
+        dx, dw = torch.autograd.grad(y, (lx, lw), g)
+        outs.append((y.detach(), dx, dw))
+    for a, b in zip(*outs):
+        assert a.shape == b.shape
+        assert torch.equal(a, b)
+    assert (outs[1][2][t(broken)] == 0).all()
+
+
+B2T_SHAPES = [  # C, M, K, N, bk, bn
+    (1, 100, 1024, 64, 128, 64), (64, 100, 1024, 64, 128, 64),
+    (512, 100, 1024, 64, 128, 64), (1, 1, 1000, 64, 128, 64),
+    (4, 128, 1000, 10, 96, 64), (1, 100, 256, 130, 128, 64),
+    (4, 100, 300, 64, 128, 32), (1, 100, 64, 10, 128, 64),
+    (1, 129, 1024, 64, 128, 64), (4, 37, 50, 11, 7, 3),
+    (2, 96, 96, 96, 7, 5), (2, 96, 96, 96, 32, 32), (2, 96, 96, 96, 96, 32),
+    (3, 300, 5000, 200, 128, 128), (1, 113, 70, 200, 16, 64)]
+
+
+@pytest.mark.parametrize("C,M,K,N,bk,bn", B2T_SHAPES)
+def test_b2t_plan_is_valid(C, M, K, N, bk, bn):
+    bm = thw.b2t_plan(C, M, K, N, bk)
+    assert bm in (32, 112, 128)
+    assert thw.b2t_plan(C, M, K, N, bk) == bm           # the shape alone
+    gk, cols = -(-K // bk), -(-N // thw.B2_BN)
+    if bm == 32:
+        # 32-row tiles only where the larger ones leave the card short of
+        # blocks
+        assert C * gk * -(-M // 128) * cols < thw.B2_FILL
+    else:
+        assert -(-M // bm) == -(-M // 128)  # 112 rows cost no extra tile
+        assert C * gk * -(-M // bm) * cols >= thw.B2_FILL
+    assert gk * bk >= K > (gk - 1) * bk     # no empty K-tile
+
+
+def test_b2t_plan_path_shapes():
+    # ip1 of the tiled slice: 4 x 8 blocks of 32 rows; of the tiled
+    # sweep's 64 lanes and the sweep's 512: 112 rows, one row block a lane
+    # and K-tile
+    assert thw.b2t_plan(1, 100, 1024, 64, 128) == 32
+    assert thw.b2t_plan(64, 100, 1024, 64, 128) == 112
+    assert thw.b2t_plan(512, 100, 1024, 64, 128) == 112
+    assert thw.b2t_plan(1, 100, 64, 10, 128) == 32
+    assert thw.b2t_plan(1, 129, 1024, 64, 128) == 32
 
 
 # ---------------------------------------------------------------------------
