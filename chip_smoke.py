@@ -9,6 +9,8 @@
     python3 chip_smoke.py --b2-path       # only time B2 through its wrapper
     python3 chip_smoke.py --b2t-path      # only time B2t (wrapper, kernel,
                                           # tile rows)
+    python3 chip_smoke.py --b3-path       # only time B3 (wrapper, kernel,
+                                          # its passes)
 
 Phases (each raises on failure; the script then exits non-zero and
 prints no "ok" line):
@@ -72,7 +74,7 @@ prints no "ok" line):
    with a NaN parameter is quarantined while the others stay finite;
 9. kernels B2t (tiled crossbar read, csrc/crossbar.cu
    rram_crossbar_tiled_forward) and B3 (the implicit-im2col conv read,
-   csrc/crossbar_tiled.cu rram_crossbar_implicit_forward) against their
+   csrc/crossbar.cu rram_crossbar_implicit_forward) against their
    plain versions at the tiled slice's shapes (ip1, conv2, conv3), on a
    strided dilated conv and ragged tiles (bk 7, bn 3), and for B2t at the
    edges of its tiling (M 1, 128 and 129; K 1000 with bk 128 and 96; N
@@ -84,9 +86,14 @@ prints no "ok" line):
    the elements; B2t on every storage layout its wrapper takes (dense,
    stored and turned with x folded, unaligned rows, mixed; broken bool,
    uint8 or f32) equal to the dense call, twice each, and at each tile
-   height of its GEMM pass (32, 112, 128 rows); the tiled path's
-   in-kernel noise equals B2's for the same seed and cell at each tile
-   height;
+   height of its GEMM pass (32, 112, 128 rows); B3 equal bit for bit to
+   B2t over the patch rows (`conv_patch_rows`) at the same tiles, and on
+   every layout its wrapper takes (w, stuck, eps as the `to_im2col` view
+   of the stored weight; broken bool, uint8 or f32; x as the transposed
+   view of a laned activation) equal to the dense call, twice each; B2t
+   and B3 equal to plain where a lane has more tile steps than the ADC
+   pass keeps in shared memory; the tiled path's in-kernel noise equals
+   B2's for the same seed and cell at each tile height;
 10. the tiled single-config slice: CIFAR-10-quick with conv_also,
    rram_forward { adc_bits: 8 tiles: "cells=128x128" }, N(1e8, 3e7),
    ternary, packed banks, fused epilogue, conv_im2col="implicit", 50
@@ -104,7 +111,9 @@ JSON line of per-kernel numbers (per training step, summed over the
 step's launches; B1b, B2b and B4 at the sweep's shapes, B2t and B3a at
 the tiled slice's, B3b at the tiled sweep's; the B2 and B2t rows also
 carry `path_ms`, the reads through the wrapper from operands laid out as
-the InnerProduct layer hands them over, and its bound `path_bound_ms`), the
+the InnerProduct layer hands them over, and its bound `path_bound_ms`; the
+B3 rows the same from the Convolution layer's layouts), a JSON line of
+B3's passes by device activity at C = 1 and the tiled sweep's C, the
 card's name and power limit, and last {"ok": true, "device": {...}}. B2t has a row at each
 path's shapes: C = 1 (the tiled slice) and C lanes (the tiled sweep).
 """
@@ -164,30 +173,42 @@ def event_ms(fn, iters=100, warmup=10):
     return s.elapsed_time(e) / iters
 
 
-def device_ms(fn, iters=50, count=None):
-    """Kernel time on the card per call (CUPTI through torch.profiler):
-    each device activity's mean duration times its launches a call (its
-    count over `iters`, rounded up), summed over the activities, so the
-    events a window loses do not pull the time down; None if the
-    profiler saw no device activity. With `count`, also the number of
-    device activities whose name holds it."""
+def device_ms_by_name(fn, iters=50, attempts=3):
+    """Kernel time on the card per call by device activity (CUPTI through
+    torch.profiler): name -> (its mean duration times its launches a
+    call, that is its count over `iters` rounded up, in ms; its count),
+    so the events a window loses do not pull the time down. A window that
+    comes back with no device activity at all (the profiler drops one
+    now and then) is taken again, up to `attempts` windows."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    evs = [ev for ev in prof.events() if ev.device_type == DeviceType.CUDA]
     by_name = {}
-    for ev in evs:
-        by_name.setdefault(ev.name, []).append(ev.time_range.elapsed_us())
-    us = sum(sum(d) / len(d) * math.ceil(len(d) / iters)
-             for d in by_name.values())
-    ms = us / 1e3 if us > 0 else None
-    return ms if count is None else (ms, sum(count in ev.name for ev in evs))
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        for ev in prof.events():
+            if ev.device_type == DeviceType.CUDA:
+                by_name.setdefault(ev.name, []).append(
+                    ev.time_range.elapsed_us())
+        if by_name:
+            break
+    return {name: (sum(d) / len(d) * math.ceil(len(d) / iters) / 1e3,
+                   len(d)) for name, d in by_name.items()}
+
+
+def device_ms(fn, iters=50, count=None):
+    """Kernel time on the card per call, `device_ms_by_name` summed over
+    the activities; None if the profiler saw no device activity. With
+    `count`, also the number of device activities whose name holds it."""
+    by_name = device_ms_by_name(fn, iters)
+    ms = sum(v[0] for v in by_name.values()) or None
+    return ms if count is None else (ms, sum(
+        n for name, (_, n) in by_name.items() if count in name))
 
 
 def device_activity_names(fn, iters=5):
@@ -1062,13 +1083,13 @@ SWEEP_STEPS = 20                 # timed steps of phase 7
 
 def _launches():
     """Launches since the last reset, per kernel (per exported function:
-    B2 and B2t share a source)."""
+    B2, B2t and B3 share a source)."""
     from rram_caffe_simulation_tpu_torch.fault import fused, hw_aware
     from rram_caffe_simulation_tpu_torch.ops import pool_backward
     crossbar = hw_aware.CROSSBAR_LIB.counts
     return {"B2": crossbar["rram_crossbar_forward"],
             "B2t": crossbar["rram_crossbar_tiled_forward"],
-            "B3": hw_aware.TILED_LIB.counts["rram_crossbar_implicit_forward"],
+            "B3": crossbar["rram_crossbar_implicit_forward"],
             "B1": fused.FUSED_LIB.launches,
             "B4": pool_backward.POOL_BWD_LIB.launches}
 
@@ -1330,6 +1351,13 @@ TILED_CASES = {
     "N 64, bn 32": ((100, 300), None, 300, 64, (128, 32, 8)),
     "M 129": ((129, 1024), None, 1024, 64, (128, 64, 8)),
 }
+# a lane with more tile steps (gk * gn) than the ADC pass keeps in 48 KB
+# of shared memory (12,288): 1-cell crossbar tiles
+MANY_TILE_CASES = {
+    "ip, 14400 tiles": ((20, 1600), None, 1600, 9, (1, 1, 0)),
+    "conv, 13824 tiles": ((2, 16, 9, 9), (3, 3, 1, 1, 1, 1, 1, 1), 144, 96,
+                          (1, 1, 0)),
+}
 
 
 def tiled_operands(x_shape, C, x_per_lane, K, N, dyadic, seed, device):
@@ -1401,6 +1429,30 @@ def tiled_bound(y, y_ref, rows, w_eff, tiles):
 B2T_ROWS = (32, 112, 128)        # the tile heights of B2t's GEMM pass
 
 
+def b3_layouts(x, w, br, st, eps):
+    """The same conv operand values in every layout the B3 wrapper takes,
+    as name -> (x, w, broken, stuck, eps) views: w, stuck and eps as the
+    `to_im2col` view of Caffe's stored (C, C_out, K) weight, broken bool,
+    uint8 or f32, x (per lane) as the transposed view of a laned
+    (N, C, ch, H, W) activation."""
+    import torch
+
+    def turned(t):      # Caffe's stored (C, C_out, K), viewed (C, K, N)
+        return t.transpose(1, 2).contiguous().transpose(1, 2)
+
+    def laned(t):       # (N, C, ch, H, W) storage, viewed (C, N, ch, H, W)
+        return (t.transpose(0, 1).contiguous().transpose(0, 1)
+                if t.dim() == 5 else t)
+
+    bb = br > 0
+    return {
+        "stored, broken bool, x laned":
+            (laned(x), turned(w), turned(bb), turned(st), turned(eps)),
+        "broken uint8": (x, w, bb.to(torch.uint8), st, eps),
+        "stored, broken f32": (x, turned(w), turned(br), turned(st), eps),
+    }
+
+
 def phase_tiled_kernels(device):
     """B2t and B3 against their plain versions (phase 9); returns the
     largest |kernel - plain| of B2t, of B3 at C = 1 (B3a) and at C = 4
@@ -1410,7 +1462,8 @@ def phase_tiled_kernels(device):
     from rram_caffe_simulation_tpu_torch.fault.mapping import conv_patch_rows
     err = {"B2t": 0.0, "B3a": 0.0, "B3b": 0.0}
     worst_flip, n_exact, n_bound, n_layout, seed = 0.0, 0, 0, 0, 900
-    planned = set()
+    n_b3 = 0
+    planned, planned_b3 = set(), set()
     for name, (xs, geom, K, N, tiles) in TILED_CASES.items():
         for C, per_lane in ((1, False), (4, False), (4, True)):
             for dyadic in (True, False):
@@ -1418,10 +1471,12 @@ def phase_tiled_kernels(device):
                 x, w, br, st, eps, seeds = tiled_operands(
                     xs, C, per_lane, K, N, dyadic, seed, device)
                 rows = x if geom is None else conv_patch_rows(x, geom)
-                layouts = {} if geom is not None else b2_layouts(
+                layouts = (b2_layouts if geom is None else b3_layouts)(
                     x, w, br, st, eps)
                 if geom is None:
                     planned.add(hw.b2t_plan(C, xs[0], K, N, tiles[0]))
+                else:
+                    planned_b3.add(hw.b3_plan(N))
                 runs = [(0.0, None, 0), (0.0, None, 2)]
                 if not dyadic:
                     runs += [(0.05, eps, 2), (0.05, None, 2)]
@@ -1442,14 +1497,23 @@ def phase_tiled_kernels(device):
                                 x, w, br, st, seeds, sigma, q_bits, e, t,
                                 bm=bm), yk), f"B2t on {bm}-row tiles "
                                 f"differs from the plan's: {where}")
-                        # B2t reads every layout in place: the dense f32
-                        # call's bits, twice each (a fixed summation order)
+                        if geom is not None:
+                            # B3 is B2t over the patch rows at the same
+                            # tiles, bit for bit
+                            check(torch.equal(hw._launch_b2t(
+                                rows, w, br, st, seeds, sigma, q_bits, e, t),
+                                yk), f"B3 differs from B2t over the patch "
+                                f"rows: {where}")
+                            n_b3 += 1
+                        # B2t and B3 read every layout in place: the dense
+                        # f32 call's bits, twice each (a fixed summation
+                        # order)
                         for lname, (lx, lw, lb, ls, le) in layouts.items():
                             for _ in range(2):
                                 check(torch.equal(tiled_forward(
                                     True, lx, lw, lb, ls, seeds, sigma,
                                     q_bits, le if e is not None else None,
-                                    None, t), yk), f"B2t on layout "
+                                    geom, t), yk), f"B2t/B3 on layout "
                                     f"'{lname}' differs from the dense f32 "
                                     f"call: {where}")
                             n_layout += 1
@@ -1489,14 +1553,34 @@ def phase_tiled_kernels(device):
                 x, w, zero, zero, seeds, 0.05, 0, None, tiles, bm=bm)),
                 f"the tiled read's in-kernel noise differs from B2's on "
                 f"{bm}-row tiles (tiles {tiles})")
+    # more tile steps (gk * gn) in a lane than the ADC pass keeps in
+    # shared memory: it reads them from the tile maxima instead
+    n_many = 0
+    for name, (xs, geom, K, N, tiles) in MANY_TILE_CASES.items():
+        for adc in (0, 3):
+            seed += 1
+            t = (tiles[0], tiles[1], adc)
+            x, w, br, st, eps, seeds = tiled_operands(
+                xs, 2, False, K, N, True, seed, device)
+            args = (x, w, br, st, seeds, 0.0, 2, None, geom, t)
+            check(torch.equal(tiled_forward(True, *args),
+                              tiled_forward(False, *args)),
+                  f"{name} with {-(-K // t[0]) * -(-N // t[1])} tile steps "
+                  f"a lane differs from plain (adc {adc})")
+            n_many += 1
+            del x, w, br, st, eps
     print(f"phase 9: B2t/B3 equal to their plain versions in {n_exact} "
           f"dyadic cases (ADC 3 and 8 bits, sigma 0); within the tiled "
           f"bound in {n_bound} random cases (sigma 0, 0.05 host and in-kernel"
           f" noise; ADC flip share at most {worst_flip:.5f}, limit 0.01); "
           f"B2t equal at tile rows {list(B2T_ROWS)} (the plan took "
-          f"{sorted(planned)}); {n_layout} B2t layout "
-          f"cases (dense, stored and turned with x folded, unaligned, mixed; "
-          f"broken bool, uint8, f32) equal to the dense call, twice each; "
+          f"{sorted(planned)}); B3 equal to B2t over the patch rows in "
+          f"{n_b3} cases (column tiles {sorted(planned_b3)}); "
+          f"{n_many} B2t/B3 cases with more tile steps than shared memory "
+          f"holds equal to plain; {n_layout} B2t/B3 layout "
+          f"cases (dense, stored and turned with x folded or laned, "
+          f"unaligned, mixed; broken bool, uint8, f32) equal to the dense "
+          f"call, twice each; "
           f"max abs err B2t {err['B2t']:.3e}, B3a {err['B3a']:.3e}, B3b "
           f"{err['B3b']:.3e}; in-kernel noise equal to B2's at every tile "
           f"height", flush=True)
@@ -1518,13 +1602,21 @@ def conv_library_fn(x, w_eff, geom, C, per_lane):
     return lambda: F.conv2d(x, wk, None, (sh, sw), (ph, pw), (dh, dw))
 
 
+def conv_rows(xs, geom):
+    """M = N * OH * OW of a conv's im2col view, x of one lane `xs`."""
+    n, _, h, wd = xs
+    return n * ((h + 2 * geom[4] - geom[6] * (geom[0] - 1) - 1) // geom[2]
+                + 1) * ((wd + 2 * geom[5] - geom[7] * (geom[1] - 1) - 1)
+                        // geom[3] + 1)
+
+
 def tiled_step_numbers(device, names, C=1, broken_byte=True):
     """Per-step numbers of B2t (names ip1) or B3 (conv2, conv3) at C
     lanes (x shared at C = 1, per lane otherwise), ternary, sigma 0, as
     on the path: kernel, plain version, library call, bound. The kernel
-    is profiled over 25 calls at C = 1, 10 for B2t at C > 1 and 2 for B3
-    there (14 ms a call). B2t gets `broken` as one byte a cell, as the
-    solver has it, unless `broken_byte` is false (an older checkout's
+    is profiled over 25 calls at C = 1 and 10 at C > 1 (shorter windows
+    read a kernel low). B2t and B3 get `broken` as one byte a cell, as
+    the solver has it, unless `broken_byte` is false (an older checkout's
     native f32 mask). Also the largest |kernel - plain| on these inputs,
     each layer within the tiled bound (ADC flip share at most 1%)."""
     import torch
@@ -1535,10 +1627,10 @@ def tiled_step_numbers(device, names, C=1, broken_byte=True):
     bound_by = "bytes"
     for i, name in enumerate(names):
         xs, geom, K, N, tiles = TILED_CASES[name]
-        iters = 50 if C == 1 else 20 if geom is None else 5
+        iters = 50 if C == 1 else 20
         x, w, br, st, _, seeds = tiled_operands(xs, C, C > 1, K, N, False,
                                                 700 + i, device)
-        if geom is None and broken_byte:
+        if broken_byte:
             br = br > 0
         w_eff = hw._lane_w_eff(w, br, st, seeds, 0.0, 2, None)
         args = (x, w, br, st, seeds, 0.0, 2, None, geom, tiles)
@@ -1560,19 +1652,16 @@ def tiled_step_numbers(device, names, C=1, broken_byte=True):
             x_bytes = x.numel() * 4
         else:
             lib_fn = conv_library_fn(x, w_eff, geom, C, C > 1)
-            n, ch, h, wd = xs
-            M = n * ((h + 2 * geom[4] - geom[6] * (geom[0] - 1) - 1)
-                     // geom[2] + 1) * ((wd + 2 * geom[5] - geom[7]
-                                         * (geom[1] - 1) - 1) // geom[3] + 1)
+            M = conv_rows(xs, geom)
             x_bytes = x.numel() * 4 + (M + K) * 4          # + the plan
         lb, _ = timed(lib_fn, iters)
-        # B2t reads broken as a byte a cell, B3 as f32
+        # broken a byte a cell (f32 on an older checkout)
         f32_bytes = x_bytes + 4 * (3 * C * K * N + C * M * N)
-        nbytes = f32_bytes - (3 * C * K * N if geom is None else 0)
+        nbytes = f32_bytes - (3 * C * K * N if broken_byte else 0)
         flops = 2 * C * M * K * N
         tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOP_PER_S * 1e3
         f32_note = (f"; {max(f32_bytes / HBM_BYTES_PER_S * 1e3, tf):.6f} with "
-                    f"broken f32" if geom is None else "")
+                    f"broken f32" if broken_byte else "")
         print(f"  {'B2t' if geom is None else 'B3'} C={C} {name} M,K,N="
               f"{M},{K},{N} tiles {tiles}: kernel {k:.5f} ms ({k_call:.5f} "
               f"ms per wrapper call), plain {p:.5f} ms, library "
@@ -1628,6 +1717,134 @@ def b2t_row_numbers(device, windows=5):
                        "launches_seen": {str(bm): seen[bm] for bm in ms}}
         del x, w, br, st
         torch.cuda.empty_cache()
+    return out
+
+
+B3_PATH_KERNELS = B2T_PATH_KERNELS + ("weff_kernel",)   # its W_eff pass
+
+
+def b3_path_numbers(device, C=1, own_kernels_only=True):
+    """B3's `path_ms`: the device time of one step's conv2 and conv3 reads
+    through `crossbar_conv_matmul` (C = 1) or `crossbar_conv_matmul_lanes`
+    with the layers' tiles, wrapper passes included, from operands laid
+    out as ops/vision.py hands them over: w, the bool broken mask and
+    stuck in Caffe's stored (C, C_out, ch, kh, kw), turned by `to_im2col`;
+    x (N, ch, H, W), or under lanes the (C, N, ch, H, W) view of the laned
+    (N, C*ch, H, W) activation. Its bound counts the bytes as stored
+    (broken one byte a cell) and the f32 FMAs. The pad of x
+    (`pad_activation_flat`, its one copy) is timed within; it is also
+    profiled alone, and with `own_kernels_only` each device activity of
+    the path that is not B3's own (the scale, W_eff and GEMM passes, the
+    ADC sum, the memset, the seed's host-to-card copy) must run as many
+    times a call as in the pad alone: a copy, cast or amax of the wrapper
+    adds launches even where it shares a name with the pad's. Also runs
+    on an older checkout of the package (copy this script beside it)."""
+    import torch
+    from rram_caffe_simulation_tpu_torch.fault import hw_aware as hw
+    from rram_caffe_simulation_tpu_torch.fault.mapping import (
+        conv_patch_rows, pad_activation_flat, to_im2col)
+    ms = bound = 0.0
+    names, pad, extra = set(), set(), []
+    iters = 50 if C == 1 else 20
+    for i, name in enumerate(("conv2", "conv3")):
+        xs, geom, K, N, tiles = TILED_CASES[name]
+        n, ch, h, wd = xs
+        M = conv_rows(xs, geom)
+        g = torch.Generator(device=device).manual_seed(270 + i)
+        stored = (C, N, ch, geom[0], geom[1])
+        w = torch.randn(stored, generator=g, device=device) * 0.1
+        broken = torch.rand(stored, generator=g, device=device) < 0.1
+        stuck = torch.randint(-1, 2, stored, generator=g,
+                              device=device).float()
+        wv, bv, sv = (to_im2col(t, 4) for t in (w, broken, stuck))
+        seeds = torch.arange(C, dtype=torch.int32, device=device)
+        if C == 1:
+            x = torch.randn(xs, generator=g, device=device)
+            fn = lambda: hw.crossbar_conv_matmul(
+                x, wv[0], bv[0], sv[0], 0, 0.0, 2, tiles, geom)[None]
+        else:
+            xl = torch.randn((n, C * ch, h, wd), generator=g, device=device)
+            x = xl.reshape(n, C, ch, h, wd).transpose(0, 1)
+            fn = lambda: hw.crossbar_conv_matmul_lanes(
+                x, wv, bv, sv, seeds, 0.0, 2, tiles, geom)
+        with torch.no_grad():
+            y = fn()
+            yp = hw.crossbar_conv_forward_plain(x, wv, bv, sv, seeds, 0.0, 2,
+                                                tiles, geom)
+            w_eff = hw._lane_w_eff(wv, bv, sv, seeds, 0.0, 2, None)
+            ok, flip, e_max = tiled_bound(y, yp, conv_patch_rows(x, geom),
+                                          w_eff, tiles)
+            check(ok and flip <= 0.01, f"B3 on the path's layout out of "
+                  f"bound at C={C} {name} (flip share {flip:.4f}, max err "
+                  f"{e_max})")
+            del y, yp, w_eff
+            torch.cuda.empty_cache()
+            k, _ = timed(fn, iters)
+            # launches a call by name (a lost event rounds up, a second
+            # launch of a name a call does not)
+            seen = {nm: -(-cnt // 10) for nm, (_, cnt) in
+                    device_ms_by_name(fn, 10).items()}
+            alone = {nm: -(-cnt // 10) for nm, (_, cnt) in device_ms_by_name(
+                lambda: pad_activation_flat(x, geom), 10).items()}
+        names |= set(seen)
+        pad |= set(alone)
+        extra += [f"{name} {nm}: {cnt} a call, the pad alone "
+                  f"{alone.get(nm, 0)}" for nm, cnt in sorted(seen.items())
+                  if not any(own in nm for own in B3_PATH_KERNELS)
+                  and cnt != alone.get(nm, 0)]
+        nbytes = 4 * x.numel() + 4 * (M + K) + 9 * C * K * N + 4 * C * M * N
+        tb = nbytes / HBM_BYTES_PER_S * 1e3
+        tf = 2 * C * M * K * N / F32_FLOP_PER_S * 1e3
+        print(f"  B3 path C={C} {name} M,K,N={M},{K},{N} tiles {tiles}: "
+              f"{k:.5f} ms on the card a read, wrapper passes included; "
+              f"bound {max(tb, tf):.6f} ms (bytes as stored {nbytes}; flop "
+              f"{2 * C * M * K * N})", flush=True)
+        ms, bound = ms + k, bound + max(tb, tf)
+        del x, w, broken, stuck, wv, bv, sv
+        torch.cuda.empty_cache()
+    print(f"  B3 path C={C}: device activities {sorted(names)}; of the pad "
+          f"of x alone {sorted(pad)}; launches beyond B3's own and the "
+          f"pad's {extra}", flush=True)
+    if own_kernels_only:
+        check(any("crossbar_kernel" in n for n in names),
+              f"the profiler did not see B3 among {sorted(names)}")
+        check(not extra, f"the B3 wrapper launched kernels that are not "
+              f"its own or the pad's on the path's layout: {extra}")
+    return {"path_ms": ms, "path_bound_ms": bound}
+
+
+def b3_pass_numbers(device, C=1, windows=3):
+    """Kernel B3's passes (the scale, W_eff, GEMM and ADC-sum passes, the
+    memset, and the pad of x), at the conv2 and conv3 reads of C lanes
+    (ternary, sigma 0, broken a byte, as `tiled_step_numbers`): ms a call
+    of each device activity, summed over the two layers, in `windows`
+    profiled windows of 20 calls at C = 1 and 10 at C > 1."""
+    import torch
+    from rram_caffe_simulation_tpu_torch.fault import hw_aware as hw
+    iters = 20 if C == 1 else 10
+    ops = []
+    for i, name in enumerate(("conv2", "conv3")):
+        xs, geom, K, N, tiles = TILED_CASES[name]
+        x, w, br, st, _, seeds = tiled_operands(xs, C, C > 1, K, N, False,
+                                                700 + i, device)
+        ops.append((x, w, br > 0, st, seeds, tiles, geom))
+    out = []
+    for _ in range(windows):
+        total = {}
+        for x, w, br, st, seeds, tiles, geom in ops:
+            got = device_ms_by_name(lambda: hw._launch_b3(
+                x, w, br, st, seeds, 0.0, 2, None, tiles, geom), iters)
+            for k, (v, _) in got.items():
+                short = next((own for own in B3_PATH_KERNELS if own in k),
+                             "pad of x" if "at::native" in k else k)
+                total[short] = total.get(short, 0.0) + v
+        out.append(total)
+    print(f"  B3 C={C} passes, ms a call (conv2 + conv3) by activity, "
+          f"{windows} windows: " + "; ".join(", ".join(
+              f"{k} {v:.5f}" for k, v in sorted(w.items()))
+              + f" (sum {sum(w.values()):.5f})" for w in out), flush=True)
+    del ops
+    torch.cuda.empty_cache()
     return out
 
 
@@ -1879,6 +2096,11 @@ def main(argv=None) -> int:
                    help="after the build, only time the crossbar reads "
                         "through the wrapper on the path's layouts (C = 1 "
                         "and the sweep's C) and print them as JSON")
+    p.add_argument("--b3-path", action="store_true",
+                   help="after the build, only time the conv2 and conv3 "
+                        "reads through the wrapper on the layer's layouts "
+                        "(C = 1 and the tiled sweep's C), the kernel alone "
+                        "and its passes, and print them as JSON")
     p.add_argument("--b2t-path", action="store_true",
                    help="after the build, only time the tiled ip1 read "
                         "through the wrapper on the path's layouts (C = 1 "
@@ -1939,6 +2161,19 @@ def main(argv=None) -> int:
             res["b2t_rows"] = b2t_row_numbers(device)
         print(json.dumps({**res, "gpu": gpu}))
         return 0
+    if args.b3_path:
+        lanes = (1, TILED_SWEEP_CONFIGS)
+        current = hasattr(hw_aware, "b3_plan")       # else an older checkout
+        res = {"b3_path": {str(C): b3_path_numbers(
+            device, C, own_kernels_only=current) for C in lanes},
+            "b3_kernel": {str(C): tiled_step_numbers(
+                device, ["conv2", "conv3"], C, broken_byte=current)[0]
+                for C in lanes}}
+        if current:
+            res["b3_passes"] = {str(C): b3_pass_numbers(device, C)
+                                for C in lanes}
+        print(json.dumps({**res, "gpu": gpu}))
+        return 0
     if 2 in want:
         err_b1 = phase_b1(device)
     if 3 in want:
@@ -1983,8 +2218,12 @@ def main(argv=None) -> int:
     b2tc.update(b2t_path_numbers(device, tiled_sweep["configs"]))
     b2t_rows = b2t_row_numbers(device)
     b3a, err_b3a = tiled_step_numbers(device, ["conv2", "conv3"])
+    b3a.update(b3_path_numbers(device))
     b3b, err_b3b = tiled_step_numbers(device, ["conv2", "conv3"],
                                       tiled_sweep["configs"])
+    b3b.update(b3_path_numbers(device, tiled_sweep["configs"]))
+    b3_passes = {str(c): b3_pass_numbers(device, c)
+                 for c in (1, tiled_sweep["configs"])}
     sl = sweep["launches"]
     rows = [
         {"name": "crossbar_forward (B2a)", "route": "cuda",
@@ -2018,12 +2257,12 @@ def main(argv=None) -> int:
          "launches": tiled_sweep["launches"]["B2t"],
          "max_abs_err": max(err_tiled["B2t"], err_b2tc), **b2tc},
         {"name": "crossbar_conv_forward implicit (B3a)", "route": "cuda",
-         "source": f"{PKG}/csrc/crossbar_tiled.cu",
+         "source": f"{PKG}/csrc/crossbar.cu",
          "replaces": "rram_caffe_simulation_tpu/fault/hw_aware.py:905",
          "launches": tiled["launches"]["B3"],
          "max_abs_err": max(err_tiled["B3a"], err_b3a), **b3a},
         {"name": "crossbar_conv_forward implicit over C lanes (B3b)",
-         "route": "cuda", "source": f"{PKG}/csrc/crossbar_tiled.cu",
+         "route": "cuda", "source": f"{PKG}/csrc/crossbar.cu",
          "replaces": "rram_caffe_simulation_tpu/fault/hw_aware.py:975",
          "launches": tiled_sweep["launches"]["B3"],
          "max_abs_err": max(err_tiled["B3b"], err_b3b), **b3b},
@@ -2038,6 +2277,7 @@ def main(argv=None) -> int:
     print(json.dumps({"tiled_step": tiled}))
     print(json.dumps({"tiled_sweep": tiled_sweep}))
     print(json.dumps({"b2t_rows": b2t_rows}))
+    print(json.dumps({"b3_passes": b3_passes}))
     print(json.dumps({"kernels": rows}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,5 @@
-// What the crossbar kernels share (crossbar.cu: B2 and B2t;
-// crossbar_tiled.cu: B3): the effective read of one weight cell
+// What the crossbar kernels of crossbar.cu (B2, B2t, B3) share: the
+// effective read of one weight cell
 // (Philox4x32-10 noise on the flat weight index and the reference's
 // `_w_eff` in its straight-through spelling), one tile partial's ADC
 // (`_adc_read`) and the two-pass tiled read's second pass
@@ -77,11 +77,58 @@ __device__ __forceinline__ float adc_quantize(float p, float s,
 // The second pass of a two-pass tiled read, one thread per (c, m, n):
 // y = sum over kt ascending of adc(part[c, kt, m, n]) with the step of
 // tile (c, kt, n / bn) from amax (the float bits of its max |partial|);
-// adc_levels = 0 sums the raw partials.
+// adc_levels = 0 sums the raw partials. blockIdx.y is the lane, so the
+// index arithmetic is 32-bit; the lane's tile steps are formed once a
+// block, in shared memory; a thread loads 8 K-tiles' partials before it
+// sums them, so 8 reads are in flight; each is read once (streamed past
+// the caches).
 __global__ void adc_sum_kernel(const float* __restrict__ part,
                                const unsigned int* __restrict__ amax,
-                               float adc_levels, int C, int M, int N, int bn,
-                               int gk, int gn, float* __restrict__ out) {
+                               float adc_levels, int M, int N, int bn, int gk,
+                               int gn, float* __restrict__ out) {
+  constexpr int U = 8;
+  extern __shared__ float steps[];      // (gk, gn) of the lane
+  const int c = blockIdx.y, mn = M * N;
+  const float* pc = part + (long long)c * gk * mn;
+  const unsigned* ac = amax + (long long)c * gk * gn;
+  float* oc = out + (long long)c * mn;
+  if (adc_levels > 0.f) {
+    for (int i = threadIdx.x; i < gk * gn; i += blockDim.x)
+      steps[i] = adc_step(__uint_as_float(ac[i]), adc_levels);
+    __syncthreads();
+  }
+  for (int rem = blockIdx.x * blockDim.x + threadIdx.x; rem < mn;
+       rem += gridDim.x * blockDim.x) {
+    const int t = rem % N / bn;
+    float y = 0.f;
+    for (int k0 = 0; k0 < gk; k0 += U) {
+      float pv[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+        pv[u] = k0 + u < gk ? __ldcs(pc + (long long)(k0 + u) * mn + rem)
+                            : 0.f;
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int kt = k0 + u;
+        if (kt >= gk) break;
+        float p = pv[u];
+        if (adc_levels > 0.f)
+          p = adc_quantize(p, steps[kt * gn + t], adc_levels);
+        y = kt == 0 ? p : __fadd_rn(y, p);
+      }
+    }
+    oc[rem] = y;
+  }
+}
+
+// The same sum for shapes adc_sum_kernel does not take: one thread per
+// (c, m, n) over all lanes, 64-bit indices, each tile step formed from
+// amax at its read (the same bits)
+__global__ void adc_sum_any_kernel(const float* __restrict__ part,
+                                   const unsigned int* __restrict__ amax,
+                                   float adc_levels, int C, int M, int N,
+                                   int bn, int gk, int gn,
+                                   float* __restrict__ out) {
   const long long mn = (long long)M * N, total = C * mn;
   for (long long idx = blockIdx.x * (long long)blockDim.x + threadIdx.x;
        idx < total; idx += (long long)gridDim.x * blockDim.x) {
@@ -89,7 +136,7 @@ __global__ void adc_sum_kernel(const float* __restrict__ part,
     const int t = (int)(rem % N) / bn;
     float y = 0.f;
     for (int kt = 0; kt < gk; ++kt) {
-      float p = part[(c * gk + kt) * mn + rem];
+      float p = __ldcs(part + (c * gk + kt) * mn + rem);
       if (adc_levels > 0.f)
         p = adc_quantize(
             p, adc_step(__uint_as_float(amax[(c * gk + kt) * gn + t]),
@@ -101,16 +148,28 @@ __global__ void adc_sum_kernel(const float* __restrict__ part,
   }
 }
 
-// adc_sum_kernel's launch: one thread an output, at most 64 blocks an SM
+// The second pass's launch, one thread an output, about 64 blocks an SM
+// over all lanes: adc_sum_kernel where C fits a grid's rows, a lane's
+// index 32 bits and its gk * gn tile steps 48 KB of shared memory, else
+// adc_sum_any_kernel (any shape)
 inline cudaError_t launch_adc_sum(const float* part, const unsigned* amax,
                                   float adc_levels, int C, int M, int N,
                                   int bn, int gk, int gn, float* out,
                                   cudaStream_t stream) {
-  const long long total = (long long)C * M * N;
-  const long long want = (total + 255) / 256;
-  const int blocks = (int)(want < 132LL * 64 ? want : 132LL * 64);
-  adc_sum_kernel<<<blocks, 256, 0, stream>>>(part, amax, adc_levels, C, M, N,
-                                             bn, gk, gn, out);
+  const long long mn = (long long)M * N, smem = 4LL * gk * gn;
+  const long long want = (mn + 255) / 256, most = (132LL * 64 + C - 1) / C;
+  const int blocks = (int)(want < most ? want : most);
+  if (C <= 65535 && mn + 256LL * blocks < (1LL << 31) &&
+      (adc_levels == 0.f || smem <= 48 * 1024)) {
+    adc_sum_kernel<<<dim3(blocks, C), 256, adc_levels > 0.f ? smem : 0,
+                     stream>>>(part, amax, adc_levels, M, N, bn, gk, gn,
+                               out);
+  } else {
+    const long long all = (C * mn + 255) / 256;
+    adc_sum_any_kernel<<<(int)(all < 132LL * 64 ? all : 132LL * 64), 256, 0,
+                         stream>>>(part, amax, adc_levels, C, M, N, bn, gk,
+                                   gn, out);
+  }
   return cudaGetLastError();
 }
 

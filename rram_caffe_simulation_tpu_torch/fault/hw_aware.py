@@ -31,8 +31,11 @@ Two spellings with one contract:
   version.
 - `crossbar_conv_matmul_lanes`: the same tiled read for a convolution
   whose operand is gathered from the raw NCHW activation through the
-  address plan of `mapping.im2col_index_plan`, kernel B3 on the card;
-  its backward replays the reference's `_ccm_bwd` (the patch rows are
+  address plan of `mapping.im2col_index_plan`: kernel B3 on the card
+  (csrc/crossbar.cu, B2t's core with the gather as the x tile's load,
+  its tiles from `b3_plan`), reading w, broken and stuck as stored and
+  the activation as the padded copy `pad_activation_flat` makes; its
+  backward replays the reference's `_ccm_bwd` (the patch rows are
   materialized there, the reference's first-version trade).
 
 In-kernel noise is Philox4x32-10 keyed by the lane seed with the flat
@@ -59,7 +62,8 @@ _VP = ctypes.c_void_p
 _STRIDES = ctypes.c_longlong * 3       # (lane, row, column), in elements
 # (x, w, broken, stuck, eps) each with its strides, then seeds, sigma,
 # levels; B2: C, M, K, N, bm, splits; B2t: adc_levels, C, M, K, N, bk, bn,
-# bm; then scratch, part, out, stream
+# bm; B3: adc_levels, row_base, col_off, C, M, K, N, bk, bn, bm, tile_n;
+# then scratch, (B3: weff,) part, out, stream
 _OPERANDS = [_VP, _STRIDES] * 5 + [_VP, ctypes.c_float, ctypes.c_float]
 CROSSBAR_LIB = kernels.CudaLibrary(
     "crossbar.cu",
@@ -67,16 +71,11 @@ CROSSBAR_LIB = kernels.CudaLibrary(
         _OPERANDS + [ctypes.c_int] * 6 + [_VP] * 4,
      "rram_crossbar_tiled_forward":
         _OPERANDS + [ctypes.c_float] + [ctypes.c_int] * 7 + [_VP] * 4,
+     "rram_crossbar_implicit_forward":
+        _OPERANDS + [ctypes.c_float, _VP, _VP] + [ctypes.c_int] * 7
+        + [_VP] * 5,
      # (bm, has_eps) -> resident GEMM blocks per SM; launches nothing
      "rram_crossbar_blocks_per_sm": [ctypes.c_int, ctypes.c_int]})
-# B3: xflat, x_lane_stride, row_base, col_off, w, broken, stuck, eps,
-# scale, seeds, sigma, levels, adc_levels, C, M, K, N, bk, bn, part, amax,
-# out, stream
-TILED_LIB = kernels.CudaLibrary(
-    "crossbar_tiled.cu",
-    {"rram_crossbar_implicit_forward":
-        [_VP, ctypes.c_longlong, _VP, _VP] + [_VP] * 6
-        + [ctypes.c_float] * 3 + [ctypes.c_int] * 6 + [_VP] * 4})
 
 
 def q_levels(q_bits: int) -> float:
@@ -280,40 +279,6 @@ def _one_device(tensors):
         raise ValueError("crossbar: operands on different devices")
 
 
-def _on_card(tensors):
-    _one_device(tensors)
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("crossbar: operands must be contiguous")
-
-
-def _launch_tiled(fn, x_args, w, broken, stuck, eps, seeds, sigma, q_bits,
-                  tiles, M):
-    """One call of kernel B3 (`fn`), scratch from here: the per-K-tile
-    partials P (C, gk, M, N) and the tiles' ADC ranges."""
-    C, K, N = w.shape
-    bk, bn, adc_bits = _check_tiles(tiles)
-    gk, gn = -(-K // bk), -(-N // bn)
-    if C * gk > 65535:
-        raise ValueError(f"crossbar: {C} lanes x {gk} K-tiles exceed the "
-                         "kernel grid's 65535")
-    levels = q_levels(q_bits)
-    scale = _lane_scale(w, levels)
-    seeds = seeds.to(torch.int32).contiguous()
-    dev = w.device
-    part = torch.empty((C, gk, M, N), dtype=torch.float32, device=dev)
-    amax = torch.empty((C, gk, gn), dtype=torch.float32, device=dev)
-    out = torch.empty((C, M, N), dtype=torch.float32, device=dev)
-    null = ctypes.c_void_p(None)
-    TILED_LIB.call(
-        fn, *x_args, kernels.ptr(w), kernels.ptr(broken), kernels.ptr(stuck),
-        kernels.ptr(eps) if eps is not None else null,
-        kernels.ptr(scale) if scale is not None else null,
-        kernels.ptr(seeds), float(sigma), levels, q_levels(adc_bits), C, M,
-        K, N, bk, bn, kernels.ptr(part), kernels.ptr(amax),
-        kernels.ptr(out), kernels.stream_ptr(dev))
-    return out
-
-
 B2_BK, B2_BN = 32, 64       # kernel B2's K stage and output tile columns
 B2_FILL = 132               # blocks that fill the card (an H100's SMs)
 
@@ -352,6 +317,19 @@ def b2t_plan(C: int, M: int, K: int, N: int, bk: int) -> int:
     return rows
 
 
+# kernel B3's GEMM tile rows by column tile: a thread owns 8 columns
+# either way, so a 32-column tile takes twice the rows
+B3_ROWS = {32: 256, 64: 128}
+
+
+def b3_plan(N: int) -> int:
+    """The column tile of kernel B3's GEMM pass for N output columns: the
+    one that pads N less (32 or 64, 64 on a tie: conv2's N = 32 takes 32);
+    its rows are B3_ROWS's. Either tile gives the bits of B2t over the
+    patch rows."""
+    return 32 if -(-N // 32) * 32 < -(-N // 64) * 64 else 64
+
+
 def _strides(t: torch.Tensor):
     """Element strides (lane, row, column); a tensor without the lane
     axis is shared by every lane (stride 0)."""
@@ -359,14 +337,15 @@ def _strides(t: torch.Tensor):
     return _STRIDES(*((0,) + st if t.dim() < 3 else st))
 
 
-def _operand_args(x, w, broken, stuck, eps):
-    """Kernel B2/B2t's operand arguments: each pointer with its strides
-    (broken as one byte a cell: bool or uint8, an f32 0/1 mask cast once),
-    and the byte mask, which the caller keeps alive through the call."""
+def _operand_args(x, w, broken, stuck, eps, x_strides=None):
+    """Kernel B2/B2t/B3's operand arguments: each pointer with its strides
+    (`x_strides` where x is not a (C, M, K) view; broken as one byte a
+    cell: bool or uint8, an f32 0/1 mask cast once), and the byte mask,
+    which the caller keeps alive through the call."""
     if broken.dtype == torch.float32:
         broken = broken > 0
-    args = []
-    for t in (x, w, broken, stuck):
+    args = [kernels.ptr(x), _strides(x) if x_strides is None else x_strides]
+    for t in (w, broken, stuck):
         args += [kernels.ptr(t), _strides(t)]
     if eps is None:
         return args + [ctypes.c_void_p(None), _STRIDES(0, 0, 1)], broken
@@ -426,6 +405,42 @@ def _launch_b2t(x, w, broken, stuck, seeds, sigma, q_bits, eps, tiles,
         float(sigma), q_levels(q_bits), q_levels(adc_bits), C, M, K, N, bk,
         bn, bm, kernels.ptr(scratch), kernels.ptr(part), kernels.ptr(out),
         kernels.stream_ptr(dev))
+    return out
+
+
+def _launch_b3(x, w, broken, stuck, seeds, sigma, q_bits, eps, tiles, geom):
+    """One call of kernel B3 on w, broken, stuck as stored and x padded
+    by `pad_activation_flat` (its one copy), its GEMM tile from `b3_plan`.
+    Scratch from here: the scales and the tiles' maxima, W_eff (C, K, N),
+    the K-tile partials (C, gk, M, N)."""
+    C, K, N = w.shape
+    rb, co, M, Kp = implicit_plan(x.shape[-4:], geom, w.device)
+    if Kp != K:
+        raise ValueError(f"crossbar conv: the plan's K {Kp} != w's {K}")
+    bk, bn, adc_bits = _check_tiles(tiles)
+    tile_n = b3_plan(N)
+    gk, gn = -(-K // bk), -(-N // bn)
+    if (C * gk >= 2 ** 31 or -(-M // B3_ROWS[tile_n]) > 65535
+            or -(-N // tile_n) > 65535):
+        raise ValueError(f"crossbar conv: shape C,M,K,N = {(C, M, K, N)} "
+                         f"with tiles {tuple(tiles)} exceeds the kernel grid")
+    xflat = pad_activation_flat(x, geom)
+    if xflat.stride(-1) != 1:
+        xflat = xflat.contiguous()
+    x_strides = _STRIDES(xflat.stride(0) if x.dim() == 5 else 0, 0, 1)
+    operands, broken = _operand_args(xflat, w, broken, stuck, eps, x_strides)
+    seeds = seeds.to(torch.int32).contiguous()
+    dev = w.device
+    scratch = torch.empty(C + C * gk * gn, dtype=torch.float32, device=dev)
+    weff = torch.empty((C, K, N), dtype=torch.float32, device=dev)
+    part = torch.empty((C, gk, M, N), dtype=torch.float32, device=dev)
+    out = torch.empty((C, M, N), dtype=torch.float32, device=dev)
+    CROSSBAR_LIB.call(
+        "rram_crossbar_implicit_forward", *operands, kernels.ptr(seeds),
+        float(sigma), q_levels(q_bits), q_levels(adc_bits), kernels.ptr(rb),
+        kernels.ptr(co), C, M, K, N, bk, bn, tile_n,
+        kernels.ptr(scratch), kernels.ptr(weff), kernels.ptr(part),
+        kernels.ptr(out), kernels.stream_ptr(dev))
     return out
 
 
@@ -659,7 +674,9 @@ def crossbar_conv_forward_plain(x, w, broken, stuck, seeds, sigma: float,
     tiled read over the conv operand slabs (`conv_operand_slabs`). x
     (N, ch, H, W) shared or (C, N, ch, H, W); w, broken, stuck (C, K, N)
     im2col views. Returns (C, M, N)."""
-    w_eff = _lane_w_eff(w, broken, stuck, seeds, sigma, q_bits, eps)
+    # a dense w_eff, so the product's order does not depend on the layout
+    w_eff = _lane_w_eff(w, broken, stuck, seeds, sigma, q_bits,
+                        eps).contiguous()
     return tiled_crossbar_matmul_slabs(conv_operand_slabs(x, geom, operand),
                                        w_eff, *tiles)
 
@@ -669,24 +686,19 @@ def crossbar_conv_forward(x, w, broken, stuck, seeds, sigma: float,
     """(C, M, N) tiled crossbar reads of a conv, its operand gathered
     from the raw activation x ((N, ch, H, W) shared or (C, N, ch, H, W)
     per lane) under the conv geometry `geom`. On CUDA tensors this
-    launches kernel B3; on CPU tensors it runs the plain version."""
+    launches kernel B3, which takes w, broken (bool, uint8 or f32 0/1),
+    stuck and eps in any strides (the `to_im2col` view of Caffe's stored
+    weight in place) and x as any view; on CPU tensors it runs the plain
+    version."""
     seeds = torch.as_tensor(seeds, device=w.device)
     _check_crossbar(x, w, broken, stuck, seeds, eps, conv=True)
-    C, K, N = w.shape
-    _check_tiles(tiles)
+    tiles = _check_tiles(tiles)
     if not w.is_cuda:
         return crossbar_conv_forward_plain(x, w, broken, stuck, seeds, sigma,
                                            q_bits, tiles, geom, eps)
-    _on_card([x, w, broken, stuck] + ([eps] if eps is not None else []))
-    rb, co, M, Kp = implicit_plan(x.shape[-4:], geom, w.device)
-    if Kp != K:
-        raise ValueError(f"crossbar conv: the plan's K {Kp} != w's {K}")
-    xflat = pad_activation_flat(x, geom).contiguous()
-    lane_stride = xflat.shape[-1] if x.dim() == 5 else 0
-    return _launch_tiled("rram_crossbar_implicit_forward",
-                         [kernels.ptr(xflat), lane_stride, kernels.ptr(rb),
-                          kernels.ptr(co)], w, broken, stuck, eps, seeds,
-                         sigma, q_bits, tiles, M)
+    _one_device([x, w, broken, stuck] + ([eps] if eps is not None else []))
+    return _launch_b3(x, w, broken, stuck, seeds, sigma, q_bits, eps, tiles,
+                      geom)
 
 
 class CrossbarConvMatmul(torch.autograd.Function):
@@ -700,12 +712,15 @@ class CrossbarConvMatmul(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w, broken, stuck, seeds, sigma, q_bits, tiles, geom,
                 use_kernel, operand):
-        args = (x.contiguous(), w.contiguous(),
+        if use_kernel:          # no copy here: B3 reads them as stored
+            y = crossbar_conv_forward(x, w, broken, stuck, seeds, sigma,
+                                      q_bits, tiles, geom)
+        else:
+            y = crossbar_conv_forward_plain(
+                x.contiguous(), w.contiguous(),
                 broken.to(torch.float32).contiguous(),
                 stuck.to(torch.float32).contiguous(), seeds, sigma, q_bits,
-                tiles, geom)
-        y = (crossbar_conv_forward(*args) if use_kernel
-             else crossbar_conv_forward_plain(*args, operand=operand))
+                tiles, geom, operand=operand)
         ctx.save_for_backward(x, w, broken, stuck)
         ctx.q_bits, ctx.geom = q_bits, geom
         return y

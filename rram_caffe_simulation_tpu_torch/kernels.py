@@ -149,7 +149,7 @@ def build_all(libs: Iterable[CudaLibrary]) -> float:
 def all_libraries() -> list:
     from .fault import fused, hw_aware
     from .ops import pool_backward
-    return [hw_aware.CROSSBAR_LIB, hw_aware.TILED_LIB, fused.FUSED_LIB,
+    return [hw_aware.CROSSBAR_LIB, fused.FUSED_LIB,
             pool_backward.POOL_BWD_LIB]
 
 

@@ -102,7 +102,11 @@ class ConvolutionLayer(Layer):
         C = ctx.lanes
         n, _, h, wd = x.shape
         if C and laned:
-            x = x.reshape(n, C, -1, h, wd).transpose(0, 1).contiguous()
+            # the (C, N, ch, H, W) view; the implicit read copies it once,
+            # padded (pad_activation_flat)
+            x = x.reshape(n, C, -1, h, wd).transpose(0, 1)
+            if mode != "implicit":
+                x = x.contiguous()
         geom = conv_geom(self.kernel, self.stride, self.pad, self.dilation)
         tiles = (int(tl[0]), int(tl[1]), int(ctx.adc_bits))
         wv = to_im2col(w, 4)                     # (C, K, C_out) / (K, C_out)

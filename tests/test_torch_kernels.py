@@ -17,7 +17,10 @@ versions on dyadic inputs (every partial sum exact in any order); on
 random inputs each element stays within the summation bound of every
 K-tile plus one ADC step of each, level flips on at most 1% of the
 elements. B2t's storage layouts, a repeated call, its tile heights and
-one lane read alone or as lane 0 of four must give the same bits."""
+one lane read alone or as lane 0 of four must give the same bits. B3
+must give the bits of B2t over the patch rows at the same tiles, twice.
+Both hold where a lane has more tile steps than the ADC pass keeps in
+shared memory, and over more lanes than a grid's rows."""
 import numpy as np
 import pytest
 import torch
@@ -329,6 +332,54 @@ def test_b3_kernel_matches_plain(cuda_device, dyadic, lanes):
                                           w_eff, tiles)
 
 
+@pytest.mark.parametrize("conv", [False, True])
+@pytest.mark.parametrize("adc", [0, 3])
+def test_tiled_reads_with_many_tile_steps_equal_plain(cuda_device, conv,
+                                                      adc):
+    """B2t and B3 where a lane has more tile steps (gk * gn) than the ADC
+    pass keeps in 48 KB of shared memory (12,288; 1-cell crossbar tiles):
+    equal to the plain version on dyadic inputs."""
+    if conv:
+        xs, geom, K, N = (2, 16, 9, 9), (3, 3, 1, 1, 1, 1, 1, 1), 144, 96
+    else:
+        xs, geom, K, N = (20, 1600), None, 1600, 9
+    assert K * N > 12288
+    tiles = (1, 1, adc)
+    x, w, br, st, seeds = tiled_case(cuda_device, xs, 2, K, N, True, K)
+    if conv:
+        args = (x, w, br, st, seeds, 0.0, 2, tiles, geom)
+        y = thw.crossbar_conv_forward(*args)
+        yp = thw.crossbar_conv_forward_plain(*args)
+    else:
+        y = thw.crossbar_forward(x, w, br, st, seeds, 0.0, 2, tiles=tiles)
+        yp = thw.crossbar_forward_plain(x, w, br, st, seeds, 0.0, 2,
+                                        tiles=tiles)
+    assert torch.equal(y, yp)
+
+
+@pytest.mark.parametrize("conv", [False, True])
+def test_tiled_reads_over_more_lanes_than_a_grid_row_equal_plain(
+        cuda_device, conv):
+    """B2t and B3 over 65,537 lanes (more than a grid's 65,535 rows; ADC
+    3 bits, no weight quantization) equal to the plain version on dyadic
+    inputs."""
+    C, tiles = 65537, (1, 1, 3)
+    if conv:
+        xs, geom, K, N = (1, 2, 2, 2), (2, 2, 1, 1, 0, 0, 1, 1), 8, 2
+    else:
+        xs, geom, K, N = (3, 2), None, 2, 2
+    x, w, br, st, seeds = tiled_case(cuda_device, xs, C, K, N, True, 5)
+    if conv:
+        args = (x, w, br, st, seeds, 0.0, 0, tiles, geom)
+        y = thw.crossbar_conv_forward(*args)
+        yp = thw.crossbar_conv_forward_plain(*args)
+    else:
+        y = thw.crossbar_forward(x, w, br, st, seeds, 0.0, 0, tiles=tiles)
+        yp = thw.crossbar_forward_plain(x, w, br, st, seeds, 0.0, 0,
+                                        tiles=tiles)
+    assert torch.equal(y, yp)
+
+
 B2T_EDGES = [  # M, K, N, tiles: B2t at the edges of its tiling
     (1, 1000, 64, (128, 64, 8)), (100, 1000, 64, (128, 64, 8)),
     (128, 1000, 10, (96, 64, 8)), (100, 256, 130, (128, 64, 8)),
@@ -399,19 +450,45 @@ def test_b2t_tile_rows_give_the_same_bits(cuda_device, M, K, N, tiles):
 def test_tiled_launches_are_counted_per_function(cuda_device):
     x, w, br, st, seeds = tiled_case(cuda_device, (3, 2, 7, 7), 2, 18, 4,
                                      True, 0)
-    before = dict(thw.TILED_LIB.counts)
     before_b2 = dict(thw.CROSSBAR_LIB.counts)
     thw.crossbar_conv_forward(x, w, br, st, seeds, 0.0, 0, (8, 3, 3),
                               (3, 3, 1, 1, 1, 1, 1, 1))
     thw.crossbar_forward(torch.ones(5, 18, device=cuda_device), w, br, st,
                          seeds, 0.0, 0, tiles=(8, 3, 3))
-    assert thw.TILED_LIB.counts["rram_crossbar_implicit_forward"] == \
-        before["rram_crossbar_implicit_forward"] + 1
-    # B2t shares B2's source and library, and keeps its own count
+    # B3 and B2t share B2's source and library, each with its own count
+    assert thw.CROSSBAR_LIB.counts["rram_crossbar_implicit_forward"] == \
+        before_b2["rram_crossbar_implicit_forward"] + 1
     assert thw.CROSSBAR_LIB.counts["rram_crossbar_tiled_forward"] == \
         before_b2["rram_crossbar_tiled_forward"] + 1
     assert thw.CROSSBAR_LIB.counts["rram_crossbar_forward"] == \
         before_b2["rram_crossbar_forward"]
+
+
+B3_CASES = [  # one lane's x, geom, K, N, tiles
+    ((4, 32, 16, 16), (5, 5, 1, 1, 2, 2, 1, 1), 800, 32, (128, 32, 8)),
+    ((4, 32, 8, 8), (5, 5, 1, 1, 2, 2, 1, 1), 800, 64, (128, 64, 8)),
+    ((4, 3, 13, 11), (3, 3, 2, 1, 1, 2, 2, 1), 27, 11, (7, 3, 3)),
+    ((2, 5, 9, 9), (3, 3, 1, 1, 0, 0, 1, 1), 45, 96, (16, 40, 8))]
+
+
+@pytest.mark.parametrize("xs,geom,K,N,tiles", B3_CASES)
+@pytest.mark.parametrize("lanes", ["single", "shared", "per_lane"])
+def test_b3_equals_b2t_over_patch_rows(cuda_device, xs, geom, K, N, tiles,
+                                       lanes):
+    """B3 over x, and a second call: the bits of B2t over
+    `conv_patch_rows(x)` at the same crossbar tiles."""
+    from rram_caffe_simulation_tpu_torch.fault.mapping import conv_patch_rows
+    C = 1 if lanes == "single" else 4
+    x, w, br, st, seeds = tiled_case(
+        cuda_device, ((C,) if lanes == "per_lane" else ()) + xs, C, K, N,
+        False, 11)
+    rows = conv_patch_rows(x, geom)
+    want = thw._launch_b2t(rows, w, br, st, seeds, 0.05, 2, None, tiles)
+    for _ in range(2):
+        assert torch.equal(thw._launch_b3(
+            x, w, br, st, seeds, 0.05, 2, None, tiles, geom), want)
+    assert torch.equal(thw.crossbar_conv_forward(
+        x, w, br > 0, st, seeds, 0.05, 2, tiles, geom), want)
 
 
 def test_b3_autograd_on_card_equals_premat(cuda_device):

@@ -103,3 +103,24 @@ def test_chip_smoke_refuses_without_card_or_repo(tmp_path, alone):
                        capture_output=True, text=True, timeout=120)
     assert r.returncode != 0
     assert '"ok"' not in r.stdout
+
+
+def _c_params(source: str, name: str) -> int:
+    """The number of parameters of C function `name` defined in a CUDA
+    source (comments stripped)."""
+    import re
+    text = re.sub(r"//[^\n]*", "", open(source).read())
+    (params,) = re.findall(r"\bint " + name + r"\(([^)]*)\)", text)
+    return len([p for p in params.split(",") if p.strip()])
+
+
+@pytest.mark.parametrize("lib", ["crossbar", "fused_epilogue",
+                                 "pool_backward"])
+def test_kernel_argtypes_match_their_sources(lib):
+    """Each library's ctypes argtypes have as many entries as its C
+    function has parameters (ctypes checks the count only at the call,
+    which needs the card)."""
+    from rram_caffe_simulation_tpu_torch import kernels
+    (found,) = [L for L in kernels.all_libraries() if L.source.stem == lib]
+    for name, argtypes in found.functions.items():
+        assert len(argtypes) == _c_params(str(found.source), name), name
