@@ -11,6 +11,8 @@
                                           # tile rows)
     python3 chip_smoke.py --b3-path       # only time B3 (wrapper, kernel,
                                           # its passes)
+    python3 chip_smoke.py --b4-path       # only time B4 (through the
+                                          # layer, alone, autograd's)
 
 Phases (each raises on failure; the script then exits non-zero and
 prints no "ok" line):
@@ -53,9 +55,11 @@ prints no "ok" line):
    runs;
 6. kernel B4 (max-pool backward) against its plain version, bit for bit
    (`torch.equal` on the int32 view), at pool1's shapes for C = 1 and
-   C = 4, at an odd geometry (7x7, k3 s2, pad 1) and on a constant
-   plane where every window ties; against autograd's max-pool backward
-   within the reordering of at most 4 f32 addends (reported);
+   C = 4, at an odd geometry (7x7, k3 s2, pad 1), on a constant plane
+   where every window ties, with NaN windows, on 300x300 planes (tiles
+   of row bands) and through the private launcher on pool1 in bands of
+   rows and columns; against autograd's max-pool backward within the
+   reordering of at most 4 f32 addends on the finite cases (reported);
 7. the sweep at full width: SweepRunner over CIFAR-10-quick at C = 512
    config lanes (halved until it fits the card), N(1e8, 3e7), ternary,
    packed banks, fused epilogue, the device-resident dataset,
@@ -112,7 +116,8 @@ step's launches; B1b, B2b and B4 at the sweep's shapes, B2t and B3a at
 the tiled slice's, B3b at the tiled sweep's; the B2 and B2t rows also
 carry `path_ms`, the reads through the wrapper from operands laid out as
 the InnerProduct layer hands them over, and its bound `path_bound_ms`; the
-B3 rows the same from the Convolution layer's layouts), a JSON line of
+B3 rows the same from the Convolution layer's layouts; the B4 row its
+backward through the pooling layer's autograd.Function), a JSON line of
 B3's passes by device activity at C = 1 and the tiled sweep's C, the
 card's name and power limit, and last {"ok": true, "device": {...}}. B2t has a row at each
 path's shapes: C = 1 (the tiled slice) and C lanes (the tiled sweep).
@@ -979,13 +984,19 @@ def pooled(hw, kernel, stride, fpad):
 
 
 def b4_inputs(lead, hw, geometry, seed, device, const=None):
-    """x (lead..., H, W) and g (lead..., Ho, Wo), drawn on the card."""
+    """x (lead..., H, W) and g (lead..., Ho, Wo), drawn on the card; x
+    constant where `const` is a number, with NaNs (lone ones, and windows
+    of two or more) where it is "nan"."""
     import torch
     g = torch.Generator(device=device).manual_seed(seed)
     ohw = pooled(hw, *geometry)
-    x = (torch.full(tuple(lead) + tuple(hw), const, device=device)
-         if const is not None else
-         torch.randn(tuple(lead) + tuple(hw), generator=g, device=device))
+    x = torch.randn(tuple(lead) + tuple(hw), generator=g, device=device)
+    if const == "nan":
+        x[torch.rand(x.shape, generator=g, device=device) < 0.05] = \
+            float("nan")
+        x[..., :2, :2] = float("nan")
+    elif const is not None:
+        x.fill_(const)
     return x, torch.randn(tuple(lead) + ohw, generator=g, device=device)
 
 
@@ -1003,67 +1014,150 @@ def autograd_pool_dx(x, g, kernel, stride, fpad):
 def phase_b4(device):
     import torch
     from rram_caffe_simulation_tpu_torch.ops import pool_backward as pb
-    cases = [("pool1 C=1", (100, 32), (32, 32), POOL1, None),
-             ("pool1 C=4", (100, 128), (32, 32), POOL1, None),
+    # (name, lead, hw, geometry, x, shared-memory budget of the plan)
+    cases = [("pool1 C=1", (100, 32), (32, 32), POOL1, None, None),
+             ("pool1 C=4", (100, 128), (32, 32), POOL1, None, None),
+             ("pool1 at the tiled sweep's C",
+              (100, 32 * TILED_SWEEP_CONFIGS), (32, 32), POOL1, None, None),
              ("7x7 k3 s2 pad 1", (8, 5), (7, 7),
-              ((3, 3), (2, 2), (1, 1, 1, 1)), None),
-             ("constant plane", (4, 6), (32, 32), POOL1, 0.25)]
+              ((3, 3), (2, 2), (1, 1, 1, 1)), None, None),
+             ("constant plane", (4, 6), (32, 32), POOL1, 0.25, None),
+             ("NaN windows", (4, 6), (32, 32), POOL1, "nan", None),
+             ("300x300 in row bands", (2, 3), (300, 300), POOL1, None, None),
+             ("pool1 in bands of rows and columns", (4, 6), (32, 32), POOL1,
+              "nan", 1024)]
     worst_auto = 0.0
-    for n, (name, lead, hw, geometry, const) in enumerate(cases):
+    for n, (name, lead, hw, geometry, const, budget) in enumerate(cases):
         x, g = b4_inputs(lead, hw, geometry, 300 + n, device, const)
-        dk = pb.max_pool_backward(x, g, *geometry)
+        if budget is None:
+            dk = pb.max_pool_backward(x, g, *geometry)
+        else:
+            plan = pb.b4_plan(*hw, *g.shape[-2:], *geometry, budget=budget)
+            check(plan.rows < hw[0] and plan.cols < hw[1],
+                  f"B4's plan under {budget} bytes does not band: {plan}")
+            dk = pb._launch_b4(x, g, *geometry, plan)
         dp = pb.max_pool_backward_plain(x, g, *geometry)
         torch.cuda.synchronize()
         check(torch.equal(dk.view(torch.int32), dp.view(torch.int32)),
               f"B4 differs from its plain version: {name}")
-        if const is not None:
+        if isinstance(const, float):
             kernel, stride, fpad = geometry
             ohw = g.shape[-2:]
             anchors = dk[..., fpad[2]::stride[0], fpad[0]::stride[1]]
             check(torch.equal(anchors[..., :ohw[0], :ohw[1]], g),
                   "B4: a tied window's cotangent is not at its first "
                   "element")
+        if const == "nan":
+            continue    # autograd's max_pool2d keeps a window's last NaN
         da = autograd_pool_dx(x, g, *geometry)
         bound = 4 * U32 * pb.max_pool_backward_plain(x, g.abs(), *geometry)
         err = (dk - da).abs()
         check(bool((err <= bound + 1e-30).all()),
               f"B4 and autograd's backward differ beyond reordering: {name}")
         worst_auto = max(worst_auto, float(err.max()))
+    del x, g, dk, dp
+    # hand the cached blocks back before the sweep: on an H100, phase 7's
+    # peak memory (reached in its first chunk) read 81.63 GB after this
+    # phase left 8.5 GB cached, and 21.95 GB after 0.8 GB
+    torch.cuda.empty_cache()
     print(f"phase 6: B4 bit-identical to its plain version in {len(cases)} "
-          f"cases (pool1 C=1 and C=4, 7x7 k3 s2 pad 1, a constant plane); "
-          f"against autograd's max-pool backward max abs err "
-          f"{worst_auto:.3e} (within 4 f32 roundings of the summed "
-          "cotangents)", flush=True)
+          f"cases ({', '.join(c[0] for c in cases)}); against autograd's "
+          f"max-pool backward (finite cases) max abs err {worst_auto:.3e} "
+          "(within 4 f32 roundings of the summed cotangents)", flush=True)
     return 0.0, worst_auto
 
 
-def b4_step_numbers(device, C):
-    """B4 at the sweep's pool1 (x (100, C*32, 32, 32)): kernel, plain
+B4_KERNELS = ("pool_backward_kernel",)     # B4's own device activity
+
+
+def b4_step_numbers(device, C, ceiling=False):
+    """B4 at the sweep's pool1 (x (100, C*32, 32, 32)): the kernel's
+    device time (profiled over >= 10 calls) and by CUDA events, its time
+    by device activity (an older checkout's two kernels apart), the plain
     version, and autograd's CUDA max-pool backward given the forward's
     indices (torch.ops.aten.max_pool2d_with_indices_backward on the
-    padded input); bound = bytes of x + g + dx over the HBM rate."""
+    padded input); bound = bytes of x + g + dx over the HBM rate. The
+    kernel's dx must equal the plain version's bit for bit on these
+    inputs. With `ceiling`, also the time of a device copy of x by CUDA
+    events (the card's practical rate for a stream that reads and
+    writes)."""
     import torch
     import torch.nn.functional as F
     from rram_caffe_simulation_tpu_torch.ops import pool_backward as pb
     kernel, stride, fpad = POOL1
     x, g = b4_inputs((100, 32 * C), (32, 32), POOL1, 400, device)
-    iters = 100 if C <= 4 else 10
-    k, k_call = timed(lambda: pb.max_pool_backward(x, g, *POOL1), iters)
-    p, _ = timed(lambda: pb.max_pool_backward_plain(x, g, *POOL1),
-                 max(2, iters // 5))
+    iters = 100 if C <= 4 else 20 if C <= 64 else 10
+    fn = lambda: pb.max_pool_backward(x, g, *POOL1)
+    plain = lambda: pb.max_pool_backward_plain(x, g, *POOL1)
+    k_ev = event_ms(fn, iters=iters, warmup=2)
+    by_name = device_ms_by_name(fn, iters)
+    k = sum(v for v, _ in by_name.values())
+    p, _ = timed(plain, max(2, iters // 5))
+    dk, dp = fn(), plain()
+    torch.cuda.synchronize()
+    check(torch.equal(dk.view(torch.int32), dp.view(torch.int32)),
+          f"B4 differs from its plain version at x {tuple(x.shape)}")
+    err = float((dk - dp).abs().max())
+    del dk, dp
     xp = F.pad(x, fpad, value=float("-inf"))
     _, idx = F.max_pool2d(xp, kernel, stride, return_indices=True)
-    lib, _ = timed(lambda: torch.ops.aten.max_pool2d_with_indices_backward(
+    lib = event_ms(lambda: torch.ops.aten.max_pool2d_with_indices_backward(
         g, xp, list(kernel), list(stride), [0, 0], [1, 1], False, idx),
-        iters)
+        iters=iters, warmup=2)
     del xp, idx
     nbytes = 4 * (2 * x.numel() + g.numel())
     b = nbytes / HBM_BYTES_PER_S * 1e3
-    print(f"  B4 C={C} x {tuple(x.shape)}: kernel {k:.5f} ms ({k_call:.5f} "
-          f"ms per wrapper call), plain {p:.5f} ms, autograd's backward "
-          f"{lib:.5f} ms, bound {b:.6f} ms (bytes {nbytes})", flush=True)
+    extra = {}
+    if ceiling:
+        buf = torch.empty_like(x)
+        extra["copy_of_x_ms"] = event_ms(lambda: buf.copy_(x), iters=iters,
+                                         warmup=2)
+        del buf
+    split = ", ".join(f"{nm} {v:.5f} ms ({cnt} in {iters} calls)"
+                      for nm, (v, cnt) in sorted(by_name.items()))
+    print(f"  B4 C={C} x {tuple(x.shape)}: kernel {k:.5f} ms on the card "
+          f"({k_ev:.5f} ms by CUDA events over {iters} calls; by activity: "
+          f"{split}), plain {p:.5f} ms, autograd's backward {lib:.5f} ms, "
+          f"bound {b:.6f} ms (bytes {nbytes}); bit-identical to the plain "
+          f"version{'; ' + str(extra) if extra else ''}", flush=True)
     return {"ms": k, "plain_ms": p, "bound_ms": b, "bound_by": "bytes",
-            "library_ms": lib}
+            "library_ms": lib, "event_ms": k_ev, "max_abs_err": err,
+            "by_activity": {nm: v for nm, (v, _) in by_name.items()},
+            **extra}
+
+
+def b4_path_numbers(device, C, own_kernel_only=True):
+    """B4's `path_ms`: the device time of pool1's backward through the
+    layer's autograd.Function (`_MaxPool.backward`, RRAM_POOL_BWD=cuda)
+    at the sweep's shape, x (100, C*32, 32, 32), over 10 profiled calls.
+    x and g are contiguous tensors drawn here, as conv1's output (which
+    the forward saves) and relu1's cotangent are on the sweep's path; so
+    this sees a copy that the Function or the wrapper adds, not one that
+    another saved layout would cause. With `own_kernel_only`, any device
+    activity on the path other than B4's own kernel (a copy from
+    `.contiguous()`, a memset, a scratch fill) fails."""
+    import torch
+    from rram_caffe_simulation_tpu_torch.ops import pool_backward as pb
+    x, g = b4_inputs((100, 32 * C), (32, 32), POOL1, 410, device)
+    xr = x.requires_grad_()
+    y = pb._MaxPool.apply(xr, *POOL1, "cuda")
+    fn = lambda: torch.autograd.grad(y, xr, g, retain_graph=True)
+    seen = device_ms_by_name(fn, 10)
+    ms = sum(v for v, _ in seen.values())
+    other = sorted(nm for nm in seen
+                   if not any(own in nm for own in B4_KERNELS))
+    print(f"  B4 path C={C}: {ms:.5f} ms on the card a backward through "
+          f"_MaxPool; device activities "
+          f"{ {nm: cnt for nm, (_, cnt) in sorted(seen.items())} } in 10 "
+          f"calls; other than B4's own: {other}", flush=True)
+    if own_kernel_only:
+        check(any(own in nm for nm in seen for own in B4_KERNELS),
+              f"the profiler did not see B4 among {sorted(seen)}")
+        check(not other, f"B4's path launched device activity that is not "
+              f"its own kernel: {other}")
+    del y, xr, x, g
+    torch.cuda.empty_cache()
+    return {"path_ms": ms, "path_activities": sorted(seen)}
 
 
 # ---------------------------------------------------------------------------
@@ -2101,6 +2195,12 @@ def main(argv=None) -> int:
                         "reads through the wrapper on the layer's layouts "
                         "(C = 1 and the tiled sweep's C), the kernel alone "
                         "and its passes, and print them as JSON")
+    p.add_argument("--b4-path", action="store_true",
+                   help="after the build, only time the max-pool backward "
+                        "at pool1's sweep shapes (C = 512 and the tiled "
+                        "sweep's C): through _MaxPool.backward, the kernel "
+                        "alone (by device activity and by CUDA events), "
+                        "autograd's backward and the bound, as JSON")
     p.add_argument("--b2t-path", action="store_true",
                    help="after the build, only time the tiled ip1 read "
                         "through the wrapper on the path's layouts (C = 1 "
@@ -2174,6 +2274,15 @@ def main(argv=None) -> int:
                                 for C in lanes}
         print(json.dumps({**res, "gpu": gpu}))
         return 0
+    if args.b4_path:
+        from rram_caffe_simulation_tpu_torch.ops import pool_backward
+        current = hasattr(pool_backward, "b4_plan")  # else an older checkout
+        res = {}
+        for C in (SWEEP_CONFIGS, TILED_SWEEP_CONFIGS):
+            res[str(C)] = b4_step_numbers(device, C, ceiling=current)
+            res[str(C)].update(b4_path_numbers(device, C, current))
+        print(json.dumps({"b4_path": res, "gpu": gpu}))
+        return 0
     if 2 in want:
         err_b1 = phase_b1(device)
     if 3 in want:
@@ -2211,6 +2320,7 @@ def main(argv=None) -> int:
     b2b.update(b2_path_numbers(device, C))
     b1b, err_b1b = b1_step_numbers(device, C)
     b4 = b4_step_numbers(device, C)
+    b4.update(b4_path_numbers(device, C))
     b2t, err_b2t = tiled_step_numbers(device, ["ip1"])
     b2t.update(b2t_path_numbers(device))
     b2tc, err_b2tc = tiled_step_numbers(device, ["ip1"],
@@ -2245,7 +2355,8 @@ def main(argv=None) -> int:
         {"name": "max_pool_backward (B4)", "route": "cuda",
          "source": f"{PKG}/csrc/pool_backward.cu",
          "replaces": "rram_caffe_simulation_tpu/ops/pool_backward.py:141",
-         "launches": sl["B4"], "max_abs_err": err_b4, **b4},
+         "launches": sl["B4"], **b4,
+         "max_abs_err": max(err_b4, b4["max_abs_err"])},
         {"name": "crossbar_forward tiled (B2t)", "route": "cuda",
          "source": f"{PKG}/csrc/crossbar.cu",
          "replaces": "rram_caffe_simulation_tpu/fault/hw_aware.py:318",

@@ -24,7 +24,9 @@ interpret-mode kernel is matched exactly on finite inputs.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
+import functools
 import os
 
 import torch
@@ -37,8 +39,24 @@ POOL_BWD_ENGINES = ("auto", "cuda", "torch")
 _VP = ctypes.c_void_p
 POOL_BWD_LIB = kernels.CudaLibrary(
     "pool_backward.cu",
-    {"rram_max_pool_backward": [_VP] * 4 + [ctypes.c_longlong]
-     + [ctypes.c_int] * 10 + [_VP]})
+    {"rram_max_pool_backward": [_VP] * 3 + [ctypes.c_longlong]
+     + [ctypes.c_int] * 19 + [_VP]})
+
+# Shared memory a block of kernel B4 may take: its ring of two stages of
+# x and g. Its 128 registers a thread let two blocks share an SM; at
+# pool1, 64 KB tiles (6 planes) ran slower than 96 KB (8), and more
+# planes a tile would pass B4_WINDOWS.
+B4_SMEM = 96 * 1024
+B4_WINDOWS = 256 * 8     # windows a tile: 8 for each of a block's threads
+
+B4Plan = collections.namedtuple(
+    "B4Plan", "planes rows cols x_rows x_pitch win_rows win_cols g_pitch "
+    "smem")
+B4Plan.__doc__ = """Kernel B4's tile: `planes` whole planes, or (planes 1)
+a band of `rows` x `cols` input elements of one plane; the largest x
+region a band reads (`x_rows`, stored at row pitch `x_pitch`) and the
+most windows it holds (`win_rows` x `win_cols`, g stored at `g_pitch`);
+`smem` the block's shared-memory bytes."""
 
 
 def pool_bwd_engine() -> str:
@@ -93,7 +111,8 @@ def _check(x, g, kernel, stride, fpad):
     (kh, kw), (sh, sw) = kernel, stride
     if kh * kw > 256:
         raise ValueError(f"max_pool_backward: a {kh}x{kw} window has more "
-                         "offsets than kernel B4's one-byte argmax holds")
+                         "than 256 offsets, the most whose windows kernel "
+                         "B4's smallest band (a row of four) holds")
     w_lo, w_hi, h_lo, h_hi = fpad
     H, W = x.shape[-2:]
     want = ((H + h_lo + h_hi - kh) // sh + 1,
@@ -103,29 +122,112 @@ def _check(x, g, kernel, stride, fpad):
                          f"{tuple(g.shape[-2:])}, the geometry gives {want}")
 
 
+def b4_band(lo, hi, n, k, s, p, n_out):
+    """The windows [o_lo, o_hi] along one axis that hold an element of
+    input range [lo, hi), and the input range [x_lo, x_hi) they read,
+    clipped to [0, n) (the halo the band needs; kernel B4's `band`)."""
+    o_lo = max(0, -(-(lo + p - k + 1) // s))
+    o_hi = min(n_out - 1, (hi - 1 + p) // s)
+    return o_lo, o_hi, max(0, o_lo * s - p), min(n, o_hi * s - p + k)
+
+
+def b4_bands(n, band, k, s, p, n_out):
+    """Each band of one axis as (lo, hi, o_lo, o_hi, x_lo, x_hi); an
+    axis taken whole holds every window and reads all of it."""
+    if band >= n:
+        return [(0, n, 0, n_out - 1, 0, n)]
+    return [(lo, min(n, lo + band)) + b4_band(lo, min(n, lo + band), n, k, s,
+                                              p, n_out)
+            for lo in range(0, n, band)]
+
+
+def _round4(n):
+    return -(-n // 4) * 4
+
+
+def b4_smem(W, planes, rows, cols, x_rows, x_pitch, win_rows, g_pitch):
+    """A block's shared memory (csrc/pool_backward.cu's layout): two
+    mbarriers and two stages, each of x (or, once read, the band's dx at
+    a pitch on W's 16-byte phase) and g, each with room for its phase."""
+    dp = W if cols >= W else cols + (W - cols) % 4
+    xf = _round4(planes * max(x_rows * x_pitch, rows * dp) + 3)
+    gf = _round4(planes * win_rows * g_pitch + 3)
+    return 16 + 2 * 4 * (xf + gf)
+
+
+def _axis_max(n, band, k, s, p, n_out):
+    """(most windows, largest x extent) of a band of an axis."""
+    bands = b4_bands(n, band, k, s, p, n_out)
+    return (max(max(0, b[3] - b[2] + 1) for b in bands),
+            max(max(0, b[5] - b[4]) for b in bands))
+
+
+def _layout(pt, bh, bw, H, W, Ho, Wo, kernel, stride, fpad):
+    (kh, kw), (sh, sw) = kernel, stride
+    w_lo, _, h_lo, _ = fpad
+    wh, xh = _axis_max(H, bh, kh, sh, h_lo, Ho)
+    ww, xw = _axis_max(W, bw, kw, sw, w_lo, Wo)
+    # a banded row keeps the 16-byte phase of its source row
+    xp = W if bw >= W else xw + (W - xw) % 4
+    gp = Wo if bw >= W else ww + (Wo - ww) % 4
+    bh, bw = min(bh, H), min(bw, W)
+    return B4Plan(pt, bh, bw, xh, xp, wh, ww, gp,
+                  b4_smem(W, pt, bh, bw, xh, xp, wh, gp))
+
+
+@functools.lru_cache(maxsize=64)
+def b4_plan(H, W, Ho, Wo, kernel, stride, fpad, budget=B4_SMEM):
+    """Kernel B4's tile for a geometry: as many whole planes as fit
+    `budget` bytes of shared memory and B4_WINDOWS windows; else the
+    tallest band of whole rows that fits; else square-ish bands of rows
+    and columns (columns in fours), down to one row of four. Each band's
+    x region takes the halo of every window holding an element of it.
+    Depends on the geometry alone; every plan gives the same bits."""
+    geo = (H, W, Ho, Wo, tuple(kernel), tuple(stride), tuple(fpad))
+    ok = lambda p: p.smem <= budget and p.planes * p.win_rows * p.win_cols \
+        <= B4_WINDOWS
+    if ok(_layout(1, H, W, *geo)):
+        pt = 1
+        while ok(_layout(pt + 1, H, W, *geo)):
+            pt += 1
+        return _layout(pt, H, W, *geo)
+    fits = lambda bh, bw: ok(_layout(1, bh, bw, *geo))
+    for bh in range(H - 1, 0, -1):
+        if fits(bh, W):
+            return _layout(1, bh, W, *geo)
+    for side in range((W - 1) // 4 * 4, 3, -4):
+        if fits(min(H, side), side):
+            return _layout(1, min(H, side), side, *geo)
+    return _layout(1, 1, min(W, 4), *geo)
+
+
+def _launch_b4(x, g, kernel, stride, fpad, plan):
+    """Kernel B4 on contiguous CUDA x and g under `plan`: dx, one launch."""
+    H, W = x.shape[-2:]
+    ho, wo = g.shape[-2:]
+    dx = torch.empty_like(x)
+    w_lo, _, h_lo, _ = fpad
+    POOL_BWD_LIB.call(
+        "rram_max_pool_backward", kernels.ptr(x), kernels.ptr(g),
+        kernels.ptr(dx), x.numel() // (H * W) if H * W else 0, H, W, ho, wo,
+        kernel[0], kernel[1], stride[0], stride[1], h_lo, w_lo, *plan,
+        kernels.stream_ptr(x.device))
+    return dx
+
+
 def max_pool_backward(x, g, kernel, stride, fpad):
     """dx of max pooling. On CUDA tensors this launches kernel B4 once
-    over every plane (its two passes, the window argmax into a byte of
-    scratch per window, then the gather); on CPU tensors it runs the
-    plain version."""
+    over every plane (one pass: x and g read once, dx written once,
+    tiles per `b4_plan`); on CPU tensors it runs the plain version."""
     _check(x, g, kernel, stride, fpad)
     if not x.is_cuda:
         return max_pool_backward_plain(x, g, kernel, stride, fpad)
     if g.device != x.device:
         raise ValueError("max_pool_backward: x and g on different devices")
     x, g = x.contiguous(), g.contiguous()
-    H, W = x.shape[-2:]
-    ho, wo = g.shape[-2:]
-    planes = x.numel() // (H * W) if H * W else 0
-    dx = torch.empty_like(x)
-    arg = torch.empty(g.numel(), dtype=torch.uint8, device=x.device)
-    w_lo, _, h_lo, _ = fpad
-    POOL_BWD_LIB.call(
-        "rram_max_pool_backward", kernels.ptr(x), kernels.ptr(g),
-        kernels.ptr(dx), kernels.ptr(arg), planes, H, W, ho, wo, kernel[0],
-        kernel[1], stride[0], stride[1], h_lo, w_lo,
-        kernels.stream_ptr(x.device))
-    return dx
+    plan = b4_plan(*x.shape[-2:], *g.shape[-2:], tuple(kernel),
+                   tuple(stride), tuple(fpad))
+    return _launch_b4(x, g, kernel, stride, fpad, plan)
 
 
 class _MaxPool(torch.autograd.Function):

@@ -517,26 +517,56 @@ def test_b3_autograd_on_card_equals_premat(cuda_device):
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("lead,hw,kernel,stride,fpad,const", [
-    ((100, 32), (32, 32), (3, 3), (2, 2), (0, 1, 0, 1), None),   # pool1
-    ((3, 5), (16, 16), (3, 3), (2, 2), (0, 1, 0, 1), None),
-    ((4, 3), (7, 7), (3, 3), (2, 2), (1, 1, 1, 1), None),
-    ((2, 3), (9, 11), (3, 2), (1, 2), (0, 1, 1, 1), None),
-    ((2, 3), (12, 12), (2, 2), (2, 2), (0, 0, 0, 0), None),
-    ((2, 3), (32, 32), (3, 3), (2, 2), (0, 1, 0, 1), 1.5),       # all tie
+POOL1 = ((32, 32), (3, 3), (2, 2), (0, 1, 0, 1))
+
+
+@pytest.mark.parametrize("lead,hw,kernel,stride,fpad,kind,budget", [
+    ((100, 32),) + POOL1 + (None, None),                     # pool1, C = 1
+    ((100, 16384),) + POOL1 + (None, None),                  # pool1, C = 512
+    ((3, 5), (16, 16), (3, 3), (2, 2), (0, 1, 0, 1), None, None),
+    ((7,), (16, 16), (3, 3), (2, 2), (0, 1, 0, 1), None, None),  # 7 planes
+    ((4, 3), (7, 7), (3, 3), (2, 2), (1, 1, 1, 1), None, None),
+    ((2, 3), (9, 11), (3, 2), (1, 2), (0, 1, 1, 1), None, None),
+    ((2, 3), (12, 12), (2, 2), (2, 2), (0, 0, 0, 0), None, None),
+    ((2, 3), (32, 32), (3, 3), (2, 2), (0, 1, 0, 1), "tie", None),
+    ((4, 5),) + POOL1 + ("nan", None),
+    ((2, 3), (9, 11), (3, 2), (1, 2), (0, 1, 1, 1), "nan", None),
+    ((2, 3), (300, 300), (3, 3), (2, 2), (0, 1, 0, 1), None, None),  # rows
+    ((2, 3), (300, 301), (3, 3), (2, 2), (0, 1, 0, 1), "nan", None),
+    ((2, 3),) + POOL1 + (None, 4096),                        # row bands
+    ((2, 3),) + POOL1 + ("nan", 1024),                       # and columns
+    ((2, 3), (9, 11), (3, 2), (1, 2), (0, 1, 1, 1), None, 512),
+    ((2, 3), (7, 7), (3, 3), (2, 2), (1, 1, 1, 1), "tie", 256),
 ])
 def test_b4_kernel_equals_plain(cuda_device, lead, hw, kernel, stride, fpad,
-                                const):
-    rng = np.random.RandomState(sum(hw))
+                                kind, budget):
+    """B4 equals its plain version bit for bit: pool1 at C = 1 and C = 512
+    (the only case near 2^31 elements), plane counts off the tile's,
+    W not a multiple of 4, all-tie planes, NaN windows, planes banded by
+    rows (300 x 300 under the default budget) and, through the private
+    launcher under a small budget, by rows and columns."""
     ho = (hw[0] + fpad[2] + fpad[3] - kernel[0]) // stride[0] + 1
     wo = (hw[1] + fpad[0] + fpad[1] - kernel[1]) // stride[1] + 1
-    x = (np.full(lead + hw, const, np.float32) if const is not None
-         else rng.randn(*lead, *hw).astype(np.float32))
-    g = rng.randn(*lead, ho, wo).astype(np.float32)
-    x, g = (torch.from_numpy(a).to(cuda_device) for a in (x, g))
-    dk = tpool.max_pool_backward(x, g, kernel, stride, fpad)
+    gen = torch.Generator(device=cuda_device).manual_seed(sum(hw))
+    x = torch.randn(lead + hw, generator=gen, device=cuda_device)
+    g = torch.randn(lead + (ho, wo), generator=gen, device=cuda_device)
+    if kind == "tie":
+        x.fill_(1.5)
+    elif kind == "nan":      # lone NaNs, and windows with two or more
+        x[torch.rand(x.shape, generator=gen, device=cuda_device) < 0.05] = \
+            float("nan")
+        x[..., :2, :2] = float("nan")
+    if budget is None:
+        dk = tpool.max_pool_backward(x, g, kernel, stride, fpad)
+    else:
+        plan = tpool.b4_plan(*hw, ho, wo, kernel, stride, fpad, budget=budget)
+        assert plan.rows < hw[0] or plan.cols < hw[1]
+        dk = tpool._launch_b4(x, g, kernel, stride, fpad, plan)
     dp = tpool.max_pool_backward_plain(x, g, kernel, stride, fpad)
     assert torch.equal(dk.view(torch.int32), dp.view(torch.int32))
+    if budget is not None:
+        return
+    del dk
     # and through the layer's autograd.Function under RRAM_POOL_BWD=cuda
     launches = tpool.POOL_BWD_LIB.launches
     xr = x.clone().requires_grad_()

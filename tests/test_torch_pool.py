@@ -178,3 +178,190 @@ def test_pool_engine_choice_is_checked(monkeypatch):
     with pytest.raises(ValueError, match="RRAM_POOL_BWD"):
         tpool.max_pool(torch.zeros((1, 1, 4, 4)), (2, 2), (2, 2),
                        (0, 0, 0, 0))
+
+
+# ---------------------------------------------------------------------------
+# kernel B4's tiles (b4_plan), emulated on the CPU: the kernel's tile
+# arithmetic with the plain version's arithmetic inside each tile
+
+B4_BUDGETS = [tpool.B4_SMEM, 4096, 1024]
+B4_GEOMETRIES = [c + (None,) for c in CASES] + [
+    CASES[0][:5] + ("tie",), CASES[5][:5] + ("tie",),
+    CASES[0][:5] + ("nan",), CASES[3][:5] + ("nan",)]
+
+
+def b4_case_inputs(H, W, kernel, stride, pads, kind, seed=5):
+    rng = np.random.RandomState(seed)
+    ho = out_hw(H, kernel[0], stride[0], pads[0])
+    wo = out_hw(W, kernel[1], stride[1], pads[1])
+    if kind == "tie":
+        x = np.full((2, 3, H, W), 0.75, np.float32)
+    else:
+        x = rng.randn(2, 3, H, W).astype(np.float32)
+    if kind == "nan":         # lone NaNs, and windows with two or more
+        x[rng.rand(*x.shape) < 0.05] = np.nan
+        x[0, 0, :2, :2] = np.nan
+    if kind == "spike":       # elements that win every window holding them
+        x = -np.abs(x)
+        x[rng.rand(*x.shape) < 0.05] = 10.0
+    g = rng.randn(2, 3, ho, wo).astype(np.float32)
+    return torch.from_numpy(x), torch.from_numpy(g)
+
+
+def b4_tiles(H, W, Ho, Wo, kernel, stride, fp, plan, planes):
+    """Every tile of kernel B4 under `plan`: (plane range, row band,
+    column band), each band (lo, hi, o_lo, o_hi, x_lo, x_hi)."""
+    (kh, kw), (sh, sw) = kernel, stride
+    w_lo, _, h_lo, _ = fp
+    rows = tpool.b4_bands(H, plan.rows, kh, sh, h_lo, Ho)
+    cols = tpool.b4_bands(W, plan.cols, kw, sw, w_lo, Wo)
+    for p0 in range(0, planes, plan.planes):
+        for rb in rows:
+            for cb in cols:
+                yield (p0, min(planes, p0 + plan.planes)), rb, cb
+
+
+def emulate_b4(x, g, kernel, stride, fp, plan):
+    """dx tile by tile: the plain version over each tile's haloed x
+    region and its windows' g, its band copied out."""
+    H, W = x.shape[-2:]
+    Ho, Wo = g.shape[-2:]
+    (kh, kw), (sh, sw) = kernel, stride
+    w_lo, _, h_lo, _ = fp
+    xs, gs = x.reshape(-1, H, W), g.reshape(-1, Ho, Wo)
+    dx = torch.full_like(xs, float("nan"))
+    for (p0, p1), rb, cb in b4_tiles(H, W, Ho, Wo, kernel, stride, fp, plan,
+                                     xs.shape[0]):
+        (r0, r1, oh0, oh1, xr0, xr1), (c0, c1, ow0, ow1, xc0, xc1) = rb, cb
+        band = torch.zeros((p1 - p0, r1 - r0, c1 - c0))
+        if oh1 >= oh0 and ow1 >= ow0:
+            top, left = xr0 - (oh0 * sh - h_lo), xc0 - (ow0 * sw - w_lo)
+            sub = (left, (ow1 - ow0) * sw + kw - (xc1 - xc0) - left,
+                   top, (oh1 - oh0) * sh + kh - (xr1 - xr0) - top)
+            d = tpool.max_pool_backward_plain(
+                xs[p0:p1, xr0:xr1, xc0:xc1], gs[p0:p1, oh0:oh1 + 1,
+                                               ow0:ow1 + 1],
+                kernel, stride, sub)
+            a, b = max(r0, xr0), min(r1, xr1)
+            c, e = max(c0, xc0), min(c1, xc1)
+            if a < b and c < e:
+                band[:, a - r0:b - r0, c - c0:e - c0] = \
+                    d[:, a - xr0:b - xr0, c - xc0:e - xc0]
+        dx[p0:p1, r0:r1, c0:c1] = band
+    return dx.reshape(x.shape)
+
+
+@pytest.mark.parametrize("budget", B4_BUDGETS)
+@pytest.mark.parametrize("H,W,kernel,stride,pads,kind", B4_GEOMETRIES)
+def test_b4_tiles_emulated_equal_plain(H, W, kernel, stride, pads, kind,
+                                       budget):
+    """Kernel B4's tiles, each through the plain version's arithmetic
+    over its haloed x region, give the plain version's bits."""
+    x, g = b4_case_inputs(H, W, kernel, stride, pads, kind)
+    fp = fpad(pads)
+    plan = tpool.b4_plan(H, W, *g.shape[-2:], kernel, stride, fp,
+                         budget=budget)
+    got = emulate_b4(x, g, kernel, stride, fp, plan)
+    want = tpool.max_pool_backward_plain(x, g, kernel, stride, fp)
+    np.testing.assert_array_equal(bits(got.numpy()), bits(want.numpy()))
+
+
+def _windows_holding(i, k, s, p, n_out):
+    return [o for o in range(n_out) if o * s <= i + p < o * s + k]
+
+
+@pytest.mark.parametrize("budget", B4_BUDGETS + [256])
+@pytest.mark.parametrize("H,W,kernel,stride,pads", CASES + [
+    (300, 300, (3, 3), (2, 2), ((0, 1), (0, 1))),
+    (5, 40, (2, 3), (3, 2), ((1, 0), (2, 2)))])
+def test_b4_plan_covers_each_element_once_within_halos(H, W, kernel, stride,
+                                                       pads, budget):
+    """Kernel B4's tiles cover every input element exactly once; every
+    window holding an element of a band lies in the band's windows and
+    reads only its x region; no band exceeds the plan's sizes, which
+    take no more shared memory than a block has (and no more than the
+    budget, unless even a band of one row of four takes more) and no more
+    windows than the kernel's threads hold."""
+    (kh, kw), (sh, sw) = kernel, stride
+    fp = fpad(pads)
+    Ho, Wo = (out_hw(H, kh, sh, pads[0]), out_hw(W, kw, sw, pads[1]))
+    plan = tpool.b4_plan(H, W, Ho, Wo, kernel, stride, fp, budget=budget)
+    assert plan.smem <= 232448          # a block's most on an H100
+    assert plan.smem <= budget or (plan.rows, plan.cols) == (1, min(W, 4))
+    assert plan.smem == tpool.b4_smem(W, plan.planes, plan.rows, plan.cols,
+                                      plan.x_rows, plan.x_pitch,
+                                      plan.win_rows, plan.g_pitch)
+    assert plan.planes * plan.win_rows * plan.win_cols <= tpool.B4_WINDOWS
+    if plan.planes > 1:
+        assert (plan.rows, plan.cols) == (H, W)
+    if plan.cols < W:
+        assert plan.cols % 4 == 0
+        assert plan.x_pitch % 4 == W % 4 and plan.g_pitch % 4 == Wo % 4
+    else:
+        assert (plan.x_pitch, plan.g_pitch) == (W, Wo)
+    holding = [[_windows_holding(i, k, s, p, n_out) for i in range(n)]
+               for n, k, s, p, n_out in ((H, kh, sh, fp[2], Ho),
+                                         (W, kw, sw, fp[0], Wo))]
+    seen = np.zeros((7, H, W), np.int64)
+    for (p0, p1), rb, cb in b4_tiles(H, W, Ho, Wo, kernel, stride, fp, plan,
+                                     7):
+        seen[p0:p1, rb[0]:rb[1], cb[0]:cb[1]] += 1
+        for (lo, hi, o_lo, o_hi, x_lo, x_hi), k, s, p, n, most, extent, \
+                axis in ((rb, kh, sh, fp[2], H, plan.win_rows, plan.x_rows,
+                          0),
+                         (cb, kw, sw, fp[0], W, plan.win_cols, plan.x_pitch,
+                          1)):
+            assert o_hi - o_lo + 1 <= most and x_hi - x_lo <= extent
+            for i in range(lo, hi):
+                for o in holding[axis][i]:
+                    assert o_lo <= o <= o_hi
+                    assert x_lo <= max(0, o * s - p)
+                    assert min(n, o * s - p + k) <= x_hi
+    assert (seen == 1).all()
+
+
+def emulate_b4_passes(x, g, kernel, stride, fp):
+    """Kernel B4's arithmetic over whole planes: each window's first
+    argmax (torch.argmax's rule), then its cotangent added at the argmax
+    from 0 in f32, in pass (ki // sh) * ceil(kw / sw) + kj // sw, the
+    passes ascending and the windows of a pass in reverse order (any
+    order must do: no two windows of a pass meet at an element)."""
+    (kh, kw), (sh, sw) = kernel, stride
+    w_lo, _, h_lo, _ = fp
+    H, W = x.shape[-2:]
+    Ho, Wo = g.shape[-2:]
+    xp = torch.nn.functional.pad(x, fp, value=float("-inf")).reshape(
+        -1, H + fp[2] + fp[3], W + fp[0] + fp[1])
+    gs = g.reshape(-1, Ho, Wo).numpy()
+    dxp = np.zeros(xp.shape, np.float32)
+    cols = -(-kw // sw)
+    for p in range(xp.shape[0]):
+        passes = {}
+        for oh in range(Ho):
+            for ow in range(Wo):
+                win = xp[p, oh * sh:oh * sh + kh, ow * sw:ow * sw + kw]
+                ki, kj = divmod(int(torch.argmax(win.reshape(-1))), kw)
+                passes.setdefault((ki // sh) * cols + kj // sw, []).append(
+                    (oh * sh + ki, ow * sw + kj, gs[p, oh, ow]))
+        for q in sorted(passes):
+            hits = [(r, c) for r, c, _ in passes[q]]
+            assert len(set(hits)) == len(hits), "two windows of a pass meet"
+            for r, c, v in reversed(passes[q]):
+                dxp[p, r, c] = np.float32(dxp[p, r, c] + v)
+    return dxp[:, h_lo:h_lo + H, w_lo:w_lo + W].reshape(x.shape)
+
+
+@pytest.mark.parametrize("H,W,kernel,stride,pads,kind", [
+    c + ("spike",) for c in CASES] + [
+    (6, 6, (3, 3), (1, 1), ((0, 0), (0, 0)), "spike"),
+    (9, 9, (2, 3), (1, 1), ((1, 0), (1, 1)), "spike"),
+    CASES[0][:5] + ("nan",), CASES[5][:5] + ("tie",)])
+def test_b4_pass_order_equals_plain(H, W, kernel, stride, pads, kind):
+    """Kernel B4's passes: the cotangents of windows that share their
+    argmax (a spike wins every window holding it: up to 9 at k3 s1) add
+    in the plain version's order, so the bits equal it."""
+    x, g = b4_case_inputs(H, W, kernel, stride, pads, kind)
+    fp = fpad(pads)
+    got = emulate_b4_passes(x, g, kernel, stride, fp)
+    want = tpool.max_pool_backward_plain(x, g, kernel, stride, fp)
+    np.testing.assert_array_equal(bits(got), bits(want.numpy()))
