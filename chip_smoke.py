@@ -13,6 +13,8 @@
                                           # its passes)
     python3 chip_smoke.py --b4-path       # only time B4 (through the
                                           # layer, alone, autograd's)
+    python3 chip_smoke.py --b1-path       # only time B1 (through the
+                                          # solver's tail, alone, a copy)
 
 Phases (each raises on failure; the script then exits non-zero and
 prints no "ok" line):
@@ -21,8 +23,11 @@ prints no "ok" line):
    nvcc (one process per source, started together), timed;
 2. kernel B1 (fused ApplyUpdate+Fail) against its plain version,
    bit for bit (`torch.equal` on the int32 view of data', and life_q'),
-   at the ip1/ip2 weight and bias shapes, every mode, int16 and int32
-   banks, C = 1 and C = 4, counters within a few writes of zero;
+   every mode, int16 and int32 banks, C = 1 and C = 4, counters within a
+   few writes of zero: each ip1/ip2 weight and bias alone, and the
+   step's groups in one launch each (the untiled four leaves, the tiled
+   ten with conv1-3), a group with leaves off the 16-byte grid, and 20
+   leaves in two launches;
 3. kernel B2 (crossbar GEMM) against its plain version at the ip1/ip2
    shapes and at ragged ones (1x7x3, 5x18x7, 100x1000x10, 130x257x65),
    C = 1 and C = 4 (x shared and per lane), q_bits 0/2/8, sigma 0 and
@@ -41,7 +46,8 @@ prints no "ok" line):
    epilogue, batch 100 from the in-repo LMDB, on the "cuda" engine;
    losses, the step time (median and quartiles), a breakdown into host
    feed and device busy time, and each kernel's launch count against
-   the path's (B2 twice a step, B1 once per fault leaf: four a step);
+   the path's (B2 twice a step, B1 once a step for the four fault
+   leaves);
    then a short run with rram_forward.sigma = 0.05 (in-kernel noise);
 5. fault transitions: mean 300, std 50, the "cuda" and the "torch"
    engine from one seed, both on the card: in lockstep (same state and
@@ -67,7 +73,7 @@ prints no "ok" line):
    configs x steps per second, step time (median and quartiles, CUDA
    events between steps), peak device memory, bytes_per_step_est, the
    profiler's device busy time, and the launches per step whatever C
-   is: B2 2, B1 4, B4 1; then one chunk with cudnn.deterministic flipped,
+   is: B2 2, B1 1, B4 1; then one chunk with cudnn.deterministic flipped,
    timed beside it;
 8. the sweep held against the plain path and against Solver at C = 8,
    N(300, 50) so cells break: in lockstep, engine "cuda" (and
@@ -102,18 +108,20 @@ prints no "ok" line):
    rram_forward { adc_bits: 8 tiles: "cells=128x128" }, N(1e8, 3e7),
    ternary, packed banks, fused epilogue, conv_im2col="implicit", 50
    steps: the step time, the device's idle share and top kernels, and the
-   launches a step (B3a 2, B2t 1, B2a 1, B1a 10); at N(300, 50) (int16
+   launches a step (B3a 2, B2t 1, B2a 1, B1a 1); at N(300, 50) (int16
    banks) engine "cuda" against "torch" and premat against implicit, in
    lockstep: life_q identical every step; then a short sigma = 0.05 run;
 11. the tiled sweep at C = 64 (the same configuration, chunk 5,
    RRAM_POOL_BWD=cuda): configs*steps/s, step time, peak memory, the
-   launches a step (B3b 2, B2t 1, B2b 1, B1b 10, B4 1), and lanes held
+   launches a step (B3b 2, B2t 1, B2b 1, B1b 1, B4 1), and lanes held
    against a single-config Solver from their state (banks identical).
 
 Then a JSON line of the step's numbers, a JSON line of the sweep's, one
 JSON line of per-kernel numbers (per training step, summed over the
 step's launches; B1b, B2b and B4 at the sweep's shapes, B2t and B3a at
-the tiled slice's, B3b at the tiled sweep's; the B2 and B2t rows also
+the tiled slice's, B3b at the tiled sweep's, B1 also at the tiled
+sweep's ten leaves; the B1 rows carry `path_ms` through the solver's
+tail and `copy_ms`, a device copy of the same bytes; the B2 and B2t rows also
 carry `path_ms`, the reads through the wrapper from operands laid out as
 the InnerProduct layer hands them over, and its bound `path_bound_ms`; the
 B3 rows the same from the Convolution layer's layouts; the B4 row its
@@ -245,6 +253,11 @@ def timed(fn, iters=100):
 
 SLICE_LEAVES = {"ip1/0": (64, 1024), "ip1/1": (64,), "ip2/0": (10, 64),
                 "ip2/1": (10,)}
+# the tiled configuration's fault leaves (conv_also): conv1-3 too
+TILED_LEAVES = {"conv1/0": (32, 3, 5, 5), "conv1/1": (32,),
+                "conv2/0": (32, 32, 5, 5), "conv2/1": (32,),
+                "conv3/0": (64, 32, 5, 5), "conv3/1": (64,), **SLICE_LEAVES}
+B1_KERNELS = ("fused_update_fail_kernel",)     # B1's own device activity
 
 
 def b1_inputs(shape, life_dtype, C, seed, device):
@@ -264,25 +277,89 @@ def b1_inputs(shape, life_dtype, C, seed, device):
     return t(data), t(upd), t(lq), t(bank)
 
 
-def phase_b1(device):
+def b1_group(shapes, life_dtype, C, seed, device):
+    """A group's operands as four lists (data, upd, life_q, bank)."""
+    leaves = [b1_inputs(s, life_dtype, C, seed + i, device)
+              for i, s in enumerate(shapes)]
+    return [[lf[j] for lf in leaves] for j in range(4)]
+
+
+def _off_grid(t, offset):
+    """A contiguous view of t's values starting `offset` elements into a
+    larger buffer: off the 16-byte grid when offset % 4 != 0."""
     import torch
+    buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)
+    view = buf[offset:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def b1_equal_plain(groups, mode, what):
+    """B1's group call against the plain version leaf by leaf, bit for
+    bit (the int32 view of data', and life_q')."""
+    import torch
+    from rram_caffe_simulation_tpu_torch.fault import fused
+    kd, kq = fused.fused_update_fail_leaves(*groups, mode=mode)
+    pd, pq = fused.fused_update_fail_leaves_plain(*groups, mode=mode)
+    torch.cuda.synchronize()
+    for i, (a, b, c, d) in enumerate(zip(kd, pd, kq, pq)):
+        check(torch.equal(a.view(torch.int32), b.view(torch.int32))
+              and torch.equal(c, d),
+              f"B1 differs from its plain version: {what}, leaf {i} "
+              f"{tuple(groups[0][i].shape)} mode={mode}")
+
+
+def phase_b1(device):
+    """B1 against its plain version: one leaf at a time (the slice's four
+    leaves, C = 1 and 4) and as the step's groups (the untiled four and
+    the tiled ten leaves, C = 1 and 4), int16 and int32 counters, every
+    mode; a group with leaves off the 16-byte grid (scalar route); a
+    group of 20 leaves (two launches)."""
     from rram_caffe_simulation_tpu_torch.fault import fused
     n = 0
     for shape in SLICE_LEAVES.values():
         for life_dtype in ("int16", "int32"):
             for C in (1, 4):
-                args = b1_inputs(shape, life_dtype, C, n, device)
+                args = [[a] for a in b1_inputs(shape, life_dtype, C, n,
+                                               device)]
                 for mode in fused.FUSED_MODES:
-                    kd, kq = fused.fused_update_fail(*args, mode=mode)
-                    pd, pq = fused.fused_update_fail_plain(*args, mode=mode)
-                    torch.cuda.synchronize()
-                    check(torch.equal(kd.view(torch.int32),
-                                      pd.view(torch.int32))
-                          and torch.equal(kq, pq),
-                          f"B1 differs from its plain version: shape "
-                          f"{shape} {life_dtype} C={C} mode={mode}")
+                    b1_equal_plain(args, mode, f"one leaf {life_dtype} "
+                                               f"C={C}")
                     n += 1
-    print(f"phase 2: B1 bit-identical to its plain version in {n} cases",
+    for name, leaves in (("untiled", SLICE_LEAVES), ("tiled", TILED_LEAVES)):
+        for life_dtype in ("int16", "int32"):
+            for C in (1, 4):
+                groups = b1_group(leaves.values(), life_dtype, C, 50, device)
+                for mode in fused.FUSED_MODES:
+                    fused.FUSED_LIB.reset()
+                    b1_equal_plain(groups, mode, f"{name} group "
+                                                 f"{life_dtype} C={C}")
+                    check(fused.FUSED_LIB.launches == 1,
+                          f"the {name} group took "
+                          f"{fused.FUSED_LIB.launches} launches, not 1")
+                    n += 1
+    for life_dtype in ("int16", "int32"):
+        d, u, q, b = b1_group(TILED_LEAVES.values(), life_dtype, 4, 70,
+                              device)
+        # every operand of leaf 0 off the grid; only upd of leaf 2; only
+        # the counters of leaf 6 (ip1's weight)
+        d[0], u[0], q[0], b[0] = (_off_grid(t, 1) for t in
+                                  (d[0], u[0], q[0], b[0]))
+        u[2], q[6] = _off_grid(u[2], 3), _off_grid(q[6], 2)
+        for mode in fused.FUSED_MODES:
+            b1_equal_plain([d, u, q, b], mode, f"leaves off the 16-byte "
+                                               f"grid {life_dtype}")
+            n += 1
+    groups = b1_group(list(TILED_LEAVES.values()) * 2, "int32", 2, 90,
+                      device)
+    fused.FUSED_LIB.reset()
+    b1_equal_plain(groups, "write", "20 leaves")
+    check(fused.FUSED_LIB.launches == 2, f"20 leaves took "
+          f"{fused.FUSED_LIB.launches} launches, not 2 (16 a table)")
+    n += 1
+    print(f"phase 2: B1 bit-identical to its plain version in {n} cases "
+          "(single leaves, the untiled and tiled groups in one launch each, "
+          "leaves off the 16-byte grid, 20 leaves in two launches)",
           flush=True)
     return 0.0
 
@@ -303,38 +380,161 @@ def b1_inputs_dev(shape, C, seed, device):
     return data, upd, lq, bank & 0x55          # codes 0/1 only: valid
 
 
-def b1_step_numbers(device, C=1, life_dtype="int32"):
-    """Per-step B1 numbers at the slice's four leaves (C = 1) or the
-    sweep's (C lanes each, one launch per leaf whatever C is); also the
-    largest |kernel - plain| over the four leaves (must be 0)."""
+def b1_step_operands(leaves, C, device):
+    """The step's fault leaves as the solver's tail takes them: dicts of
+    data, upd and the packed banks by key, int32 counters."""
+    ops = {k: (b1_inputs(s, "int32", 1, 100 + i, device) if C == 1
+               else b1_inputs_dev(s, C, 100 + i, device))
+           for i, (k, s) in enumerate(leaves.items())}
+    data = {k: v[0] for k, v in ops.items()}
+    upd = {k: v[1] for k, v in ops.items()}
+    state = {"life_q": {k: v[2] for k, v in ops.items()},
+             "stuck_bits": {k: v[3] for k, v in ops.items()}}
+    return data, upd, state
+
+
+def _b1_tail(keys):
+    """The solver's fused tail as the checkout's solver runs it: one group
+    call through `solver.fused_tail`, or (an older checkout) one wrapper
+    call per leaf, as its step did."""
+    from rram_caffe_simulation_tpu_torch.fault import fused
+    from rram_caffe_simulation_tpu_torch.solver import solver
+    if hasattr(solver, "fused_tail"):
+        return lambda data, upd, state: solver.fused_tail(
+            fused.fused_update_fail_leaves, keys, data, upd, state)
+
+    def per_leaf(data, upd, state):
+        data, life_q = dict(data), dict(state["life_q"])
+        for k in keys:
+            data[k], life_q[k] = fused.fused_update_fail(
+                data[k], upd[k], life_q[k], state["stuck_bits"][k])
+        return data, {**state, "life_q": life_q}
+    return per_leaf
+
+
+def b1_step_numbers(device, leaves, C=1):
+    """Per-step B1 numbers at a step's fault leaves (`leaves`, each with
+    C lanes; C = 1 without the lane axis), int32 counters: the kernel's
+    device time a step (mean x launches by device activity over >= 10
+    steps' calls) and by CUDA events, `path_ms` through the solver's tail
+    (by device activity; B1's kernel must be the only device activity
+    there), the plain version, a device copy of the
+    same bytes (read and written once: the card's practical rate for
+    this traffic), and the bound (bytes over 3.35 TB/s). The kernel must
+    equal the plain version bit for bit on these inputs. An older
+    checkout (no group wrapper) runs one launch per leaf, as its solver
+    did."""
     import torch
     from rram_caffe_simulation_tpu_torch.fault import fused
-    ms = plain = bound = 0.0
+    data, upd, state = b1_step_operands(leaves, C, device)
+    keys = list(leaves)
+    groups = ([data[k] for k in keys], [upd[k] for k in keys],
+              [state["life_q"][k] for k in keys],
+              [state["stuck_bits"][k] for k in keys])
+    tail = _b1_tail(keys)
+    if hasattr(fused, "fused_update_fail_leaves"):
+        kernel = lambda: fused.fused_update_fail_leaves(*groups)
+    else:
+        kernel = lambda: [fused.fused_update_fail(*lf)
+                          for lf in zip(*groups)]
+    plain = lambda: [fused.fused_update_fail_plain(*lf)
+                     for lf in zip(*groups)]
+    nd, ns = tail(data, upd, state)
     err = 0.0
-    lb = 4 if life_dtype == "int32" else 2
+    for k in keys:
+        pd, pq = fused.fused_update_fail_plain(
+            data[k], upd[k], state["life_q"][k], state["stuck_bits"][k])
+        check(torch.equal(nd[k].view(torch.int32), pd.view(torch.int32))
+              and torch.equal(ns["life_q"][k], pq),
+              f"B1 differs from its plain version at C={C} {k}")
+        err = max(err, float((nd[k] - pd).abs().max()))
+    del nd, ns, pd, pq
+    fused.FUSED_LIB.reset()
+    kernel()
+    per_call = fused.FUSED_LIB.launches
     iters = 100 if C == 1 else 20
-    for i, shape in enumerate(SLICE_LEAVES.values()):
-        args = (b1_inputs(shape, life_dtype, 1, 100 + i, device) if C == 1
-                else b1_inputs_dev(shape, C, 100 + i, device))
-        kd, kq = fused.fused_update_fail(*args)
-        pd, pq = fused.fused_update_fail_plain(*args)
-        check(torch.equal(kd.view(torch.int32), pd.view(torch.int32))
-              and torch.equal(kq, pq), f"B1 differs from its plain version "
-              f"at C={C} {shape}")
-        err = max(err, float((kd - pd).abs().max()))
-        del kd, kq, pd, pq
-        k, k_call = timed(lambda: fused.fused_update_fail(*args), iters)
-        p, _ = timed(lambda: fused.fused_update_fail_plain(*args), iters)
-        cells = math.prod(shape) * C
-        bank = args[3].numel()
-        nbytes = cells * (4 + 4 + lb) + bank + cells * (4 + lb)
-        b = nbytes / HBM_BYTES_PER_S * 1e3
-        print(f"  B1 C={C} {tuple(shape)} {life_dtype}: kernel {k:.5f} ms "
-              f"({k_call:.5f} ms per wrapper call), plain {p:.5f} ms, "
-              f"bound {b:.6f} ms (bytes {nbytes})", flush=True)
-        ms, plain, bound = ms + k, plain + p, bound + b
-    return {"ms": ms, "plain_ms": plain, "bound_ms": bound,
-            "bound_by": "bytes", "library_ms": None}, err
+    ev = event_ms(kernel, iters=iters, warmup=max(1, iters // 10))
+    by_name = device_ms_by_name(kernel, iters)
+    ms = sum(v for v, _ in by_name.values())
+    seen = sum(c for _, c in by_name.values())
+    path = device_ms_by_name(lambda: tail(data, upd, state), iters)
+    path_ms = sum(v for v, _ in path.values())
+    other = sorted(nm for nm in path
+                   if not any(own in nm for own in B1_KERNELS))
+    p, _ = timed(plain, max(2, iters // 5))
+    cells = sum(t.numel() for t in groups[0])
+    nbytes = sum(t.numel() * t.element_size() for g in groups for t in g) \
+        + sum(t.numel() * t.element_size() for g in (groups[0], groups[2])
+              for t in g)
+    src = torch.empty(-(-nbytes // 2), dtype=torch.uint8, device=device)
+    dst = torch.empty_like(src)
+    copy = event_ms(lambda: dst.copy_(src), iters=iters,
+                    warmup=max(1, iters // 10))
+    del src, dst
+    b = nbytes / HBM_BYTES_PER_S * 1e3
+    print(f"  B1 C={C} {len(keys)} leaves ({cells} cells, {nbytes} bytes): "
+          f"kernel {ms:.5f} ms a step on the card ({per_call} launch(es) "
+          f"a step; {seen} activities seen in {iters} steps' calls), "
+          f"{ev:.5f} ms by CUDA events; path_ms {path_ms:.5f} through the "
+          f"solver's tail (activities "
+          f"{ {nm: c for nm, (_, c) in sorted(path.items())} }, other than "
+          f"B1's own: {other}); plain {p:.5f} ms; a copy of the same bytes "
+          f"{copy:.5f} ms ({nbytes / copy / 1e9:.3f} TB/s); bound {b:.6f} "
+          f"ms ({b / ms:.1%} of the kernel's rate); bit-identical to the "
+          f"plain version", flush=True)
+    check(any(own in nm for nm in path for own in B1_KERNELS),
+          f"the profiler did not see B1 among {sorted(path)}")
+    check(not other, f"B1's path launched device activity that is not its "
+          f"own kernel: {other}")
+    return {"ms": ms, "plain_ms": p, "bound_ms": b, "bound_by": "bytes",
+            "library_ms": None, "event_ms": ev, "path_ms": path_ms,
+            "copy_ms": copy, "launches_per_step": per_call,
+            "activities_seen": seen, "calls": iters}, err
+
+
+def b1_windows(device, leaves, C, windows=5, iters=10):
+    """B1's per-step time in `windows` profiled windows of `iters` steps'
+    calls each, read two ways: the sum of the window's events over
+    `iters` (the reading before the mean-times-launches method) and mean
+    x launches, with the events each window saw against the launches it
+    made."""
+    from rram_caffe_simulation_tpu_torch.fault import fused
+    data, upd, state = b1_step_operands(leaves, C, device)
+    tail = _b1_tail(list(leaves))
+    fn = lambda: tail(data, upd, state)
+    fused.FUSED_LIB.reset()
+    fn()
+    per_call = fused.FUSED_LIB.launches
+    out = []
+    for _ in range(windows):
+        by_name = device_ms_by_name(fn, iters, attempts=1)
+        seen = sum(c for _, c in by_name.values())
+        mean_x = sum(v for v, _ in by_name.values())
+        summed = sum(v / math.ceil(c / iters) * c / iters
+                     for v, c in by_name.values())
+        out.append({"sum_over_calls_ms": summed, "mean_x_launches_ms": mean_x,
+                    "seen": seen, "launched": per_call * iters})
+    print(f"  B1 C={C} profiler windows of {iters} steps: "
+          + "; ".join(f"{w['sum_over_calls_ms']:.5f} / "
+                      f"{w['mean_x_launches_ms']:.5f} ms, {w['seen']} of "
+                      f"{w['launched']} seen" for w in out), flush=True)
+    return out
+
+
+def b1_path_numbers(device):
+    """`--b1-path`: B1 at the untiled sweep's four leaves (C = 512), the
+    tiled sweep's ten (C = 64) and both at C = 1: through the solver's
+    tail, alone, and beside a copy of the same bytes; then profiler
+    windows of 10 steps at C = 512."""
+    res = {}
+    for name, leaves, C in (("untiled", SLICE_LEAVES, SWEEP_CONFIGS),
+                            ("tiled", TILED_LEAVES, TILED_SWEEP_CONFIGS),
+                            ("untiled", SLICE_LEAVES, 1),
+                            ("tiled", TILED_LEAVES, 1)):
+        res[f"{name} C={C}"], _ = b1_step_numbers(device, leaves, C)
+    res[f"windows C={SWEEP_CONFIGS}"] = b1_windows(device, SLICE_LEAVES,
+                                                 SWEEP_CONFIGS)
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -763,7 +963,7 @@ def phase_slice(steps, gpu):
     check(abs(losses[0] - math.log(10)) < 0.05,
           f"first loss {losses[0]} far from ln(10) at a near-zero init")
     check(b2 == 2 * steps, f"B2 launched {b2} times, expected {2 * steps}")
-    check(b1 == 4 * steps, f"B1 launched {b1} times, expected {4 * steps}")
+    check(b1 == steps, f"B1 launched {b1} times, expected {steps}")
     launches = {"B2": b2, "B1": b1}
     breakdown = step_breakdown(s)
     print(f"phase 4: where a step's {dt * 1e3:.3f} ms go: host feed (LMDB "
@@ -777,11 +977,11 @@ def phase_slice(steps, gpu):
     s2.step(3)
     torch.cuda.synchronize()
     check(hw_aware.CROSSBAR_LIB.launches == 6 and
-          fused.FUSED_LIB.launches == 12 and
+          fused.FUSED_LIB.launches == 3 and
           math.isfinite(s2.smoothed_loss),
           "sigma = 0.05 run did not go through the kernels")
     print(f"phase 4: sigma 0.05 run, 3 steps, loss {s2.smoothed_loss:.5f}, "
-          "launches B2 6, B1 12", flush=True)
+          "launches B2 6, B1 3", flush=True)
     return launches, dt, breakdown
 
 
@@ -867,8 +1067,8 @@ def phase_transitions(steps):
               "the torch engine launched a kernel")
         kp, kh, kf, kl, _ = kstep(*state, batch, i, a.gen)
         check(hw_aware.CROSSBAR_LIB.launches == 2
-              and fused.FUSED_LIB.launches == 4,
-              "the cuda engine did not run B2 twice and B1 four times")
+              and fused.FUSED_LIB.launches == 1,
+              "the cuda engine did not run B2 twice and B1 once")
         b.step(1)
         kl, pl = float(kl), float(pl)
         rel = abs(kl - pl) / max(1.0, abs(pl))
@@ -1258,10 +1458,10 @@ def run_sweep(C, timed_steps, gpu):
                                                  events)]
     check(losses.shape == (C,) and bool(np.isfinite(losses).all()),
           "non-finite or misshapen sweep losses")
-    check(launches == _untiled(B2=2 * timed_steps, B1=4 * timed_steps,
+    check(launches == _untiled(B2=2 * timed_steps, B1=timed_steps,
                                B4=timed_steps),
           f"launches {launches} in {timed_steps} steps, expected B2 2, B1 "
-          "4, B4 1 per step")
+          "1, B4 1 per step")
     # N(1e8, 3e7) draws a few cells dead (z < -3.3); none dies in a run
     check(float(r.broken_fractions().max()) < 1e-3,
           "cells broke at N(1e8, 3e7)")
@@ -1372,8 +1572,8 @@ def phase_sweep_checks(steps, C=8):
             os.environ["RRAM_POOL_BWD"] = "cuda"
             kp, kh, kf, kl, _ = r._step(*state, batch, r.iter, r.solver.gen)
             got = _launches()
-            check(got == _untiled(B2=2, B1=4, B4=1),
-                  f"sweep step launches {got}, expected B2 2, B1 4, B4 1")
+            check(got == _untiled(B2=2, B1=1, B4=1),
+                  f"sweep step launches {got}, expected B2 2, B1 1, B4 1")
             rel = ((kl - pl).abs() / pl.abs().clamp_min(1.0)).max()
             worst_lock = max(worst_lock, float(rel))
             check(float(rel) <= 1e-5, f"step {it}: lockstep losses "
@@ -1949,9 +2149,9 @@ TILED_LAYERS = {"ip1": (64, 128), "conv2": (128, 32), "conv3": (128, 64)}
 
 
 def _tiled_per_step(C=1):
-    """Launches a step of the tiled configuration (one launch per layer
-    or leaf whatever C is)."""
-    return {"B2": 1, "B2t": 1, "B3": 2, "B1": 10, "B4": 0 if C == 1 else 1}
+    """Launches a step of the tiled configuration (one launch per layer,
+    B1 one for all ten fault leaves, whatever C is)."""
+    return {"B2": 1, "B2t": 1, "B3": 2, "B1": 1, "B4": 0 if C == 1 else 1}
 
 
 def phase_tiled_slice(steps, gpu):
@@ -2201,6 +2401,12 @@ def main(argv=None) -> int:
                         "sweep's C): through _MaxPool.backward, the kernel "
                         "alone (by device activity and by CUDA events), "
                         "autograd's backward and the bound, as JSON")
+    p.add_argument("--b1-path", action="store_true",
+                   help="after building B1 alone, only time the fused "
+                        "epilogue at the sweeps' leaves (the untiled four "
+                        "at C = 512, the tiled ten at C = 64) and both at "
+                        "C = 1: through the solver's tail, alone, beside a "
+                        "copy of the same bytes, as JSON")
     p.add_argument("--b2t-path", action="store_true",
                    help="after the build, only time the tiled ip1 read "
                         "through the wrapper on the path's layouts (C = 1 "
@@ -2230,8 +2436,10 @@ def main(argv=None) -> int:
     print(f"phase 1: {gpu}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}",
           flush=True)
-    t = kernels.build_all(kernels.all_libraries())
-    for lib in kernels.all_libraries():
+    from rram_caffe_simulation_tpu_torch.fault import fused
+    libs = [fused.FUSED_LIB] if args.b1_path else kernels.all_libraries()
+    t = kernels.build_all(libs)
+    for lib in libs:
         regs = [ln.strip() for ln in lib.ptxas_log.splitlines()
                 if "registers" in ln or "spill" in ln]
         took = (f"in {lib.build_seconds:.1f} s" if lib.build_seconds
@@ -2239,6 +2447,9 @@ def main(argv=None) -> int:
         print(f"phase 1: built {lib.source.name} {took}: "
               f"{' | '.join(regs)}", flush=True)
     print(f"phase 1: kernels built in {t:.1f} s (parallel nvcc)", flush=True)
+    if args.b1_path:
+        print(json.dumps({"b1_path": b1_path_numbers(device), "gpu": gpu}))
+        return 0
     from rram_caffe_simulation_tpu_torch.fault import hw_aware
     print("phase 1: B2's GEMM pass, resident blocks per SM by tile rows: "
           + ", ".join(
@@ -2315,10 +2526,12 @@ def main(argv=None) -> int:
           "step's launches):", flush=True)
     b2, _ = b2_step_numbers(device)
     b2.update(b2_path_numbers(device))
-    b1, _ = b1_step_numbers(device)
+    b1, _ = b1_step_numbers(device, SLICE_LEAVES)
     b2b, err_b2b = b2_step_numbers(device, C)
     b2b.update(b2_path_numbers(device, C))
-    b1b, err_b1b = b1_step_numbers(device, C)
+    b1b, err_b1b = b1_step_numbers(device, SLICE_LEAVES, C)
+    b1t, err_b1t = b1_step_numbers(device, TILED_LEAVES,
+                                   tiled_sweep["configs"])
     b4 = b4_step_numbers(device, C)
     b4.update(b4_path_numbers(device, C))
     b2t, err_b2t = tiled_step_numbers(device, ["ip1"])
@@ -2352,6 +2565,12 @@ def main(argv=None) -> int:
          "source": f"{PKG}/csrc/fused_epilogue.cu",
          "replaces": "rram_caffe_simulation_tpu/fault/fused.py:118",
          "launches": sl["B1"], "max_abs_err": max(err_b1, err_b1b), **b1b},
+        {"name": "fused_update_fail over C lanes, tiled leaves (B1b, tiled "
+                 "sweep)", "route": "cuda",
+         "source": f"{PKG}/csrc/fused_epilogue.cu",
+         "replaces": "rram_caffe_simulation_tpu/fault/fused.py:118",
+         "launches": tiled_sweep["launches"]["B1"],
+         "max_abs_err": max(err_b1, err_b1t), **b1t},
         {"name": "max_pool_backward (B4)", "route": "cuda",
          "source": f"{PKG}/csrc/pool_backward.cu",
          "replaces": "rram_caffe_simulation_tpu/ops/pool_backward.py:141",

@@ -12,7 +12,8 @@ configures one raises). With the crossbar read armed (rram_forward.sigma
 > 0 or a quantizing dtype_policy) every InnerProduct weight is read
 through `crossbar_matmul` (kernel B2 on the "cuda" engine), biases
 through `quantize_ste`/`perturb_weight`; with packed banks and the
-fused epilogue, ApplyUpdate+Fail of every fault leaf is kernel B1.
+fused epilogue, ApplyUpdate+Fail of every fault leaf is kernel B1, one
+launch a step for all of them (`fused_tail`).
 
 `failure_pattern.conv_also` makes Convolution params fault targets too.
 A tile spec (`Solver(tile_spec=)`, else `rram_forward.tiles`; see
@@ -43,7 +44,8 @@ from ..data.feed import build_feed
 from ..device import resolve_device
 from ..fault import engine as fault_engine
 from ..fault import packed as fault_packed
-from ..fault.fused import fused_update_fail, fused_update_fail_plain
+from ..fault.fused import (fused_update_fail_leaves,
+                           fused_update_fail_leaves_plain)
 from ..fault.hw_aware import CONV_OPERANDS, perturb_weight, quantize_ste
 from ..fault.mapping import TileSpec, conv_geom
 from ..net.builder import Net
@@ -54,6 +56,20 @@ from .lr_policies import learning_rate_fn
 HW_ENGINES = ("auto", "cuda", "torch")
 DTYPE_POLICY_BITS = {None: 0, "": 0, "f32": 0, "float32": 0, "ternary": 2,
                      "int8": 8}
+
+
+def fused_tail(fused_fn, keys, data, upd, fault_state):
+    """The step's fused ApplyUpdate+Fail: `fused_fn` (the group wrapper
+    of kernel B1, or its plain version) called once on the fault leaves
+    `keys` of `data` (pre-update values), `upd` and the packed banks.
+    Returns (data with those leaves replaced, fault_state with the new
+    counters); the dicts passed in are not changed."""
+    new_d, new_q = fused_fn([data[k] for k in keys], [upd[k] for k in keys],
+                            [fault_state["life_q"][k] for k in keys],
+                            [fault_state["stuck_bits"][k] for k in keys])
+    return ({**data, **dict(zip(keys, new_d))},
+            {**fault_state,
+             "life_q": {**fault_state["life_q"], **dict(zip(keys, new_q))}})
 
 
 def _lane_seeds(gen: torch.Generator, lanes: int, device) -> torch.Tensor:
@@ -346,7 +362,8 @@ class Solver:
         if fused_epilogue and not fused_on:
             raise ValueError(f"fused_epilogue=True cannot engage: "
                              f"{fused_reason}")
-        fused_fn = fused_update_fail if use_kernel else fused_update_fail_plain
+        fused_fn = (fused_update_fail_leaves if use_kernel
+                    else fused_update_fail_leaves_plain)
 
         net = self.net
         owner_keys = [fault_engine.param_key(r.layer_name, r.slot)
@@ -428,12 +445,8 @@ class Solver:
             # -- Fail (solver.cpp:305; failure_maker.cu:23-40) --
             if has_fault:
                 if fused_on:
-                    life_q = dict(fault_state["life_q"])
-                    for k in fault_keys:
-                        data[k], life_q[k] = fused_fn(
-                            data[k], upd[k], life_q[k],
-                            fault_state["stuck_bits"][k])
-                    fault_state = {**fault_state, "life_q": life_q}
+                    data, fault_state = fused_tail(fused_fn, fault_keys,
+                                                   data, upd, fault_state)
                 else:
                     fp = {k: data[k] for k in fault_keys}
                     fd = {k: upd[k] for k in fault_keys}

@@ -7,7 +7,9 @@ imports no JAX, so it also runs on a machine that has only PyTorch:
     python -m pytest --noconftest -p no:cacheprovider -m cuda \\
         tests/test_torch_kernels.py
 
-B1 and B4 must equal their plain versions bit for bit. B2 is held to the f32
+B1 and B4 must equal their plain versions bit for bit; B1 also as a
+step's group of leaves in one launch, on views off the 16-byte grid, and
+over more leaves than one launch's table. B2 is held to the f32
 summation bound K * 2^-24 * (|x| @ |w_eff|): both compute w_eff with
 the same IEEE operations and differ only in the order of the K-sum; its
 storage layouts, its fused scale and a repeated call must give the same
@@ -65,6 +67,67 @@ def test_b1_kernel_equals_plain(cuda_device, shape, dtype, mode):
     pd, pl = tfused.fused_update_fail_plain(*args, mode=mode)
     assert torch.equal(kd.view(torch.int32), pd.view(torch.int32))
     assert torch.equal(kl, pl)
+
+
+UNTILED_LEAVES = [(64, 1024), (64,), (10, 64), (10,)]
+TILED_LEAVES = [(32, 3, 5, 5), (32,), (32, 32, 5, 5), (32,), (64, 32, 5, 5),
+                (64,)] + UNTILED_LEAVES
+
+
+def b1_group(device, shapes, C, dtype, seed):
+    lead = (C,) if C > 1 else ()
+    leaves = [[torch.from_numpy(a).to(device)
+               for a in b1_leaf(lead + s, seed + i, dtype)]
+              for i, s in enumerate(shapes)]
+    return [[lf[j] for lf in leaves] for j in range(4)]
+
+
+def assert_group_equals_plain(groups, mode):
+    kd, kl = tfused.fused_update_fail_leaves(*groups, mode=mode)
+    pd, pl = tfused.fused_update_fail_leaves_plain(*groups, mode=mode)
+    for a, b, c, d in zip(kd, pd, kl, pl):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+        assert torch.equal(c, d)
+
+
+@pytest.mark.parametrize("mode", tfused.FUSED_MODES)
+@pytest.mark.parametrize("dtype", [np.int16, np.int32])
+@pytest.mark.parametrize("C", [1, 4])
+@pytest.mark.parametrize("shapes", [UNTILED_LEAVES, TILED_LEAVES],
+                         ids=["untiled", "tiled"])
+def test_b1_group_equals_plain_in_one_launch(cuda_device, shapes, C, dtype,
+                                            mode):
+    groups = b1_group(cuda_device, shapes, C, dtype, 11)
+    tfused.FUSED_LIB.reset()
+    assert_group_equals_plain(groups, mode)
+    assert tfused.FUSED_LIB.launches == 1
+
+
+def _off_grid(t, offset):
+    buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)
+    view = buf[offset:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+@pytest.mark.parametrize("dtype", [np.int16, np.int32])
+def test_b1_group_with_leaves_off_the_16_byte_grid(cuda_device, dtype):
+    """Views off the 16-byte grid take the scalar route in the same
+    launch: all of leaf 0's operands, upd of leaf 2, the counters of
+    ip1's weight."""
+    d, u, q, b = b1_group(cuda_device, TILED_LEAVES, 3, dtype, 21)
+    d[0], u[0], q[0], b[0] = (_off_grid(t, 1) for t in (d[0], u[0], q[0],
+                                                         b[0]))
+    u[2], q[6] = _off_grid(u[2], 3), _off_grid(q[6], 2)
+    for mode in tfused.FUSED_MODES:
+        assert_group_equals_plain([d, u, q, b], mode)
+
+
+def test_b1_group_larger_than_a_table(cuda_device):
+    groups = b1_group(cuda_device, TILED_LEAVES * 2, 2, np.int32, 31)
+    tfused.FUSED_LIB.reset()
+    assert_group_equals_plain(groups, "write")
+    assert tfused.FUSED_LIB.launches == 2
 
 
 def within_sum_bound(y, y_ref, x, w_eff, slack=1.0):
