@@ -6,6 +6,7 @@
     python3 chip_smoke.py --phases 6,8    # some phases (no "ok" line)
     python3 chip_smoke.py --phases 3      # the B2 checks alone
     python3 chip_smoke.py --phases 9      # the B2t and B3 checks alone
+    python3 chip_smoke.py --phases 12     # the strategies and test nets
     python3 chip_smoke.py --b2-path       # only time B2 through its wrapper
     python3 chip_smoke.py --b2t-path      # only time B2t (wrapper, kernel,
                                           # tile rows)
@@ -114,7 +115,25 @@ prints no "ok" line):
 11. the tiled sweep at C = 64 (the same configuration, chunk 5,
    RRAM_POOL_BWD=cuda): configs*steps/s, step time, peak memory, the
    launches a step (B3b 2, B2t 1, B2b 1, B1b 1, B4 1), and lanes held
-   against a single-config Solver from their state (banks identical).
+   against a single-config Solver from their state (banks identical);
+12. the mitigation strategies and the test nets: the phase-4 slice at
+   N(300, 50) through (a) threshold (at the median |update| / (rate *
+   lr_mult) of a first step, so it zeroes a share between 0 and 1),
+   (b) remapping (start 5, period 5, a seeded prune order of ip1's 64
+   outputs), untracked and tracked, (c) genetic (start 3, period 5,
+   switch_time 50, masks from a .caffemodel the port's encode writes),
+   (d) all three for 20 steps; each step the "cuda" and the "torch"
+   engine from the same state and batch: life_q identical except on
+   cells whose "torch" |update| lies within 1e-5 relative of the
+   threshold's cutoff (counted), remap_slots identical, losses and
+   params within 1e-5 relative, the "cuda" step launching B2 twice and
+   B1 once and making no more synchronizing CUDA calls than a step
+   without a strategy (after the first), the "torch" step launching
+   nothing, results on the card; the card's
+   neuron order equal to numpy's stable argsort; then (d)'s step time
+   through Solver.step, in turns with the same slice without a
+   strategy (paired), beside phase 4's, and test_all on
+   cifar10_test_lmdb (accuracy, loss, the forward's time).
 
 Then a JSON line of the step's numbers, a JSON line of the sweep's, one
 JSON line of per-kernel numbers (per training step, summed over the
@@ -127,18 +146,22 @@ the InnerProduct layer hands them over, and its bound `path_bound_ms`; the
 B3 rows the same from the Convolution layer's layouts; the B4 row its
 backward through the pooling layer's autograd.Function), a JSON line of
 B3's passes by device activity at C = 1 and the tiled sweep's C, the
-card's name and power limit, and last {"ok": true, "device": {...}}. B2t has a row at each
-path's shapes: C = 1 (the tiled slice) and C lanes (the tiled sweep).
+card's name and power limit, and last {"ok": true, "device": {...}}.
+B2t has a row at each path's shapes: C = 1 (the tiled slice) and C
+lanes (the tiled sweep). Phase 12 prints its numbers as a JSON line
+"strategies" when it ends.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import os
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -909,13 +932,22 @@ def b2t_path_numbers(device, C=1, own_kernels_only=True):
 # phases 4 and 5: the solver
 
 def slice_solver(mean, std, sigma=0.0, hw_engine="cuda", seed=1,
-                 tiled=False, conv_im2col="implicit"):
+                 tiled=False, conv_im2col="implicit", strategies=()):
     """The slice's solver; `tiled` adds conv_also and rram_forward {
-    adc_bits: 8 tiles: "cells=128x128" } with the conv operand mode."""
+    adc_bits: 8 tiles: "cells=128x128" } with the conv operand mode;
+    `strategies` are failure_strategy entries as dicts of their
+    fields."""
+    from rram_caffe_simulation_tpu_torch import proto
     from rram_caffe_simulation_tpu_torch.solver import Solver
     from rram_caffe_simulation_tpu_torch.utils.io import read_solver_param
     sp = read_solver_param(SOLVER)
+    for fields in strategies:
+        entry = proto.Message("FailureStrategyParameter")
+        for name, value in fields.items():
+            setattr(entry, name, value)
+        sp.failure_strategy.append(entry)
     sp.display = 0
+    sp.test_interval = 0        # phases time training steps; 12 tests apart
     sp.random_seed = seed
     sp.failure_pattern.type = "gaussian"
     sp.failure_pattern.mean = mean
@@ -2374,6 +2406,357 @@ def tiled_lane_check(r, steps):
         r.iter += 1
     return lanes
 
+# ---------------------------------------------------------------------------
+# phase 12: the mitigation strategies and the test nets
+
+STRATEGY_STEPS = 10         # steps of each run (b) and (c)
+ALL_STRATEGIES_STEPS = 20   # steps of run (d), lockstep and timed
+EDGE_REL = 1e-5             # a threshold cell within this of its cutoff
+
+
+def strategy_files(tmp, seed=7):
+    """(prune order, prune net, prune model) in `tmp`: a seeded
+    permutation of ip1's 64 outputs, the solver's net, and a .caffemodel
+    of it written by the port's encode, ip1/ip2 at seeded magnitudes
+    with the smaller half zero."""
+    import torch
+    from rram_caffe_simulation_tpu_torch import proto
+    from rram_caffe_simulation_tpu_torch.net import Net
+    from rram_caffe_simulation_tpu_torch.utils.io import (
+        read_net_param, read_solver_param, write_proto_binary)
+    order = tmp / "prune_order.txt"
+    order.write_text(" ".join(
+        str(v) for v in np.random.RandomState(seed).permutation(64)) + "\n")
+    net_file = read_solver_param(SOLVER).net
+    net = Net(read_net_param(net_file), proto.TRAIN, device="cpu")
+    params = net.init(torch.Generator().manual_seed(seed))
+    for ln in ("ip1", "ip2"):
+        w = params[ln][0].abs()
+        params[ln][0] = torch.where(w < w.median(), 0.0, w)
+    model = tmp / "prune.caffemodel"
+    write_proto_binary(str(model), net.to_proto(params))
+    return str(order), net_file, str(model)
+
+
+def _lr_mults(s):
+    return {f"{r.layer_name}/{r.slot}": r.lr_mult for r in s._owner_refs}
+
+
+@contextlib.contextmanager
+def threshold_inputs():
+    """A list that takes the fault-leaf updates each threshold_diffs
+    call is given (the updates before ApplyStrategy) while the context
+    is open."""
+    from rram_caffe_simulation_tpu_torch.fault import strategies
+    seen, threshold_diffs = [], strategies.threshold_diffs
+
+    def spy(diffs, *args):
+        seen.append(diffs)
+        return threshold_diffs(diffs, *args)
+
+    strategies.threshold_diffs = spy
+    try:
+        yield seen
+    finally:
+        strategies.threshold_diffs = threshold_diffs
+
+
+def calibrate_threshold(seed):
+    """The median over the fault leaves' cells of |update| / (rate *
+    lr_mult) at the first step (torch engine), to three digits: a
+    threshold that zeroes a share of the updates between 0 and 1."""
+    import torch
+    s = slice_solver(300.0, 50.0, seed=seed,
+                     strategies=[{"type": "threshold"}])
+    step = s.make_train_step(hw_engine="torch", dtype_policy="ternary",
+                             fault_format="packed", pack_spec=s.pack_spec,
+                             fused_epilogue=True)
+    batch = {k: torch.as_tensor(v).to(s.device)
+             for k, v in s.train_feed().items()}
+    with threshold_inputs() as seen:
+        step(s.params, s.history, s.fault_state, batch, 0, s.gen)
+    rate, mults = s._lr_fn(0), _lr_mults(s)
+    ratio = torch.cat([(u.abs() / (rate * mults[k])).flatten()
+                       for k, u in seen[0].items()])
+    return float(f"{float(ratio.median()):.3g}")
+
+
+def _edge_cells(s, updates, it, state, due):
+    """Fault cells whose "torch"-engine update lies within EDGE_REL of
+    the threshold cutoff, in the cells' places after a remap (the mask
+    moves as the updates do); and the share of updates zeroed."""
+    from rram_caffe_simulation_tpu_torch.fault import packed, strategies
+    st = s.strategies
+    rate, mults = s._lr_fn(it), _lr_mults(s)
+    edge, zeroed, cells = {}, 0, 0
+    for k, u in updates.items():
+        cut = strategies.threshold_cutoff(st.threshold, rate, mults[k])
+        edge[k] = (u.abs() - cut).abs() <= EDGE_REL * cut
+        zeroed += int((u.abs() <= cut).sum())
+        cells += u.numel()
+    if due:
+        weights = [w for w, _ in s.fc_pairs]
+        view = packed.unpacked_view(state, s.pack_spec, weights)
+        args = (edge, edge, view, s.fc_pairs, st.prune_orders)
+        edge = (strategies.remap_fc_neurons_tracked(
+            *args, state["remap_slots"])[1] if st.remap_tracked
+            else strategies.remap_fc_neurons(*args)[1])
+    return edge, zeroed / cells
+
+
+def count_syncs(fn, *args):
+    """(fn(*args), the synchronizing CUDA calls it made), by torch's
+    sync debug mode."""
+    import torch
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sum("synchroniz" in str(w.message) for w in caught)
+
+
+def step_syncs(s):
+    """The synchronizing calls of one "cuda" step of solver `s` (its
+    second, from its state, the state not advanced)."""
+    import torch
+    batch = {k: torch.as_tensor(v).to(s.device)
+             for k, v in s.train_feed().items()}
+    for _ in range(2):
+        gen = torch.Generator()
+        gen.set_state(s.gen.get_state())
+        _, n = count_syncs(s._step_fn, s.params, s.history, s.fault_state,
+                           batch, s.iter, gen)
+    return n
+
+
+def strategy_lockstep(s, steps, name, base_syncs):
+    """Run `name` for `steps` steps: each step, the "torch" and the
+    "cuda" step from the same state and batch, both on the card (the
+    genetic search first on its iterations, on the shared state), then
+    the "cuda" result goes on. The "cuda" step makes no more
+    synchronizing CUDA calls than `base_syncs` (a step without a
+    strategy) after the first. Per step: life_q identical (a threshold
+    run may differ only on cells at the cutoff's edge, counted),
+    remap_slots identical, losses and params within 1e-5 relative, the
+    "cuda" step launching B2 twice and B1 once and the "torch" step no
+    kernel, every result on the card."""
+    import torch
+    from rram_caffe_simulation_tpu_torch import kernels
+    from rram_caffe_simulation_tpu_torch.fault import fused, hw_aware
+    opts = dict(dtype_policy="ternary", fault_format="packed",
+                pack_spec=s.pack_spec, fused_epilogue=True)
+    kstep = s.make_train_step(hw_engine="cuda", **opts)
+    pstep = s.make_train_step(hw_engine="torch", **opts)
+    st = s.strategies
+    out = {"steps": steps, "remap_events": 0, "genetic_applications": 0,
+           "edge_cells": 0, "edge_flips": 0, "zeroed_share": [],
+           "host_syncs": []}
+    masks0 = ([m.copy() for m in st.genetic.prune_weights] if st.genetic
+              else None)
+    for i in range(steps):
+        it = s.iter
+        if st.genetic is not None and st.genetic.due():
+            s._apply_genetic(st.genetic)
+            out["genetic_applications"] += 1
+        state = (s.params, s.history, s.fault_state)
+        batch = {k: torch.as_tensor(v).to(s.device)
+                 for k, v in s.train_feed().items()}
+        due = s._remap_due_at(it)
+        out["remap_events"] += due
+        gen = torch.Generator()
+        gen.set_state(s.gen.get_state())
+        kernels.reset_launches()
+        with threshold_inputs() as seen:
+            pp, _, pf, pl, _ = pstep(*state, batch, it, gen)
+        check(hw_aware.CROSSBAR_LIB.launches == 0
+              and fused.FUSED_LIB.launches == 0,
+              f"{name} step {i}: the torch engine launched a kernel")
+        (kp, kh, kf, kl, _), syncs = count_syncs(kstep, *state, batch, it,
+                                                 s.gen)
+        out["host_syncs"].append(syncs)
+        b2, b1 = hw_aware.CROSSBAR_LIB.launches, fused.FUSED_LIB.launches
+        check(b2 == 2 and b1 == 1, f"{name} step {i}: launches B2 {b2}, "
+              f"B1 {b1} (expected 2 and 1)")
+        check(all(t.is_cuda for g in kf.values() for t in g.values()),
+              f"{name} step {i}: fault state left the card")
+        kl, pl = float(kl), float(pl)
+        check(abs(kl - pl) <= 1e-5 * max(1.0, abs(pl)),
+              f"{name} step {i}: lockstep losses {kl} vs {pl}")
+        edge = {}
+        if st.threshold is not None:
+            edge, share = _edge_cells(s, seen[0], it, state[2], due)
+            out["zeroed_share"].append(share)
+            out["edge_cells"] += sum(int(m.sum()) for m in edge.values())
+        for ln, vals in kp.items():
+            for slot, (a, b) in enumerate(zip(vals, pp[ln])):
+                if a is None:
+                    continue
+                far = (a - b).abs() > 1e-5 * b.abs().clamp(min=1.0)
+                if f"{ln}/{slot}" in edge:
+                    far &= ~edge[f"{ln}/{slot}"]
+                check(a.is_cuda and not bool(far.any()),
+                      f"{name} step {i}: params of {ln}/{slot} differ")
+        for k in kf["life_q"]:
+            differ = kf["life_q"][k] != pf["life_q"][k]
+            if k in edge:
+                out["edge_flips"] += int(differ.sum())
+                differ &= ~edge[k]
+            check(not bool(differ.any()),
+                  f"{name} step {i}: life_q differs on {k} off the "
+                  "threshold's edge")
+        for g, v in kf.get("remap_slots", {}).items():
+            check(torch.equal(v, pf["remap_slots"][g]),
+                  f"{name} step {i}: remap_slots[{g}] differ")
+        s.params, s.history, s.fault_state = kp, kh, kf
+        s.iter += 1
+    if masks0 is not None:
+        out["genetic_masks_changed"] = any(
+            not np.array_equal(a, b)
+            for a, b in zip(masks0, st.genetic.prune_weights))
+    syncs = out["host_syncs"]
+    check(max(syncs[1:]) <= base_syncs,
+          f"{name}: synchronizing calls a step {syncs}, more than the "
+          f"{base_syncs} of a step without a strategy after the first")
+    out["host_syncs"] = {"first_step": syncs[0], "max_later": max(syncs[1:]),
+                         "without_strategy": base_syncs}
+    if out["zeroed_share"]:
+        z = out["zeroed_share"]
+        out["zeroed_share"] = [min(z), float(np.mean(z)), max(z)]
+    return out
+
+
+def check_stable_sort(s):
+    """The card's neuron order (sort_fc_neurons) against numpy's stable
+    argsort of the same counts, on the run's last state: the counts are
+    full of ties."""
+    from rram_caffe_simulation_tpu_torch.fault import (engine, packed,
+                                                       strategies)
+    weights = [w for w, _ in s.fc_pairs]
+    view = packed.unpacked_view(s.fault_state, s.pack_spec, weights)
+    order = strategies.sort_fc_neurons(view, weights)[0].cpu().numpy()
+    counts = (engine.stuck_zero_flags(view, weights[0]).sum(1)
+              + engine.stuck_zero_flags(view, weights[1]).sum(0))
+    counts = counts.cpu().numpy()
+    check(np.array_equal(order, np.argsort(counts, kind="stable")),
+          "sort_fc_neurons on the card is not the stable order")
+    return int(len(counts) - len(np.unique(counts)))
+
+
+def phase_strategies(gpu, phase4_ms=None):
+    """Phase 12: CIFAR-10-quick at full width (batch 100, ternary read,
+    packed banks, fused epilogue, engine "cuda"), N(300, 50) lifetimes,
+    through the failure strategies: (a) threshold, (b) remapping start 5
+    period 5 untracked and tracked, (c) genetic start 3 period 5
+    switch_time 50, (d) all three, each in lockstep against the "torch"
+    engine; then (d) timed through Solver.step, and test_all on
+    cifar10_test_lmdb."""
+    import tempfile
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        return _phase_strategies(Path(tmp), gpu, phase4_ms)
+
+
+def _phase_strategies(tmp, gpu, phase4_ms):
+    import torch
+    order, net_file, model = strategy_files(tmp)
+    thr = calibrate_threshold(seed=12)
+    threshold = {"type": "threshold", "threshold": thr}
+    remap = {"type": "remapping", "start": 5, "period": 5,
+             "prune_order_file": order}
+    genetic = {"type": "genetic", "start": 3, "period": 5,
+               "switch_time": 50, "prune_net_file": net_file,
+               "prune_model_file": model}
+    runs = {
+        "a_threshold": ([threshold], 6),
+        "b_remap": ([remap], STRATEGY_STEPS),
+        "b_remap_tracked": ([{**remap, "track_identity": True}],
+                            STRATEGY_STEPS),
+        "c_genetic": ([genetic], STRATEGY_STEPS),
+        "d_all": ([threshold, {**remap, "track_identity": True}, genetic],
+                  ALL_STRATEGIES_STEPS),
+    }
+    res = {}
+    base_syncs = step_syncs(slice_solver(300.0, 50.0, seed=12))
+    for name, (entries, steps) in runs.items():
+        s = slice_solver(300.0, 50.0, seed=12, strategies=entries)
+        res[name] = strategy_lockstep(s, steps, name, base_syncs)
+        if name.startswith("b_"):
+            res[name]["tied_counts"] = check_stable_sort(s)
+        print(f"phase 12: {name}: {json.dumps(res[name])}", flush=True)
+    a, d = res["a_threshold"], res["d_all"]
+    check(0 < a["zeroed_share"][0] and a["zeroed_share"][2] < 1,
+          f"threshold {thr} zeroed {a['zeroed_share']} of the updates")
+    for name in ("b_remap", "b_remap_tracked", "d_all"):
+        check(res[name]["remap_events"] >= 2, f"{name}: too few remaps")
+    for name in ("c_genetic", "d_all"):
+        check(res[name]["genetic_applications"] >= 2,
+              f"{name}: too few genetic applications")
+
+    # (d) timed through Solver.step, in turns with the same slice and
+    # no strategy (single-config steps are host-bound and drift within
+    # a call, so only a paired reading compares them)
+    base = slice_solver(300.0, 50.0, seed=13)
+    s = slice_solver(300.0, 50.0, seed=13, strategies=runs["d_all"][0])
+    kinds = []
+    g = s.strategies.genetic
+    for it in range(ALL_STRATEGIES_STEPS):
+        times_ = it + 1
+        kinds.append("genetic" if times_ >= g.start
+                     and (times_ - g.start) % g.period == 0
+                     else "remap" if s._remap_due_at(it) else "threshold")
+    ms = {"none": [], "all": []}
+    for _ in range(ALL_STRATEGIES_STEPS):
+        for key, x in (("none", base), ("all", s)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            x.step(1)           # ends in a host read of the loss: synced
+            ms[key].append((time.perf_counter() - t0) * 1e3)
+    warm = 2
+
+    def quartiles(v):
+        q1, med, q3 = np.percentile(v, [25, 50, 75])
+        return {"median": float(med), "q1": float(q1), "q3": float(q3),
+                "n": len(v)}
+
+    step_ms = {k: quartiles(v[warm:]) for k, v in ms.items()}
+    step_ms["all_minus_none_paired"] = quartiles(
+        np.subtract(ms["all"], ms["none"])[warm:])
+    for kind in ("threshold", "remap", "genetic"):
+        step_ms[f"all_{kind}_steps"] = quartiles(
+            [t for t, k in zip(ms["all"][warm:], kinds[warm:]) if k == kind])
+    busy = {"none": step_breakdown(base), "all": step_breakdown(s)}
+    s.test_all()                                   # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    scores = s.test_all()[0]
+    torch.cuda.synchronize()
+    test_ms = (time.perf_counter() - t0) * 1e3
+    check(math.isfinite(scores["loss"]) and 0 <= scores["accuracy"] <= 1,
+          f"test_all gave {scores}")
+    out = {"threshold": thr, "runs": res, "step_ms": step_ms,
+           "phase4_step_ms": phase4_ms,
+           "device_busy_ms": {k: v["device_busy_ms"]
+                              for k, v in busy.items()},
+           "top_kernels_all": busy["all"]["top"],
+           "test": {"accuracy": scores["accuracy"], "loss": scores["loss"],
+                    "forward_ms": test_ms, "test_iter": s.param.test_iter[0],
+                    "batch": 100},
+           "gpu": gpu}
+    a, n = step_ms["all"], step_ms["none"]
+    print(f"phase 12: all strategies, step time median {a['median']:.3f} "
+          f"ms (quartiles {a['q1']:.3f} / {a['q3']:.3f}) against "
+          f"{n['median']:.3f} ms ({n['q1']:.3f} / {n['q3']:.3f}) without "
+          f"one, in turns; paired difference median "
+          f"{step_ms['all_minus_none_paired']['median']:.3f} ms; kernels "
+          f"on the card {busy['all']['device_busy_ms']:.3f} against "
+          f"{busy['none']['device_busy_ms']:.3f} ms a step; test_all "
+          f"accuracy {scores['accuracy']:.4f}, loss {scores['loss']:.5f}, "
+          f"forward {test_ms:.3f} ms; {gpu}", flush=True)
+    print(json.dumps({"strategies": out}), flush=True)
+    return out
+
 
 # ---------------------------------------------------------------------------
 
@@ -2383,7 +2766,7 @@ def main(argv=None) -> int:
                    help="training steps of the slice phase (default 50)")
     p.add_argument("--transition-steps", type=int, default=6)
     p.add_argument("--phases", default="all",
-                   help="comma-separated phases 2-11 to run after the "
+                   help="comma-separated phases 2-12 to run after the "
                         "build (default all; only a full run prints the "
                         "per-kernel line and the ok line)")
     p.add_argument("--b2-path", action="store_true",
@@ -2413,7 +2796,7 @@ def main(argv=None) -> int:
                         "and the tiled sweep's C), the kernel alone and "
                         "its tile heights, and print them as JSON")
     args = p.parse_args(argv)
-    every = set(range(2, 12))
+    every = set(range(2, 13))
     want = every if args.phases == "all" else {
         int(v) for v in args.phases.split(",")}
 
@@ -2516,6 +2899,8 @@ def main(argv=None) -> int:
     if 11 in want:
         tiled_sweep = phase_tiled_sweep(TILED_SWEEP_CONFIGS, SWEEP_STEPS,
                                         gpu)
+    if 12 in want:
+        phase_strategies(gpu, step_s * 1e3 if 4 in want else None)
     if want != every:
         print(f"phases {sorted(want)} passed; no ok line for a partial run",
               flush=True)

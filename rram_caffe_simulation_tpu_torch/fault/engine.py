@@ -134,6 +134,14 @@ def fail(fault_params: Dict[str, torch.Tensor], state: FaultState,
     return new_params, {**state, "lifetimes": new_life}
 
 
+def stuck_zero_flags(state: FaultState, name: str) -> torch.Tensor:
+    """1.0 where a cell is broken AND stuck at 0, the remapping
+    strategy's flag matrix (strategy.cpp:36-45 GetFailFlagMat). It tests
+    `lifetime < 0`, not `<= 0`, as the reference does."""
+    life = state["lifetimes"][name]
+    return ((life < 0) & (state["stuck"][name] == 0)).float()
+
+
 def fault_counters(prev_life: Dict[str, torch.Tensor],
                    new_life: Dict[str, torch.Tensor]):
     """Per-parameter fault census: broken cells, cells newly expired

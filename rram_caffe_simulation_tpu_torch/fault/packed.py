@@ -114,14 +114,18 @@ def pack_state(state, spec: dict, device=None) -> dict:
     return out
 
 
-def unpacked_view(state: dict, spec: dict) -> dict:
-    """An f32 view of a packed state for read-side consumers."""
+def unpacked_view(state: dict, spec: dict, keys=None) -> dict:
+    """An f32 view of a packed state for read-side consumers (the
+    strategies' flag matrices and lifetimes), of every leaf or of the
+    leaves `keys`. On the mid-bin lifetimes `< 0` and `<= 0` both read
+    `life_q <= 0`."""
     d = spec["decrement"]
+    keys = list(state["life_q"]) if keys is None else keys
     view = {
-        "lifetimes": {k: unpack_lifetimes(q, d)
-                      for k, q in state["life_q"].items()},
-        "stuck": {k: unpack_stuck(b, spec["last_dim"][k])
-                  for k, b in state["stuck_bits"].items()},
+        "lifetimes": {k: unpack_lifetimes(state["life_q"][k], d)
+                      for k in keys},
+        "stuck": {k: unpack_stuck(state["stuck_bits"][k],
+                                  spec["last_dim"][k]) for k in keys},
     }
     for group in state:
         if group not in PACKED_GROUPS:

@@ -13,12 +13,14 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
+import numpy as np
 import torch
 
 from .. import ops  # noqa: F401  (registers every ported layer type)
 from .. import proto
 from ..core.registry import LayerContext, create_layer
 from ..device import resolve_device
+from ..utils.io import array_to_blob, blob_to_array, read_net_param
 
 
 @dataclasses.dataclass
@@ -157,7 +159,10 @@ class Net:
 
     def init(self, gen: torch.Generator) -> dict:
         """Draw every owner layer's parameters from the CPU generator
-        `gen`, in layer order, then place them on the net's device."""
+        `gen`, in layer order, then place them on the net's device. A
+        layer whose prototxt carries blobs (a net read from a
+        `.caffemodel`) takes them instead; its draw still runs, so the
+        other layers draw the same values either way."""
         params = {}
         for layer in self.layers:
             n = layer.num_params()
@@ -167,11 +172,11 @@ class Net:
             owns = [i for i in range(n) if slots[i] == (layer.name, i)]
             if not owns:
                 continue
-            if layer.lp.blobs:
-                raise NotImplementedError(
-                    f"layer {layer.name!r}: weights inside the prototxt "
-                    "(blobs) are not read by the port yet")
             blobs = layer.init_params(gen)
+            if layer.lp.blobs:
+                blobs = [torch.from_numpy(blob_to_array(b).astype(
+                    np.float32).reshape(tuple(d.shape)))
+                    for b, d in zip(layer.lp.blobs, blobs)]
             params[layer.name] = [
                 blobs[i].to(self.device) if i in owns else None
                 for i in range(n)]
@@ -237,3 +242,38 @@ class Net:
                     term = v.reshape(v.shape[0], lanes, -1).sum((0, 2))
                 loss = loss + w * term
         return blobs, loss
+
+    def copy_trained_from(self, params, source) -> dict:
+        """Name-matched weight loading (net.cpp:765 CopyTrainedLayersFrom):
+        every blob of a `source` layer (a NetParameter with blobs, or a
+        path to one) whose name this net has replaces that slot, reshaped
+        to it. Returns new params; `params` is not changed."""
+        if isinstance(source, str):
+            source = read_net_param(source)
+        params = {ln: list(v) for ln, v in params.items()}
+        for lp in source.layer:
+            target = params.get(lp.name)
+            if lp.name not in self.layer_by_name or not lp.blobs \
+                    or target is None:
+                continue
+            for i, b in enumerate(lp.blobs):
+                if i >= len(target) or target[i] is None:
+                    continue
+                arr = blob_to_array(b).reshape(tuple(target[i].shape))
+                target[i] = torch.as_tensor(arr, dtype=target[i].dtype,
+                                            device=target[i].device)
+        return params
+
+    def to_proto(self, params) -> proto.Message:
+        """The layer definitions with `params` as their blobs (net.cpp
+        ToProto): what a `.caffemodel` holds."""
+        out = proto.Message("NetParameter")
+        out.name = self.name or ""
+        for layer in self.layers:
+            lp = layer.lp.copy()
+            lp.ClearField("blobs")
+            for t in params.get(layer.name, ()):
+                if t is not None:
+                    lp.blobs.append(array_to_blob(t.detach().cpu().numpy()))
+            out.layer.append(lp)
+        return out

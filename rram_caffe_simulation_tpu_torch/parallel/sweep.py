@@ -28,9 +28,9 @@ lanes.
 
 Not ported yet, each refused by name: mesh, config_block,
 remat_segments, compute_dtype, pipeline_depth, stall_timeout_s,
-health_every, self-healing, checkpoint/restore and fault state files.
-The genetic strategy never reaches a sweep: the port's Solver refuses
-every failure strategy.
+health_every, self-healing, checkpoint/restore, fault state files, and
+a solver with any failure strategy (threshold, remapping, genetic; the
+single-config Solver runs them).
 """
 from __future__ import annotations
 
@@ -89,6 +89,12 @@ class SweepRunner:
                              f"one of {SWEEP_ENGINES})")
         if n_configs < 1:
             raise ValueError(f"n_configs must be >= 1, got {n_configs}")
+        strategies = [st.type for st in solver.param.failure_strategy]
+        if strategies:
+            raise NotImplementedError(
+                f"SweepRunner: failure strategies {strategies} are not "
+                "ported to the sweep yet (the single-config Solver runs "
+                "them)")
         if solver.fault_state is None:
             raise ValueError("SweepRunner needs a solver with a "
                              "failure_pattern")

@@ -89,11 +89,23 @@ class Message:
         return name in self._values and not isinstance(self._values[name],
                                                        list)
 
+    def ClearField(self, name: str) -> None:
+        self._values.pop(name, None)
+
     def set_fields(self) -> Dict[str, Any]:
         """The fields present in this message (non-empty repeated
         fields included), in insertion order."""
         return {k: v for k, v in self._values.items()
                 if not (isinstance(v, list) and not v)}
+
+    def __eq__(self, other):
+        """Same type and the same set fields, as protobuf compares."""
+        if not isinstance(other, Message):
+            return NotImplemented
+        return (self.type_name == other.type_name
+                and self.set_fields() == other.set_fields())
+
+    __hash__ = None
 
     def copy(self) -> "Message":
         out = Message(self.type_name)

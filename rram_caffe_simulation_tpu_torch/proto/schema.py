@@ -16,14 +16,14 @@ import numpy as np
 
 SCHEMA_TEXT = """
 message BlobShape {
-  repeated int64 dim = 1;
+  repeated int64 dim = 1 [packed = true];
 }
 message BlobProto {
   optional BlobShape shape = 7;
-  repeated float data = 5;
-  repeated float diff = 6;
-  repeated double double_data = 8;
-  repeated double double_diff = 9;
+  repeated float data = 5 [packed = true];
+  repeated float diff = 6 [packed = true];
+  repeated double double_data = 8 [packed = true];
+  repeated double double_diff = 9 [packed = true];
   optional int32 num = 1 [default = 0];
   optional int32 channels = 2 [default = 0];
   optional int32 height = 3 [default = 0];
@@ -57,6 +57,7 @@ message NetParameter {
   optional NetState state = 6;
   optional bool debug_info = 7 [default = false];
   repeated LayerParameter layer = 100;
+  repeated bytes layers = 2;
 }
 message FailurePatternParameter {
   optional string type = 1 [default = 'gaussian'];
@@ -73,10 +74,15 @@ message FailureProbParameter {
   optional int32 pos = 3 [default = 10];
 }
 message FailureStrategyParameter {
-  optional string type = 1;
+  required string type = 1;
   optional float threshold = 2 [default = 0.001];
   optional int32 start = 3 [default = 0];
   optional int32 period = 4 [default = 100];
+  optional string prune_order_file = 5;
+  optional int32 switch_time = 6 [default = 100];
+  optional string prune_net_file = 7;
+  optional string prune_model_file = 8;
+  optional bool track_identity = 9 [default = false];
 }
 enum Phase { TRAIN = 0; TEST = 1; }
 message NetState {
@@ -102,8 +108,12 @@ message SolverParameter {
   optional string train_net = 1;
   optional NetParameter train_net_param = 21;
   optional NetState train_state = 26;
+  repeated string test_net = 2;
+  repeated NetParameter test_net_param = 22;
+  repeated NetState test_state = 27;
   repeated int32 test_iter = 3;
   optional int32 test_interval = 4 [default = 0];
+  optional bool test_compute_loss = 19 [default = false];
   optional bool test_initialization = 32 [default = true];
   optional float base_lr = 5;
   optional int32 display = 6;
@@ -254,6 +264,7 @@ class Field(NamedTuple):
     type_name: str         # enum or message name ("" for scalars)
     repeated: bool
     default: object        # None: the kind's zero value
+    packed: bool = False   # a repeated number written as one run
 
 
 class MessageType(NamedTuple):
@@ -264,7 +275,8 @@ class MessageType(NamedTuple):
 
 _FIELD_RE = re.compile(
     r"(optional|repeated|required)\s+(\w+)\s+(\w+)\s*=\s*(\d+)"
-    r"\s*(?:\[\s*default\s*=\s*([^\]]+?)\s*\])?\s*;")
+    r"\s*(?:\[([^\]]*)\])?\s*;")
+_DEFAULT_RE = re.compile(r"default\s*=\s*(\"[^\"]*\"|'[^']*'|[^,\s]+)")
 _ENUM_RE = re.compile(r"enum\s+(\w+)\s*\{([^}]*)\}")
 _MSG_RE = re.compile(r"message\s+(\w+)\s*\{")
 
@@ -305,7 +317,7 @@ def parse_schema(text: str):
     messages = {}
     for name, rows in raw.items():
         fields = {}
-        for label, ftype, fname, num, default in rows:
+        for label, ftype, fname, num, options in rows:
             if ftype in SCALAR_KINDS:
                 kind, tname = ftype, ""
             elif ftype in raw:
@@ -313,11 +325,14 @@ def parse_schema(text: str):
             else:
                 kind, tname = "enum", ftype
             dval = None
+            default = _DEFAULT_RE.search(options)
             if default:
-                dval = _scalar_default(kind, default,
+                dval = _scalar_default(kind, default.group(1),
                                        _enum_table(enums, name, tname))
             fields[fname] = Field(fname, int(num), kind, tname,
-                                  label == "repeated", dval)
+                                  label == "repeated", dval,
+                                  bool(re.search(r"packed\s*=\s*true",
+                                                 options)))
         messages[name] = MessageType(
             name, fields, {f.number: f for f in fields.values()})
     return messages, enums

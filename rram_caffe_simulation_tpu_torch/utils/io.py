@@ -1,6 +1,7 @@
-"""Reading prototxts and blobs (counterpart of the reference package's
-utils/io.py): text-format nets and solvers, and BlobProto files such as
-a mean file, into the port's `proto.Message` objects and numpy arrays."""
+"""Reading and writing prototxts, binary protos and blobs (counterpart of
+the reference package's utils/io.py): text-format nets and solvers,
+binary `.caffemodel` weights and BlobProto files such as a mean file,
+as the port's `proto.Message` objects and numpy arrays."""
 from __future__ import annotations
 
 import numpy as np
@@ -13,15 +14,35 @@ def read_proto_text(path: str, type_name: str) -> proto.Message:
         return proto.parse(f.read(), type_name)
 
 
+def read_proto_binary(path: str, type_name: str) -> proto.Message:
+    with open(path, "rb") as f:
+        return proto.decode(f.read(), type_name)
+
+
+def write_proto_binary(path: str, message: proto.Message) -> None:
+    with open(path, "wb") as f:
+        f.write(proto.encode(message))
+
+
+BINARY_SUFFIXES = (".caffemodel", ".binaryproto", ".pb")
+
+
 def read_net_param(path: str) -> proto.Message:
-    """A text-format NetParameter. Legacy V0/V1 nets (`layers` instead
+    """A NetParameter: binary for a `.caffemodel`/`.binaryproto`/`.pb`
+    file, text otherwise. Legacy V0/V1 nets (`layers`, field 2, instead
     of `layer`) need the reference package's upgrade pass, which the
-    port does not carry; they raise."""
-    net = read_proto_text(path, "NetParameter")
+    port does not carry: text and binary ones raise."""
+    if path.endswith((".h5", ".hdf5")):
+        raise NotImplementedError(f"{path}: HDF5 weights are not read by "
+                                  "the port")
+    binary = path.endswith(BINARY_SUFFIXES)
+    net = (read_proto_binary(path, "NetParameter") if binary
+           else read_proto_text(path, "NetParameter"))
     if "layers" in net.set_fields():
         raise NotImplementedError(
             f"{path}: legacy V1 `layers` nets are not supported by the "
-            "port; upgrade the prototxt to `layer` entries")
+            "port; upgrade the " + ("model" if binary else "prototxt")
+            + " to `layer` entries")
     return net
 
 
@@ -41,6 +62,22 @@ def blob_to_array(blob: proto.Message) -> np.ndarray:
     else:
         arr = np.asarray(blob.data, dtype=np.float32)
     return arr.reshape(blob_shape(blob))
+
+
+def array_to_blob(arr, blob: proto.Message = None) -> proto.Message:
+    """An array as a BlobProto (shape and data; float64 as double_data),
+    into `blob` when given."""
+    if blob is None:
+        blob = proto.Message("BlobProto")
+    arr = np.asarray(arr)
+    blob.shape.dim = [int(d) for d in arr.shape]
+    blob.ClearField("data")
+    blob.ClearField("double_data")
+    if arr.dtype == np.float64:
+        blob.double_data = arr.reshape(-1).tolist()
+    else:
+        blob.data = arr.astype(np.float32).reshape(-1).tolist()
+    return blob
 
 
 def read_blob_from_file(path: str) -> np.ndarray:

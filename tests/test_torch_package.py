@@ -52,8 +52,9 @@ def test_port_imports_no_jax_and_no_reference_package():
         # the modules of every slice, the tiled path's included
         need = {p.__name__ + "." + m for m in (
             "fault.mapping", "fault.hw_aware", "fault.engine",
-            "fault.fused", "ops.vision", "ops.common", "ops.pool_backward",
-            "parallel.sweep", "solver.solver", "kernels", "convert")}
+            "fault.fused", "fault.strategies", "ops.vision", "ops.common",
+            "ops.pool_backward", "parallel.sweep", "solver.solver",
+            "proto.wire", "utils.io", "kernels", "convert")}
         print(len(names), bad, sorted(need - set(names)))
         sys.exit(1 if bad or len(names) < 20 or need - set(names) else 0)
     """)

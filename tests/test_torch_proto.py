@@ -160,3 +160,134 @@ def test_data_feed_matches_reference_feed(monkeypatch):
         for k in a:
             assert a[k].dtype == b[k].dtype
             np.testing.assert_array_equal(a[k], b[k])
+
+
+# ---------------------------------------------------------------------------
+# the writer: wire.encode, binary files, the .caffemodel path of the net
+
+STRATEGY_SOLVER = (
+    'net: "models/x.prototxt" test_iter: 3 test_iter: 4 test_interval: 50 '
+    'test_compute_loss: true base_lr: 0.01 random_seed: -7 '
+    'test_state { stage: "val" level: 2 } '
+    'failure_pattern { type: "gaussian" mean: 300 std: 50 } '
+    'failure_strategy { type: "threshold" threshold: 0.0025 } '
+    'failure_strategy { type: "genetic" threshold: 0.5 start: 3 period: 5 '
+    'prune_order_file: "order.txt" switch_time: 50 prune_net_file: '
+    '"prune.prototxt" prune_model_file: "prune.caffemodel" '
+    'track_identity: true }')
+
+
+def test_schema_parses_the_nine_strategy_fields():
+    ref = pb.SolverParameter()
+    text_format.Parse(STRATEGY_SOLVER, ref)
+    mine = tproto.parse(STRATEGY_SOLVER, "SolverParameter")
+    assert_same(ref, mine)
+    g = mine.failure_strategy[1]
+    assert (g.type, g.start, g.period, g.prune_order_file, g.switch_time,
+            g.prune_net_file, g.prune_model_file, g.track_identity) == (
+        "genetic", 3, 5, "order.txt", 50, "prune.prototxt",
+        "prune.caffemodel", True)
+    assert g.threshold == float(np.float32(0.5))
+    t = mine.failure_strategy[0]          # defaults of the unset fields
+    assert (t.switch_time, t.period, t.track_identity) == (100, 100, False)
+
+
+def blobs_net(seed=0):
+    """The CIFAR-10-quick train/test net in both packages, with blobs
+    added by each package's array_to_blob (f32, and one f64 blob)."""
+    from rram_caffe_simulation_tpu.utils.io import array_to_blob
+    with open(os.path.join(REPO, PROTOTXTS[1][0])) as f:
+        text = f.read()
+    ref = pb.NetParameter()
+    text_format.Parse(text, ref)
+    mine = tproto.parse(text, "NetParameter")
+    rng = np.random.RandomState(seed)
+    for i, (rl, ml) in enumerate(zip(ref.layer, mine.layer)):
+        for shape in ((3, 5), (4,)) if i % 2 else ((2, 1, 3, 3),):
+            arr = rng.randn(*shape).astype(np.float64 if i == 3
+                                           else np.float32)
+            array_to_blob(arr, rl.blobs.add())
+            ml.blobs.append(tio.array_to_blob(arr))
+    return ref, mine
+
+
+@pytest.mark.parametrize("kind", ["net_with_blobs", "strategy_solver"])
+def test_encode_equals_protobuf_and_decodes_back(kind):
+    if kind == "net_with_blobs":
+        ref, mine = blobs_net()
+    else:
+        ref = pb.SolverParameter()
+        text_format.Parse(STRATEGY_SOLVER, ref)
+        mine = tproto.parse(STRATEGY_SOLVER, "SolverParameter")
+    raw = tproto.encode(mine)
+    assert raw == ref.SerializeToString()
+    back = tproto.decode(raw, mine.type_name)
+    assert back == mine
+    assert_same(ref, back)
+
+
+def test_encode_refuses_fields_the_schema_lacks():
+    sp = tproto.parse('base_lr: 0.1 snapshot_format: HDF5', "SolverParameter")
+    with pytest.raises(ValueError, match=r"\['snapshot_format'\] are not in "
+                                         r"the port's schema"):
+        tproto.encode(sp)
+
+
+def test_caffemodel_round_trip_and_copy_trained_from(monkeypatch, tmp_path):
+    """A .caffemodel the reference writes (to_proto) loads into the port
+    by name as the reference loads it (copy_trained_from, exact), and
+    the port's to_proto writes the reference's bytes; a net built from
+    the file takes its blobs as init."""
+    import jax
+    from rram_caffe_simulation_tpu.net import Net as JNet
+    from rram_caffe_simulation_tpu.utils.io import (read_net_param,
+                                                    write_proto_binary)
+    from rram_caffe_simulation_tpu_torch import convert
+    from rram_caffe_simulation_tpu_torch.net import Net as TNet
+    import torch
+    monkeypatch.chdir(REPO)
+    path = PROTOTXTS[1][0]
+    jnet = JNet(read_net_param(path), pb.TRAIN)
+    tnet = TNet(tio.read_net_param(path), tproto.TRAIN, device="cpu")
+    jparams = jnet.init(jax.random.PRNGKey(4))
+    model = str(tmp_path / "w.caffemodel")
+    write_proto_binary(model, jnet.to_proto(jparams))
+    mine = tnet.copy_trained_from(tnet.init(torch.Generator()), model)
+    ref = jnet.copy_trained_from(jnet.init(jax.random.PRNGKey(5)), model)
+    for ln, vals in ref.items():
+        for a, b in zip(vals, mine[ln]):
+            np.testing.assert_array_equal(b.numpy(), np.asarray(a))
+    with open(model, "rb") as f:
+        assert tproto.encode(tnet.to_proto(mine)) == f.read()
+    out = str(tmp_path / "port.caffemodel")
+    tio.write_proto_binary(out, tnet.to_proto(mine))
+    assert tio.read_proto_binary(out, "NetParameter") == \
+        tio.read_net_param(model)
+    from_file = TNet(tio.read_net_param(out), tproto.TRAIN, device="cpu")
+    init = from_file.init(torch.Generator().manual_seed(9))
+    for ln, vals in convert.params_to_jax(mine).items():
+        for a, b in zip(vals, init[ln]):
+            np.testing.assert_array_equal(b.numpy(), a)
+
+
+@pytest.mark.parametrize("suffix", [".caffemodel", ".prototxt"])
+def test_legacy_v1_nets_raise_binary_and_text(tmp_path, suffix):
+    """A V1 net (`layers`, field 2) needs the reference's upgrade pass:
+    the port refuses it from a binary model as from a prototxt, rather
+    than reading a net with no layers."""
+    ref = pb.NetParameter()
+    ref.name = "v1"
+    v1 = ref.layers.add()
+    v1.name, v1.type = "ip1", v1.INNER_PRODUCT
+    v1.blobs.add().data.extend([1.0, 2.0])
+    path = tmp_path / f"v1{suffix}"
+    if suffix == ".caffemodel":
+        path.write_bytes(ref.SerializeToString())
+        assert tproto.decode(path.read_bytes(),
+                             "NetParameter").layers == \
+            [ref.layers[0].SerializeToString()]
+    else:
+        path.write_text(text_format.MessageToString(ref))
+    with pytest.raises(NotImplementedError,
+                       match=r"legacy V1 `layers` nets are not supported"):
+        tio.read_net_param(str(path))
