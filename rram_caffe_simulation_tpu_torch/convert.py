@@ -1,8 +1,13 @@
-"""Carrying one init between the reference package and the port.
+"""Carrying a state between the reference package and the port.
 
-The two packages draw from different generators (threefry vs
-torch.Generator), so a parity run draws once, in the reference, and
-carries the draw across:
+The port draws what the reference draws: core/prng.py is the reference's
+threefry key chain, so a Solver built from the same prototxt and
+`random_seed` holds the reference's params, fault state and crossbar
+seeds, bit for bit on the CPU (normal included: 0 of 2 x (2^20 + 3)
+draws differ, tests/test_torch_prng.py) and on the card alike
+(chip_smoke.py phase 13). The converters serve where a parity test needs
+identical inputs that did not come from a seed, or a state one package
+reached and the other must continue from:
 
 - params: {layer name: [array, ...]} in Caffe layout (None for a shared
   slot) on both sides, numpy there, tensors here;

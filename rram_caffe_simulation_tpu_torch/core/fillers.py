@@ -1,11 +1,10 @@
-"""Weight initializers ("fillers") with Caffe's semantics, drawn from a
-`torch.Generator` (counterpart of the reference package's
-core/fillers.py; reference filler.hpp:31-290). For a blob of shape
-(d0, d1, ...), fan_in = count / d0 and fan_out = count / d1.
+"""Weight initializers ("fillers") with Caffe's semantics (counterpart
+of the reference package's core/fillers.py; reference filler.hpp:31-290).
+For a blob of shape (d0, d1, ...), fan_in = count / d0 and fan_out =
+count / d1.
 
-The draws are the port's own: the same seed gives other numbers than
-the reference's threefry keys, so parity tests carry one init across
-(convert.py) instead of drawing twice.
+`fill(key, shape, device)` draws from a threefry key (core/prng.py) with
+the reference's key use, so a seed gives the reference's values.
 """
 from __future__ import annotations
 
@@ -15,6 +14,7 @@ import numpy as np
 import torch
 
 from .. import proto
+from . import prng
 
 
 def _fans(shape) -> tuple:
@@ -32,39 +32,44 @@ def _scale_n(filler, fan_in: float, fan_out: float) -> float:
     return fan_in
 
 
-def _uniform(gen, shape, lo: float, hi: float) -> torch.Tensor:
-    return torch.rand(shape, generator=gen) * (hi - lo) + lo
-
-
 def make_filler(f):
-    """fill(gen, shape) -> float32 CPU tensor for a FillerParameter."""
+    """fill(key, shape, device="cpu") -> float32 tensor for a
+    FillerParameter, drawn as the reference draws it: gaussian splits
+    (kg, ks) and masks with bernoulli(ks) when sparse; uniform and
+    xavier are one uniform draw; msra is std * normal; constant draws
+    nothing."""
     ftype = f.type
     if ftype == "constant":
-        def fill(gen, shape):
-            return torch.full(shape, f.value, dtype=torch.float32)
+        def fill(key, shape, device="cpu"):
+            return torch.full(shape, f.value, dtype=torch.float32,
+                              device=device)
     elif ftype == "uniform":
-        def fill(gen, shape):
-            return _uniform(gen, shape, f.min, f.max)
+        def fill(key, shape, device="cpu"):
+            return prng.uniform(key, shape, f.min, f.max, device)
     elif ftype == "gaussian":
-        def fill(gen, shape):
-            x = f.mean + f.std * torch.randn(shape, generator=gen)
+        def fill(key, shape, device="cpu"):
+            kg, ks = prng.split(key)
+            x = prng.normal(kg, shape, device) * _f32(f.std) + _f32(f.mean)
             if f.sparse >= 0:
                 # Bernoulli mask with p = sparse / fan_in keeps about
                 # `sparse` nonzeros per output (filler.hpp:92-117)
                 fan_in, _ = _fans(shape)
                 p = min(1.0, f.sparse / max(fan_in, 1.0))
-                x = torch.where(torch.rand(shape, generator=gen) < p, x,
-                                torch.zeros(()))
+                x = torch.where(prng.bernoulli(ks, p, shape, device), x, 0.0)
             return x
     elif ftype == "xavier":
-        def fill(gen, shape):
+        def fill(key, shape, device="cpu"):
             scale = math.sqrt(3.0 / _scale_n(f, *_fans(shape)))
-            return _uniform(gen, shape, -scale, scale)
+            return prng.uniform(key, shape, -scale, scale, device)
     elif ftype == "msra":
-        def fill(gen, shape):
+        def fill(key, shape, device="cpu"):
             std = math.sqrt(2.0 / _scale_n(f, *_fans(shape)))
-            return std * torch.randn(shape, generator=gen)
+            return prng.normal(key, shape, device) * _f32(std)
     else:
         raise ValueError(f"filler {ftype!r} is not ported (constant, "
                          "uniform, gaussian, xavier, msra are)")
     return fill
+
+
+def _f32(x) -> float:
+    return float(np.float32(x))

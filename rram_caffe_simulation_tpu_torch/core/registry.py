@@ -8,8 +8,6 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Callable, Optional, Sequence
 
-import torch
-
 LAYER_REGISTRY: dict = {}
 
 
@@ -92,7 +90,9 @@ class Layer:
     def setup(self, bottom_shapes: Sequence[tuple]) -> list:
         raise NotImplementedError
 
-    def init_params(self, gen: torch.Generator) -> list:
+    def init_params(self, key, device="cpu") -> list:
+        """The layer's params drawn from the threefry key `key` (a
+        core/prng.py key) on `device`."""
         return []
 
     def param_specs(self) -> list:

@@ -50,6 +50,7 @@ import numpy as np
 import torch
 
 from .. import kernels
+from ..core import prng
 from .mapping import conv_patch_rows, im2col_index_plan, pad_activation_flat
 
 _MASK32 = 0xFFFFFFFF
@@ -131,16 +132,20 @@ def quantize_ste(x: torch.Tensor, bits: int, max_abs=None, lanes: int = 0):
 
 
 def perturb_weight(w: torch.Tensor, broken: torch.Tensor,
-                   stuck: torch.Tensor, gen, sigma: float):
+                   stuck: torch.Tensor, key, sigma: float):
     """Forward read of a crossbar weight array: multiplicative Gaussian
-    conductance noise on live cells, stuck value on broken ones;
-    gradients pass to `w` unchanged. `gen` is a CPU torch.Generator
-    (used only when sigma != 0)."""
+    conductance noise on live cells, w * (1 + sigma * normal(key)),
+    stuck value on broken ones; gradients pass to `w` unchanged. `key`
+    is a threefry key (core/prng.py), used only when sigma != 0; a batch
+    of keys (C, 2) draws lane c of a laned `w` (C, ...) from key c. The
+    factor rounds as in the reference's jitted step (`prng.normal_fma`).
+    """
     wd = w.detach()
     noisy = wd
     if sigma:
-        eps = torch.randn(w.shape, generator=gen).to(w.device)
-        noisy = wd * (1.0 + sigma * eps)
+        lead = np.asarray(key).ndim - 1
+        noisy = wd * prng.normal_fma(key, w.shape[lead:], sigma, 1.0,
+                                     w.device)
     w_eff = torch.where(broken, stuck.to(w.dtype), noisy)
     return w + (w_eff - wd)
 
@@ -610,13 +615,14 @@ def tiled_crossbar_matmul(x, w_eff, bk: int, bn: int, adc_bits: int):
         lambda k0, k1: x[..., k0:k1].contiguous(), w_eff, bk, bn, adc_bits)
 
 
-def reference_crossbar_matmul(x, w, broken, stuck, gen, sigma: float,
+def reference_crossbar_matmul(x, w, broken, stuck, key, sigma: float,
                               q_bits: int = 0, tiles=None):
     """The read in the reference's pure spelling (`quantize_ste`, then
-    `perturb_weight`, then the plain or tiled product): equal to the
-    kernels' at sigma = 0; a different noise stream otherwise."""
+    `perturb_weight` with the threefry `key`, then the plain or tiled
+    product): equal to the kernels' at sigma = 0; at sigma > 0 its noise
+    is the key's normal draw, where the kernels draw Philox from a seed."""
     wq = quantize_ste(w, q_bits) if q_bits else w
-    w_eff = perturb_weight(wq, broken, stuck, gen, sigma)
+    w_eff = perturb_weight(wq, broken, stuck, key, sigma)
     if tiles is not None:
         return tiled_crossbar_matmul(x, w_eff, *tiles)
     return x @ w_eff

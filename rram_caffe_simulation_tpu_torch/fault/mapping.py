@@ -16,7 +16,7 @@ crossbar tiles, each with its own fault draw and its own ADC.
   and element (m, kk) is `xflat[row_base[m] + col_off[kk]]` of the
   zero-padded, flattened NCHW activation.
 - `tiled_draw`: one parameter's draw assembled tile by tile, tile-major,
-  each tile drawn on its own from the torch generator.
+  tile t drawn from the threefry key folded with t (as the reference).
 
 The census helpers of the reference (`per_tile_counters`,
 `health_tiles`, `per_tile_health`, `per_tile_ages`) are not ported yet.
@@ -29,6 +29,8 @@ from typing import List, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from ..core import prng
 
 #: hard cap on tiles per layer (the per-tile draw loops over tiles)
 MAX_TILES_PER_LAYER = 4096
@@ -263,20 +265,26 @@ def conv_patch_rows(x: torch.Tensor, geom) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # per-(layer, tile) independent draws
 
-def tiled_draw(gen: torch.Generator, shape, tiles, draw_fn):
-    """One parameter's draw, `draw_fn(gen, block_shape)` once per tile in
-    tile-major order over the crossbar view, the blocks assembled back
-    into the stored shape (conv kernels in view layout, then
-    `from_im2col`). A single tile (no spec, the default spec, a 1-D
-    shape, a matrix one tile covers) is `draw_fn(gen, shape)`, today's
-    draw exactly."""
+def tiled_draw(key, shape, tiles, draw_fn):
+    """One parameter's draw tile by tile (the reference's tiled_draw):
+    tile t of the crossbar view, tile-major, is `draw_fn(fold_in(key,
+    t), block_shape)`, the blocks assembled back into the stored shape
+    (conv kernels in view layout, then `from_im2col`). A single tile (no
+    spec, the default spec, a 1-D shape, a matrix one tile covers) is
+    `draw_fn(key, shape)` with the unfolded key. `key` may be a batch of
+    keys (C, 2); the draw then carries a leading C axis."""
     shape = tuple(int(d) for d in shape)
     grid = ((1, 1) if tiles is None or len(shape) < 2
             else tiles.grid(shape))
     if grid[0] * grid[1] == 1:
-        return draw_fn(gen, shape)
+        return draw_fn(key, shape)
     rb, cb = tiles.bounds(shape)
-    rows = [torch.cat([draw_fn(gen, (r1 - r0, c1 - c0)) for c0, c1 in cb],
-                      dim=1) for r0, r1 in rb]
-    out = torch.cat(rows, dim=0)
+    rows, t = [], 0
+    for r0, r1 in rb:
+        blocks = []
+        for c0, c1 in cb:
+            blocks.append(draw_fn(prng.fold_in(key, t), (r1 - r0, c1 - c0)))
+            t += 1
+        rows.append(torch.cat(blocks, dim=-1))
+    out = torch.cat(rows, dim=-2)
     return from_im2col(out, shape).contiguous() if len(shape) > 2 else out

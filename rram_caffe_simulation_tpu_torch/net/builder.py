@@ -18,6 +18,7 @@ import torch
 
 from .. import ops  # noqa: F401  (registers every ported layer type)
 from .. import proto
+from ..core import prng
 from ..core.registry import LayerContext, create_layer
 from ..device import resolve_device
 from ..utils.io import array_to_blob, blob_to_array, read_net_param
@@ -157,12 +158,14 @@ class Net:
         self.fc_params_ids = [i for i, r in enumerate(self.failure_param_refs)
                               if r.slot == 0]
 
-    def init(self, gen: torch.Generator) -> dict:
-        """Draw every owner layer's parameters from the CPU generator
-        `gen`, in layer order, then place them on the net's device. A
-        layer whose prototxt carries blobs (a net read from a
-        `.caffemodel`) takes them instead; its draw still runs, so the
-        other layers draw the same values either way."""
+    def init(self, key) -> dict:
+        """Draw every owner layer's parameters from the threefry key
+        `key` (core/prng.py) on the net's device, in layer order: each
+        owner layer takes `key, sub = split(key)` and draws from `sub`,
+        as the reference's Net.init does. A layer whose prototxt carries
+        blobs (a net read from a `.caffemodel`) takes them instead; it
+        still consumes its split, so the other layers draw the same
+        values either way."""
         params = {}
         for layer in self.layers:
             n = layer.num_params()
@@ -172,14 +175,14 @@ class Net:
             owns = [i for i in range(n) if slots[i] == (layer.name, i)]
             if not owns:
                 continue
-            blobs = layer.init_params(gen)
+            key, sub = prng.split(key)
+            blobs = layer.init_params(sub, self.device)
             if layer.lp.blobs:
                 blobs = [torch.from_numpy(blob_to_array(b).astype(
-                    np.float32).reshape(tuple(d.shape)))
+                    np.float32).reshape(tuple(d.shape))).to(self.device)
                     for b, d in zip(layer.lp.blobs, blobs)]
-            params[layer.name] = [
-                blobs[i].to(self.device) if i in owns else None
-                for i in range(n)]
+            params[layer.name] = [blobs[i] if i in owns else None
+                                  for i in range(n)]
         return params
 
     def _gather_layer_params(self, params, layer) -> list:

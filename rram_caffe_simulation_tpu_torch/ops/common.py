@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import torch
 
+from ..core import prng
 from ..core.fillers import make_filler
 from ..core.registry import Layer, register_layer
 from ..fault.hw_aware import (crossbar_matmul, crossbar_matmul_lanes,
@@ -46,12 +47,14 @@ class InnerProductLayer(Layer):
     def num_params(self):
         return 2 if self.bias_term else 1
 
-    def init_params(self, gen):
+    def init_params(self, key, device="cpu"):
         ip = self.lp.inner_product_param
-        params = [make_filler(ip.weight_filler)(gen, self.weight_shape)]
+        kw, kb = prng.split(key)
+        params = [make_filler(ip.weight_filler)(kw, self.weight_shape,
+                                                device)]
         if self.bias_term:
-            params.append(make_filler(ip.bias_filler)(gen,
-                                                      (self.num_output,)))
+            params.append(make_filler(ip.bias_filler)(
+                kb, (self.num_output,), device))
         return params
 
     def _kernel_tiles(self, ctx):

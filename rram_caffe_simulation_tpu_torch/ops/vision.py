@@ -33,6 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import proto
+from ..core import prng
 from ..core.fillers import make_filler
 from ..core.registry import Layer, register_layer
 from ..fault.hw_aware import (CONV_OPERANDS, conv_operand_slabs,
@@ -75,12 +76,14 @@ class ConvolutionLayer(Layer):
     def num_params(self):
         return 2 if self.bias_term else 1
 
-    def init_params(self, gen):
+    def init_params(self, key, device="cpu"):
         cp = self.lp.convolution_param
-        params = [make_filler(cp.weight_filler)(gen, self.weight_shape)]
+        kw, kb = prng.split(key)
+        params = [make_filler(cp.weight_filler)(kw, self.weight_shape,
+                                                device)]
         if self.bias_term:
-            params.append(make_filler(cp.bias_filler)(gen,
-                                                      (self.num_output,)))
+            params.append(make_filler(cp.bias_filler)(
+                kb, (self.num_output,), device))
         return params
 
     def _crossbar_conv(self, x, w, ctx, tl, laned):

@@ -7,7 +7,9 @@
 
 Every config lane starts from the solver's params and SGD history and
 draws its own fault state, its lifetimes re-anchored to the lane's
-(mean, std). One step is the solver's step body built with a config
+(mean, std), with the reference's keys: the C configs split from the
+solver key folded with 0xFA117, and lane c's step key fold_in(fold_in(
+solver key, it), c). One step is the solver's step body built with a config
 axis (`Solver.make_train_step(lanes=C)`): the lanes share one batch per
 iteration, kernel B2 reads every lane's InnerProduct weights in one
 launch per layer, kernel B1 runs ApplyUpdate+Fail once per fault leaf,
@@ -39,12 +41,14 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..core import prng
 from ..data.feed import can_materialize, materialize_data_source
 from ..device import resolve_device
 from ..fault import engine as fault_engine
 from ..fault import packed as fault_packed
 
 SWEEP_ENGINES = ("auto", "cuda", "torch")
+SWEEP_FOLD = 0xFA117    # the reference's fold of the solver key for the draw
 # constructor options of the reference runner this slice does not port,
 # with the value that means "off"
 UNPORTED_OPTIONS = {"mesh": None, "config_block": 0, "remat_segments": 0,
@@ -115,9 +119,12 @@ class SweepRunner:
         pattern = solver.param.failure_pattern
         flat = solver._flat(solver.params)
         shapes = {k: tuple(flat[k].shape) for k in solver._fault_keys}
+        # the reference's sweep draw: the solver key folded with 0xFA117,
+        # split over the C configs
         state = fault_engine.stack_fault_states(
-            solver.gen, shapes, pattern, self.n, means=means, stds=stds,
-            tiles=solver.tile_spec)
+            prng.fold_in(solver._key, SWEEP_FOLD), shapes, pattern, self.n,
+            means=means, stds=stds, tiles=solver.tile_spec,
+            device=self.device)
         self._pack_spec = None
         if packed_state:
             # counter dtype sized from every configured (mean, std)
@@ -127,9 +134,6 @@ class SweepRunner:
                 stds=[float(pattern.std)] if stds is None else stds)
             state = fault_packed.pack_state(state, self._pack_spec,
                                             device=self.device)
-        else:
-            state = {g: {k: v.to(self.device) for k, v in grp.items()}
-                     for g, grp in state.items()}
         self.fault_states = state
 
         def bcast(t):
@@ -146,6 +150,7 @@ class SweepRunner:
             fault_format="packed" if packed_state else "f32",
             pack_spec=self._pack_spec, fused_epilogue=fused_epilogue,
             lanes=self.n, conv_im2col=conv_im2col)
+        self._noise = self._step.noise
         self.engine_resolved = self._step.hw_engine_resolved
         self.conv_im2col_requested = self._step.conv_im2col_requested
         self.conv_im2col_resolved = self._step.conv_im2col_resolved
@@ -198,7 +203,8 @@ class SweepRunner:
             for _ in range(k):
                 p2, h2, f2, loss, _ = self._step(
                     self.params, self.history, self.fault_states,
-                    self._batch(self.iter), self.iter, self.solver.gen)
+                    self._batch(self.iter), self.iter,
+                    self.lane_keys(self.iter))
                 self._commit(p2, h2, f2, loss)
                 losses.append(loss)
                 self.iter += 1
@@ -206,6 +212,13 @@ class SweepRunner:
             self.last_losses = self.chunk_losses[-1]
             done += k
         return self.last_losses
+
+    def lane_keys(self, it: int) -> np.ndarray:
+        """(C, 2) step keys of iteration `it`: lane c's is
+        fold_in(fold_in(solver key, it), c), as the reference's sweep
+        derives them (with the step's noise, a block of iterations in one
+        vectorised pass: Solver's StepNoise)."""
+        return self._noise.step_key(self.solver._key, it, self.n)
 
     def _commit(self, params, history, fault_states, loss):
         """The per-lane quarantine (the reference's
@@ -234,13 +247,16 @@ class SweepRunner:
         return np.flatnonzero(self.quarantine.cpu().numpy())
 
     def broken_fractions(self) -> np.ndarray:
-        """Per-lane share of broken cells over every fault leaf, (C,)."""
+        """Per-lane share of broken cells over every fault leaf, (C,):
+        the count times 1 / cells in float64, as the reference's jitted
+        census computes it (XLA turns its division by a constant into a
+        product with the reciprocal)."""
         lives = self.fault_states.get("life_q",
                                       self.fault_states.get("lifetimes"))
         broken = sum((v <= 0).reshape(self.n, -1).sum(1)
                      for v in lives.values())
         total = sum(v[0].numel() for v in lives.values())
-        return (broken.double() / max(total, 1)).cpu().numpy()
+        return (broken.double() * (1.0 / max(total, 1))).cpu().numpy()
 
     def _state_tensors(self):
         for vals in self.params.values():

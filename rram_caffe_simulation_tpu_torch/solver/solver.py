@@ -32,10 +32,18 @@ Test nets (Solver::Test): `test_all` runs every test net at sigma 0
 through `adc_bits` and the tile mapping, and prints the reference's log
 lines; `step` runs it at `test_interval`.
 
-Not ported yet (a solver asking for one raises): solve(),
-snapshot/restore, metrics, watchdog, health, data/tensor/pipeline
-parallelism, a sub-f32 compute dtype, iter_size > 1, clip_gradients, L1
-regularization and the five other update rules.
+Random numbers follow the reference's threefry key chain (core/prng.py):
+`PRNGKey(seed)` split for the params and again for the fault state, the
+step's key `fold_in(key, iter)`, and fault key i's noise key
+`fold_in(fold_in(step key, 0x4A7), i)`, whose `randint` is a crossbar
+read's seed. A seed therefore draws the reference's params, fault state
+and crossbar seeds, on the card and on the CPU alike.
+
+Not ported yet (a solver asking for one raises): solve(), snapshots
+(`step` raises NotImplementedError at the first iteration where the
+reference would write one) and restore, metrics, watchdog, health,
+data/tensor/pipeline parallelism, a sub-f32 compute dtype, iter_size >
+1, clip_gradients, L1 regularization and the five other update rules.
 """
 from __future__ import annotations
 
@@ -47,6 +55,7 @@ import numpy as np
 import torch
 
 from .. import proto
+from ..core import prng
 from ..data.feed import build_feed
 from ..device import resolve_device
 from ..fault import engine as fault_engine
@@ -62,6 +71,7 @@ from . import updates as U
 from .lr_policies import learning_rate_fn
 
 HW_ENGINES = ("auto", "cuda", "torch")
+NOISE_FOLD = 0x4A7      # the reference's fold of a step key into noise keys
 DTYPE_POLICY_BITS = {None: 0, "": 0, "f32": 0, "float32": 0, "ternary": 2,
                      "int8": 8}
 
@@ -80,15 +90,76 @@ def fused_tail(fused_fn, keys, data, upd, fault_state):
              "life_q": {**fault_state["life_q"], **dict(zip(keys, new_q))}})
 
 
-def _lane_seeds(gen: torch.Generator, lanes: int, device) -> torch.Tensor:
-    """(lanes,) int32 crossbar seeds from the CPU generator, placed on
-    `device` without a blocking copy (a pinned buffer; a plain copy to
-    the card would wait for the stream at every step)."""
-    seeds = torch.randint(0, 2 ** 31 - 1, (lanes,), generator=gen,
-                          dtype=torch.int32)
+def noise_keys(rng, n: int) -> np.ndarray:
+    """Fault key i's noise key, fold_in(fold_in(rng, 0x4A7), i), for i <
+    n: (..., n, 2) for a step key (..., 2) (one per lane under lanes),
+    in one threefry pass per fold."""
+    base = prng.fold_in(rng, NOISE_FOLD)
+    return prng.fold_in(base[..., None, :], np.arange(n))
+
+
+class StepNoise:
+    """What a step's reads draw from, for a step key rng (..., 2): the
+    noise keys of its first `n` fault keys and the randint seeds of
+    those at `seeded` (the crossbar reads). `step_key(key, it, lanes)`
+    hands out iteration `it`'s step key (fold_in(key, it), then
+    fold_in(., c) for lane c under lanes) and derives BLOCK iterations
+    at once, in one vectorised numpy pass per fold; calling the object
+    with such a step key then finds its noise there, and derives any
+    other key on the spot. The host's share of a step stays a few
+    microseconds however many lanes there are."""
+    BLOCK = 64
+
+    def __init__(self, n: int, seeded):
+        self.n, self.seeded = n, list(seeded)
+        self._steps, self._memo = {}, {}
+
+    def _derive(self, rng):
+        if not self.n:
+            return None, None
+        nk = noise_keys(rng, self.n)
+        return nk, (prng.randint(nk[..., self.seeded, :]) if self.seeded
+                    else None)
+
+    def step_key(self, key, it: int, lanes: int = 0) -> np.ndarray:
+        at = (np.asarray(key).tobytes(), int(it), int(lanes))
+        if at not in self._steps:
+            rng = prng.fold_in(key, np.arange(it, it + self.BLOCK))
+            if lanes:
+                rng = prng.fold_in(rng[:, None], np.arange(lanes))
+            nk, seeds = self._derive(rng)
+            self._steps = {(at[0], it + b, at[2]): rng[b]
+                           for b in range(self.BLOCK)}
+            self._memo = {(rng[b].shape, rng[b].tobytes()): (
+                None if nk is None else nk[b],
+                None if seeds is None else seeds[b])
+                for b in range(self.BLOCK)}
+        return self._steps[at]
+
+    def __call__(self, rng):
+        rng = np.asarray(rng, dtype=np.uint32)
+        hit = self._memo.get((rng.shape, rng.tobytes()))
+        return hit if hit is not None else self._derive(rng)
+
+
+def _lane_seeds(seeds: np.ndarray, device) -> torch.Tensor:
+    """(lanes,) int32 crossbar seeds placed on `device` without a
+    blocking copy (a pinned buffer; a plain copy to the card would wait
+    for the stream at every step)."""
+    t = torch.from_numpy(np.ascontiguousarray(seeds, dtype=np.int32))
     if torch.device(device).type != "cuda":
-        return seeds
-    return seeds.pin_memory().to(device, non_blocking=True)
+        return t
+    return t.pin_memory().to(device, non_blocking=True)
+
+
+def solver_seed(param) -> int:
+    """The run's seed, as the reference picks it: `random_seed` when >=
+    0, else RRAM_TPU_SEED (masked to 31 bits), else the wall clock."""
+    if param.random_seed >= 0:
+        return int(param.random_seed)
+    if os.environ.get("RRAM_TPU_SEED"):
+        return int(os.environ["RRAM_TPU_SEED"]) & 0x7FFFFFFF
+    return int(time.time()) & 0x7FFFFFFF
 
 
 def _test_net_params(param) -> list:
@@ -175,11 +246,9 @@ class Solver:
         self.smoothed_loss = 0.0
         self.last_loss = None
         self.last_outputs = {}
-        self.seed = (int(param.random_seed) if param.random_seed >= 0
-                     else int(time.time()) & 0x7FFFFFFF)
-        # one CPU generator for every draw (init, fault state, per-step
-        # seeds), so a seed gives the same run on any device
-        self.gen = torch.Generator().manual_seed(self.seed)
+        self.seed = solver_seed(param)
+        # the key chain on the host; every draw derives from it alone
+        self._key = prng.PRNGKey(self.seed)
 
         self.net = Net(_train_net_param(param), proto.TRAIN,
                        stages=tuple(param.train_state.stage),
@@ -191,7 +260,8 @@ class Solver:
             self.test_nets.append(Net(net_param, proto.TEST,
                                       stages=tuple(state.stage),
                                       level=state.level, device=self.device))
-        self.params = self.net.init(self.gen)
+        self._key, k_init = prng.split(self._key)
+        self.params = self.net.init(k_init)
         seen = set()
         self._owner_refs = [
             r for r in self.net.learnable_params
@@ -224,13 +294,12 @@ class Solver:
         self.fault_state = None
         if (param.HasField("failure_pattern") and self._fault_keys
                 and pattern.type == "gaussian"):
+            self._key, k_fault = prng.split(self._key)
             flat = self._flat(self.params)
             shapes = {k: tuple(flat[k].shape) for k in self._fault_keys}
-            state = fault_engine.init_fault_state(self.gen, shapes, pattern,
-                                                  tiles=self.tile_spec)
-            self.fault_state = {g: {k: v.to(self.device)
-                                    for k, v in grp.items()}
-                                for g, grp in state.items()}
+            self.fault_state = fault_engine.init_fault_state(
+                k_fault, shapes, pattern, tiles=self.tile_spec,
+                device=self.device)
         self._check_tile_coverage()
         self.fc_pairs = self._fc_pairs()
         flat0 = self._flat(self.params)
@@ -311,7 +380,7 @@ class Solver:
                 f"of the fault-target FC layers of {net_file!r} "
                 f"({[r.layer_name for r in refs]})")
         params = net.copy_trained_from(
-            net.init(torch.Generator().manual_seed(0)), model)
+            net.init(prng.PRNGKey(0)), model)
         return [params[r.layer_name][r.slot].numpy() for r in refs]
 
     def _remap_due_at(self, iteration: int) -> bool:
@@ -386,11 +455,14 @@ class Solver:
                         fault_format: str = "f32", pack_spec=None,
                         fused_epilogue=None, lanes: int = 0,
                         conv_im2col=None):
-        """Build step(params, history, fault_state, batch, it, gen,
+        """Build step(params, history, fault_state, batch, it, rng,
         do_remap=None) -> (params', history', fault_state', loss,
-        outputs). The solver's threshold and remapping strategies run
-        inside it; remapping on the iterations `_remap_due_at(it)` names,
-        or where `do_remap` says when it is given.
+        outputs). `rng` is the step's key, fold_in(solver key, it) (under
+        lanes (C, 2), one per lane); fault key i reads with the noise key
+        `noise_keys(rng)[i]`, a crossbar read with its randint seed. The
+        solver's threshold and remapping strategies run inside it;
+        remapping on the iterations `_remap_due_at(it)` names, or where
+        `do_remap` says when it is given.
 
         `lanes` = C > 0 builds the same step over C config lanes (the
         sweep, parallel/sweep.py): params, history and fault state carry
@@ -521,7 +593,15 @@ class Solver:
             return (fault_state["lifetimes"][k] <= 0,
                     fault_state["stuck"][k])
 
-        def step(params, history, fault_state, batch, it, gen,
+        # fault keys whose read draws: every crossbar read (its seed),
+        # the host-noise reads only at sigma > 0
+        noisy = [i for i, k in enumerate(fault_keys)
+                 if k in crossbar_keys or hw_sigma]
+        seeded = [i for i, k in enumerate(fault_keys) if k in crossbar_keys]
+        step_noise = StepNoise(max(noisy) + 1 if crossbar_on and noisy
+                               else 0, seeded)
+
+        def step(params, history, fault_state, batch, it, rng,
                  do_remap=None):
             # -- ForwardBackward --
             leaves = {k: v.detach().requires_grad_()
@@ -530,13 +610,14 @@ class Solver:
             crossbar = None
             if crossbar_on:
                 crossbar = {}
-                for k in fault_keys:
+                nkeys, seed_arr = step_noise(rng)
+                seeds = (dict(zip(seeded, np.moveaxis(seed_arr, -1, 0)))
+                         if seeded else {})
+                for i, k in enumerate(fault_keys):
                     broken_k, stuck_k = broken_stuck(fault_state, k)
                     if k in crossbar_keys:
-                        seed = (_lane_seeds(gen, lanes, broken_k.device)
-                                if lanes else
-                                int(torch.randint(0, 2 ** 31 - 1, (),
-                                                  generator=gen)))
+                        seed = (_lane_seeds(seeds[i], broken_k.device)
+                                if lanes else int(seeds[i]))
                         crossbar[k.rsplit("/", 1)[0]] = (
                             broken_k, stuck_k, seed, hw_sigma, q_bits,
                             use_kernel)
@@ -544,8 +625,10 @@ class Solver:
                         wk = read[k]
                         if q_bits:
                             wk = quantize_ste(wk, q_bits, lanes=lanes)
-                        read[k] = perturb_weight(wk, broken_k, stuck_k, gen,
-                                                 hw_sigma)
+                        read[k] = perturb_weight(
+                            wk, broken_k, stuck_k,
+                            nkeys[..., i, :] if hw_sigma else None,
+                            hw_sigma)
             blobs, loss = net.apply(self._unflat(read, params), batch,
                                     adc_bits=adc_bits, crossbar=crossbar,
                                     lanes=lanes, tiles=tiles_ctx,
@@ -599,6 +682,7 @@ class Solver:
             return (self._unflat(data, params), new_hist, fault_state,
                     loss.detach(), outputs)
 
+        step.noise = step_noise
         step.hw_engine_resolved = engine if crossbar_on else None
         step.fused_epilogue_resolved = fused_on
         step.fused_epilogue_reason = None if fused_on else fused_reason
@@ -671,7 +755,7 @@ class Solver:
             (self.params, self.history, self.fault_state, loss,
              self.last_outputs) = self._step_fn(
                 self.params, self.history, self.fault_state, batch,
-                self.iter, self.gen)
+                self.iter, self._step_fn.noise.step_key(self._key, self.iter))
             self.last_loss = loss
             if len(self.losses) < average_loss:
                 self.losses.append(loss)
@@ -683,8 +767,25 @@ class Solver:
                       flush=True)
                 print(f"Iteration {self.iter}, loss = "
                       f"{self.smoothed_loss:g}", flush=True)
+                self._print_outputs(self.last_outputs)
             self.iter += 1
+            if param.snapshot and self.iter % param.snapshot == 0:
+                raise NotImplementedError(
+                    f"snapshot is not ported: the reference would write "
+                    f"one at iteration {self.iter} (snapshot: "
+                    f"{param.snapshot}); set snapshot: 0 to train on")
         self._materialize_smoothed_loss()
+
+    def _print_outputs(self, outputs):
+        """The reference's display lines of the train net's outputs, one
+        per value (solver.cpp:271-285): `    Train net output #j: name =
+        v`, with ` (* w = w*v loss)` where the loss weight is nonzero."""
+        for j, name in enumerate(self.net.output_names):
+            w = self.net.loss_weights.get(name, 0.0)
+            for v in outputs[name].reshape(-1).float().cpu().numpy():
+                extra = f" (* {w:g} = {w * float(v):g} loss)" if w else ""
+                print(f"    Train net output #{j}: {name} = {float(v):g}"
+                      f"{extra}", flush=True)
 
     def _apply_genetic(self, genetic):
         """One genetic application between steps (the reference runs it

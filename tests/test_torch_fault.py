@@ -14,6 +14,7 @@ from rram_caffe_simulation_tpu.fault import fused as jfused
 from rram_caffe_simulation_tpu.fault import packed as jpacked
 from rram_caffe_simulation_tpu_torch import convert
 from rram_caffe_simulation_tpu_torch import proto as tproto
+from rram_caffe_simulation_tpu_torch.core import prng
 from rram_caffe_simulation_tpu_torch.fault import engine as tengine
 from rram_caffe_simulation_tpu_torch.fault import fused as tfused
 from rram_caffe_simulation_tpu_torch.fault import packed as tpacked
@@ -187,18 +188,16 @@ def test_b1_wrapper_checks():
 
 def test_init_fault_state_statistics():
     pattern = tproto.parse("mean: 1000 std: 200", "FailurePatternParameter")
-    gen = torch.Generator().manual_seed(0)
-    st = tengine.init_fault_state(gen, {"a/0": (200, 300), "a/1": (300,)},
-                                  pattern)
+    st = tengine.init_fault_state(prng.PRNGKey(0),
+                                  {"a/0": (200, 300), "a/1": (300,)}, pattern)
     life, stuck = st["lifetimes"]["a/0"], st["stuck"]["a/0"]
     assert life.dtype == torch.float32 and stuck.shape == (200, 300)
     assert abs(float(life.mean()) - 1000) < 5
     assert abs(float(life.std()) - 200) < 5
     frac = [float((stuck == v).float().mean()) for v in (-1.0, 0.0, 1.0)]
     np.testing.assert_allclose(frac, [0.25, 0.5, 0.25], atol=0.01)
-    gen2 = torch.Generator().manual_seed(0)
-    st2 = tengine.init_fault_state(gen2, {"a/0": (200, 300),
-                                          "a/1": (300,)}, pattern)
+    st2 = tengine.init_fault_state(prng.PRNGKey(0), {"a/0": (200, 300),
+                                                     "a/1": (300,)}, pattern)
     assert torch.equal(st2["lifetimes"]["a/0"], life)
 
 

@@ -19,6 +19,7 @@ from rram_caffe_simulation_tpu.net import Net as JNet
 from rram_caffe_simulation_tpu.proto import pb
 from rram_caffe_simulation_tpu_torch import convert
 from rram_caffe_simulation_tpu_torch import proto as tproto
+from rram_caffe_simulation_tpu_torch.core import prng
 from rram_caffe_simulation_tpu_torch.net import Net as TNet
 
 RTOL, ATOL = 2e-5, 1e-6
@@ -44,7 +45,7 @@ def run_both(text, inputs, seed=0, crossbar=None, adc_bits=0,
     jnet = JNet(jp_msg, pb.TRAIN)
     tnet = TNet(tproto.parse(text, "NetParameter"), tproto.TRAIN,
                 device="cpu")
-    tparams = tnet.init(torch.Generator().manual_seed(seed))
+    tparams = tnet.init(prng.PRNGKey(seed))
     jparams = {k: [jnp.asarray(a) for a in v]
                for k, v in convert.params_to_jax(tparams).items()}
     jblobs, _ = jnet.apply(jparams, {k: jnp.asarray(v)
@@ -259,6 +260,6 @@ def test_filter_net_matches_reference(phase, stages, level):
 def test_fillers(filler, check):
     from rram_caffe_simulation_tpu_torch.core.fillers import make_filler
     f = tproto.parse(filler, "FillerParameter")
-    w = make_filler(f)(torch.Generator().manual_seed(0), (200, 300))
+    w = make_filler(f)(prng.PRNGKey(0), (200, 300))
     assert w.dtype == torch.float32 and w.shape == (200, 300)
     assert check(w)

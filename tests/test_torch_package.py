@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from rram_caffe_simulation_tpu_torch import proto as tproto
+from rram_caffe_simulation_tpu_torch.core import prng
 from rram_caffe_simulation_tpu_torch.net import Net
 from rram_caffe_simulation_tpu_torch.solver import Solver
 
@@ -54,7 +55,8 @@ def test_port_imports_no_jax_and_no_reference_package():
             "fault.mapping", "fault.hw_aware", "fault.engine",
             "fault.fused", "fault.strategies", "ops.vision", "ops.common",
             "ops.pool_backward", "parallel.sweep", "solver.solver",
-            "proto.wire", "utils.io", "kernels", "convert")}
+            "proto.wire", "utils.io", "kernels", "convert", "core.prng",
+            "core.fillers")}
         print(len(names), bad, sorted(need - set(names)))
         sys.exit(1 if bad or len(names) < 20 or need - set(names) else 0)
     """)
@@ -76,7 +78,7 @@ def test_entry_points_default_to_the_card():
 
 def test_entry_points_run_on_cpu_when_asked():
     net = Net(tproto.parse(NET, "NetParameter"), tproto.TRAIN, device="cpu")
-    params = net.init(torch.Generator().manual_seed(0))
+    params = net.init(prng.PRNGKey(0))
     blobs, loss = net.apply(params, {
         "data": torch.from_numpy(np.ones((4, 6), np.float32)),
         "label": torch.tensor([0.0, 1.0, 2.0, 1.0])})

@@ -243,8 +243,8 @@ def test_caffemodel_round_trip_and_copy_trained_from(monkeypatch, tmp_path):
     from rram_caffe_simulation_tpu.utils.io import (read_net_param,
                                                     write_proto_binary)
     from rram_caffe_simulation_tpu_torch import convert
+    from rram_caffe_simulation_tpu_torch.core import prng
     from rram_caffe_simulation_tpu_torch.net import Net as TNet
-    import torch
     monkeypatch.chdir(REPO)
     path = PROTOTXTS[1][0]
     jnet = JNet(read_net_param(path), pb.TRAIN)
@@ -252,7 +252,7 @@ def test_caffemodel_round_trip_and_copy_trained_from(monkeypatch, tmp_path):
     jparams = jnet.init(jax.random.PRNGKey(4))
     model = str(tmp_path / "w.caffemodel")
     write_proto_binary(model, jnet.to_proto(jparams))
-    mine = tnet.copy_trained_from(tnet.init(torch.Generator()), model)
+    mine = tnet.copy_trained_from(tnet.init(prng.PRNGKey(0)), model)
     ref = jnet.copy_trained_from(jnet.init(jax.random.PRNGKey(5)), model)
     for ln, vals in ref.items():
         for a, b in zip(vals, mine[ln]):
@@ -264,7 +264,7 @@ def test_caffemodel_round_trip_and_copy_trained_from(monkeypatch, tmp_path):
     assert tio.read_proto_binary(out, "NetParameter") == \
         tio.read_net_param(model)
     from_file = TNet(tio.read_net_param(out), tproto.TRAIN, device="cpu")
-    init = from_file.init(torch.Generator().manual_seed(9))
+    init = from_file.init(prng.PRNGKey(9))
     for ln, vals in convert.params_to_jax(mine).items():
         for a, b in zip(vals, init[ln]):
             np.testing.assert_array_equal(b.numpy(), a)

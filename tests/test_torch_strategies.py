@@ -31,6 +31,7 @@ from rram_caffe_simulation_tpu.solver import Solver as JSolver
 from rram_caffe_simulation_tpu.utils.io import write_proto_binary
 from rram_caffe_simulation_tpu_torch import convert
 from rram_caffe_simulation_tpu_torch import proto as tproto
+from rram_caffe_simulation_tpu_torch.core import prng
 from rram_caffe_simulation_tpu_torch.fault import engine as tengine
 from rram_caffe_simulation_tpu_torch.fault import packed as tpacked
 from rram_caffe_simulation_tpu_torch.fault import strategies as tstrat
@@ -467,8 +468,8 @@ def test_strategy_step_matches_reference_in_lockstep(monkeypatch, tmp_path,
         seen.clear()
         ts.params, ts.history, ts.fault_state, tloss, _ = step(
             ts.params, ts.history, ts.fault_state,
-            {k: torch.from_numpy(v) for k, v in batch.items()}, it, ts.gen,
-            do_remap=due)
+            {k: torch.from_numpy(v) for k, v in batch.items()}, it,
+            prng.fold_in(ts._key, it), do_remap=due)
         assert float(tloss) == pytest.approx(float(loss), rel=1e-4)
 
         assert len(seen) == 1

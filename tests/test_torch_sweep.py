@@ -28,6 +28,7 @@ from rram_caffe_simulation_tpu.proto import pb
 from rram_caffe_simulation_tpu.solver import Solver as JSolver
 from rram_caffe_simulation_tpu_torch import convert
 from rram_caffe_simulation_tpu_torch import proto as tproto
+from rram_caffe_simulation_tpu_torch.core import prng
 from rram_caffe_simulation_tpu_torch.fault import engine as tengine
 from rram_caffe_simulation_tpu_torch.fault import hw_aware as thw
 from rram_caffe_simulation_tpu_torch.fault import packed as tpacked
@@ -257,8 +258,8 @@ def test_stack_fault_states_reanchors_each_lane():
     pattern = tproto.parse("mean: 1000 std: 100", "FailurePattern")
     means, stds = [1000.0, 5000.0, 300.0], [100.0, 800.0, 50.0]
     shapes = {"ip1/0": (64, 128), "ip1/1": (64,)}
-    st = tengine.stack_fault_states(torch.Generator().manual_seed(0),
-                                    shapes, pattern, 3, means, stds)
+    st = tengine.stack_fault_states(prng.PRNGKey(0), shapes, pattern, 3,
+                                    means, stds)
     life = st["lifetimes"]["ip1/0"]
     assert life.shape == (3, 64, 128) and st["stuck"]["ip1/1"].shape == (3,
                                                                          64)
@@ -273,8 +274,8 @@ def test_stack_fault_states_reanchors_each_lane():
     stuck = st["stuck"]["ip1/0"]
     assert set(torch.unique(stuck).tolist()) <= {-1.0, 0.0, 1.0}
     # default: the pattern's own (mean, std) on every lane
-    d = tengine.stack_fault_states(torch.Generator().manual_seed(1), shapes,
-                                   pattern, 2)["lifetimes"]["ip1/0"]
+    d = tengine.stack_fault_states(prng.PRNGKey(1), shapes, pattern,
+                                   2)["lifetimes"]["ip1/0"]
     assert abs(float(d.mean()) - 1000) < 5
 
 

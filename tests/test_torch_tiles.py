@@ -40,6 +40,7 @@ from rram_caffe_simulation_tpu.proto import pb
 from rram_caffe_simulation_tpu.solver import Solver as JSolver
 from rram_caffe_simulation_tpu_torch import convert
 from rram_caffe_simulation_tpu_torch import proto as tproto
+from rram_caffe_simulation_tpu_torch.core import prng
 from rram_caffe_simulation_tpu_torch.core.registry import LayerContext
 from rram_caffe_simulation_tpu_torch.fault import engine as tengine
 from rram_caffe_simulation_tpu_torch.fault import hw_aware as thw
@@ -160,20 +161,17 @@ PATTERN = 'type: "gaussian" mean: 400 std: 100'
 def test_tiled_draw_single_tile_is_the_untiled_draw():
     pattern = tproto.parse(PATTERN, "FailurePattern")
     shapes = {"conv1/0": (4, 3, 3, 3), "conv1/1": (4,), "ip/0": (5, 7)}
-    base = tengine.init_fault_state(torch.Generator().manual_seed(3), shapes,
-                                    pattern)
+    base = tengine.init_fault_state(prng.PRNGKey(3), shapes, pattern)
     for spec in (None, "1x1", "cells=1024x1024"):
         ts = None if spec is None else tmap.TileSpec.parse(spec)
-        got = tengine.init_fault_state(torch.Generator().manual_seed(3),
-                                       shapes, pattern, tiles=ts)
+        got = tengine.init_fault_state(prng.PRNGKey(3), shapes, pattern,
+                                       tiles=ts)
         for g in base:
             for k in base[g]:
                 assert got[g][k].numpy().tobytes() == \
                     base[g][k].numpy().tobytes()
-    lanes = tengine.stack_fault_states(torch.Generator().manual_seed(4),
-                                       shapes, pattern, 2)
-    lanes11 = tengine.stack_fault_states(torch.Generator().manual_seed(4),
-                                         shapes, pattern, 2,
+    lanes = tengine.stack_fault_states(prng.PRNGKey(4), shapes, pattern, 2)
+    lanes11 = tengine.stack_fault_states(prng.PRNGKey(4), shapes, pattern, 2,
                                          tiles=tmap.TileSpec.parse("1x1"))
     for g in lanes:
         for k in lanes[g]:
@@ -184,12 +182,12 @@ def test_tiled_draw_tiles_are_independent():
     pattern = tproto.parse(PATTERN, "FailurePattern")
     ts = tmap.TileSpec.parse("cells=40x3")     # view (243, 9) -> 7x3 tiles
     shape = (9, 3, 9, 9)
-    st = tengine.init_fault_state(torch.Generator().manual_seed(5),
+    st = tengine.init_fault_state(prng.PRNGKey(5),
                                   {"c/0": shape, "c/1": (9,)}, pattern,
                                   tiles=ts)
     life = st["lifetimes"]["c/0"]
     assert life.shape == shape and st["stuck"]["c/0"].shape == shape
-    again = tengine.init_fault_state(torch.Generator().manual_seed(5),
+    again = tengine.init_fault_state(prng.PRNGKey(5),
                                      {"c/0": shape, "c/1": (9,)}, pattern,
                                      tiles=ts)
     assert torch.equal(again["lifetimes"]["c/0"], life)
@@ -197,11 +195,13 @@ def test_tiled_draw_tiles_are_independent():
     blocks = [view[r0:r1, c0:c1].flatten()
               for _, (r0, r1, c0, c1) in ts.tile_slices(shape)]
     assert len(blocks) == 21
-    # tile t's cells are the t-th draw of the generator, in tile-major
-    # order: block 0 is the first randn of its shape (mean + std * z)
-    g = torch.Generator().manual_seed(5)
-    z0 = torch.randn((40, 3), generator=g)
-    assert torch.equal(blocks[0], (400.0 + 100.0 * z0).flatten())
+    # tile t's cells are drawn from fold_in(k_life, t), tile-major: block
+    # 0 is normal(fold_in(k_life, 0)) of its shape (mean + std * z)
+    k_life = prng.split(prng.PRNGKey(5), 3)[1]
+    for t_ in (0, 20):
+        z_t = prng.normal(prng.fold_in(k_life, t_),
+                          blocks[t_].reshape(-1, 3).shape)
+        assert torch.equal(blocks[t_], (z_t * 100.0 + 400.0).flatten())
     # independent draws: no two tiles share values; correlation ~ 0
     z = [(b - 400.0) / 100.0 for b in blocks]
     r = float(torch.corrcoef(torch.stack([z[0][:27], z[1][:27]]))[0, 1])
