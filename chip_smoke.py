@@ -8,6 +8,7 @@
     python3 chip_smoke.py --phases 9      # the B2t and B3 checks alone
     python3 chip_smoke.py --phases 12     # the strategies and test nets
     python3 chip_smoke.py --phases 13     # the RNG bridge on the card
+    python3 chip_smoke.py --phases 14     # checkpoint, snapshot, restore
     python3 chip_smoke.py --b2-path       # only time B2 through its wrapper
     python3 chip_smoke.py --b2t-path      # only time B2t (wrapper, kernel,
                                           # tile rows)
@@ -153,7 +154,26 @@ prints no "ok" line):
    draw at C = 512 (untiled, beside the torch.Generator loop it
    replaced) and C = 64 (tiled), rows 0 and C - 1 drawn alone equal to
    the full draw; the construction times and phase 4's step time beside
-   its reading before the key chain.
+   its reading before the key chain;
+14. the formats across a restart (a temp directory, removed at the
+   end): (a) phase 7's sweep (C = 512, halved until it fits) runs 5
+   steps, checkpoints (the v6 .npz, timed, its bytes), runs 5 more; a
+   fresh runner from the same seed restores it (timed) and runs the same
+   5: every step's lane losses and every params, history, life_q,
+   stuck_bits and quarantine leaf bit-identical (`torch.equal` on int32
+   views), the continued steps launching B2 2, B1 1, B4 1 a step, their
+   step-time median beside the uninterrupted run's; (b) save_fault_states
+   at that C, read back and packed with the runner's spec, equal to the
+   live banks byte for byte (the caller's time and the writer's); (c)
+   phase 4's Solver with snapshot 10 (BINARYPROTO) through solve() to
+   iteration 20, then a fresh Solver's solve(resume_file=<iter 10>):
+   losses 11-20, params, history and banks bit-identical, the continued
+   steps launching B2 2, B1 1 a step, each file's bytes and the
+   snapshot's and restore's times; the same with phase 10's tiled Solver
+   (B3 2, B2t 1, B2 1, B1 1 a step); (d) a C = 8 card checkpoint at
+   N(300, 50) restored into a device="cpu" runner (engine "torch"):
+   every leaf equal, and one CPU step within 1e-5 relative of one card
+   step from that state, life_q identical.
 
 Then a JSON line of the step's numbers, a JSON line of the sweep's, one
 JSON line of per-kernel numbers (per training step, summed over the
@@ -166,8 +186,9 @@ the InnerProduct layer hands them over, and its bound `path_bound_ms`; the
 B3 rows the same from the Convolution layer's layouts; the B4 row its
 backward through the pooling layer's autograd.Function), a JSON line of
 B3's passes by device activity at C = 1 and the tiled sweep's C, a JSON
-line "rng" of phase 13's numbers, the card's name and power limit, and
-last {"ok": true, "device": {...}}.
+line "rng" of phase 13's numbers, a JSON line "formats" of phase 14's,
+the card's name and power limit, and last {"ok": true, "device":
+{...}}.
 B2t has a row at each path's shapes: C = 1 (the tiled slice) and C
 lanes (the tiled sweep). Phase 12 prints its numbers as a JSON line
 "strategies" when it ends.
@@ -3134,13 +3155,296 @@ def phase_rng(device, gpu, phase4_ms=None):
             "phase_s": time.perf_counter() - t0}
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the formats across a restart
+
+FORMAT_STEPS = 5            # sweep steps before the checkpoint, and after
+SNAPSHOT_EVERY, SNAPSHOT_ITERS = 10, 20     # the Solver's snapshot run
+
+
+def _host_leaves(r):
+    """Host copies of every checkpointed leaf of a runner."""
+    return {k: v.detach().cpu().clone() for k, v in r._state_arrays().items()}
+
+
+def _leaves_differ(a: dict, b: dict) -> list:
+    return sorted(set(a) ^ set(b)) + [k for k in a if k in b
+                                      and not _same_bits(a[k], b[k])]
+
+
+def _sweep_steps(r, n):
+    """n sweep steps one at a time: each step's lane losses (host) and
+    its time in ms (each step ends in the host read of its losses)."""
+    import torch
+    losses, ms = [], []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(r.step(1).copy())
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return losses, ms
+
+
+def formats_sweep(C, tmp):
+    """(a) and (b) at C lanes: checkpoint, continue, restore into a fresh
+    runner, continue the same; save_fault_states read back and packed."""
+    import torch
+    from rram_caffe_simulation_tpu_torch import kernels
+    from rram_caffe_simulation_tpu_torch.fault import engine, packed
+    r = sweep_runner(C, 1e8, 3e7)
+    r.step(FORMAT_STEPS, chunk=FORMAT_STEPS)
+    path = os.path.join(tmp, "sweep.ckpt.npz")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r.checkpoint(path)
+    ckpt_s = time.perf_counter() - t0
+    want, run_ms = _sweep_steps(r, FORMAT_STEPS)
+    leaves = _host_leaves(r)
+    fpath = os.path.join(tmp, "faults.npz")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r.save_fault_states(fpath)          # background: the caller's share
+    faults_call_s = time.perf_counter() - t0
+    r.wait_for_writes()
+    faults_writer_s = r._bg_writer.write_s
+    with np.load(fpath) as z:
+        flat = {k: z[k] for k in z.files}
+    check(sorted({k.split("/")[0] for k in flat}) == ["lifetimes", "stuck"],
+          f"save_fault_states wrote groups {sorted(flat)}")
+    banks = packed.convert_flat(flat, to_packed=True, spec=r._pack_spec)
+    live = dict(engine.iter_state_leaves(r.fault_states))
+    check(set(banks) == set(live) and all(
+        banks[k].tobytes() == live[k].cpu().numpy().tobytes()
+        for k in live), "save_fault_states packed again differs from the "
+          "live banks")
+    out = {"configs": C, "steps": FORMAT_STEPS,
+           "checkpoint_s": ckpt_s, "checkpoint_bytes": os.path.getsize(path),
+           "fault_states_call_s": faults_call_s,
+           "fault_states_writer_s": faults_writer_s,
+           "fault_states_bytes": os.path.getsize(fpath)}
+    r.close()
+    del r, live
+    torch.cuda.empty_cache()
+
+    r = sweep_runner(C, 1e8, 3e7)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r.restore(path)
+    torch.cuda.synchronize()
+    out["restore_s"] = time.perf_counter() - t0
+    check(r.iter == FORMAT_STEPS, f"restored at iteration {r.iter}")
+    kernels.reset_launches()
+    got, cont_ms = _sweep_steps(r, FORMAT_STEPS)
+    launches = _launches()
+    for i, (g, w) in enumerate(zip(got, want)):
+        check(g.tobytes() == w.tobytes(), f"continued step {i}: lane losses "
+              "differ from the uninterrupted run's")
+    differ = _leaves_differ(_host_leaves(r), leaves)
+    check(not differ, f"leaves differ after the continuation: {differ[:5]}")
+    n = FORMAT_STEPS
+    check(launches == _untiled(B2=2 * n, B1=n, B4=n),
+          f"continued steps launched {launches}, expected B2 2, B1 1, B4 1 "
+          "a step")
+    out.update(launches=launches, leaves=len(leaves),
+               step_ms_median=float(np.median(cont_ms)),
+               uninterrupted_step_ms_median=float(np.median(run_ms)))
+    r.close()
+    del r
+    torch.cuda.empty_cache()
+    return out
+
+
+def _recording(s, losses):
+    """Record each step's loss tensor of Solver `s` as its step runs."""
+    inner = s._step_fn
+
+    def step(*args, **kw):
+        out = inner(*args, **kw)
+        losses.append(out[3])
+        return out
+    step.noise = inner.noise
+    s._step_fn = step
+
+
+def _timing(fn, seconds):
+    import torch
+
+    def call(*args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        return out
+    return call
+
+
+def formats_solver(tmp, tiled):
+    """(c): solve() to iteration 20 with snapshots at 10 and 20, then a
+    fresh Solver's solve(resume_file=<iteration 10>)."""
+    from rram_caffe_simulation_tpu_torch import kernels, proto
+
+    def build(prefix):
+        s = slice_solver(1e8, 3e7, tiled=tiled)
+        s.param.snapshot = SNAPSHOT_EVERY
+        s.param.snapshot_format = proto.BINARYPROTO
+        s.param.snapshot_prefix = prefix
+        s.param.max_iter = SNAPSHOT_ITERS
+        return s
+
+    prefix = os.path.join(tmp, "tiled" if tiled else "slice")
+    s = build(prefix)
+    full, snap_s = [], []
+    _recording(s, full)
+    s.snapshot = _timing(s.snapshot, snap_s)
+    s.solve()
+    check(s.iter == SNAPSHOT_ITERS and len(full) == SNAPSHOT_ITERS
+          and len(snap_s) == 2, f"solve() ran to {s.iter} with "
+          f"{len(snap_s)} snapshots")
+    state = f"{prefix}_iter_{SNAPSHOT_EVERY}.solverstate"
+    sizes = {ext: os.path.getsize(f"{prefix}_iter_{SNAPSHOT_EVERY}.{ext}")
+             for ext in ("caffemodel", "solverstate", "faultstate")}
+    r = build(prefix + "_resumed")
+    # the host feed at the position s's was at iteration 10 (the cursor is
+    # not part of a snapshot, in either package)
+    for _ in range(SNAPSHOT_EVERY):
+        r.train_feed()
+    cont, restore_s = [], []
+    _recording(r, cont)
+    r.restore = _timing(r.restore, restore_s)
+    kernels.reset_launches()
+    r.solve(resume_file=state)
+    launches = _launches()
+    n = SNAPSHOT_ITERS - SNAPSHOT_EVERY
+    what = "tiled Solver" if tiled else "Solver"
+    check(len(cont) == n and all(_same_bits(a, b) for a, b in
+                                 zip(cont, full[SNAPSHOT_EVERY:])),
+          f"{what}: losses 11-20 after the restore differ")
+    for ln, vals in s.params.items():
+        for i, t in enumerate(vals):
+            check(t is None or _same_bits(r.params[ln][i], t),
+                  f"{what}: params of {ln}/{i} differ")
+    for k, slots in s.history.items():
+        check(_same_bits(r.history[k]["h"], slots["h"]),
+              f"{what}: history of {k} differs")
+    for g, tree in s.fault_state.items():
+        for k, v in tree.items():
+            check(_same_bits(r.fault_state[g][k], v),
+                  f"{what}: fault leaf {g}/{k} differs")
+    per = _tiled_per_step() if tiled else _untiled(B2=2, B1=1, B4=0)
+    check(launches == {k: v * n for k, v in per.items()},
+          f"{what}: continued steps launched {launches}, expected {per} "
+          "a step")
+    return {"bytes": sizes, "snapshot_s": snap_s, "restore_s": restore_s[0],
+            "launches": launches,
+            "losses_11_20_first_last": [float(cont[0]), float(cont[-1])]}
+
+
+def formats_devices(tmp, C=8):
+    """(d): a card checkpoint restored into a CPU runner; one step each."""
+    from rram_caffe_simulation_tpu_torch.parallel import SweepRunner
+    card = sweep_runner(C, 300.0, 50.0, seed=7)
+    card.step(2, chunk=2)
+    path = os.path.join(tmp, "card.ckpt.npz")
+    card.checkpoint(path)
+    s = slice_solver(300.0, 50.0, hw_engine="torch", seed=7, device="cpu")
+    cpu = SweepRunner(s, n_configs=C, engine="torch", packed_state=True,
+                      dtype_policy="ternary", device="cpu")
+    cpu.restore(path)
+    differ = _leaves_differ(_host_leaves(card), _host_leaves(cpu))
+    check(not differ, f"the CPU runner's leaves differ: {differ[:5]}")
+    t0 = time.perf_counter()
+    cpu_loss = cpu.step(1)
+    cpu_s = time.perf_counter() - t0
+    card_loss = card.step(1)
+    rel = float((np.abs(card_loss - cpu_loss)
+                 / np.maximum(np.abs(cpu_loss), 1.0)).max())
+    check(bool(np.isfinite(card_loss).all()) and rel <= 1e-5,
+          f"card step losses {card_loss} against the CPU's {cpu_loss}")
+    for k, q in card.fault_states["life_q"].items():
+        check(_same_bits(q, cpu.fault_states["life_q"][k]),
+              f"life_q of {k} differs between the card and the CPU")
+    check(float(card.broken_fractions().min()) > 0.0,
+          "no lane had a broken cell")
+    return {"configs": C, "leaves": len(card._state_arrays()),
+            "loss_rel_max": rel, "cpu_step_s": cpu_s}
+
+
+def phase_formats(C, gpu):
+    """Phase 14: the sweep's checkpoint and save_fault_states at C lanes
+    (halved while the card runs out of memory), the Solvers' snapshots
+    through solve(), and a checkpoint across devices; its files live in
+    a temp directory removed at the end."""
+    import shutil
+    import tempfile
+    import torch
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_formats_")
+    saved = os.environ.get("RRAM_POOL_BWD")
+    try:
+        os.environ["RRAM_POOL_BWD"] = "cuda"
+        while True:
+            try:
+                sweep = formats_sweep(C, tmp)
+                break
+            except torch.cuda.OutOfMemoryError:
+                check(C > 8, "the sweep does not fit the card at C = 8")
+                print(f"phase 14: C = {C} does not fit the card (out of "
+                      "memory); halving", flush=True)
+                C //= 2
+                torch.cuda.empty_cache()
+        devices = formats_devices(tmp)
+        if saved is None:
+            os.environ.pop("RRAM_POOL_BWD")
+        else:
+            os.environ["RRAM_POOL_BWD"] = saved
+        solver = formats_solver(tmp, tiled=False)
+        tiled = formats_solver(tmp, tiled=True)
+    finally:
+        if saved is None:
+            os.environ.pop("RRAM_POOL_BWD", None)
+        else:
+            os.environ["RRAM_POOL_BWD"] = saved
+        shutil.rmtree(tmp)
+    torch.cuda.empty_cache()
+    print(f"phase 14: sweep C = {sweep['configs']}, N(1e8, 3e7), packed int32"
+          f" banks: checkpoint at iteration {FORMAT_STEPS} written in "
+          f"{sweep['checkpoint_s']:.3f} s ({sweep['checkpoint_bytes']} bytes),"
+          f" restored into a fresh runner in {sweep['restore_s']:.3f} s; "
+          f"{FORMAT_STEPS} continued steps bit-identical to the uninterrupted"
+          f" run (lane losses, {sweep['leaves']} leaves), launches "
+          f"{sweep['launches']}; step median {sweep['step_ms_median']:.3f} ms"
+          f" against {sweep['uninterrupted_step_ms_median']:.3f} ms "
+          f"uninterrupted; {gpu}", flush=True)
+    print(f"phase 14: save_fault_states at C = {sweep['configs']}: "
+          f"{sweep['fault_states_bytes']} bytes, f32 layout, packed again "
+          f"equal to the live banks; the caller paid "
+          f"{sweep['fault_states_call_s']:.3f} s, the writer "
+          f"{sweep['fault_states_writer_s']:.3f} s", flush=True)
+    for name, res in (("Solver", solver), ("tiled Solver", tiled)):
+        print(f"phase 14: {name}: solve() with snapshots at "
+              f"{SNAPSHOT_EVERY} and {SNAPSHOT_ITERS} (bytes {res['bytes']};"
+              f" snapshot s {[round(v, 4) for v in res['snapshot_s']]}), "
+              f"solve(resume_file) restored in {res['restore_s']:.4f} s: "
+              f"losses 11-20, params, history and banks bit-identical; "
+              f"launches {res['launches']}", flush=True)
+    print(f"phase 14: C = {devices['configs']} card checkpoint restored into a"
+          f" CPU runner: {devices['leaves']} leaves equal; one step each: "
+          f"losses within {devices['loss_rel_max']:.2e} relative (limit "
+          f"1e-5), life_q identical (CPU step {devices['cpu_step_s']:.2f} s)",
+          flush=True)
+    return {"sweep": sweep, "solver": solver, "tiled_solver": tiled,
+            "devices": devices, "phase_s": time.perf_counter() - t_phase,
+            "gpu": gpu}
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--steps", type=int, default=50,
                    help="training steps of the slice phase (default 50)")
     p.add_argument("--transition-steps", type=int, default=6)
     p.add_argument("--phases", default="all",
-                   help="comma-separated phases 2-13 to run after the "
+                   help="comma-separated phases 2-14 to run after the "
                         "build (default all; only a full run prints the "
                         "per-kernel line and the ok line)")
     p.add_argument("--b2-path", action="store_true",
@@ -3170,7 +3474,7 @@ def main(argv=None) -> int:
                         "and the tiled sweep's C), the kernel alone and "
                         "its tile heights, and print them as JSON")
     args = p.parse_args(argv)
-    every = set(range(2, 14))
+    every = set(range(2, 15))
     want = every if args.phases == "all" else {
         int(v) for v in args.phases.split(",")}
 
@@ -3277,6 +3581,9 @@ def main(argv=None) -> int:
         phase_strategies(gpu, step_s * 1e3 if 4 in want else None)
     if 13 in want:
         rng = phase_rng(device, gpu, step_s * 1e3 if 4 in want else None)
+    if 14 in want:
+        formats = phase_formats(sweep["configs"] if 7 in want
+                                else SWEEP_CONFIGS, gpu)
     if want != every:
         print(f"phases {sorted(want)} passed; no ok line for a partial run",
               flush=True)
@@ -3370,6 +3677,7 @@ def main(argv=None) -> int:
     print(json.dumps({"b2t_rows": b2t_rows}))
     print(json.dumps({"b3_passes": b3_passes}))
     print(json.dumps({"rng": rng}))
+    print(json.dumps({"formats": formats}))
     print(json.dumps({"kernels": rows}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {

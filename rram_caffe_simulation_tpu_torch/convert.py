@@ -5,9 +5,13 @@ threefry key chain, so a Solver built from the same prototxt and
 `random_seed` holds the reference's params, fault state and crossbar
 seeds, bit for bit on the CPU (normal included: 0 of 2 x (2^20 + 3)
 draws differ, tests/test_torch_prng.py) and on the card alike
-(chip_smoke.py phase 13). The converters serve where a parity test needs
-identical inputs that did not come from a seed, or a state one package
-reached and the other must continue from:
+(chip_smoke.py phase 13). A state one package reached crosses to the
+other on disk, in either direction: a sweep's checkpoint
+(`SweepRunner.checkpoint` / `restore`, the v6 .npz) and a Solver's
+snapshot (`.caffemodel`, `.solverstate`, `.faultstate`) are the same
+files in both packages. The converters here carry a state in memory,
+where a parity test needs identical inputs that did not come from a
+seed:
 
 - params: {layer name: [array, ...]} in Caffe layout (None for a shared
   slot) on both sides, numpy there, tensors here;

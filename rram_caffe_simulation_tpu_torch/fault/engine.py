@@ -224,6 +224,12 @@ def iter_state_leaves(state: FaultState):
             yield f"{group}/{key}", state[group][key]
 
 
+def host_array(a) -> np.ndarray:
+    """A tensor's host copy as numpy (an array as it is)."""
+    return a.detach().cpu().numpy() if isinstance(a, torch.Tensor) \
+        else np.asarray(a)
+
+
 def state_to_arrays(state: FaultState) -> Dict[str, np.ndarray]:
     """Flatten a fault state to {"group/key": host array}."""
     return {name: v.detach().cpu().numpy()
@@ -239,3 +245,66 @@ def state_from_arrays(arrays: Dict[str, np.ndarray],
         state.setdefault(group, {})[key] = torch.as_tensor(
             np.asarray(arr), device=device)
     return state
+
+
+# ---------------------------------------------------------------------------
+# the .faultstate file: a NetParameter named "fault_state" whose entries
+# carry the state as BlobProtos, the reference's layout entry for entry
+
+def fault_state_to_proto(state: FaultState):
+    """The f32 fault state as the reference's `.faultstate` message: per
+    leaf in sorted order a `FaultState` entry (blobs: lifetimes, stuck),
+    then per group id a `RemapSlots` entry (float64 blob), then per other
+    group and leaf a `FaultLeaf:<group>` entry."""
+    from .. import proto
+    from ..utils.io import array_to_blob
+    out = proto.Message("NetParameter")
+    out.name = "fault_state"
+
+    def entry(name, type_name, arrays):
+        lp = proto.Message("LayerParameter")
+        lp.name, lp.type = name, type_name
+        lp.blobs = [array_to_blob(a) for a in arrays]
+        out.layer.append(lp)
+
+    for name in sorted(state.get("lifetimes", {})):
+        entry(name, "FaultState", [host_array(state["lifetimes"][name]),
+                                   host_array(state["stuck"][name])])
+    for gid in sorted(state.get("remap_slots", {})):
+        entry(gid, "RemapSlots",
+              [host_array(state["remap_slots"][gid]).astype(np.float64)])
+    for group in sorted(state):
+        if group in ("lifetimes", "stuck", "remap_slots"):
+            continue
+        for name in sorted(state[group]):
+            entry(name, f"FaultLeaf:{group}",
+                  [host_array(state[group][name])])
+    return out
+
+
+def fault_state_from_proto(message, device="cpu") -> FaultState:
+    """The inverse of `fault_state_to_proto`, on `device`: lifetimes and
+    stuck values f32, remap slots int32, other leaves as stored."""
+    from ..utils.io import blob_to_array
+
+    def put(arr, dtype=None):
+        return torch.as_tensor(arr if dtype is None else arr.astype(dtype),
+                               device=device)
+
+    lifetimes, stuck, slots, extra = {}, {}, {}, {}
+    for lp in message.layer:
+        if lp.type == "RemapSlots":
+            slots[lp.name] = put(blob_to_array(lp.blobs[0]), np.int32)
+        elif lp.type.startswith("FaultLeaf:"):
+            extra.setdefault(lp.type[len("FaultLeaf:"):], {})[lp.name] = \
+                put(blob_to_array(lp.blobs[0]))
+        else:
+            lifetimes[lp.name] = put(blob_to_array(lp.blobs[0]))
+            stuck[lp.name] = put(blob_to_array(lp.blobs[1]))
+    out: FaultState = {}
+    if lifetimes:
+        out["lifetimes"], out["stuck"] = lifetimes, stuck
+    if slots:
+        out["remap_slots"] = slots
+    out.update(extra)
+    return out

@@ -28,6 +28,12 @@ PACKED_GROUPS = ("life_q", "stuck_bits")
 LIFE_DTYPE_MARGIN = 12.0
 
 
+def is_packed(state) -> bool:
+    """True for a packed fault state (the f32 one carries "lifetimes"
+    and "stuck", the packed one the bank groups)."""
+    return state is not None and "life_q" in state
+
+
 def choose_life_dtype(means, stds, decrement: float) -> str:
     """"int16" when every (mean, std) keeps the write-count range inside
     int16 with a 12-sigma margin, else "int32" (analytic, so a later
@@ -57,14 +63,10 @@ def make_pack_spec(state, decrement: float, means=None, stds=None,
     }
 
 
-def _host(a) -> np.ndarray:
-    return a.detach().cpu().numpy() if isinstance(a, torch.Tensor) \
-        else np.asarray(a)
-
-
 def pack_lifetimes(life, decrement: float, dtype) -> np.ndarray:
     """f32 lifetimes -> integer write counters (host)."""
-    q = np.ceil(np.asarray(_host(life), np.float64) / float(decrement))
+    q = np.ceil(np.asarray(fault_engine.host_array(life), np.float64)
+                / float(decrement))
     info = np.iinfo(np.dtype(dtype))
     if q.size and (q.min() < info.min or q.max() > info.max):
         raise ValueError(
@@ -81,7 +83,7 @@ def unpack_lifetimes(life_q: torch.Tensor, decrement: float):
 def pack_stuck(stuck) -> np.ndarray:
     """Stuck values in {-1, 0, +1} -> 2-bit codes, 4 cells per uint8
     along the last axis (host)."""
-    codes = (_host(stuck) + 1.0).astype(np.uint8)
+    codes = (fault_engine.host_array(stuck) + 1.0).astype(np.uint8)
     pad = -codes.shape[-1] % 4
     if pad:
         codes = np.pad(codes, [(0, 0)] * (codes.ndim - 1) + [(0, pad)])
@@ -112,6 +114,38 @@ def pack_state(state, spec: dict, device=None) -> dict:
         if group not in ("lifetimes", "stuck"):
             out[group] = state[group]
     return out
+
+
+def unpack_state(packed: dict, spec: dict) -> dict:
+    """Packed banks -> the f32 FaultState on the host (numpy): mid-bin
+    lifetimes, f32 stuck values; other groups ride along."""
+    host = lambda a: torch.from_numpy(fault_engine.host_array(a))
+    out = {"lifetimes": {k: unpack_lifetimes(host(q), spec["decrement"])
+                         .numpy() for k, q in packed["life_q"].items()},
+           "stuck": {k: unpack_stuck(host(b), spec["last_dim"][k]).numpy()
+                     for k, b in packed["stuck_bits"].items()}}
+    for group in packed:
+        if group not in PACKED_GROUPS:
+            out[group] = packed[group]
+    return out
+
+
+def convert_flat(arrays: Dict[str, np.ndarray], to_packed: bool,
+                 spec: dict) -> Dict[str, np.ndarray]:
+    """A flat {"group/key": host array} fault mapping (the checkpoint and
+    save_fault_states layout, engine.state_to_arrays) in the other
+    format: packed with `spec`, or unpacked to f32 with it. A mapping
+    already in the asked format comes back as it is."""
+    state: dict = {}
+    for name, arr in arrays.items():
+        group, key = name.split("/", 1)
+        state.setdefault(group, {})[key] = np.asarray(arr)
+    if to_packed == is_packed(state):
+        return dict(arrays)
+    state = (pack_state(state, spec, device="cpu") if to_packed
+             else unpack_state(state, spec))
+    return {name: fault_engine.host_array(v)
+            for name, v in fault_engine.iter_state_leaves(state)}
 
 
 def unpacked_view(state: dict, spec: dict, keys=None) -> dict:

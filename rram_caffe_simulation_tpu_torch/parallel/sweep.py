@@ -28,19 +28,33 @@ tile on its own, and a tiled layer's read is one launch of kernel B2t
 (InnerProduct, premat conv) or B3 (`conv_im2col="implicit"`) over all
 lanes.
 
+Durability: `checkpoint(path)` writes the whole resumable state (params,
+history, fault banks, quarantine mask, iteration, solver key) as the
+reference's v6 single-file `.npz`, `restore(path)` reads it back, or the
+reference's v4 distributed directory, from either package, with the
+reference's refusals; an f32 checkpoint restores into packed banks and
+the reverse. `save_fault_states(path)` writes the fault state in the f32
+layout. Both write through a temp file and an atomic rename, optionally
+on a background thread (`wait_for_writes`, `close`). A continued run
+equals the run that never stopped, bit for bit: the step's keys and
+the device dataset's order depend on the iteration alone.
+
 Not ported yet, each refused by name: mesh, config_block,
 remat_segments, compute_dtype, pipeline_depth, stall_timeout_s,
-health_every, self-healing, checkpoint/restore, fault state files, and
-a solver with any failure strategy (threshold, remapping, genetic; the
+health_every, self-healing, distributed checkpoints (writing), and a
+solver with any failure strategy (threshold, remapping, genetic; the
 single-config Solver runs them).
 """
 from __future__ import annotations
 
-from typing import Optional
+import json
+import os
+from typing import Dict, Optional
 
 import numpy as np
 import torch
 
+from .. import async_exec
 from ..core import prng
 from ..data.feed import can_materialize, materialize_data_source
 from ..device import resolve_device
@@ -48,6 +62,9 @@ from ..fault import engine as fault_engine
 from ..fault import packed as fault_packed
 
 SWEEP_ENGINES = ("auto", "cuda", "torch")
+CHECKPOINT_VERSION = 6  # the reference's; v1-v5 restore as it upgrades them
+LEGACY_PROCESS = "endurance_stuck_at"   # the port's only fault process
+LEGACY_TILES = "1x1"    # the mapping of a checkpoint older than v6
 SWEEP_FOLD = 0xFA117    # the reference's fold of the solver key for the draw
 # constructor options of the reference runner this slice does not port,
 # with the value that means "off"
@@ -63,6 +80,20 @@ def _not_ported(what: str):
 
 def _lane_mask(mask: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     return mask.view((-1,) + (1,) * (like.dim() - 1))
+
+
+def _host_copy(t: torch.Tensor) -> np.ndarray:
+    """A host array that no later step can change: the device fetch of
+    a card tensor, a copy of a CPU one."""
+    t = t.detach()
+    return t.cpu().numpy() if t.device.type != "cpu" else t.numpy().copy()
+
+
+def _savez_writer(arrays: Dict[str, np.ndarray]):
+    def write(tmp):
+        with open(tmp, "wb") as f:
+            np.savez(f, **arrays)
+    return write
 
 
 class SweepRunner:
@@ -144,6 +175,7 @@ class SweepRunner:
                         for k, slots in solver.history.items()}
         self.quarantine = torch.zeros(self.n, dtype=torch.bool,
                                       device=self.device)
+        self._bg_writer: Optional[async_exec.BackgroundWriter] = None
 
         self._step = solver.make_train_step(
             hw_engine=engine, dtype_policy=dtype_policy,
@@ -321,18 +353,278 @@ class SweepRunner:
                  for g, grp in self.fault_states.items()}
         return params, history, fault
 
-    # the reference runner's durability and self-healing layers
+    # the reference runner's self-healing layer
     def enable_self_healing(self, *args, **kwargs):
         _not_ported("self-healing")
 
     def submit_configs(self, *args, **kwargs):
         _not_ported("self-healing (submit_configs)")
 
-    def checkpoint(self, *args, **kwargs):
-        _not_ported("checkpoint")
+    # ------------------------------------------------------------------
+    # durability: checkpoint / restore and the fault state files
 
-    def restore(self, *args, **kwargs):
-        _not_ported("restore")
+    def _write(self, path: str, arrays: Dict[str, np.ndarray],
+               background: bool):
+        """One atomic .npz write of host arrays, on the background
+        writer or inline."""
+        if background and self._bg_writer is None:
+            self._bg_writer = async_exec.BackgroundWriter()
+        async_exec.write(path, _savez_writer(arrays),
+                         self._bg_writer if background else None)
 
-    def save_fault_states(self, *args, **kwargs):
-        _not_ported("save_fault_states")
+    def save_fault_states(self, path: str, background: bool = True) -> str:
+        """Write the config-stacked fault state to `path` as an .npz
+        ({"group/key": (C, ...) array}), always in the f32 layout
+        (lifetimes, stuck values; packed banks as their mid-bin view,
+        which keeps the broken census exact). The caller's thread pays
+        the device fetch; the write runs on the background writer
+        (`background=False` writes inline, as atomically)."""
+        flat = {name: _host_copy(v) for name, v in
+                fault_engine.iter_state_leaves(self.fault_states)}
+        if self._pack_spec is not None:
+            flat = fault_packed.convert_flat(flat, to_packed=False,
+                                             spec=self._pack_spec)
+        self._write(path, flat, background)
+        return path
+
+    def _state_arrays(self) -> Dict[str, torch.Tensor]:
+        """Every resumable leaf under its checkpoint name: the params
+        (shared slots skipped), the history, the fault state and the
+        quarantine mask. The name set is the restore contract."""
+        out = {}
+        for layer, vals in self.params.items():
+            for slot, v in enumerate(vals):
+                if v is not None:
+                    out[f"params/{layer}/{slot}"] = v
+        for key, slots in self.history.items():
+            for sname, v in slots.items():
+                out[f"history/{key}/{sname}"] = v
+        for name, v in fault_engine.iter_state_leaves(self.fault_states):
+            out[f"fault/{name}"] = v
+        out["quarantine"] = self.quarantine
+        return out
+
+    def _set_state_arrays(self, arrays: Dict[str, torch.Tensor]):
+        """The inverse of `_state_arrays` (key sets already checked)."""
+        self.params = {
+            layer: [arrays.get(f"params/{layer}/{slot}", v)
+                    for slot, v in enumerate(vals)]
+            for layer, vals in self.params.items()}
+        self.history = {
+            key: {s: arrays[f"history/{key}/{s}"] for s in slots}
+            for key, slots in self.history.items()}
+        self.fault_states = {
+            group: {k: arrays[f"fault/{group}/{k}"] for k in tree}
+            for group, tree in self.fault_states.items()}
+        self.quarantine = arrays["quarantine"]
+
+    def _process_canonical(self) -> str:
+        """The fault process the runner trains under (the v5 pin): the
+        port has the reference's endurance process alone."""
+        return LEGACY_PROCESS
+
+    def _tile_canonical(self) -> str:
+        """The tile mapping the runner trains under (the v6 pin)."""
+        return self.solver.tile_spec.canonical()
+
+    def _ckpt_meta(self) -> dict:
+        """The checkpoint's meta block, every key the reference writes:
+        no virtual time, the identity lane map, every lane at `iter`,
+        and no self-healing block."""
+        return {"version": CHECKPOINT_VERSION, "iter": int(self.iter),
+                "n_configs": int(self.n),
+                "fault_format": ("packed" if self._pack_spec is not None
+                                 else "f32"),
+                "pack_spec": self._pack_spec,
+                "fault_process": self._process_canonical(),
+                "tile_spec": self._tile_canonical(),
+                "key": [int(x) for x in np.asarray(self.solver._key).ravel()],
+                "seed": int(self.solver.seed),
+                "virtual_time": False,
+                "quarantined": [int(i) for i in self.quarantined()],
+                "lane_map": list(range(self.n)),
+                "lane_done": [int(self.iter)] * self.n}
+
+    def checkpoint(self, path: str, background: bool = False,
+                   distributed: Optional[bool] = None) -> str:
+        """Write the whole resumable sweep state to `path`, one .npz
+        (the reference's v6 layout: every `_state_arrays` leaf and
+        `__meta__`, the meta as JSON bytes). The device fetch runs here;
+        the write goes through a temp file and an atomic rename, on the
+        background writer with `background=True`. A runner built with
+        the same configuration continues from it bit for bit
+        (`restore`)."""
+        if distributed:
+            _not_ported("checkpoint(distributed=True) (the v4 directory "
+                        "layout is read by restore, not written)")
+        self.wait_for_writes()
+        self.solver.wait_for_snapshots()
+        arrays = {name: _host_copy(v)
+                  for name, v in self._state_arrays().items()}
+        arrays["__meta__"] = np.frombuffer(
+            json.dumps(self._ckpt_meta()).encode(), np.uint8)
+        if os.path.isdir(path):
+            # a distributed checkpoint under this name: replaced
+            import shutil
+            shutil.rmtree(path)
+        self._write(path, arrays, background)
+        return path
+
+    @staticmethod
+    def _load_checkpoint_data(path: str):
+        """(arrays, meta, genetics bytes or None) of either layout: the
+        single .npz file, or the v4 distributed directory, whose shards'
+        row blocks are put back together into whole arrays here."""
+        if os.path.isdir(path):
+            mpath = os.path.join(path, "manifest.json")
+            if not os.path.exists(mpath):
+                raise ValueError(
+                    f"{path} is not a committed distributed checkpoint "
+                    "(missing manifest.json — the write was interrupted "
+                    "before the commit record landed)")
+            with open(mpath) as f:
+                manifest = json.load(f)
+            pieces: Dict[str, list] = {}
+            for sh in manifest["shards"]:
+                lo = int(sh["rows"][0])
+                with np.load(os.path.join(path, sh["file"])) as z:
+                    for name in z.files:
+                        pieces.setdefault(name, []).append((lo, z[name]))
+            data = {}
+            for name, blocks in pieces.items():
+                blocks.sort(key=lambda b: b[0])
+                off = 0
+                for b_lo, b_arr in blocks:
+                    if b_lo != off:
+                        raise ValueError(
+                            f"distributed checkpoint {path}: leaf {name!r} "
+                            f"rows are not a contiguous partition (gap at "
+                            f"row {off})")
+                    off += b_arr.shape[0]
+                data[name] = np.concatenate([b[1] for b in blocks], axis=0)
+            gen = None
+            gp = os.path.join(path, "global.npz")
+            if os.path.exists(gp):
+                with np.load(gp) as z:
+                    for name in z.files:
+                        if name == "__genetics__":
+                            gen = z[name]
+                        else:
+                            data[name] = z[name]
+            return data, manifest["meta"], gen
+        with np.load(path) as z:
+            data = {k: z[k] for k in z.files}
+        raw = data.pop("__meta__", None)
+        if raw is None:
+            raise ValueError(f"{path} is not a SweepRunner checkpoint "
+                             "(missing __meta__)")
+        meta = json.loads(bytes(bytearray(raw)).decode())
+        return data, meta, data.pop("__genetics__", None)
+
+    def restore(self, path: str):
+        """Load a checkpoint of either package into this runner, which
+        must have the same configuration: the configs, fault process,
+        tile spec, solver key, no virtual time, no genetic or
+        self-healing state, the same leaves and shapes; each mismatch
+        raises. Fault leaves convert between the f32 and packed formats
+        (`fault_packed.convert_flat`); every leaf lands contiguous, in
+        the live leaf's dtype, on the runner's device."""
+        self.wait_for_writes()
+        self.solver.wait_for_snapshots()
+        data, meta, gen = self._load_checkpoint_data(path)
+        found = meta.get("version")
+        if found not in (1, 2, 3, 4, 5, CHECKPOINT_VERSION):
+            raise ValueError(
+                f"checkpoint {path} has format version {found!r} but this "
+                f"build expects version {CHECKPOINT_VERSION} (v1-v5 "
+                "checkpoints are upgraded in place)")
+        if int(meta["n_configs"]) != self.n:
+            raise ValueError(
+                f"checkpoint {path} holds {meta['n_configs']} configs but "
+                f"this runner was built with {self.n}")
+        ck_proc = meta.get("fault_process", LEGACY_PROCESS)
+        if str(ck_proc) != self._process_canonical():
+            raise ValueError(
+                f"checkpoint {path} was trained under fault process "
+                f"{ck_proc!r} but this runner runs "
+                f"{self._process_canonical()!r}; resume with the same "
+                "fault_process spec the checkpoint was written under")
+        ck_tiles, my_tiles = meta.get("tile_spec", LEGACY_TILES), \
+            self._tile_canonical()
+        if str(ck_tiles) != my_tiles:
+            raise ValueError(
+                f"checkpoint {path} was trained under tile spec "
+                f"{ck_tiles!r} but this runner maps crossbars as "
+                f"{my_tiles!r}; resume with the same tile_spec the "
+                "checkpoint was written under (pre-v6 checkpoints are the "
+                "untiled '1x1' mapping)")
+        key = [int(x) for x in np.asarray(self.solver._key).ravel()]
+        if list(meta["key"]) != key:
+            raise ValueError(
+                f"checkpoint {path} was taken under a different solver RNG "
+                f"key (seed {meta.get('seed')}); resume with the same "
+                "random_seed the checkpoint was written under")
+        if bool(meta.get("virtual_time", False)):
+            raise ValueError(
+                f"checkpoint {path} was written with virtual_time=True (a "
+                "self-healing service sweep); the port's runner has no "
+                "virtual time")
+        if gen is not None:
+            raise ValueError(
+                f"checkpoint {path} carries genetic-strategy state; the "
+                "port's sweep runs no failure strategy")
+        if meta.get("healing") is not None:
+            _not_ported(f"self-healing (checkpoint {path} carries its "
+                        "lane map and retry queue)")
+        ck_fmt = meta.get("fault_format", "f32")
+        my_fmt = "packed" if self._pack_spec is not None else "f32"
+        ck_spec = meta.get("pack_spec")
+        if ck_fmt != my_fmt or (ck_fmt == "packed"
+                                and ck_spec != self._pack_spec):
+            fault = {name[len("fault/"):]: arr for name, arr in data.items()
+                     if name.startswith("fault/")}
+            if ck_fmt == "packed":
+                fault = fault_packed.convert_flat(fault, to_packed=False,
+                                                  spec=ck_spec)
+            if my_fmt == "packed":
+                fault = fault_packed.convert_flat(fault, to_packed=True,
+                                                  spec=self._pack_spec)
+            data = {name: arr for name, arr in data.items()
+                    if not name.startswith("fault/")}
+            data.update({f"fault/{name}": arr for name, arr in fault.items()})
+        current = self._state_arrays()
+        saved, live = set(data), set(current)
+        if saved != live:
+            raise ValueError(
+                f"checkpoint {path} state keys do not match this runner: "
+                f"missing {sorted(live - saved)}, unexpected "
+                f"{sorted(saved - live)}")
+        placed = {}
+        for name, arr in data.items():
+            cur = current[name]
+            if tuple(arr.shape) != tuple(cur.shape):
+                raise ValueError(
+                    f"checkpoint {path}: leaf {name!r} has shape "
+                    f"{tuple(arr.shape)}, expected {tuple(cur.shape)}")
+            placed[name] = torch.from_numpy(np.ascontiguousarray(arr)).to(
+                device=cur.device, dtype=cur.dtype)
+        self._set_state_arrays(placed)
+        self.iter = int(meta["iter"])
+        self.last_losses = self.chunk_losses = None
+        return self
+
+    def wait_for_writes(self):
+        """Barrier for background writes (re-raises the first writer
+        error)."""
+        if self._bg_writer is not None:
+            self._bg_writer.wait()
+
+    def close(self):
+        """Land the queued writes and stop the writer thread (a writer
+        error re-raises here); later calls do nothing."""
+        writer, self._bg_writer = self._bg_writer, None
+        if writer is not None:
+            try:
+                writer.wait()
+            finally:
+                writer.close()

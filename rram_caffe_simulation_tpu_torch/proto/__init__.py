@@ -12,6 +12,7 @@ TRAIN, TEST = 0, 1
 POOL_MAX, POOL_AVE, POOL_STOCHASTIC = 0, 1, 2
 NORM_FULL, NORM_VALID, NORM_BATCH_SIZE, NORM_NONE = 0, 1, 2, 3
 FAN_IN, FAN_OUT, AVERAGE = 0, 1, 2
+HDF5, BINARYPROTO = 0, 1          # SolverParameter.SnapshotFormat
 
 __all__ = ["Message", "parse", "decode", "decode_blob_proto", "decode_datum",
            "encode"]

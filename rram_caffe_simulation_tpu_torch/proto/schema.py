@@ -102,6 +102,12 @@ message ParamSpec {
   optional float lr_mult = 3 [default = 1.0];
   optional float decay_mult = 4 [default = 1.0];
 }
+message SolverState {
+  optional int32 iter = 1;
+  optional string learned_net = 2;
+  repeated BlobProto history = 3;
+  optional int32 current_step = 4 [default = 0];
+}
 message SolverParameter {
   optional string net = 24;
   optional NetParameter net_param = 25;
@@ -131,12 +137,16 @@ message SolverParameter {
   optional float clip_gradients = 35 [default = -1];
   optional int32 snapshot = 14 [default = 0];
   optional string snapshot_prefix = 15;
+  optional bool snapshot_diff = 16 [default = false];
+  enum SnapshotFormat { HDF5 = 0; BINARYPROTO = 1; }
+  optional SnapshotFormat snapshot_format = 37 [default = BINARYPROTO];
   optional int64 random_seed = 20 [default = -1];
   optional string type = 40 [default = "SGD"];
   optional float delta = 31 [default = 1e-8];
   optional float momentum2 = 39 [default = 0.999];
   optional float rms_decay = 38 [default = 0.99];
   optional bool debug_info = 23 [default = false];
+  optional bool snapshot_after_train = 28 [default = true];
   optional FailurePatternParameter failure_pattern = 41;
   repeated FailureStrategyParameter failure_strategy = 42;
   optional RRAMForwardParameter rram_forward = 43;

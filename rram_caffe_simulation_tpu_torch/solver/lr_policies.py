@@ -8,6 +8,20 @@ from __future__ import annotations
 import numpy as np
 
 
+def current_step_fn(param):
+    """it -> current_step_, the count a snapshot's SolverState carries
+    (the reference's closed form): it // stepsize under "step", the
+    stepvalues reached under "multistep", else 0."""
+    policy = param.lr_policy
+    if policy == "step":
+        stepsize = max(int(param.stepsize), 1)
+        return lambda it: int(it) // stepsize
+    if policy == "multistep":
+        steps = [int(s) for s in param.stepvalue]
+        return lambda it: sum(int(it) >= s for s in steps)
+    return lambda it: 0
+
+
 def learning_rate_fn(param):
     """rate(iter) -> float (a float32 value) for `param.lr_policy`."""
     policy = param.lr_policy

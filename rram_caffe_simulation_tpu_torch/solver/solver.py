@@ -39,22 +39,35 @@ step's key `fold_in(key, iter)`, and fault key i's noise key
 read's seed. A seed therefore draws the reference's params, fault state
 and crossbar seeds, on the card and on the CPU alike.
 
-Not ported yet (a solver asking for one raises): solve(), snapshots
-(`step` raises NotImplementedError at the first iteration where the
-reference would write one) and restore, metrics, watchdog, health,
-data/tensor/pipeline parallelism, a sub-f32 compute dtype, iter_size >
-1, clip_gradients, L1 regularization and the five other update rules.
+Snapshots (Solver::Snapshot, Restore): `step` writes one every
+`snapshot` iterations, `solve()` runs to max_iter and writes the last,
+`restore(state_file)` / `solve(resume_file)` resumes. A snapshot is the
+reference's three files, byte for byte what the reference writes for the
+same state: `<prefix>_iter_N.caffemodel` (the net with its params),
+`.solverstate` (iter, the model's name, current_step, the SGD history)
+and `.faultstate` (the fault state, f32: under packed banks their
+mid-bin view, re-packed on restore). So a snapshot of either package
+resumes in the other. `snapshot_format: HDF5` raises (the port reads and
+writes no HDF5), in `solve()` before it trains when a snapshot will be
+due. `enable_background_snapshots()` moves the writes to a
+thread.
+
+Not ported yet (a solver asking for one raises): `solve(fused_chunk=)`
+(step_fused), metrics, watchdog, health, data/tensor/pipeline
+parallelism, a sub-f32 compute dtype, iter_size > 1, clip_gradients, L1
+regularization and the five other update rules.
 """
 from __future__ import annotations
 
 import os
+import sys
 import time
 from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
 
-from .. import proto
+from .. import async_exec, proto
 from ..core import prng
 from ..data.feed import build_feed
 from ..device import resolve_device
@@ -66,9 +79,11 @@ from ..fault.fused import (fused_update_fail_leaves,
 from ..fault.hw_aware import CONV_OPERANDS, perturb_weight, quantize_ste
 from ..fault.mapping import TileSpec, conv_geom
 from ..net.builder import Net
-from ..utils.io import read_net_param, read_solver_param
+from ..utils.io import (array_to_blob, blob_to_array, read_net_param,
+                        read_proto_binary, read_solver_param,
+                        write_proto_binary)
 from . import updates as U
-from .lr_policies import learning_rate_fn
+from .lr_policies import current_step_fn, learning_rate_fn
 
 HW_ENGINES = ("auto", "cuda", "torch")
 NOISE_FOLD = 0x4A7      # the reference's fold of a step key into noise keys
@@ -347,6 +362,7 @@ class Solver:
             hw_engine=hw_engine, dtype_policy=dtype_policy,
             fault_format=fault_format, pack_spec=self.pack_spec,
             fused_epilogue=fused_epilogue)
+        self._snapshot_writer = None
 
     # ------------------------------------------------------------------
     def _fc_pairs(self):
@@ -770,11 +786,41 @@ class Solver:
                 self._print_outputs(self.last_outputs)
             self.iter += 1
             if param.snapshot and self.iter % param.snapshot == 0:
-                raise NotImplementedError(
-                    f"snapshot is not ported: the reference would write "
-                    f"one at iteration {self.iter} (snapshot: "
-                    f"{param.snapshot}); set snapshot: 0 to train on")
+                self.snapshot()
         self._materialize_smoothed_loss()
+
+    def solve(self, resume_file: Optional[str] = None,
+              fused_chunk: Optional[int] = None):
+        """Solver::Solve (solver.cpp:328-375): restore `resume_file`
+        when given, train to max_iter, write the last snapshot unless
+        the step just wrote it (`snapshot_after_train`), display and
+        test at the end as the reference does. `fused_chunk` (the
+        reference's step_fused) is not ported and raises."""
+        if fused_chunk:
+            raise NotImplementedError(
+                f"Solver.solve(fused_chunk={fused_chunk!r}): step_fused is "
+                "not ported to the PyTorch/CUDA package; call solve() "
+                "without it")
+        param = self.param
+        # refuse before training, not after it at the first snapshot
+        if param.snapshot_after_train or (
+                param.snapshot and param.max_iter >= param.snapshot):
+            self._refuse_hdf5("solve()")
+        print(f"Solving {self.net.name}", flush=True)
+        if resume_file:
+            self.restore(resume_file)
+        self.step(param.max_iter - self.iter)
+        if param.snapshot_after_train and (
+                not param.snapshot or self.iter % param.snapshot != 0):
+            self.snapshot()
+        if param.display and self.iter % param.display == 0:
+            print(f"Iteration {self.iter}, loss = {self.smoothed_loss:g}",
+                  flush=True)
+        if param.test_interval and self.iter % param.test_interval == 0:
+            self.test_all()
+        # queued background writes land (or raise) before the run is done
+        self.wait_for_snapshots()
+        print("Optimization Done.", flush=True)
 
     def _print_outputs(self, outputs):
         """The reference's display lines of the train net's outputs, one
@@ -879,3 +925,162 @@ class Solver:
         if self.fault_state is None:
             return 0.0
         return fault_engine.broken_fraction(self.fault_state)
+
+    # ------------------------------------------------------------------
+    # snapshot / restore (solver.cpp:461-532, sgd_solver.cpp:250-356)
+
+    def snapshot_filename(self, ext: str) -> str:
+        return f"{self.param.snapshot_prefix}_iter_{self.iter}{ext}"
+
+    def _owner_keys(self) -> list:
+        return [fault_engine.param_key(r.layer_name, r.slot)
+                for r in self._owner_refs]
+
+    def _history_blob_list(self) -> list:
+        """The history as host arrays in the reference's order: each
+        slot's bank for every param, slot after slot."""
+        return [self.history[k][s].detach().cpu().numpy()
+                for s in U.HISTORY_SLOTS[self.type]
+                for k in self._owner_keys()]
+
+    def _set_history_from_list(self, blobs):
+        slots, keys = U.HISTORY_SLOTS[self.type], self._owner_keys()
+        if len(blobs) != len(slots) * len(keys):
+            raise ValueError(
+                f"Incorrect length of history blobs: {len(blobs)} != "
+                f"{len(slots) * len(keys)}")
+        blobs = iter(blobs)
+        history = {k: dict(v) for k, v in self.history.items()}
+        for s in slots:
+            for k in keys:
+                live = history[k][s]
+                history[k][s] = torch.as_tensor(
+                    np.asarray(next(blobs)).reshape(tuple(live.shape)),
+                    dtype=live.dtype, device=live.device)
+        self.history = history
+
+    def enable_background_snapshots(self):
+        """Write snapshots on a background thread (async_exec
+        .BackgroundWriter): `snapshot()` then costs the step's thread the
+        device fetch of params, history and fault state; the encoding
+        and the write (a sibling temp file, then an atomic rename) run
+        on the writer. `wait_for_snapshots()` is the barrier (`restore`
+        and `solve` take it); a writer error re-raises at the next
+        snapshot or wait."""
+        if self._snapshot_writer is None:
+            self._snapshot_writer = async_exec.BackgroundWriter()
+        return self._snapshot_writer
+
+    def wait_for_snapshots(self):
+        """Block until every queued background snapshot write has landed
+        (re-raises the first writer error); a no-op without the
+        writer."""
+        if self._snapshot_writer is not None:
+            self._snapshot_writer.wait()
+
+    def _put_snapshot_file(self, path: str, message):
+        async_exec.write(path,
+                         lambda tmp, m=message: write_proto_binary(tmp, m),
+                         self._snapshot_writer)
+
+    def _refuse_hdf5(self, what: str):
+        if self.param.snapshot_format == proto.HDF5:
+            raise NotImplementedError(
+                f"{what}: snapshot_format HDF5 is not ported (the port "
+                "reads and writes no HDF5); set snapshot_format: "
+                "BINARYPROTO")
+
+    def snapshot(self) -> str:
+        """Write `<prefix>_iter_N.caffemodel`, `.solverstate` and, with a
+        fault engine, `.faultstate` (BINARYPROTO); returns the model's
+        name. The payloads are host messages built here."""
+        self._refuse_hdf5(f"snapshot at iteration {self.iter}")
+        os.makedirs(os.path.dirname(self.param.snapshot_prefix) or ".",
+                    exist_ok=True)
+        model_name = self.snapshot_filename(".caffemodel")
+        self._put_snapshot_file(model_name, self.net.to_proto(self.params))
+        state = proto.Message("SolverState")
+        state.iter = self.iter
+        state.learned_net = model_name
+        state.current_step = current_step_fn(self.param)(self.iter)
+        state.history = [array_to_blob(a) for a in self._history_blob_list()]
+        self._put_snapshot_file(self.snapshot_filename(".solverstate"), state)
+        fault = self.fault_state
+        if fault is not None:
+            # f32, as the reference's Solver holds it: packed banks as
+            # their mid-bin view
+            if self.pack_spec is not None:
+                fault = fault_packed.unpack_state(fault, self.pack_spec)
+            self._put_snapshot_file(self.snapshot_filename(".faultstate"),
+                                    fault_engine.fault_state_to_proto(fault))
+        print(f"Snapshotting to {model_name}", flush=True)
+        return model_name
+
+    def restore(self, state_file: str):
+        """Resume from a `.solverstate` (either package's): the
+        iteration, the params from its `learned_net`, the history, and
+        the fault state from the `.faultstate` beside it (re-packed with
+        this solver's pack_spec under packed banks). Without that file
+        the fault state stays this solver's fresh draw, with a warning
+        on stderr."""
+        self.wait_for_snapshots()
+        if state_file.endswith(".h5"):
+            raise NotImplementedError(
+                f"restore({state_file!r}): HDF5 solver states are not "
+                "ported (the port reads and writes no HDF5); resume from a "
+                "BINARYPROTO .solverstate")
+        state = read_proto_binary(state_file, "SolverState")
+        self.iter = int(state.iter)
+        if state.learned_net:
+            self.params = self.net.copy_trained_from(self.params,
+                                                     state.learned_net)
+        self._set_history_from_list([blob_to_array(b)
+                                     for b in state.history])
+        if self.fault_state is None:
+            return
+        fault_file = state_file
+        if fault_file.endswith(".solverstate"):
+            fault_file = fault_file[:-len(".solverstate")] + ".faultstate"
+        if not os.path.exists(fault_file):
+            tiles = ("" if self.tile_spec.is_default else
+                     f" under tile mapping {self.tile_spec.canonical()}")
+            print(f"WARNING: Fault state RE-DRAWN at iteration {self.iter}"
+                  f"{tiles}: snapshot predates fault-state capture; fault "
+                  "state re-drawn from the failure_pattern (active fault "
+                  f"process: endurance_stuck_at) (expected {fault_file}); "
+                  "resumed degradation will NOT match the pre-snapshot "
+                  "trajectory", file=sys.stderr, flush=True)
+            return
+        restored = fault_engine.fault_state_from_proto(
+            read_proto_binary(fault_file, "NetParameter"), self.device)
+        live = self.fault_state
+        live_groups = set(live) - {"remap_slots"}
+        if self.pack_spec is not None:
+            live_groups = (live_groups - set(fault_packed.PACKED_GROUPS)) \
+                | {"lifetimes", "stuck"}
+        saved_groups = set(restored) - {"remap_slots"}
+        if saved_groups != live_groups:
+            raise ValueError(
+                f"fault state in {fault_file} carries state groups "
+                f"{sorted(saved_groups)} but this solver's fault process "
+                f"'endurance_stuck_at' expects {sorted(live_groups)}; "
+                "resume with the same fault_process the snapshot was "
+                "taken under")
+        saved = set(restored.get("lifetimes", {}))
+        if saved != set(self._fault_keys):
+            raise ValueError(
+                f"fault state in {fault_file} covers params "
+                f"{sorted(saved)} but this solver's fault targets are "
+                f"{sorted(self._fault_keys)}; resume with the same "
+                "failure_pattern (including conv_also) the snapshot was "
+                "taken under")
+        if self.strategies.remap_tracked and "remap_slots" not in restored:
+            # a snapshot without the tracked map restarts it at identity
+            restored["remap_slots"] = {
+                gid: torch.arange(len(v), dtype=torch.int32,
+                                  device=self.device)
+                for gid, v in live["remap_slots"].items()}
+        if self.pack_spec is not None:
+            restored = fault_packed.pack_state(restored, self.pack_spec,
+                                               device=self.device)
+        self.fault_state = restored

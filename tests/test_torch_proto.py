@@ -84,7 +84,8 @@ def test_text_reader_syntax_corners():
     text_format.Parse(text, ref)
     mine = tproto.parse(text, "SolverParameter")
     assert_same(ref, mine)
-    assert mine.snapshot_format == "HDF5"        # undeclared: kept raw
+    assert mine.snapshot_format == tproto.HDF5 == 0  # a declared enum
+    assert mine.solver_mode == "CPU"              # undeclared: kept raw
 
 
 def test_message_assignment_marks_parents():
@@ -227,8 +228,8 @@ def test_encode_equals_protobuf_and_decodes_back(kind):
 
 
 def test_encode_refuses_fields_the_schema_lacks():
-    sp = tproto.parse('base_lr: 0.1 snapshot_format: HDF5', "SolverParameter")
-    with pytest.raises(ValueError, match=r"\['snapshot_format'\] are not in "
+    sp = tproto.parse('base_lr: 0.1 solver_mode: CPU', "SolverParameter")
+    with pytest.raises(ValueError, match=r"\['solver_mode'\] are not in "
                                          r"the port's schema"):
         tproto.encode(sp)
 

@@ -12,8 +12,9 @@ conv_also, draw_state_rows over 4 configs with mean/std grids and a row
 slice, the sweep's draw, the crossbar seeds the port's step hands its
 reads over 3 steps, and a host-noise bias read at sigma 0.05.
 
-Also pinned here, the step's repairs: `snapshot: 2` raises at iteration
-2 and not before, and a displayed step prints the reference's `Train
+Also pinned here, the step's repairs: `snapshot: 2` writes its files at
+iteration 2 and not before (raises there under HDF5), and a displayed
+step prints the reference's `Train
 net output` lines (names and structure exact, values within 1e-5
 relative: the two packages sum the product in other orders).
 """
@@ -279,15 +280,31 @@ def tiny_batch():
             "label": rng.randint(0, 3, 8).astype(np.float32)}
 
 
-def test_snapshot_raises_at_the_snapshot_iteration():
+def test_snapshot_raises_at_the_snapshot_iteration(tmp_path):
+    """`snapshot: 2` writes the three snapshot files at iteration 2 and
+    not before; under snapshot_format HDF5 (which the port does not
+    write) it raises there instead, naming HDF5."""
     batch = tiny_batch()
-    s = TSolver(tproto.parse(tiny_solver("snapshot: 2"), "SolverParameter"),
-                device="cpu", train_feed=lambda: batch)
+    fault = 'failure_pattern { type: "gaussian" mean: 300 std: 50 }'
+    prefix = tmp_path / "snap"
+    s = TSolver(tproto.parse(tiny_solver(
+        f'snapshot: 2 snapshot_prefix: "{prefix}" {fault}'),
+        "SolverParameter"), device="cpu", train_feed=lambda: batch)
     s.step(1)
-    assert s.iter == 1
-    with pytest.raises(NotImplementedError, match=r"snapshot.*iteration 2"):
-        s.step(1)
+    assert s.iter == 1 and not os.listdir(tmp_path)
+    s.step(1)
     assert s.iter == 2
+    assert sorted(os.listdir(tmp_path)) == [
+        "snap_iter_2.caffemodel", "snap_iter_2.faultstate",
+        "snap_iter_2.solverstate"]
+    h5 = TSolver(tproto.parse(tiny_solver(
+        f'snapshot: 2 snapshot_format: HDF5 snapshot_prefix: "{prefix}5"'),
+        "SolverParameter"), device="cpu", train_feed=lambda: batch)
+    h5.step(1)
+    with pytest.raises(NotImplementedError,
+                       match=r"snapshot at iteration 2.*HDF5"):
+        h5.step(1)
+    assert h5.iter == 2 and len(os.listdir(tmp_path)) == 3
     # snapshot: 0 trains on
     s0 = TSolver(tproto.parse(tiny_solver(""), "SolverParameter"),
                  device="cpu", train_feed=lambda: batch)

@@ -14,6 +14,8 @@ draw, carried across with convert.py. Held after every chunk: life_q
 banks identical, per-lane losses within 1e-4 relative (the two
 packages sum convolutions and products in other orders; the tolerance
 of tests/test_torch_solver.py), broken fractions equal."""
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -363,13 +365,18 @@ def test_unported_options_raise_by_name(option, value):
         TSweep(s, 2, device="cpu", **{option: value})
 
 
-@pytest.mark.parametrize("method", ["enable_self_healing", "submit_configs",
-                                    "checkpoint", "restore",
-                                    "save_fault_states"])
-def test_unported_methods_raise(method):
+@pytest.mark.parametrize("method,kwargs,match", [
+    pytest.param("enable_self_healing", {}, "self-healing",
+                 id="enable_self_healing"),
+    pytest.param("submit_configs", {}, "self-healing", id="submit_configs"),
+    pytest.param("checkpoint", {"distributed": True}, "distributed",
+                 id="checkpoint-distributed"),
+])
+def test_unported_methods_raise(method, kwargs, match, tmp_path):
     r = port_sweep(cycling(batches(1)), C=2)
-    with pytest.raises(NotImplementedError):
-        getattr(r, method)("x")
+    with pytest.raises(NotImplementedError, match=match):
+        getattr(r, method)(str(tmp_path / "x"), **kwargs)
+    assert not os.listdir(tmp_path)
 
 
 def test_sweep_argument_errors():
