@@ -9,6 +9,8 @@
     python3 chip_smoke.py --phases 12     # the strategies and test nets
     python3 chip_smoke.py --phases 13     # the RNG bridge on the card
     python3 chip_smoke.py --phases 14     # checkpoint, snapshot, restore
+    python3 chip_smoke.py --phases 15     # the rest of the solver, and the
+                                          # strategies over the lanes
     python3 chip_smoke.py --b2-path       # only time B2 through its wrapper
     python3 chip_smoke.py --b2t-path      # only time B2t (wrapper, kernel,
                                           # tile rows)
@@ -173,7 +175,32 @@ prints no "ok" line):
    (B3 2, B2t 1, B2 1, B1 1 a step); (d) a C = 8 card checkpoint at
    N(300, 50) restored into a device="cpu" runner (engine "torch"):
    every leaf equal, and one CPU step within 1e-5 relative of one card
-   step from that state, life_q identical.
+   step from that state, life_q identical;
+15. the rest of the solver and the strategies over the sweep's lanes:
+   (a) phase 4's slice under each of the six update rules (SGD,
+   Nesterov, AdaGrad, RMSProp, AdaDelta, Adam), 10 steps from one state,
+   each step through the "cuda" and the "torch" engine from the same
+   state: life_q identical, losses within 1e-5 relative, params within
+   1e-5 relative except where AdaGrad, RMSProp or Adam divides by the
+   root of a history bank below 1e-4 (a gradient near zero: a gradient
+   difference at f32 rounding moves the update beyond 1e-5; counted),
+   B2 2 and B1 1 a step; each rule's step median in turns with SGD; each rule on fixed
+   inputs on the card equal to the CPU bit for bit; (b) iter_size 2,
+   clip_gradients (half the first steps' norm, so it engages; norms and
+   scales printed) and L1 the same way, B2 4 and B1 1 a step; B1's time
+   a step under SGD, Adam and (b); (c) threshold and tracked remapping
+   (start 5, period 5) in the sweep: at C = 8, N(300, 50), the laned
+   "cuda" step against the laned "torch" step and each lane against a
+   single-config Solver from its state, life_q identical off the
+   threshold's edge cells, remap slots identical, two remaps; at C = 512
+   (phase 7's configuration) 10 steps, 5 steps of the same runner
+   without strategies between their halves: configs x steps per
+   second, B2 2, B1 1, B4 1 a step, peak memory; (d) the genetic search in the sweep at C = 64
+   (start 3, period 5), one lane quarantined: the host's time an
+   application, the quarantined lane's params and masks untouched;
+   (e) the C = 512 sweep under Adam (step time, peak memory, the two
+   history banks' bytes) and under iter_size 2 (B2 4, B1 1, B4 2 a
+   step), B1's time in each.
 
 Then a JSON line of the step's numbers, a JSON line of the sweep's, one
 JSON line of per-kernel numbers (per training step, summed over the
@@ -187,7 +214,8 @@ B3 rows the same from the Convolution layer's layouts; the B4 row its
 backward through the pooling layer's autograd.Function), a JSON line of
 B3's passes by device activity at C = 1 and the tiled sweep's C, a JSON
 line "rng" of phase 13's numbers, a JSON line "formats" of phase 14's,
-the card's name and power limit, and last {"ok": true, "device":
+a JSON line "solver_rest" of phase 15's (printed when it ends), the
+card's name and power limit, and last {"ok": true, "device":
 {...}}.
 B2t has a row at each path's shapes: C = 1 (the tiled slice) and C
 lanes (the tiled sweep). Phase 12 prints its numbers as a JSON line
@@ -975,20 +1003,23 @@ def b2t_path_numbers(device, C=1, own_kernels_only=True):
 
 def slice_solver(mean, std, sigma=0.0, hw_engine="cuda", seed=1,
                  tiled=False, conv_im2col="implicit", strategies=(),
-                 device="cuda"):
+                 device="cuda", fields=None):
     """The slice's solver; `tiled` adds conv_also and rram_forward {
     adc_bits: 8 tiles: "cells=128x128" } with the conv operand mode;
     `strategies` are failure_strategy entries as dicts of their
-    fields."""
+    fields; `fields` other SolverParameter fields (type, iter_size,
+    clip_gradients, ...)."""
     from rram_caffe_simulation_tpu_torch import proto
     from rram_caffe_simulation_tpu_torch.solver import Solver
     from rram_caffe_simulation_tpu_torch.utils.io import read_solver_param
     sp = read_solver_param(SOLVER)
-    for fields in strategies:
+    for strategy in strategies:
         entry = proto.Message("FailureStrategyParameter")
-        for name, value in fields.items():
+        for name, value in strategy.items():
             setattr(entry, name, value)
         sp.failure_strategy.append(entry)
+    for name, value in (fields or {}).items():
+        setattr(sp, name, value)
     sp.display = 0
     sp.test_interval = 0        # phases time training steps; 12 tests apart
     sp.random_seed = seed
@@ -1438,9 +1469,11 @@ def b4_path_numbers(device, C, own_kernel_only=True):
 # ---------------------------------------------------------------------------
 # phases 7 and 8: the sweep
 
-def sweep_runner(C, mean, std, engine="cuda", seed=1):
+def sweep_runner(C, mean, std, engine="cuda", seed=1, strategies=(),
+                 fields=None):
     from rram_caffe_simulation_tpu_torch.parallel import SweepRunner
-    s = slice_solver(mean, std, hw_engine=engine, seed=seed)
+    s = slice_solver(mean, std, hw_engine=engine, seed=seed,
+                     strategies=strategies, fields=fields)
     return SweepRunner(s, n_configs=C, engine=engine, packed_state=True,
                        dtype_policy="ternary")
 
@@ -3438,13 +3471,500 @@ def phase_formats(C, gpu):
             "gpu": gpu}
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the rest of the solver, and the strategies over the lanes
+
+RULES = ("SGD", "Nesterov", "AdaGrad", "RMSProp", "AdaDelta", "Adam")
+RULE_STEPS = 10             # lockstep steps of each rule, and timed ones
+# the history bank a rule divides the gradient by the root of, and the
+# root below which the division turns a gradient difference at f32
+# rounding into an update difference beyond 1e-5 (lr / (sqrt(h) +
+# delta) > 10 at CIFAR's base_lr 0.001)
+ILL_BANK = {"AdaGrad": "h", "RMSProp": "h", "Adam": "h2"}
+ILL_ROOT = 1e-4
+SWEEP_STRATEGY_STEPS = 10   # remaps (start 5, period 5) before 4 and 9
+GENETIC_CONFIGS = 64
+
+
+def _params_far(kp, pp, ph, rule):
+    """(cells of the "cuda" params beyond 1e-5 relative of the "torch"
+    ones, those of them where the rule is ill-conditioned): AdaGrad,
+    RMSProp and Adam divide the gradient by the root of a history bank,
+    so where that root is below ILL_ROOT (a gradient near zero) a
+    gradient difference at f32 rounding moves the update by more than
+    1e-5, up to a full step of the other sign. The ill-conditioned cells
+    are counted, not held."""
+    far = ill = 0
+    for ln, vals in kp.items():
+        for slot, (a, b) in enumerate(zip(vals, pp[ln])):
+            if a is None:
+                continue
+            off = (a - b).abs() > 1e-5 * b.abs().clamp(min=1.0)
+            if rule in ILL_BANK:
+                weak = ph[f"{ln}/{slot}"][ILL_BANK[rule]].sqrt() < ILL_ROOT
+                ill += int((off & weak).sum())
+                off &= ~weak
+            far += int(off.sum())
+    return far, ill
+
+
+def solver_lockstep(s, steps, name, b2_per_step):
+    """`steps` steps of solver `s`, each through the "torch" engine (no
+    launch) and the "cuda" engine (B2 `b2_per_step` times, B1 once) from
+    the same state, batch and key, both on the card; the "cuda" result
+    goes on. life_q identical, losses within 1e-5 relative, params as
+    `_params_far` says (none far). Returns the worst loss gap and the
+    ill-conditioned cells beyond 1e-5."""
+    from rram_caffe_simulation_tpu_torch import kernels
+    from rram_caffe_simulation_tpu_torch.fault import fused, hw_aware
+    import torch
+    pstep = s.make_train_step(hw_engine="torch", dtype_policy="ternary",
+                              fault_format="packed", pack_spec=s.pack_spec,
+                              fused_epilogue=True)
+    worst, ill = 0.0, 0
+    for i in range(steps):
+        it = s.iter
+        state = (s.params, s.history, s.fault_state)
+        batch = s._next_batch()
+        rng = s._step_fn.noise.step_key(s._key, it)
+        kernels.reset_launches()
+        pp, ph, pf, pl, _ = pstep(*state, batch, it, rng)
+        check(hw_aware.CROSSBAR_LIB.launches == 0
+              and fused.FUSED_LIB.launches == 0,
+              f"{name} step {i}: the torch engine launched a kernel")
+        kp, kh, kf, kl, _ = s._step_fn(*state, batch, it, rng)
+        b2, b1 = hw_aware.CROSSBAR_LIB.launches, fused.FUSED_LIB.launches
+        check(b2 == b2_per_step and b1 == 1, f"{name} step {i}: launches "
+              f"B2 {b2}, B1 {b1} (expected {b2_per_step} and 1)")
+        kl, pl = float(kl), float(pl)
+        rel = abs(kl - pl) / max(1.0, abs(pl))
+        worst = max(worst, rel)
+        check(math.isfinite(kl) and rel <= 1e-5,
+              f"{name} step {i}: lockstep losses {kl} vs {pl}")
+        for k in kf["life_q"]:
+            check(torch.equal(kf["life_q"][k], pf["life_q"][k]),
+                  f"{name} step {i}: life_q differs on {k}")
+        far, weak = _params_far(kp, pp, ph, s.type)
+        ill += weak
+        check(far == 0, f"{name} step {i}: {far} params differ beyond 1e-5 "
+              "relative where the rule is well conditioned")
+        s.params, s.history, s.fault_state = kp, kh, kf
+        s.iter += 1
+    return worst, ill
+
+
+def rule_bits_card_vs_cpu(device):
+    """Each rule's update and history on fixed inputs (ip1's shape,
+    gradients over six decades, zeros, t = 1, 7, 1000), on the card and
+    on the CPU: equal bit for bit. Returns the number of cases."""
+    import torch
+    from rram_caffe_simulation_tpu_torch import proto
+    from rram_caffe_simulation_tpu_torch.solver import updates as U
+    rng = np.random.RandomState(15)
+    shape = (64, 1024)
+    hp = U.Hyper(proto.parse("momentum: 0.9 momentum2: 0.999 delta: 1e-8 "
+                             "rms_decay: 0.98", "SolverParameter"))
+    cases = 0
+    for t in (1, 7, 1000):
+        diff = (rng.randn(*shape) * 10.0 ** rng.uniform(-6, 0, shape)
+                ).astype(np.float32)
+        diff[0, :8] = 0.0
+        slots = {s: (np.abs(rng.randn(*shape)) * 1e-4).astype(np.float32)
+                 for s in ("h", "h2")}
+        for rule in RULES:
+            names = U.HISTORY_SLOTS[rule]
+            out = {}
+            for dev in ("cpu", device):
+                upd, hist = U.UPDATE_RULES[rule](
+                    torch.from_numpy(diff).to(dev),
+                    {n: torch.from_numpy(slots[n]).to(dev) for n in names},
+                    float(np.float32(0.001) * np.float32(2.0)), hp, t)
+                out[str(dev)] = [upd] + [hist[n] for n in names]
+            for a, b in zip(out["cpu"], out[str(device)]):
+                check(b.is_cuda and torch.equal(
+                    a.view(torch.int32), b.cpu().view(torch.int32)),
+                    f"{rule} at t = {t}: the card's output differs from "
+                    "the CPU's")
+            cases += 1
+    return cases
+
+
+def b1_ms_in(step_once, iters=20):
+    """B1's device time a step on the inputs a step of the path hands it:
+    `step_once()` runs one step, whose fused tail (`solver.fused_tail`:
+    the update values of the step's rule, after clipping, iter_size and
+    the regularization) is captured, then called `iters` times under the
+    profiler (its outputs are new tensors)."""
+    from rram_caffe_simulation_tpu_torch.solver import solver as solver_mod
+    tail, seen = solver_mod.fused_tail, []
+
+    def capture(*args):
+        seen.append(args)
+        return tail(*args)
+    solver_mod.fused_tail = capture
+    try:
+        step_once()
+    finally:
+        solver_mod.fused_tail = tail
+    check(len(seen) == 1, f"{len(seen)} fused tails in one step")
+    by_name = device_ms_by_name(lambda: tail(*seen[0]), iters=iters)
+    return sum(ms for name, (ms, _) in by_name.items()
+               if any(k in name for k in B1_KERNELS))
+
+
+def _paired_steps(a, b, steps):
+    """Step medians of solvers a and b, stepped in turns."""
+    import torch
+    ms = {"a": [], "b": []}
+    for _ in range(steps):
+        for key, x in (("a", a), ("b", b)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            x.step(1)                       # ends in a host read: synced
+            ms[key].append((time.perf_counter() - t0) * 1e3)
+    warm = 2
+    return (float(np.median(ms["a"][warm:])), float(np.median(ms["b"][warm:])),
+            float(np.median(np.subtract(ms["a"], ms["b"])[warm:])))
+
+
+def rest_single(device, gpu):
+    """(a) the six rules and (b) iter_size 2 + clip + L1 at phase 4's
+    slice, in lockstep with the plain path, timed, B1 by the
+    profiler."""
+    import torch
+    from rram_caffe_simulation_tpu_torch.solver import solver as solver_mod
+    t0 = time.perf_counter()
+    out = {"rules": {}, "bits_cases": rule_bits_card_vs_cpu(device),
+           "part_s": {}}
+    out["part_s"]["bits"] = time.perf_counter() - t0
+    sgd = slice_solver(1e8, 3e7, seed=15)
+    build_s = []
+    for rule in RULES:
+        t0 = time.perf_counter()
+        s = slice_solver(1e8, 3e7, seed=15, fields={"type": rule})
+        build_s.append(time.perf_counter() - t0)
+        check(s.type == rule, f"solver type {s.type}, expected {rule}")
+        worst, ill = solver_lockstep(s, RULE_STEPS, rule, 2)
+        med, sgd_med, paired = _paired_steps(s, sgd, RULE_STEPS)
+        out["rules"][rule] = {"lockstep_loss_rel_max": worst,
+                              "ill_conditioned_cells": ill,
+                              "step_ms_median": med,
+                              "sgd_step_ms_median": sgd_med,
+                              "paired_diff_ms_median": paired}
+        if rule in ("SGD", "Adam"):
+            t1 = time.perf_counter()
+            out["rules"][rule]["b1_ms"] = b1_ms_in(lambda: s.step(1))
+            out["part_s"][f"b1_{rule}"] = time.perf_counter() - t1
+        out["part_s"][rule] = time.perf_counter() - t0
+        print(f"phase 15: (a) {rule}: {json.dumps(out['rules'][rule])}",
+              flush=True)
+        del s
+    out["part_s"]["solver_builds"] = build_s
+    # (b): the clip below the first steps' norm, so that it engages
+    norms = []
+    clip_fn = solver_mod.clip_gradients
+
+    def record(g, clip, lanes=0):
+        l2 = float(torch.sqrt(sum((v.double() ** 2).sum()
+                                  for v in g.values())))
+        norms.append(l2)
+        return clip_fn(g, clip, lanes)
+    fields = {"iter_size": 2, "regularization_type": "L1",
+              "clip_gradients": 1e30}
+    solver_mod.clip_gradients = record
+    try:
+        probe = slice_solver(1e8, 3e7, seed=16, fields=fields)
+        probe.step(3)
+        clip = float(np.float32(0.5 * min(norms)))
+        fields["clip_gradients"] = clip
+        s = slice_solver(1e8, 3e7, seed=16, fields=fields)
+        norms.clear()
+        worst, ill = solver_lockstep(s, 6, "iter_size 2 + clip + L1", 4)
+    finally:
+        solver_mod.clip_gradients = clip_fn
+    # each lockstep step clips twice (the torch step, then the cuda one)
+    check(len(norms) == 12 and min(norms) > clip,
+          f"the clip {clip} did not engage on every step: norms {norms}")
+    med, sgd_med, paired = _paired_steps(s, sgd, RULE_STEPS)
+    out["iter_size_clip_l1"] = {
+        "clip": clip, "norms": norms[1::2],
+        "scales": [clip / n for n in norms[1::2]],
+        "lockstep_loss_rel_max": worst, "ill_conditioned_cells": ill,
+        "step_ms_median": med, "sgd_step_ms_median": sgd_med,
+        "paired_diff_ms_median": paired, "b1_ms": b1_ms_in(
+            lambda: s.step(1))}
+    print(f"phase 15: (b) iter_size 2, clip_gradients, L1: "
+          f"{json.dumps(out['iter_size_clip_l1'])}", flush=True)
+    out["gpu"] = gpu
+    return out
+
+
+def sweep_strategy_lockstep(thr, steps=SWEEP_STRATEGY_STEPS, C=8):
+    """(c) at C = 8, N(300, 50), threshold + tracked remapping: each
+    step the laned "cuda" step against the laned "torch" step and each
+    lane against a single-config Solver from the lane's state, from the
+    same batch and keys: life_q identical off the threshold's edge
+    cells (counted), remap slots identical, losses within 1e-5
+    relative."""
+    import torch
+    strategies = [{"type": "threshold", "threshold": thr},
+                  {"type": "remapping", "start": 5, "period": 5,
+                   "track_identity": True,
+                   "prune_order_file": STRATEGY_FILES[0]}]
+    r = sweep_runner(C, 300.0, 50.0, seed=7, strategies=strategies)
+    single = slice_solver(300.0, 50.0, seed=7, strategies=strategies)
+    pstep = r.solver.make_train_step(
+        hw_engine="torch", lanes=C, dtype_policy="ternary",
+        fault_format="packed", pack_spec=r._pack_spec, fused_epilogue=True)
+    out = {"configs": C, "steps": steps, "remaps": 0, "edge_cells": 0,
+           "edge_flips": 0, "loss_rel_max": 0.0}
+    for i in range(steps):
+        it = r.iter
+        batch = r._batch(it)
+        state = (r.params, r.history, r.fault_states)
+        lanes = [r.lane_state(c) for c in range(C)]
+        keys = r.lane_keys(it)
+        due = r.solver._remap_due_at(it)
+        out["remaps"] += due
+        with threshold_inputs() as seen:
+            _, _, pf, pl, _ = pstep(*state, batch, it, keys, due)
+        edge, _ = _edge_cells(r.solver, seen[0], it, state[2], due)
+        out["edge_cells"] += sum(int(m.sum()) for m in edge.values())
+        kp, kh, kf, kl, _ = r._step(*state, batch, it, keys, due)
+        others = [("torch engine", pf, pl, None)]
+        for c in range(C):
+            _, _, sf, sl, _ = single._step_fn(*lanes[c], batch, it, keys[c],
+                                              due)
+            others.append((f"Solver lane {c}", sf, sl, c))
+        for what, f, loss, c in others:
+            mine = kl if c is None else kl[c]
+            rel = float(((mine - loss).abs()
+                         / loss.abs().clamp_min(1.0)).max())
+            out["loss_rel_max"] = max(out["loss_rel_max"], rel)
+            check(rel <= 1e-5, f"(c) step {i}: losses against the {what} "
+                  f"differ by {rel:.2e}")
+            for k, v in f["life_q"].items():
+                kv = kf["life_q"][k] if c is None else kf["life_q"][k][c]
+                e = edge[k] if c is None else edge[k][c]
+                differ = kv != v
+                if c is None:
+                    out["edge_flips"] += int(differ.sum())
+                check(not bool((differ & ~e).any()),
+                      f"(c) step {i}: life_q off the threshold's edge "
+                      f"differs from the {what} on {k}")
+            for g, v in f["remap_slots"].items():
+                kv = kf["remap_slots"][g]
+                check(torch.equal(kv if c is None else kv[c], v),
+                      f"(c) step {i}: remap slots differ from the {what}")
+        r._commit(kp, kh, kf, kl)
+        r.iter += 1
+    check(out["remaps"] == 2, f"(c) {out['remaps']} remaps in {steps} steps")
+    slots = r.fault_states["remap_slots"]["0"]
+    check(not bool((slots == torch.arange(64, device=slots.device)).all()),
+          "(c) the tracked remap left every lane at the identity")
+    return out
+
+
+STRATEGY_FILES = [None] * 3  # phase 15's prune order, prune net, model
+
+
+def timed_sweep(r, steps, chunk=SWEEP_CHUNK):
+    """Wall time of `steps` sweep steps in chunks (each ends in a host
+    read of the losses)."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r.step(steps, chunk=chunk)
+    return time.perf_counter() - t0
+
+
+def rest_sweeps(gpu, thr):
+    """(c) the C = 512 sweep with threshold and tracked remapping, in
+    turns with the same runner without strategies; (d) genetic at
+    C = 64; (e) the C = 512 sweep under Adam, and iter_size 2."""
+    import torch
+    from rram_caffe_simulation_tpu_torch import kernels
+    t0 = time.perf_counter()
+    out = {"c_lockstep": sweep_strategy_lockstep(thr)}
+    part = {"c_lockstep": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    print(f"phase 15: (c) lockstep: {json.dumps(out['c_lockstep'])}",
+          flush=True)
+    C = SWEEP_CONFIGS
+    strategies = [{"type": "threshold", "threshold": thr},
+                  {"type": "remapping", "start": 5, "period": 5,
+                   "track_identity": True,
+                   "prune_order_file": STRATEGY_FILES[0]}]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    r = sweep_runner(C, 1e8, 3e7, strategies=strategies)
+    base = sweep_runner(C, 1e8, 3e7)
+    part["c_builds"] = time.perf_counter() - t0
+    check(r._dataset is not None and "remap_slots" in r.fault_states,
+          "(c) the strategy sweep's dataset or remap slots are missing")
+    # a first step each warms cuDNN's plans; then 10 steps in turns
+    # (iterations 1-10: remaps before 4 and 9)
+    timed_sweep(r, 1, 1)
+    timed_sweep(base, 1, 1)
+    kernels.reset_launches()
+    n = SWEEP_STRATEGY_STEPS // 2
+    walls = {"strategies": timed_sweep(r, n)}
+    launches = _launches()
+    walls["none"] = timed_sweep(base, n)     # 5 steps between the halves
+    walls["strategies"] += timed_sweep(r, n)
+    check(launches == _untiled(B2=2 * n, B1=n, B4=n),
+          f"(c) launches {launches} in {n} steps, expected B2 2, B1 1, B4 "
+          "1 a step")
+    check(bool(np.isfinite(r.last_losses).all()), "(c) non-finite losses")
+    slots = r.fault_states["remap_slots"]["0"]
+    check(not bool((slots == torch.arange(64, device=slots.device)).all()),
+          "(c) no lane was remapped")
+    out["c_sweep"] = {
+        "configs": C, "steps": SWEEP_STRATEGY_STEPS,
+        "configs_steps_per_s": C * SWEEP_STRATEGY_STEPS / walls["strategies"],
+        "configs_steps_per_s_without": C * n / walls["none"],
+        "step_ms": walls["strategies"] / SWEEP_STRATEGY_STEPS * 1e3,
+        "step_ms_without": walls["none"] / n * 1e3,
+        "launches_5_steps": launches,
+        "peak_mem_bytes": int(torch.cuda.max_memory_allocated()),
+        "b1_ms_sgd": b1_ms_in(lambda: base.step(1))}
+    print(f"phase 15: (c) C = {C}: {json.dumps(out['c_sweep'])}", flush=True)
+    del r, base
+    torch.cuda.empty_cache()
+    part["c"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+
+    # (d) the genetic search at C = 64, lane 5 quarantined
+    genetic = {"type": "genetic", "start": 3, "period": 5,
+               "switch_time": 50, "prune_net_file": STRATEGY_FILES[1],
+               "prune_model_file": STRATEGY_FILES[2]}
+    r = sweep_runner(GENETIC_CONFIGS, 300.0, 50.0, seed=8,
+                     strategies=[genetic])
+    bad = min(5, GENETIC_CONFIGS - 1)
+    r.params["ip1"][0][bad, 0, 0] = float("nan")
+    r.step(1)
+    check(list(r.quarantined()) == [bad], f"(d) quarantined "
+          f"{r.quarantined()}, expected [{bad}]")
+    frozen = {ln: [None if t is None else t[bad].cpu().numpy().tobytes()
+                   for t in vals] for ln, vals in r.params.items()}
+    masks0 = [[m.copy() for m in g.prune_weights] for g in r._genetics]
+    apply, took = r._apply_genetic, []
+
+    def timed_apply():
+        t0 = time.perf_counter()
+        apply()
+        took.append(time.perf_counter() - t0)
+    r._apply_genetic = timed_apply
+    losses = r.step(SWEEP_STRATEGY_STEPS - 1, chunk=SWEEP_CHUNK)
+    check(len(took) == 2, f"(d) {len(took)} genetic applications in "
+          f"{SWEEP_STRATEGY_STEPS} steps, expected 2 (before 2 and 7)")
+    now = {ln: [None if t is None else t[bad].cpu().numpy().tobytes()
+                for t in vals] for ln, vals in r.params.items()}
+    check(now == frozen, "(d) the quarantined lane's params moved")
+    check(all(np.array_equal(a, b) for a, b in
+              zip(masks0[bad], r._genetics[bad].prune_weights)),
+          "(d) the quarantined lane's prune masks moved")
+    moved = sum(any(not np.array_equal(a, b) for a, b in
+                    zip(m0, g.prune_weights))
+                for m0, g in zip(masks0, r._genetics))
+    check(moved > 0, "(d) no lane kept a swap")
+    check(bool(np.isfinite(np.delete(losses, bad)).all()),
+          "(d) a healthy lane went non-finite")
+    out["d_genetic"] = {"configs": GENETIC_CONFIGS,
+                        "applications": len(took), "lanes_swapped": moved,
+                        "host_s_per_application": float(np.mean(took)),
+                        "host_ms_per_config": float(np.mean(took))
+                        / (GENETIC_CONFIGS - 1) * 1e3,
+                        "quarantined": [bad]}
+    print(f"phase 15: (d) {json.dumps(out['d_genetic'])}", flush=True)
+    del r
+    torch.cuda.empty_cache()
+    part["d"] = time.perf_counter() - t0
+
+    # (e) the C = 512 sweep under Adam; then iter_size 2
+    for name, fields in (("adam", {"type": "Adam"}),
+                         ("iter_size_2", {"iter_size": 2})):
+        t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        r = sweep_runner(C, 1e8, 3e7, fields=fields)
+        part[f"e_{name}_build"] = time.perf_counter() - t0
+        steps = SWEEP_CHUNK if name == "adam" else 1
+        timed_sweep(r, 1, 1)
+        kernels.reset_launches()
+        events = []
+        inner, r._step = _event_stepper(r, events)
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        start.record()
+        wall = timed_sweep(r, steps)
+        r._step = inner
+        step_ms = [a.elapsed_time(b) for a, b in zip([start] + events[:-1],
+                                                     events)]
+        got = _launches()
+        b2 = 2 * (2 if name == "iter_size_2" else 1)
+        check(got == _untiled(B2=b2 * steps, B1=steps, B4=b2 // 2 * steps),
+              f"(e) {name}: launches {got} in {steps} steps")
+        check(bool(np.isfinite(r.last_losses).all()),
+              f"(e) {name}: non-finite losses")
+        out[f"e_{name}"] = {
+            "configs": C, "steps": steps,
+            "step_ms_median": float(np.median(step_ms)),
+            "configs_steps_per_s": C * steps / wall,
+            "peak_mem_bytes": int(torch.cuda.max_memory_allocated()),
+            "history_bytes": sum(v.numel() * v.element_size()
+                                 for slots in r.history.values()
+                                 for v in slots.values()),
+            "b1_ms": b1_ms_in(lambda: r.step(1))}
+        print(f"phase 15: (e) {name}: {json.dumps(out[f'e_{name}'])}",
+              flush=True)
+        del r
+        torch.cuda.empty_cache()
+        part[f"e_{name}"] = time.perf_counter() - t0
+    out["part_s"] = part
+    out["gpu"] = gpu
+    return out
+
+
+def phase_rest(device, gpu):
+    """Phase 15: the rest of the solver (the six rules, iter_size,
+    clip_gradients, L1) at phase 4's slice, and the failure strategies
+    over the sweep's lanes."""
+    import tempfile
+    import torch
+    t0 = time.perf_counter()
+    saved = os.environ.get("RRAM_POOL_BWD")
+    os.environ["RRAM_POOL_BWD"] = "cuda"
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+            STRATEGY_FILES[:] = strategy_files(Path(tmp))
+            single = rest_single(device, gpu)
+            t1 = time.perf_counter()
+            thr = calibrate_threshold(seed=12)
+            t2 = time.perf_counter()
+            sweeps = rest_sweeps(gpu, thr)
+            print(f"phase 15: single {t1 - t0:.1f} s, calibration "
+                  f"{t2 - t1:.1f} s, sweeps {time.perf_counter() - t2:.1f} "
+                  f"s; parts {json.dumps(sweeps['part_s'])}; "
+                  f"{json.dumps(single['part_s'])}", flush=True)
+    finally:
+        if saved is None:
+            os.environ.pop("RRAM_POOL_BWD", None)
+        else:
+            os.environ["RRAM_POOL_BWD"] = saved
+    torch.cuda.empty_cache()
+    out = {"single": single, "sweeps": sweeps, "threshold": thr,
+           "phase_s": time.perf_counter() - t0, "gpu": gpu}
+    print(json.dumps({"solver_rest": out}), flush=True)
+    return out
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--steps", type=int, default=50,
                    help="training steps of the slice phase (default 50)")
     p.add_argument("--transition-steps", type=int, default=6)
     p.add_argument("--phases", default="all",
-                   help="comma-separated phases 2-14 to run after the "
+                   help="comma-separated phases 2-15 to run after the "
                         "build (default all; only a full run prints the "
                         "per-kernel line and the ok line)")
     p.add_argument("--b2-path", action="store_true",
@@ -3474,7 +3994,7 @@ def main(argv=None) -> int:
                         "and the tiled sweep's C), the kernel alone and "
                         "its tile heights, and print them as JSON")
     args = p.parse_args(argv)
-    every = set(range(2, 15))
+    every = set(range(2, 16))
     want = every if args.phases == "all" else {
         int(v) for v in args.phases.split(",")}
 
@@ -3584,6 +4104,8 @@ def main(argv=None) -> int:
     if 14 in want:
         formats = phase_formats(sweep["configs"] if 7 in want
                                 else SWEEP_CONFIGS, gpu)
+    if 15 in want:
+        phase_rest(device, gpu)
     if want != every:
         print(f"phases {sorted(want)} passed; no ok line for a partial run",
               flush=True)

@@ -39,14 +39,26 @@ on a background thread (`wait_for_writes`, `close`). A continued run
 equals the run that never stopped, bit for bit: the step's keys and
 the device dataset's order depend on the iteration alone.
 
+The solver's failure strategies run in every lane: threshold and
+remapping (tracked or not) inside the laned step, each lane ranking and
+permuting by its own fault state on the iterations the solver's
+`_remap_due_at` names (one clock for all lanes; tracked remapping's
+`remap_slots` start as the identity in every lane and are a fault-state
+group, so checkpoints carry them); the genetic search on the host
+between steps, one copy of the solver's `GeneticStrategy` a lane, each
+seeded alike, before the iterations `_genetic_due_at` names (a chunk
+ends there), and never in a quarantined lane. `iter_size` > 1 feeds stacked host
+sub-batches (no device-resident dataset).
+
 Not ported yet, each refused by name: mesh, config_block,
 remat_segments, compute_dtype, pipeline_depth, stall_timeout_s,
 health_every, self-healing, distributed checkpoints (writing), and a
-solver with any failure strategy (threshold, remapping, genetic; the
-single-config Solver runs them).
+checkpoint of a runner whose lanes run the genetic strategy (the
+reference stores its search state as a pickle of its own classes).
 """
 from __future__ import annotations
 
+import copy
 import json
 import os
 from typing import Dict, Optional
@@ -60,6 +72,7 @@ from ..data.feed import can_materialize, materialize_data_source
 from ..device import resolve_device
 from ..fault import engine as fault_engine
 from ..fault import packed as fault_packed
+from ..solver.solver import stack_batches
 
 SWEEP_ENGINES = ("auto", "cuda", "torch")
 CHECKPOINT_VERSION = 6  # the reference's; v1-v5 restore as it upgrades them
@@ -124,12 +137,6 @@ class SweepRunner:
                              f"one of {SWEEP_ENGINES})")
         if n_configs < 1:
             raise ValueError(f"n_configs must be >= 1, got {n_configs}")
-        strategies = [st.type for st in solver.param.failure_strategy]
-        if strategies:
-            raise NotImplementedError(
-                f"SweepRunner: failure strategies {strategies} are not "
-                "ported to the sweep yet (the single-config Solver runs "
-                "them)")
         if solver.fault_state is None:
             raise ValueError("SweepRunner needs a solver with a "
                              "failure_pattern")
@@ -156,6 +163,11 @@ class SweepRunner:
             prng.fold_in(solver._key, SWEEP_FOLD), shapes, pattern, self.n,
             means=means, stds=stds, tiles=solver.tile_spec,
             device=self.device)
+        if "remap_slots" in solver.fault_state:
+            # tracked remapping: every lane starts at the solver's map
+            state["remap_slots"] = {
+                g: v.unsqueeze(0).repeat(self.n, 1)
+                for g, v in solver.fault_state["remap_slots"].items()}
         self._pack_spec = None
         if packed_state:
             # counter dtype sized from every configured (mean, std)
@@ -176,6 +188,15 @@ class SweepRunner:
         self.quarantine = torch.zeros(self.n, dtype=torch.bool,
                                       device=self.device)
         self._bg_writer: Optional[async_exec.BackgroundWriter] = None
+        # the genetic search: one copy of the solver's strategy a lane,
+        # each with its own generator, seeded alike
+        self._genetics = None
+        if solver.strategies.genetic is not None:
+            self._genetics = []
+            for _ in range(self.n):
+                g = copy.deepcopy(solver.strategies.genetic)
+                g._rng = np.random.RandomState(g.seed)
+                self._genetics.append(g)
 
         self._step = solver.make_train_step(
             hw_engine=engine, dtype_policy=dtype_policy,
@@ -206,7 +227,7 @@ class SweepRunner:
     def _materializable_layer(self):
         """The single Data layer whose DB can live on the device, or
         None (a custom feed, another layer mix, random transforms)."""
-        if self.solver.custom_train_feed:
+        if self.solver.custom_train_feed or self.solver.param.iter_size > 1:
             return None
         src = [ly for ly in self.solver.net.layers if ly.is_data_source]
         if len(src) != 1 or not can_materialize(src[0]):
@@ -215,8 +236,8 @@ class SweepRunner:
 
     def _batch(self, it: int) -> dict:
         if self._dataset is None:
-            return {k: torch.as_tensor(np.asarray(v)).to(self.device)
-                    for k, v in self.solver.train_feed().items()}
+            return stack_batches(self.solver.train_feed,
+                                 self.solver.param.iter_size, self.device)
         # the host cursor's wrap-around order; the offset is exact host
         # integer arithmetic
         start = (it * self._ds_batch) % self._ds_n
@@ -230,7 +251,8 @@ class SweepRunner:
         losses, (C,)."""
         done = 0
         while done < iters:
-            k = min(max(chunk, 1), iters - done)
+            self._maybe_genetic()
+            k = self._genetic_chunk_cap(min(max(chunk, 1), iters - done))
             losses = []
             for _ in range(k):
                 p2, h2, f2, loss, _ = self._step(
@@ -244,6 +266,52 @@ class SweepRunner:
             self.last_losses = self.chunk_losses[-1]
             done += k
         return self.last_losses
+
+    def _genetic_due_at(self, iteration: int) -> bool:
+        """Whether the genetic search runs before `iteration`, in every
+        lane (one clock for all)."""
+        g = self.solver.strategies.genetic
+        return g is not None and g.due_at(iteration)
+
+    def _genetic_chunk_cap(self, k: int) -> int:
+        """Cut a chunk of k iterations short of the next iteration the
+        genetic search is due at, so the search runs between chunks."""
+        if self._genetics is not None:
+            for j in range(1, k):
+                if self._genetic_due_at(self.iter + j):
+                    return j
+        return k
+
+    def _maybe_genetic(self):
+        if self._genetics is not None and self._genetic_due_at(self.iter):
+            self._apply_genetic()
+
+    def _apply_genetic(self):
+        """One genetic application in every lane that is not
+        quarantined (a quarantined lane's params and generator stay as
+        they are): the lanes' FC params and weight lifetimes (the
+        mid-bin view of packed banks) to the host, each lane's search on
+        its own slices with zero diffs, the params back."""
+        s = self.solver
+        flat = s._flat(self.params)
+        keys = [k for pair in s.fc_pairs for k in pair if k is not None]
+        data = {k: flat[k].detach().cpu().numpy().copy() for k in keys}
+        weights = [w for w, _ in s.fc_pairs]
+        state = (fault_packed.unpacked_view(self.fault_states,
+                                            self._pack_spec, weights)
+                 if self._pack_spec is not None else self.fault_states)
+        lifetimes = {k: state["lifetimes"][k].detach().cpu().numpy()
+                     for k in weights}
+        quarantined = self.quarantine.cpu().numpy()
+        for i, g in enumerate(self._genetics):
+            if quarantined[i]:
+                continue
+            lane = {k: v[i] for k, v in data.items()}     # views
+            g.apply(lane, {k: np.zeros_like(v) for k, v in lane.items()},
+                    {k: v[i] for k, v in lifetimes.items()})
+        flat.update({k: torch.from_numpy(v).to(self.device)
+                     for k, v in data.items()})
+        self.params = s._unflat(flat, self.params)
 
     def lane_keys(self, it: int) -> np.ndarray:
         """(C, 2) step keys of iteration `it`: lane c's is
@@ -457,6 +525,10 @@ class SweepRunner:
         if distributed:
             _not_ported("checkpoint(distributed=True) (the v4 directory "
                         "layout is read by restore, not written)")
+        if self._genetics is not None:
+            _not_ported("checkpoint of a sweep whose lanes run the genetic "
+                        "strategy (the reference stores the search state as "
+                        "a pickle of its own classes)")
         self.wait_for_writes()
         self.solver.wait_for_snapshots()
         arrays = {name: _host_copy(v)
@@ -571,8 +643,14 @@ class SweepRunner:
                 "virtual time")
         if gen is not None:
             raise ValueError(
-                f"checkpoint {path} carries genetic-strategy state; the "
-                "port's sweep runs no failure strategy")
+                f"checkpoint {path} carries genetic-strategy state (a "
+                "pickle of the reference's classes), which the port "
+                "cannot read")
+        if self._genetics is not None:
+            raise ValueError(
+                f"checkpoint {path} and this runner disagree on the "
+                "genetic strategy (the runner's lanes run it, the "
+                "checkpoint holds no search state)")
         if meta.get("healing") is not None:
             _not_ported(f"self-healing (checkpoint {path} carries its "
                         "lane map and retry queue)")

@@ -142,6 +142,8 @@ message SolverParameter {
   optional SnapshotFormat snapshot_format = 37 [default = BINARYPROTO];
   optional int64 random_seed = 20 [default = -1];
   optional string type = 40 [default = "SGD"];
+  enum SolverType { SGD = 0; NESTEROV = 1; ADAGRAD = 2; RMSPROP = 3; ADADELTA = 4; ADAM = 5; }
+  optional SolverType solver_type = 30 [default = SGD];
   optional float delta = 31 [default = 1e-8];
   optional float momentum2 = 39 [default = 0.999];
   optional float rms_decay = 38 [default = 0.99];

@@ -341,15 +341,24 @@ def test_track_identity_needs_a_fault_engine(monkeypatch, tmp_path):
 
 
 def test_sweep_refuses_a_strategy_solver_by_name(monkeypatch, tmp_path):
+    """The sweep runs every strategy in its lanes (threshold, remapping,
+    genetic); what it still refuses, by name, is a checkpoint of lanes
+    that run the genetic search (tests/test_torch_sweep_strategies.py
+    holds the lanes against the reference)."""
     monkeypatch.chdir(REPO)
+    net_file, model_file, _ = prune_model(tmp_path)
     text = (f'{SOLVER} failure_strategy {{ type: "threshold" threshold: '
             f'0.005 }} failure_strategy {{ type: "remapping" '
-            f'prune_order_file: "{order_file(tmp_path, [range(16)])}" }}')
+            f'prune_order_file: "{order_file(tmp_path, [range(16)])}" }} '
+            f'failure_strategy {{ type: "genetic" start: 1 period: 1 '
+            f'prune_net_file: "{net_file}" prune_model_file: '
+            f'"{model_file}" }}')
     s = TSolver(tproto.parse(text, "SolverParameter"), device="cpu")
-    with pytest.raises(NotImplementedError,
-                       match=r"failure strategies \['threshold', "
-                             r"'remapping'\] are not ported to the sweep"):
-        SweepRunner(s, n_configs=2, device="cpu")
+    r = SweepRunner(s, n_configs=2, device="cpu")
+    assert np.isfinite(r.step(2)).all()
+    assert len(r._genetics) == 2
+    with pytest.raises(NotImplementedError, match="genetic strategy"):
+        r.checkpoint(str(tmp_path / "sweep.ckpt.npz"))
 
 
 def test_remap_slots_ride_through_the_state_helpers(monkeypatch, tmp_path):
