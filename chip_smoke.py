@@ -11,6 +11,7 @@
     python3 chip_smoke.py --phases 14     # checkpoint, snapshot, restore
     python3 chip_smoke.py --phases 15     # the rest of the solver, and the
                                           # strategies over the lanes
+    python3 chip_smoke.py --phases 16     # the VGG11-BN template net
     python3 chip_smoke.py --b2-path       # only time B2 through its wrapper
     python3 chip_smoke.py --b2t-path      # only time B2t (wrapper, kernel,
                                           # tile rows)
@@ -200,7 +201,35 @@ prints no "ok" line):
    application, the quarantined lane's params and masks untouched;
    (e) the C = 512 sweep under Adam (step time, peak memory, the two
    history banks' bytes) and under iter_size 2 (B2 4, B1 1, B4 2 a
-   step), B1's time in each.
+   step), B1's time in each;
+16. the experiment template's VGG11-BN net
+   (models/cifar10_vgg11/cifar10_vgg11_template.prototxt as
+   run_gaussian_exp.py patches it: lifetimes N(4000, 1200), --hw-sigma's
+   rram_forward.sigma = 0.05, BINARYPROTO snapshots, batch 100 from the
+   in-repo LMDB, packed banks, fused epilogue): (a) BatchNorm (TRAIN and
+   global), Scale and Bias at VGG11's shapes, unlaned and over 4 lanes,
+   on the card against the CPU (tops within 1e-5 of their largest value,
+   gradients 1e-4, moving stats 1e-5 relative, scale_factor bit for
+   bit); (b) the Solver, 20 steps kernel path against plain path in
+   lockstep (losses, params and statistics within 1e-4 relative, the
+   plain path's noise being B2's Philox twin; scale_factor bit for bit;
+   life_q identical except on cells of a bias that feeds a BatchNorm
+   whose write rests on rounding, each checked and counted), B2 3 and B1
+   1 a step; the step time in turns with the plain path, the device's
+   busy time and top kernels, the BatchNorm and Scale layers' share,
+   peak memory, test_all over 5 test batches (global statistics; no
+   param moves) and two runs from one seed bit-identical; (c)
+   threshold, tracked remapping (fc1's and fc2's 1024 outputs) and
+   genetic, 4 lockstep steps each; (d) the sweep at the largest C of
+   64, 32, 16 that fits (RRAM_POOL_BWD=cuda, the device-resident
+   dataset): configs x steps per second, peak memory, top kernels, B2 3,
+   B1 1, B4 5 a step, lanes 0 and C - 1 against single-config Solvers;
+   (e) iter_size 2 in lockstep (B2 6, B1 1); (f) a snapshot and a sweep
+   checkpoint restored, continuing bit for bit; (g) conv_also on
+   128x128 tiles, 3 lockstep steps through B3 (conv2-8), B2t (fc1-3)
+   and B1 (twice a step: 22 fault leaves, 16 a launch), loss and param
+   gaps reported (ADC level flips), banks identical but where one
+   path's update is an exact 0 (counted).
 
 Then a JSON line of the step's numbers, a JSON line of the sweep's, one
 JSON line of per-kernel numbers (per training step, summed over the
@@ -214,7 +243,8 @@ B3 rows the same from the Convolution layer's layouts; the B4 row its
 backward through the pooling layer's autograd.Function), a JSON line of
 B3's passes by device activity at C = 1 and the tiled sweep's C, a JSON
 line "rng" of phase 13's numbers, a JSON line "formats" of phase 14's,
-a JSON line "solver_rest" of phase 15's (printed when it ends), the
+a JSON line "solver_rest" of phase 15's (printed when it ends), a JSON
+line "vgg11" of phase 16's (printed when it ends, and again), the
 card's name and power limit, and last {"ok": true, "device":
 {...}}.
 B2t has a row at each path's shapes: C = 1 (the tiled slice) and C
@@ -231,6 +261,7 @@ import os
 import subprocess
 import sys
 import time
+import types
 import warnings
 from pathlib import Path
 
@@ -804,9 +835,12 @@ def b2_inputs_dev(M, K, N, C, seed, device):
     return x, w, broken, stuck, seeds
 
 
-def b2_step_numbers(device, C=1):
+def b2_step_numbers(device, C=1, shapes=None, q_bits=2, sigma=0.0):
     """Per-step B2 numbers at the two InnerProduct reads (ternary grid,
-    sigma 0, as on the path): one config with x shared (C = 1), or the
+    sigma 0, as on the path; `shapes` {layer: (M, K, N)}, `q_bits` and
+    `sigma` for another path's reads, the plain version's Philox twin
+    then within 2e-3 * sigma of the kernel's draw on every weight, as
+    phase 3 holds it): one config with x shared (C = 1), or the
     sweep's C lanes with x per lane, one launch per layer, on dense
     (C, K, N) operands with broken as bool (one byte a cell, as the
     solver derives it). The library call is torch.matmul (torch.bmm over
@@ -818,19 +852,21 @@ def b2_step_numbers(device, C=1):
     err = 0.0
     bound_by = "bytes"
     iters = 100 if C == 1 else 20
-    for i, (M, K, N) in enumerate(B2_SHAPES.values()):
+    for i, (M, K, N) in enumerate((shapes or B2_SHAPES).values()):
         if C == 1:
             x, w, br, st, seeds, _ = b2_inputs(M, K, N, 1, False, 200 + i,
                                                device)
         else:
             x, w, br, st, seeds = b2_inputs_dev(M, K, N, C, 200 + i, device)
         br = br > 0
-        w_eff = hw.effective_weight_plain(w, br, st, 0.0, None, 1.0,
+        w_eff = hw.effective_weight_plain(w, br, st, 0.0, None,
+                                          hw.q_levels(q_bits),
                                           w.abs().amax(dim=(1, 2)))
-        yk = hw.crossbar_forward(x, w, br, st, seeds, 0.0, 2)
-        yp = hw.crossbar_forward_plain(x, w, br, st, seeds, 0.0, 2)
+        yk = hw.crossbar_forward(x, w, br, st, seeds, sigma, q_bits)
+        yp = hw.crossbar_forward_plain(x, w, br, st, seeds, sigma, q_bits)
         e = (yk - yp).abs()
-        check(bool((e <= b2_bound(x, w_eff)).all()),
+        slack = (x.abs() @ w_eff.abs()) * (2e-3 * sigma) if sigma else 0.0
+        check(bool((e <= b2_bound(x, w_eff) + slack).all()),
               f"B2 out of bound at C={C} M,K,N={M},{K},{N}")
         err = max(err, float(e.max()))
         del yk, yp, e
@@ -840,9 +876,9 @@ def b2_step_numbers(device, C=1):
         else:
             lib_fn = lambda: torch.bmm(x, w_eff)
         k, k_call = timed(lambda: hw.crossbar_forward(x, w, br, st, seeds,
-                                                      0.0, 2), iters)
+                                                      sigma, q_bits), iters)
         p, _ = timed(lambda: hw.crossbar_forward_plain(x, w, br, st, seeds,
-                                                       0.0, 2), iters)
+                                                       sigma, q_bits), iters)
         lb, _ = timed(lib_fn, iters)
         nbytes = 4 * x.numel() + 9 * C * K * N + 4 * C * M * N
         flops = 2 * C * M * K * N
@@ -1376,8 +1412,10 @@ def phase_b4(device):
 B4_KERNELS = ("pool_backward_kernel",)     # B4's own device activity
 
 
-def b4_step_numbers(device, C, ceiling=False):
-    """B4 at the sweep's pool1 (x (100, C*32, 32, 32)): the kernel's
+def b4_step_numbers(device, C, ceiling=False, planes=32, hw=(32, 32),
+                    geometry=POOL1):
+    """B4 at the sweep's pool1 (x (100, C*32, 32, 32); `planes` channels
+    a lane of `hw` maps under `geometry` for another pool): the kernel's
     device time (profiled over >= 10 calls) and by CUDA events, its time
     by device activity (an older checkout's two kernels apart), the plain
     version, and autograd's CUDA max-pool backward given the forward's
@@ -1390,11 +1428,11 @@ def b4_step_numbers(device, C, ceiling=False):
     import torch
     import torch.nn.functional as F
     from rram_caffe_simulation_tpu_torch.ops import pool_backward as pb
-    kernel, stride, fpad = POOL1
-    x, g = b4_inputs((100, 32 * C), (32, 32), POOL1, 400, device)
+    kernel, stride, fpad = geometry
+    x, g = b4_inputs((100, planes * C), hw, geometry, 400, device)
     iters = 100 if C <= 4 else 20 if C <= 64 else 10
-    fn = lambda: pb.max_pool_backward(x, g, *POOL1)
-    plain = lambda: pb.max_pool_backward_plain(x, g, *POOL1)
+    fn = lambda: pb.max_pool_backward(x, g, *geometry)
+    plain = lambda: pb.max_pool_backward_plain(x, g, *geometry)
     k_ev = event_ms(fn, iters=iters, warmup=2)
     by_name = device_ms_by_name(fn, iters)
     k = sum(v for v, _ in by_name.values())
@@ -2071,10 +2109,13 @@ def conv_rows(xs, geom):
                         // geom[3] + 1)
 
 
-def tiled_step_numbers(device, names, C=1, broken_byte=True):
+def tiled_step_numbers(device, names, C=1, broken_byte=True,
+                       cases=None, sigma=0.0, q_bits=2):
     """Per-step numbers of B2t (names ip1) or B3 (conv2, conv3) at C
     lanes (x shared at C = 1, per lane otherwise), ternary, sigma 0, as
-    on the path: kernel, plain version, library call, bound. The kernel
+    on the path (or the layers of `cases`, by default TILED_CASES, read
+    at `sigma` and `q_bits`): kernel, plain version, library call,
+    bound. The kernel
     is profiled over 25 calls at C = 1 and 10 at C > 1 (shorter windows
     read a kernel low). B2t and B3 get `broken` as one byte a cell, as
     the solver has it, unless `broken_byte` is false (an older checkout's
@@ -2087,14 +2128,14 @@ def tiled_step_numbers(device, names, C=1, broken_byte=True):
     err = 0.0
     bound_by = "bytes"
     for i, name in enumerate(names):
-        xs, geom, K, N, tiles = TILED_CASES[name]
+        xs, geom, K, N, tiles = (cases or TILED_CASES)[name]
         iters = 50 if C == 1 else 20
         x, w, br, st, _, seeds = tiled_operands(xs, C, C > 1, K, N, False,
                                                 700 + i, device)
         if broken_byte:
             br = br > 0
-        w_eff = hw._lane_w_eff(w, br, st, seeds, 0.0, 2, None)
-        args = (x, w, br, st, seeds, 0.0, 2, None, geom, tiles)
+        w_eff = hw._lane_w_eff(w, br, st, seeds, sigma, q_bits, None)
+        args = (x, w, br, st, seeds, sigma, q_bits, None, geom, tiles)
         yk = tiled_forward(True, *args)
         yp = tiled_forward(False, *args)
         rows = x if geom is None else conv_patch_rows(x, geom)
@@ -3958,13 +3999,918 @@ def phase_rest(device, gpu):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the experiment template's VGG11-BN net
+
+VGG_TEMPLATE = "models/cifar10_vgg11/cifar10_vgg11_template.prototxt"
+# lifetimes N(4000, 1200) at decrement 100: 0.1% of the cells broken by
+# the 4th write, 5% by the 20th. N(40, 10) would break every written cell
+# at its first write and N(1000, 300) half of them by the 10th, where the
+# stuck +-1 weights of fc3 send the loss to 12 and the comparison of
+# two summation orders stops meaning anything; the template's 5e6
+# breaks none
+VGG_LIFE = (4000.0, 1200.0)
+VGG_SIGMA = 0.05                 # rram_forward.sigma, as --hw-sigma arms it
+VGG_STEPS = 20                   # (b)'s lockstep steps, and its timed ones
+VGG_STRATEGY_STEPS = 4           # each strategy's lockstep steps in (c)
+VGG_SWEEP_CONFIGS = (64, 32, 16)     # the largest that fits is taken
+VGG_SWEEP_STEPS = 5
+VGG_TEST_ITER = 5                # test_all's batches (the template's 100)
+VGG_LEAVES = {"fc1/0": (1024, 512), "fc1/1": (1024,),
+              "fc2/0": (1024, 1024), "fc2/1": (1024,),
+              "fc3/0": (10, 1024), "fc3/1": (10,)}
+VGG_B2_SHAPES = {"fc1": (100, 512, 1024), "fc2": (100, 1024, 1024),
+                 "fc3": (100, 1024, 10)}
+VGG_POOLS = ((64, 32), (128, 16), (256, 8), (512, 4), (512, 2))  # ch, H=W
+POOL2X2 = ((2, 2), (2, 2), (0, 0, 0, 0))
+NO_LAUNCH = {"B2": 0, "B2t": 0, "B3": 0, "B1": 0, "B4": 0}
+# sigma > 0: the plain path's noise is B2's Philox twin, within 1e-3 of
+# the kernel's draw (phase 3), so w_eff parts by up to 5e-5 relative
+VGG_REL = 1e-4
+VGG_CONV = (3, 3, 1, 1, 1, 1, 1, 1)      # every conv: 3x3, pad 1
+# (g)'s tiled reads at batch 100 on 128x128-cell tiles, as TILED_CASES:
+# B3a at conv2-8 (conv1's (27, 64) view is one tile, read untiled), B2t
+# at fc1-3 (fc3's tile is 128 rows of its 10 columns)
+VGG_TILED_CASES = {
+    "conv2": ((100, 64, 16, 16), VGG_CONV, 576, 128, (128, 128, 8)),
+    "conv3": ((100, 128, 8, 8), VGG_CONV, 1152, 256, (128, 128, 8)),
+    "conv4": ((100, 256, 8, 8), VGG_CONV, 2304, 256, (128, 128, 8)),
+    "conv5": ((100, 256, 4, 4), VGG_CONV, 2304, 512, (128, 128, 8)),
+    "conv6": ((100, 512, 4, 4), VGG_CONV, 4608, 512, (128, 128, 8)),
+    "conv7": ((100, 512, 2, 2), VGG_CONV, 4608, 512, (128, 128, 8)),
+    "conv8": ((100, 512, 2, 2), VGG_CONV, 4608, 512, (128, 128, 8)),
+    "fc1": ((100, 512), None, 512, 1024, (128, 128, 8)),
+    "fc2": ((100, 1024), None, 1024, 1024, (128, 128, 8)),
+    "fc3": ((100, 1024), None, 1024, 10, (128, 10, 8)),
+}
+VGG_B3_LAYERS = [f"conv{i}" for i in range(2, 9)]
+VGG_B2T_LAYERS = ["fc1", "fc2", "fc3"]
+
+
+def vgg_solver(seed=1, hw_engine="cuda", strategies=(), tiled=False,
+               adc_bits=8, device="cuda", **fields):
+    """The template as run_gaussian_exp.py patches it: the gaussian
+    failure pattern at VGG_LIFE, rram_forward.sigma VGG_SIGMA
+    (--hw-sigma), BINARYPROTO snapshots, with display and the periodic
+    test off, test_iter VGG_TEST_ITER and a short max_iter; packed banks
+    and the fused epilogue. `tiled` adds conv_also and rram_forward {
+    adc_bits: `adc_bits` tiles: "cells=128x128" } with the implicit conv
+    operand; `fields` other SolverParameter fields."""
+    from rram_caffe_simulation_tpu_torch import proto
+    from rram_caffe_simulation_tpu_torch.solver import Solver
+    from rram_caffe_simulation_tpu_torch.utils.io import read_solver_param
+    sp = read_solver_param(VGG_TEMPLATE)
+    sp.failure_pattern.type = "gaussian"
+    sp.failure_pattern.mean, sp.failure_pattern.std = VGG_LIFE
+    sp.rram_forward.sigma = VGG_SIGMA
+    sp.snapshot_format = proto.BINARYPROTO
+    sp.snapshot = 0
+    sp.max_iter = 100
+    sp.display = 0
+    sp.test_interval = 0
+    sp.test_iter = [VGG_TEST_ITER]
+    sp.random_seed = seed
+    for strategy in strategies:
+        entry = proto.Message("FailureStrategyParameter")
+        for name, value in strategy.items():
+            setattr(entry, name, value)
+        sp.failure_strategy.append(entry)
+    for name, value in fields.items():
+        setattr(sp, name, value)
+    kw = {}
+    if tiled:
+        sp.failure_pattern.conv_also = True
+        sp.rram_forward.adc_bits = adc_bits
+        sp.rram_forward.tiles = TILES
+        kw["conv_im2col"] = "implicit"
+    return Solver(sp, device=device, hw_engine=hw_engine,
+                  fault_format="packed", fused_epilogue=True, **kw)
+
+
+def write_rate(s) -> float:
+    """The largest learning rate of solver `s`'s params at its base_lr:
+    the scale of an update, against which `rounding_cells` sizes
+    rounding."""
+    return float(s.param.base_lr) * max(r.lr_mult for r in s._owner_refs)
+
+
+@contextlib.contextmanager
+def tail_updates():
+    """A list that takes the {fault key: update} of each fused tail
+    (`solver.fused_tail`) run while the context is open."""
+    from rram_caffe_simulation_tpu_torch.solver import solver as solver_mod
+    seen, tail = [], solver_mod.fused_tail
+
+    def spy(fused_fn, keys, data, upd, fault_state):
+        seen.append({k: upd[k] for k in keys})
+        return tail(fused_fn, keys, data, upd, fault_state)
+    solver_mod.fused_tail = spy
+    try:
+        yield seen
+    finally:
+        solver_mod.fused_tail = tail
+
+
+@contextlib.contextmanager
+def layer_io(net, names):
+    """{layer: (bottom, top)} of the named layers of `net`, detached
+    copies, for each forward pass run while the context is open (the
+    last one's)."""
+    seen = {}
+    for ln in names:
+        ly = net.layer_by_name[ln]
+
+        def record(params, bottoms, ctx, _apply=ly.apply, _ln=ln):
+            tops = _apply(params, bottoms, ctx)
+            seen[_ln] = (bottoms[0].detach().clone(),
+                         tops[0].detach().clone())
+            return tops
+        ly.apply = record
+    try:
+        yield seen
+    finally:
+        for ln in names:
+            del net.layer_by_name[ln].apply
+
+
+def io_gaps(kernel_io, plain_io):
+    """Per layer, how far the kernel path's reads are from the plain
+    path's in one step from the same state: whether the inputs are
+    equal, their largest gap relative to the largest |input|, and the
+    share of outputs apart by more than 1e-3 of the largest |output|
+    (far beyond rounding: an ADC level, or a gap carried in)."""
+    out = {}
+    for ln, (xk, yk) in kernel_io.items():
+        xp, yp = plain_io[ln]
+        out[ln] = {
+            "in_equal": _same_bits(xk, xp),
+            "in_rel": float((xk - xp).abs().max() / xp.abs().max()),
+            "out_apart_share": float(((yk - yp).abs() > 1e-3 * yp.abs()
+                                      .max()).float().mean())}
+    return out
+
+
+def rounding_cells(qa, qb, ua, ub, noisy, rate, what, edge=None,
+                   zeros_anywhere=False):
+    """{key: mask} of the cells whose banks two paths left apart, each
+    checked to be a rounding decision: in a BatchNorm-fed bias, one
+    path's update below the write threshold (1e-20) and the other's at
+    rounding size (at most 1e-6 of the rate). With `zeros_anywhere`
+    (paths whose gradients part by more than rounding: an ADC level
+    flip) any cell where one path's update is an exact 0 may differ.
+    Cells of `edge` (the threshold's cutoff edge, {key: mask}) may differ
+    too, not counted. Any other difference fails."""
+    import torch
+    masks = {}
+    for k in qa:
+        differ = qa[k] != qb[k]
+        if edge and k in edge:
+            differ &= ~edge[k]
+        if k not in noisy and not zeros_anywhere:
+            check(not bool(differ.any()), f"{what}: life_q differs on {k}")
+            continue
+        a, b = ua[k].abs(), ub[k].abs()
+        rounding = torch.minimum(a, b) < 1e-20
+        if not zeros_anywhere:
+            rounding &= torch.maximum(a, b) <= 1e-6 * rate
+        check(not bool((differ & ~rounding).any()),
+              f"{what}: life_q differs on {k} off the rounding-decided "
+              "cells")
+        masks[k] = differ
+    return masks
+
+
+def vgg_lockstep(s, steps, name, per_step, rel=VGG_REL, loss_rel=VGG_REL,
+                 zeros_anywhere=False, io=()):
+    """`steps` steps of solver `s`, each through the "torch" engine (no
+    launch) and the "cuda" engine (`per_step` launches) from the same
+    state, batch and key, both on the card; the "cuda" result goes on
+    (the genetic search first on its iterations, on the shared state).
+    Per step: losses within `rel` relative; life_q identical but on
+    rounding-decided cells (`rounding_cells`, counted) and, under the
+    threshold, on cells at its cutoff's edge (counted); params and the
+    BatchNorm statistics within `rel` relative (of 1 below 1) off those
+    cells, scale_factor bit for bit; remap_slots identical. `rel` and
+    `loss_rel` None report the gaps without holding them;
+    `zeros_anywhere` as `rounding_cells` takes it. Returns the counts,
+    the gaps, the kernel path's launches and the param element of the
+    largest gap (leaf, step, index, both values); with `io` (layer
+    names), also their `io_gaps` at the first step."""
+    import torch
+    from rram_caffe_simulation_tpu_torch import kernels
+    st = s.strategies
+    pstep = s.make_train_step(hw_engine="torch", fault_format="packed",
+                              pack_spec=s.pack_spec, fused_epilogue=True)
+    noisy = s.net.bn_fed_biases(s._fault_keys)
+    rate = write_rate(s)
+    out = {"steps": steps, "rounding_cells": 0, "edge_cells": 0,
+           "remap_events": 0, "genetic_applications": 0,
+           "loss_rel_max": 0.0, "param_rel_max": 0.0, "param_worst": None,
+           "launches": dict(NO_LAUNCH), "losses": []}
+    for i in range(steps):
+        it = s.iter
+        if st.genetic is not None and st.genetic.due():
+            s._apply_genetic(st.genetic)
+            out["genetic_applications"] += 1
+        state = (s.params, s.history, s.fault_state)
+        batch = s._next_batch()
+        rng = s._step_fn.noise.step_key(s._key, it)
+        due = s._remap_due_at(it)
+        out["remap_events"] += int(due)
+        kernels.reset_launches()
+        with threshold_inputs() as seen, tail_updates() as pu, \
+                layer_io(s.net, io if i == 0 else ()) as pio:
+            pp, _, pf, pl, _ = pstep(*state, batch, it, rng)
+        check(_launches() == NO_LAUNCH,
+              f"{name} step {i}: the torch engine launched a kernel")
+        with tail_updates() as ku, \
+                layer_io(s.net, io if i == 0 else ()) as kio:
+            kp, kh, kf, kl, _ = s._step_fn(*state, batch, it, rng)
+        got = _launches()
+        if i == 0 and io:
+            out["io"] = io_gaps(kio, pio)
+        check(got == {**NO_LAUNCH, **per_step},
+              f"{name} step {i}: launches {got}, expected {per_step}")
+        out["launches"] = {k: v + got[k] for k, v in out["launches"].items()}
+        check(all(t.is_cuda for g in kf.values() for t in g.values()),
+              f"{name} step {i}: fault state left the card")
+        kl, pl = float(kl), float(pl)
+        gap = abs(kl - pl) / max(1.0, abs(pl))
+        out["loss_rel_max"] = max(out["loss_rel_max"], gap)
+        out["losses"].append(kl)
+        check(math.isfinite(kl) and (loss_rel is None or gap <= loss_rel),
+              f"{name} step {i}: lockstep losses {kl} vs {pl}")
+        edge = {}
+        if st.threshold is not None:
+            edge, _ = _edge_cells(s, seen[0], it, state[2], due)
+            out["edge_cells"] += sum(int(m.sum()) for m in edge.values())
+        skip = rounding_cells(kf["life_q"], pf["life_q"], ku[0], pu[0],
+                              noisy, rate, f"{name} step {i}", edge,
+                              zeros_anywhere)
+        out["rounding_cells"] += sum(int(m.sum()) for m in skip.values())
+        for k, m in edge.items():
+            skip[k] = skip[k] | m if k in skip else m
+        for ln, vals in kp.items():
+            for slot, (a, b) in enumerate(zip(vals, pp[ln])):
+                if a is None:
+                    continue
+                if s.net.layer_by_name[ln].type_name == "BatchNorm" \
+                        and slot == 2:
+                    check(_same_bits(a, b), f"{name} step {i}: "
+                          f"scale_factor of {ln} differs")
+                    continue
+                off = (a - b).abs() / b.abs().clamp(min=1.0)
+                if f"{ln}/{slot}" in skip:
+                    off = off.masked_fill(skip[f"{ln}/{slot}"], 0.0)
+                worst = float(off.max())
+                if worst > out["param_rel_max"]:
+                    at = int(off.argmax())
+                    out["param_worst"] = {
+                        "leaf": f"{ln}/{slot}", "step": i, "index": at,
+                        "kernel": float(a.flatten()[at]),
+                        "plain": float(b.flatten()[at])}
+                out["param_rel_max"] = max(out["param_rel_max"], worst)
+                check(a.is_cuda, f"{name} step {i}: {ln} left the card")
+                check(rel is None or worst <= rel, f"{name} step {i}: "
+                      f"params of {ln}/{slot} differ ({worst:.2e})")
+        for g, v in kf.get("remap_slots", {}).items():
+            check(torch.equal(v, pf["remap_slots"][g]),
+                  f"{name} step {i}: remap_slots[{g}] differ")
+        s.params, s.history, s.fault_state = kp, kh, kf
+        s.iter += 1
+    return out
+
+
+def vgg_bn_scale_ms(s):
+    """Device time a step of the net's BatchNorm and Scale layers alone,
+    forward and backward, each at the shape it meets on the path (random
+    inputs): their share of the step."""
+    import torch
+    from rram_caffe_simulation_tpu_torch.core.registry import LayerContext
+    ctx = LayerContext(phase=s.net.phase, updates={})
+    pairs = []
+    for ly in s.net.layers:
+        if ly.type_name in ("BatchNorm", "Scale"):
+            shape = s.net.blob_shapes[ly.lp.bottom[0]]
+            pairs.append((ly, torch.randn(shape, device=s.device)
+                          .requires_grad_()))
+    params = {ly.name: [p.detach().requires_grad_(ly.type_name == "Scale")
+                        for p in s.params[ly.name]] for ly, _ in pairs}
+
+    def fwd_bwd():
+        for ly, x in pairs:
+            (y,) = ly.apply(params[ly.name], [x], ctx)
+            torch.autograd.grad(y, [x] + [p for p in params[ly.name]
+                                          if p.requires_grad],
+                                torch.ones_like(y))
+    by_name = device_ms_by_name(fwd_bwd, iters=10)
+    return sum(v for v, _ in by_name.values()), sorted(
+        by_name.items(), key=lambda kv: -kv[1][0])[:4]
+
+
+def vgg_layers_on_card(device):
+    """(a) BatchNorm (TRAIN and global), Scale and Bias at VGG11's shapes,
+    unlaned and over C = 4 lanes (laned and unlaned bottoms), on the card
+    against the port's CPU path on the same inputs: tops and the moving
+    update within 1e-5 of their largest value (a batch mean of mixed
+    signs cancels), gradients (input and params) within 1e-4 of theirs,
+    scale_factor bit for bit. Returns the cases and the worst errors."""
+    import torch
+    from rram_caffe_simulation_tpu_torch import proto
+    from rram_caffe_simulation_tpu_torch.core import prng
+    from rram_caffe_simulation_tpu_torch.core.registry import (
+        LayerContext, create_layer)
+    cases = [("BatchNorm", "", proto.TRAIN), ("BatchNorm", "", proto.TEST),
+             ("Scale", "scale_param { bias_term: true }", proto.TRAIN),
+             ("Bias", "", proto.TRAIN)]
+    # conv1's output alone unlaned (its laned copy is a large CPU run)
+    shapes = {(100, 64, 32, 32): ((0, False),),
+              (100, 512, 2, 2): ((0, False), (4, True), (4, False)),
+              (100, 1024): ((0, False), (4, True), (4, False))}
+    worst = {"top": 0.0, "grad": 0.0, "stats": 0.0}
+    n = 0
+    rng = np.random.RandomState(16)
+    for ltype, param, phase in cases:
+        for shape, lanings in shapes.items():
+            for C, bottom_laned in lanings:
+                lp = proto.parse(f'name: "l" type: "{ltype}" {param}',
+                                 "LayerParameter")
+                layer = create_layer(lp, phase)
+                layer.setup([shape])
+                lead = (C,) if C else ()
+                params = [np.asarray(rng.randn(*(lead + tuple(p.shape))),
+                                     np.float32)
+                          for p in layer.init_params(prng.PRNGKey(0))]
+                if ltype == "BatchNorm":
+                    params[1] = np.abs(params[1]) + 0.5
+                    params[2] = np.full(lead + (1,), 3.5, np.float32)
+                xs = shape if not bottom_laned else \
+                    (shape[0], C * shape[1]) + shape[2:]
+                x = (rng.randn(*xs) * 2).astype(np.float32)
+                out = {}
+                for dev in ("cpu", device):
+                    xt = torch.from_numpy(x).to(dev).requires_grad_()
+                    pt = [torch.from_numpy(p).to(dev).requires_grad_()
+                          for p in params]
+                    ctx = LayerContext(phase=phase, lanes=C,
+                                       laned=(bottom_laned,), updates={})
+                    (y,) = layer.apply(pt, [xt], ctx)
+                    g = torch.from_numpy(np.random.RandomState(3).randn(
+                        *y.shape).astype(np.float32)).to(dev)
+                    grads = torch.autograd.grad((y * g).sum(), [xt] + pt,
+                                                allow_unused=True)
+                    out[str(dev)] = (y.detach().cpu(), [
+                        None if v is None else v.cpu() for v in grads],
+                        [v.cpu() for v in ctx.updates.get("l", [])])
+                    if dev != "cpu":
+                        check(y.is_cuda, f"{ltype} left the card")
+                (yc, gc, uc), (yk, gk, uk) = out["cpu"], out[str(device)]
+                what = f"{ltype} phase {phase} {shape} C={C} " \
+                    f"laned={bottom_laned}"
+                e = float((yk - yc).abs().max() / yc.abs().max())
+                worst["top"] = max(worst["top"], e)
+                check(e <= 1e-5, f"{what}: top off by {e:.2e}")
+                for a, b in zip(gc, gk):
+                    if a is None:
+                        check(b is None, f"{what}: a gradient on one device")
+                        continue
+                    e = float((b - a).abs().max() / a.abs().max().clamp(
+                        min=1e-30))
+                    worst["grad"] = max(worst["grad"], e)
+                    check(e <= 1e-4, f"{what}: gradient off by {e:.2e}")
+                check(len(uc) == len(uk), f"{what}: updates on one device")
+                for j, (a, b) in enumerate(zip(uc, uk)):
+                    if j == 2:
+                        check(_same_bits(a, b), f"{what}: scale_factor")
+                        continue
+                    e = float((b - a).abs().max() / a.abs().max())
+                    worst["stats"] = max(worst["stats"], e)
+                    check(e <= 1e-5, f"{what}: moving stats off by {e:.2e}")
+                n += 1
+    return {"cases": n, "worst_rel": worst}
+
+
+def vgg_tiled_reads(device):
+    """(g)'s reads alone: B3a at conv2-8 and B2t at fc1-3
+    (VGG_TILED_CASES), each through the layer's wrapper
+    (`crossbar_conv_matmul`, `crossbar_matmul`) on the operands as the
+    layer hands them over (the (K, N) view of Caffe's stored weight, the
+    bool broken mask and stuck turned the same way, one seed), against
+    the same wrapper's plain version: equal on dyadic inputs (sigma 0,
+    no grid and ternary, ADC 3 and 8 bits), within the tiled bound with
+    an ADC flip share of at most 1% on random ones (sigma 0 and the
+    path's 0.05, no grid and ternary, the layer's 8-bit ADC), as phase
+    9. Returns the largest |kernel - plain| of each kernel, the cases
+    and the largest flip share of each layer."""
+    import torch
+    from rram_caffe_simulation_tpu_torch.fault import hw_aware as hw
+    from rram_caffe_simulation_tpu_torch.fault.mapping import conv_patch_rows
+
+    def turned(t):      # Caffe's stored (num_output, K), viewed (K, N)
+        return t[0].t().contiguous().t()
+    out = {"max_abs_err": {"B2t": 0.0, "B3a": 0.0}, "exact": 0, "bound": 0,
+           "flip_share": {}}
+    for i, (name, (xs, geom, K, N, tiles)) in enumerate(
+            VGG_TILED_CASES.items()):
+        kernel = "B2t" if geom is None else "B3a"
+        flip_max = 0.0
+        for dyadic in (True, False):
+            x, w, br, st, _, _ = tiled_operands(xs, 1, False, K, N, dyadic,
+                                                1600 + 2 * i + dyadic, device)
+            wv, bv, sv = turned(w), turned(br > 0), turned(st)
+            rows = x if geom is None else conv_patch_rows(x, geom)
+            seed = 4242 + i
+            runs = ([(0.0, 0, adc) for adc in (3, 8)]
+                    + [(0.0, 2, adc) for adc in (3, 8)] if dyadic else
+                    [(0.0, 0, 8), (VGG_SIGMA, 0, 8), (VGG_SIGMA, 2, 8)])
+            for sigma, q_bits, adc in runs:
+                t = (tiles[0], tiles[1], adc)
+                with torch.no_grad():
+                    yk, yp = (
+                        hw.crossbar_matmul(x, wv, bv, sv, seed, sigma,
+                                           q_bits, kernel_on, t)
+                        if geom is None else
+                        hw.crossbar_conv_matmul(x, wv, bv, sv, seed, sigma,
+                                                q_bits, t, geom, kernel_on)
+                        for kernel_on in (True, False))
+                where = (f"{kernel} at VGG11's {name} (M, K, N = "
+                         f"{rows.shape[0]}, {K}, {N}), dyadic={dyadic} "
+                         f"sigma={sigma} q={q_bits} adc={adc}")
+                if dyadic:
+                    check(torch.equal(yk, yp), f"{where}: differs from "
+                          f"plain")
+                    out["exact"] += 1
+                    continue
+                w_eff = hw._lane_w_eff(wv[None], bv[None], sv[None],
+                                       torch.tensor([seed], device=device,
+                                                    dtype=torch.int32),
+                                       sigma, q_bits, None)
+                ok, flip, e_max = tiled_bound(yk[None], yp[None], rows,
+                                              w_eff, t)
+                check(ok and flip <= 0.01, f"{where}: out of the tiled "
+                      f"bound (flip share {flip:.5f}, max err {e_max})")
+                out["max_abs_err"][kernel] = max(
+                    out["max_abs_err"][kernel], e_max)
+                flip_max = max(flip_max, flip)
+                out["bound"] += 1
+                del w_eff
+            del x, w, br, st, wv, bv, sv, rows, yk, yp
+        out["flip_share"][name] = flip_max
+        torch.cuda.empty_cache()
+    return out
+
+
+def vgg_strategy_files(tmp, device, seed=7):
+    """(prune order, prune net, prune model) for the VGG11 net, made as
+    `strategy_files` makes them: a seeded permutation of fc1's and of
+    fc2's 1024 outputs (one row each), the template's net, and a
+    .caffemodel of fc1-3 (port's encode) at seeded magnitudes with the
+    smaller half zero."""
+    import torch
+    from rram_caffe_simulation_tpu_torch import proto
+    from rram_caffe_simulation_tpu_torch.core import prng
+    from rram_caffe_simulation_tpu_torch.net import Net
+    from rram_caffe_simulation_tpu_torch.utils.io import (
+        read_net_param, read_solver_param, write_proto_binary)
+    rng = np.random.RandomState(seed)
+    order = tmp / "vgg_prune_order.txt"
+    order.write_text("".join(" ".join(str(v) for v in rng.permutation(1024))
+                             + "\n" for _ in range(2)))
+    net_file = read_solver_param(VGG_TEMPLATE).net
+    net = Net(read_net_param(net_file), proto.TRAIN, device=device)
+    params = net.init(prng.PRNGKey(seed))
+    fcs = ("fc1", "fc2", "fc3")
+    for ln in fcs:
+        w = params[ln][0].abs()
+        params[ln][0] = torch.where(w < w.median(), 0.0, w)
+    model = net.to_proto({ln: params[ln] for ln in fcs})
+    model._values["layer"] = [lp for lp in model.layer if lp.name in fcs]
+    path = tmp / "vgg_prune.caffemodel"
+    write_proto_binary(str(path), model)
+    return str(order), net_file, str(path)
+
+
+def vgg_threshold(seed):
+    """`calibrate_threshold` on the VGG11 Solver: the median of |update|
+    / (rate * lr_mult) over the fault leaves' cells at the first step."""
+    import torch
+    from rram_caffe_simulation_tpu_torch.core import prng
+    s = vgg_solver(seed=seed, strategies=[{"type": "threshold"}])
+    step = s.make_train_step(hw_engine="torch", fault_format="packed",
+                             pack_spec=s.pack_spec, fused_epilogue=True)
+    with threshold_inputs() as seen:
+        step(s.params, s.history, s.fault_state, s._next_batch(), 0,
+             prng.fold_in(s._key, 0))
+    rate, mults = s._lr_fn(0), _lr_mults(s)
+    ratio = torch.cat([(u.abs() / (rate * mults[k])).flatten()
+                       for k, u in seen[0].items()])
+    return float(f"{float(ratio.median()):.3g}")
+
+
+def vgg_solver_part(device, gpu, tmp):
+    """(b) the Solver at full width, (c) each strategy, (e) iter_size 2,
+    (f) its restart, (g) conv_also on 128x128 tiles."""
+    import torch
+    from rram_caffe_simulation_tpu_torch import kernels
+    out = {"part_s": {}}
+    t0 = time.perf_counter()
+    s = vgg_solver(seed=1)
+    check(s.net.name == "CIFAR10_VGG11_BN" and s.pack_spec is not None
+          and s._step_fn.fused_epilogue_resolved
+          and s._step_fn.hw_engine_resolved == "cuda",
+          "the VGG11 Solver is not on the kernel path")
+    out["part_s"]["build"] = time.perf_counter() - t0
+    lock = vgg_lockstep(s, VGG_STEPS, "(b)", {"B2": 3, "B1": 1})
+    out["lockstep"] = lock
+    frac = s.broken_fraction()
+    check(0 < frac < 1, f"broken fraction {frac}: no cell broke, or all")
+    out["broken_fraction"] = frac
+    print(f"phase 16: (b) VGG11 batch 100, N{VGG_LIFE}, sigma {VGG_SIGMA}, "
+          f"packed banks, fused epilogue: {VGG_STEPS} steps kernel vs plain "
+          f"in lockstep, launches B2 3 and B1 1 a step; "
+          f"{json.dumps({k: v for k, v in lock.items() if k != 'losses'})}"
+          f"; losses {[round(v, 5) for v in lock['losses']]}; broken "
+          f"fraction {frac:.4f}", flush=True)
+    out["part_s"]["lockstep"] = time.perf_counter() - t0
+
+    # timed: the kernel path against the plain one in turns; the main
+    # path's launches counted over the kernel path's steps alone
+    t0 = time.perf_counter()
+    a = vgg_solver(seed=2)
+    p = vgg_solver(seed=2, hw_engine="torch")
+    ms = {"a": [], "p": []}
+    launches = _untiled(B2=0, B1=0, B4=0)
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(VGG_STEPS):
+        for key, x in (("a", a), ("p", p)):
+            kernels.reset_launches()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            x.step(1)                       # ends in a host read: synced
+            ms[key].append((time.perf_counter() - t1) * 1e3)
+            if key == "a":
+                launches = {k: launches[k] + v
+                            for k, v in _launches().items()}
+    peak = torch.cuda.max_memory_allocated()
+    check(launches == _untiled(B2=3 * VGG_STEPS, B1=VGG_STEPS, B4=0),
+          f"the VGG11 Solver's steps launched {launches}")
+    after = ({ln: [t.clone() for t in v] for ln, v in a.params.items()},
+             {g: {k: v.clone() for k, v in tree.items()}
+              for g, tree in a.fault_state.items()})
+    warm = 2
+    q = {k: [float(v) for v in np.percentile(v[warm:], [25, 50, 75])]
+         for k, v in ms.items()}
+    paired = float(np.median(np.subtract(ms["a"], ms["p"])[warm:]))
+    breakdown = step_breakdown(a)
+    bn_ms, bn_top = vgg_bn_scale_ms(a)
+    out["main_path_launches"] = launches
+    out["timed"] = {
+        "step_ms_quartiles": q["a"], "plain_step_ms_quartiles": q["p"],
+        "paired_diff_ms_median": paired, "n": VGG_STEPS - warm,
+        "device_busy_ms": breakdown["device_busy_ms"],
+        "feed_ms": breakdown["feed_ms"], "top": breakdown["top"],
+        "bn_scale_ms": bn_ms,
+        "bn_scale_share": bn_ms / breakdown["device_busy_ms"],
+        "bn_scale_top": [(nm[:50], v[0]) for nm, v in bn_top],
+        "peak_bytes": peak}
+    print(f"phase 16: (b) step time median {q['a'][1]:.3f} ms (quartiles "
+          f"{q['a'][0]:.3f} / {q['a'][2]:.3f}), plain path {q['p'][1]:.3f} "
+          f"ms, in turns (paired difference median {paired:.3f} ms); "
+          f"kernels on the card {breakdown['device_busy_ms']:.3f} ms a step "
+          f"({breakdown['device_busy_ms'] / q['a'][1]:.1%} busy), host feed "
+          f"{breakdown['feed_ms']:.3f} ms; BatchNorm + Scale alone "
+          f"{bn_ms:.3f} ms ({bn_ms / breakdown['device_busy_ms']:.1%} of "
+          f"the busy time); peak memory {peak / 2 ** 30:.2f} GiB; top "
+          f"kernels {breakdown['top']}; launches {launches}; {gpu}",
+          flush=True)
+    # test_all through the global statistics; nothing advances
+    before = {ln: [t.clone() for t in v] for ln, v in a.params.items()}
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    scores = a.test_all()[0]
+    torch.cuda.synchronize()
+    test_ms = (time.perf_counter() - t1) * 1e3
+    check(all(_same_bits(t, before[ln][i]) for ln, v in a.params.items()
+              for i, t in enumerate(v)), "test_all moved a param")
+    check(math.isfinite(scores["loss"]) and 0 <= scores["accuracy"] <= 1,
+          f"test_all gave {scores}")
+    out["test"] = {**scores, "test_iter": VGG_TEST_ITER, "ms": test_ms}
+    # two runs from one seed: bit-identical after the timed steps
+    b = vgg_solver(seed=2)
+    b.step(VGG_STEPS)
+    same = all(_same_bits(t, b.params[ln][i]) for ln, v in after[0].items()
+               for i, t in enumerate(v)) and all(
+        _same_bits(v, b.fault_state[g][k])
+        for g, tree in after[1].items() for k, v in tree.items())
+    check(same, "two runs from one seed differ")
+    out["two_runs_bit_identical"] = same
+    out["part_s"]["timed"] = time.perf_counter() - t0
+    del a, p, b
+    torch.cuda.empty_cache()
+
+    # (c) the strategies
+    t0 = time.perf_counter()
+    order, net_file, model = vgg_strategy_files(tmp, device)
+    thr = vgg_threshold(seed=12)
+    runs = {"threshold": [{"type": "threshold", "threshold": thr}],
+            "remap_tracked": [{"type": "remapping", "start": 2, "period": 2,
+                               "prune_order_file": order,
+                               "track_identity": True}],
+            "genetic": [{"type": "genetic", "start": 2, "period": 2,
+                         "switch_time": 20, "prune_net_file": net_file,
+                         "prune_model_file": model}]}
+    out["strategies"] = {"threshold": thr}
+    for name, entries in runs.items():
+        st = vgg_solver(seed=12, strategies=entries)
+        res = vgg_lockstep(st, VGG_STRATEGY_STEPS, f"(c) {name}",
+                           {"B2": 3, "B1": 1})
+        res.pop("losses")
+        out["strategies"][name] = res
+        print(f"phase 16: (c) {name}: {json.dumps(res)}", flush=True)
+        del st
+    check(out["strategies"]["remap_tracked"]["remap_events"] >= 2,
+          "(c) too few remaps")
+    check(out["strategies"]["genetic"]["genetic_applications"] >= 2,
+          "(c) too few genetic applications")
+    out["part_s"]["strategies"] = time.perf_counter() - t0
+
+    # (e) iter_size 2
+    t0 = time.perf_counter()
+    s2 = vgg_solver(seed=3, iter_size=2)
+    res = vgg_lockstep(s2, 3, "(e) iter_size 2", {"B2": 6, "B1": 1})
+    res.pop("losses")
+    out["iter_size_2"] = res
+    print(f"phase 16: (e) iter_size 2: {json.dumps(res)}", flush=True)
+    del s2
+    out["part_s"]["iter_size"] = time.perf_counter() - t0
+
+    # (f) snapshot at 2, restore into a fresh Solver, 2 steps on
+    t0 = time.perf_counter()
+    prefix = str(tmp / "vgg")
+    full = vgg_solver(seed=5, snapshot=2, snapshot_prefix=prefix)
+    losses = []
+    _recording(full, losses)
+    full.step(4)
+    r = vgg_solver(seed=5, snapshot=0, snapshot_prefix=prefix + "_r")
+    for _ in range(2):
+        r.train_feed()          # the feed at the snapshot's position
+    cont = []
+    _recording(r, cont)
+    r.restore(f"{prefix}_iter_2.solverstate")
+    r.step(2)
+    check(all(_same_bits(x, y) for x, y in zip(cont, losses[2:]))
+          and len(cont) == 2, "(f) the restored Solver's losses differ")
+    for ln, vals in full.params.items():
+        for i, t in enumerate(vals):
+            check(_same_bits(r.params[ln][i], t),
+                  f"(f) params of {ln}/{i} differ after the restore")
+    for g, tree in full.fault_state.items():
+        for k, v in tree.items():
+            check(_same_bits(r.fault_state[g][k], v),
+                  f"(f) fault leaf {g}/{k} differs after the restore")
+    out["restart_solver"] = {"bytes": {
+        ext: os.path.getsize(f"{prefix}_iter_2.{ext}")
+        for ext in ("caffemodel", "solverstate", "faultstate")}}
+    del full, r
+    out["part_s"]["restart"] = time.perf_counter() - t0
+
+    # (g) conv_also on 128x128 tiles
+    t0 = time.perf_counter()
+    out.update(vgg_tiled_part(device))
+    out["part_s"]["tiled"] = time.perf_counter() - t0
+    return out
+
+
+def vgg_tiled_part(device):
+    """(g) conv_also on 128x128 tiles, B3a at conv2-8 and B2t at fc1-3:
+    each read alone at its shape (`vgg_tiled_reads`), then 3 Solver
+    steps kernel against plain without an ADC (held as (b)) and with
+    the template's 8-bit ADC (gaps reported)."""
+    import torch
+    from rram_caffe_simulation_tpu_torch.fault.fused import B1_LEAVES
+    out = {}
+    reads = vgg_tiled_reads(device)
+    out["tiled_reads"] = reads
+    print(f"phase 16: (g) B3a at conv2-8 and B2t at fc1-3 alone, batch "
+          f"100: {json.dumps(reads)}", flush=True)
+    out["tiled"] = {}
+    for adc in (0, 8):
+        tl = vgg_solver(seed=8, tiled=True, adc_bits=adc)
+        tiles = tl._tiles_ctx()
+        check(sorted(tiles) == sorted(VGG_TILED_CASES),
+              f"tiled layers {sorted(tiles)}")
+        for ln, (xs, _, K, N, t) in VGG_TILED_CASES.items():
+            ly = tl.net.layer_by_name[ln]
+            bottom = tl.net.blob_shapes[ly.lp.bottom[0]]
+            flat = (bottom[0], math.prod(bottom[1:]))
+            check(tuple(bottom) == xs or flat == xs,
+                  f"{ln} reads {bottom}, (g)'s cases {xs}")
+            kt = (ly._kernel_tiles(types.SimpleNamespace(
+                tiles=tiles, adc_bits=adc))
+                if ly.type_name == "InnerProduct" else (*tiles[ln], adc))
+            check(tuple(kt) == (t[0], t[1], adc),
+                  f"{ln} reads on tiles {kt}, (g)'s cases {t}")
+        # 22 fault leaves: B1's table holds B1_LEAVES (16) a launch
+        b1 = -(-len(tl._fault_keys) // B1_LEAVES)
+        per_step = {"B2": 0, "B2t": 3, "B3": 7, "B1": b1}
+        io = list(VGG_TILED_CASES)
+        if adc == 0:
+            # without an ADC the two paths differ by summation order
+            # alone: held as (b), and no read of the first step apart
+            # beyond rounding
+            res = vgg_lockstep(tl, 3, "(g) tiled, no ADC", per_step, io=io)
+            check(all(v["out_apart_share"] == 0 for v in res["io"].values()),
+                  f"(g) without an ADC a read parts: {res['io']}")
+        else:
+            # the tiles' 8-bit ADCs move a level where the kernel and
+            # the plain path sum in other orders. conv2, the first tiled
+            # read, gets the same input in both paths: its outputs part
+            # on the flip share of the reads alone, held to 1%. The
+            # flipped levels go on through BatchNorm into every later
+            # read, whose inputs then part by far more than rounding and
+            # flip more levels: the loss and param gaps are reported, the
+            # banks held but where one path's update is an exact 0
+            # (counted)
+            res = vgg_lockstep(tl, 3, "(g) tiled, ADC 8", per_step,
+                               rel=None, loss_rel=None, zeros_anywhere=True,
+                               io=io)
+            first = res["io"]["conv2"]
+            check(first["in_equal"] and first["out_apart_share"] <= 0.01,
+                  f"(g) conv2's read parts beyond its flips: {first}")
+        res.pop("losses")
+        out["tiled"][f"adc{adc}"] = res
+        print(f"phase 16: (g) conv_also, {TILES}, implicit operand, ADC "
+              f"{adc} bits: conv1's (27, 64) view fits one tile and is "
+              f"read untiled; {json.dumps(res)}", flush=True)
+        del tl
+        torch.cuda.empty_cache()
+    return out
+
+
+def vgg_sweep_part(gpu, tmp):
+    """(d) the sweep at the largest C of VGG_SWEEP_CONFIGS that fits, and
+    its checkpoint restart at C = 2."""
+    import torch
+    from rram_caffe_simulation_tpu_torch import kernels
+    from rram_caffe_simulation_tpu_torch.parallel import SweepRunner
+    out = {}
+    r = None
+    for C in VGG_SWEEP_CONFIGS:
+        try:
+            torch.cuda.reset_peak_memory_stats()
+            r = SweepRunner(vgg_solver(seed=4), n_configs=C, engine="cuda",
+                            packed_state=True)
+            r.step(1)
+            break
+        except torch.cuda.OutOfMemoryError:
+            r = None
+            torch.cuda.empty_cache()
+            print(f"phase 16: (d) C = {C} does not fit", flush=True)
+    check(r is not None, "no VGG11 sweep width fits the card")
+    check(r._dataset is not None, "the VGG11 sweep's batches are not on "
+          "the card")
+    t0 = time.perf_counter()
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    r.step(VGG_SWEEP_STEPS, chunk=VGG_SWEEP_STEPS)
+    wall = time.perf_counter() - t1
+    launches = _launches()
+    n = VGG_SWEEP_STEPS
+    check(launches == _untiled(B2=3 * n, B1=n, B4=5 * n),
+          f"the VGG11 sweep launched {launches}, expected B2 3, B1 1, B4 5 "
+          "a step")
+    peak = torch.cuda.max_memory_allocated()
+    bd = sweep_breakdown(r, 2)
+    losses = r.last_losses
+    check(bool(np.isfinite(losses).all()), "a VGG11 sweep lane went "
+          "non-finite")
+    out.update(configs=C, steps=n, configs_steps_per_s=C * n / wall,
+               step_ms=wall / n * 1e3, peak_bytes=peak,
+               main_path_launches=launches, device_busy_ms=bd[
+                   "device_busy_ms"], top=bd["top"],
+               bytes_per_step_est=r.bytes_per_step_est(),
+               broken_fraction_range=[float(r.broken_fractions().min()),
+                                      float(r.broken_fractions().max())])
+    print(f"phase 16: (d) VGG11 sweep C = {C}: {C * n / wall:.2f} "
+          f"configs*steps/s, step {wall / n * 1e3:.1f} ms, kernels on the "
+          f"card {bd['device_busy_ms']:.1f} ms a step, peak memory "
+          f"{peak / 2 ** 30:.2f} GiB, launches {launches}; top kernels "
+          f"{bd['top']}; {gpu}", flush=True)
+    # two lanes against two single-config Solvers, from their state
+    single = vgg_solver(seed=4)
+    check(single.pack_spec == r._pack_spec, "pack specs differ")
+    noisy = single.net.bn_fed_biases(single._fault_keys)
+    rate = write_rate(single)
+    apart = 0
+    for _ in range(2):
+        batch = r._batch(r.iter)
+        before = {i: r.lane_state(i) for i in (0, C - 1)}
+        keys = r.lane_keys(r.iter)
+        with tail_updates() as ku:
+            kp, kh, kf, kl, _ = r._step(r.params, r.history, r.fault_states,
+                                        batch, r.iter, keys)
+        for i in (0, C - 1):
+            with tail_updates() as su:
+                sp_, _, sf, sl, _ = single._step_fn(*before[i], batch,
+                                                    r.iter, keys[i])
+            rel = abs(float(sl) - float(kl[i])) / max(1.0, abs(float(sl)))
+            check(rel <= 1e-4, f"(d) lane {i}: sweep loss {float(kl[i])} "
+                  f"vs Solver {float(sl)}")
+            skip = rounding_cells(
+                {k: v[i] for k, v in kf["life_q"].items()}, sf["life_q"],
+                {k: v[i] for k, v in ku[0].items()}, su[0], noisy, rate,
+                f"(d) lane {i}")
+            apart += sum(int(m.sum()) for m in skip.values())
+            for ln in sp_:
+                if single.net.layer_by_name[ln].type_name != "BatchNorm":
+                    continue
+                for j, (x, y) in enumerate(zip(sp_[ln], kp[ln])):
+                    ok = (_same_bits(x, y[i]) if j == 2 else float(
+                        ((x - y[i]).abs() / y[i].abs().clamp(min=1.0))
+                        .max()) <= 1e-4)
+                    check(ok, f"(d) lane {i}: statistics {ln}/{j} differ")
+        r._commit(kp, kh, kf, kl)
+        r.iter += 1
+    out["lanes_vs_solver"] = {"lanes": [0, C - 1], "steps": 2,
+                              "rounding_cells": apart}
+    r.close()
+    del r, single
+    torch.cuda.empty_cache()
+
+    # (f) the sweep's checkpoint: restore and go on bit for bit
+    t0 = time.perf_counter()
+    a = SweepRunner(vgg_solver(seed=9), n_configs=2, engine="cuda",
+                    packed_state=True)
+    a.step(2, chunk=2)
+    path = str(tmp / "vgg_sweep.ckpt.npz")
+    a.checkpoint(path)
+    want, _ = _sweep_steps(a, 2)
+    leaves = _host_leaves(a)
+    b = SweepRunner(vgg_solver(seed=9), n_configs=2, engine="cuda",
+                    packed_state=True)
+    b.restore(path)
+    got, _ = _sweep_steps(b, 2)
+    check(all(x.tobytes() == y.tobytes() for x, y in zip(got, want)),
+          "(f) the restored sweep's losses differ")
+    differ = _leaves_differ(_host_leaves(b), leaves)
+    check(not differ, f"(f) sweep leaves differ after the restore: "
+          f"{differ[:5]}")
+    out["restart_sweep"] = {"configs": 2, "checkpoint_bytes":
+                            os.path.getsize(path), "leaves": len(leaves),
+                            "s": time.perf_counter() - t0}
+    a.close()
+    b.close()
+    del a, b
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_vgg(device, gpu):
+    """Phase 16: the experiment template's VGG11-BN net at full width
+    through B2, B1 and B4 (RRAM_POOL_BWD=cuda in the sweep; the Solver
+    runs autograd's max-pool backward, its default): (a) the layers on
+    the card, (b) the Solver,
+    (c) each strategy, (d) the sweep, (e) iter_size 2, (f) restarts, (g)
+    conv_also on tiles."""
+    import tempfile
+    import torch
+    t0 = time.perf_counter()
+    saved = os.environ.get("RRAM_POOL_BWD")
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+            layers = vgg_layers_on_card(device)
+            print(f"phase 16: (a) {json.dumps(layers)}", flush=True)
+            t1 = time.perf_counter()
+            # the Solver with the default max-pool backward (autograd's),
+            # as a user runs it; the sweep through B4
+            os.environ.pop("RRAM_POOL_BWD", None)
+            solver = vgg_solver_part(device, gpu, Path(tmp))
+            t2 = time.perf_counter()
+            os.environ["RRAM_POOL_BWD"] = "cuda"
+            sweep = vgg_sweep_part(gpu, Path(tmp))
+    finally:
+        if saved is None:
+            os.environ.pop("RRAM_POOL_BWD", None)
+        else:
+            os.environ["RRAM_POOL_BWD"] = saved
+    torch.cuda.empty_cache()
+    out = {"layers": layers, "solver": solver, "sweep": sweep,
+           "part_s": {"layers": t1 - t0, "solver": t2 - t1,
+                      "sweep": time.perf_counter() - t2},
+           "phase_s": time.perf_counter() - t0, "gpu": gpu}
+    print(f"phase 16: {json.dumps(out['part_s'])}", flush=True)
+    print(json.dumps({"vgg11": out}), flush=True)
+    return out
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--steps", type=int, default=50,
                    help="training steps of the slice phase (default 50)")
     p.add_argument("--transition-steps", type=int, default=6)
     p.add_argument("--phases", default="all",
-                   help="comma-separated phases 2-15 to run after the "
+                   help="comma-separated phases 2-16 to run after the "
                         "build (default all; only a full run prints the "
                         "per-kernel line and the ok line)")
     p.add_argument("--b2-path", action="store_true",
@@ -3994,7 +4940,7 @@ def main(argv=None) -> int:
                         "and the tiled sweep's C), the kernel alone and "
                         "its tile heights, and print them as JSON")
     args = p.parse_args(argv)
-    every = set(range(2, 16))
+    every = set(range(2, 17))
     want = every if args.phases == "all" else {
         int(v) for v in args.phases.split(",")}
 
@@ -4106,6 +5052,8 @@ def main(argv=None) -> int:
                                 else SWEEP_CONFIGS, gpu)
     if 15 in want:
         phase_rest(device, gpu)
+    if 16 in want:
+        vgg = phase_vgg(device, gpu)
     if want != every:
         print(f"phases {sorted(want)} passed; no ok line for a partial run",
               flush=True)
@@ -4137,6 +5085,32 @@ def main(argv=None) -> int:
     b3b.update(b3_path_numbers(device, tiled_sweep["configs"]))
     b3_passes = {str(c): b3_pass_numbers(device, c)
                  for c in (1, tiled_sweep["configs"])}
+    # phase 16's path: VGG11's three reads (sigma 0.05, no grid), its six
+    # fault leaves and five 2x2 pools, one config and the sweep's C
+    Cv = vgg["sweep"]["configs"]
+    vl, vsl = vgg["solver"]["main_path_launches"], \
+        vgg["sweep"]["main_path_launches"]
+    vb2, err_vb2 = b2_step_numbers(device, 1, VGG_B2_SHAPES, 0, VGG_SIGMA)
+    vb1, err_vb1 = b1_step_numbers(device, VGG_LEAVES)
+    vb2b, err_vb2b = b2_step_numbers(device, Cv, VGG_B2_SHAPES, 0,
+                                     VGG_SIGMA)
+    vb1b, err_vb1b = b1_step_numbers(device, VGG_LEAVES, Cv)
+    vb4 = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bound_by": "bytes",
+           "library_ms": 0.0, "max_abs_err": 0.0}
+    for ch, h in VGG_POOLS:
+        one = b4_step_numbers(device, Cv, planes=ch, hw=(h, h),
+                              geometry=POOL2X2)
+        vb4 = {k: (max(v, one[k]) if k == "max_abs_err" else v + one[k])
+               if k != "bound_by" else v for k, v in vb4.items()}
+    # (g)'s tiled reads, at the template's ADC
+    vt = vgg["solver"]["tiled"]["adc8"]["launches"]
+    vr = vgg["solver"]["tiled_reads"]["max_abs_err"]
+    vb2t, err_vb2t = tiled_step_numbers(device, VGG_B2T_LAYERS,
+                                        cases=VGG_TILED_CASES,
+                                        sigma=VGG_SIGMA, q_bits=0)
+    vb3a, err_vb3a = tiled_step_numbers(device, VGG_B3_LAYERS,
+                                        cases=VGG_TILED_CASES,
+                                        sigma=VGG_SIGMA, q_bits=0)
     sl = sweep["launches"]
     rows = [
         {"name": "crossbar_forward (B2a)", "route": "cuda",
@@ -4186,6 +5160,37 @@ def main(argv=None) -> int:
          "replaces": "rram_caffe_simulation_tpu/fault/hw_aware.py:975",
          "launches": tiled_sweep["launches"]["B3"],
          "max_abs_err": max(err_tiled["B3b"], err_b3b), **b3b},
+        {"name": "crossbar_forward (B2a), VGG11 fc1-3", "route": "cuda",
+         "source": f"{PKG}/csrc/crossbar.cu",
+         "replaces": "rram_caffe_simulation_tpu/fault/hw_aware.py:332",
+         "launches": vl["B2"], "max_abs_err": err_vb2, **vb2},
+        {"name": "fused_update_fail (B1a), VGG11 fc1-3", "route": "cuda",
+         "source": f"{PKG}/csrc/fused_epilogue.cu",
+         "replaces": "rram_caffe_simulation_tpu/fault/fused.py:99",
+         "launches": vl["B1"], "max_abs_err": err_vb1, **vb1},
+        {"name": "crossbar_forward over C lanes (B2b), VGG11 sweep",
+         "route": "cuda", "source": f"{PKG}/csrc/crossbar.cu",
+         "replaces": "rram_caffe_simulation_tpu/fault/hw_aware.py:477",
+         "launches": vsl["B2"], "max_abs_err": err_vb2b, **vb2b},
+        {"name": "fused_update_fail over C lanes (B1b), VGG11 sweep",
+         "route": "cuda", "source": f"{PKG}/csrc/fused_epilogue.cu",
+         "replaces": "rram_caffe_simulation_tpu/fault/fused.py:118",
+         "launches": vsl["B1"], "max_abs_err": err_vb1b, **vb1b},
+        {"name": "max_pool_backward (B4), VGG11 sweep's five 2x2 pools",
+         "route": "cuda", "source": f"{PKG}/csrc/pool_backward.cu",
+         "replaces": "rram_caffe_simulation_tpu/ops/pool_backward.py:141",
+         "launches": vsl["B4"], **vb4},
+        {"name": "crossbar_forward tiled (B2t), VGG11 fc1-3, conv_also",
+         "route": "cuda", "source": f"{PKG}/csrc/crossbar.cu",
+         "replaces": "rram_caffe_simulation_tpu/fault/hw_aware.py:318",
+         "launches": vt["B2t"], "max_abs_err": max(vr["B2t"], err_vb2t),
+         **vb2t},
+        {"name": "crossbar_conv_forward implicit (B3a), VGG11 conv2-8, "
+                 "conv_also", "route": "cuda",
+         "source": f"{PKG}/csrc/crossbar.cu",
+         "replaces": "rram_caffe_simulation_tpu/fault/hw_aware.py:905",
+         "launches": vt["B3"], "max_abs_err": max(vr["B3a"], err_vb3a),
+         **vb3a},
     ]
     print(json.dumps({"step": {"median_ms": step_s * 1e3,
                                "feed_ms": breakdown["feed_ms"],
@@ -4200,6 +5205,7 @@ def main(argv=None) -> int:
     print(json.dumps({"b3_passes": b3_passes}))
     print(json.dumps({"rng": rng}))
     print(json.dumps({"formats": formats}))
+    print(json.dumps({"vgg11": vgg}))
     print(json.dumps({"kernels": rows}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {

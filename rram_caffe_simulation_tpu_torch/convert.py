@@ -14,7 +14,9 @@ where a parity test needs identical inputs that did not come from a
 seed:
 
 - params: {layer name: [array, ...]} in Caffe layout (None for a shared
-  slot) on both sides, numpy there, tensors here;
+  slot) on both sides, numpy there, tensors here; BatchNorm's three
+  blobs (mean, variance, scale_factor) and Scale's two are params like
+  any other;
 - fault state: {"lifetimes": {...}, "stuck": {...}} (f32) or the packed
   {"life_q": {...}, "stuck_bits": {...}}, keyed "layer/slot"; conv
   leaves (`conv_also`) keep their stored 4-D shape in both packages

@@ -2,7 +2,13 @@
 core/registry.py; reference layer.hpp:33 and layer_factory.hpp:56-137).
 A layer is configured from its LayerParameter, resolves static shapes
 in `setup`, draws its parameters in `init_params`, and computes its
-tops in `apply` on tensors; autograd differentiates `apply`."""
+tops in `apply` on tensors; autograd differentiates `apply`.
+
+Forward state (BatchNorm's moving statistics, which the reference's
+`apply` returns as new params): a layer with `updates_state` writes the
+replacement values of its params into `ctx.updates[name]` when the
+caller asked for them (`ctx.updates` is a dict, else None); it never
+writes into the param tensors."""
 from __future__ import annotations
 
 import dataclasses
@@ -60,6 +66,9 @@ class LayerContext:
     # resolves it (its argument, RRAM_CONV_IM2COL, the kernel path's
     # rules); the layer only reads it.
     conv_im2col: Optional[str] = None
+    # Forward-state updates (Net.apply(with_updates=True)): layer name ->
+    # the replacement values of its params, detached; None = not asked.
+    updates: Optional[dict] = None
 
 
 @dataclasses.dataclass
@@ -80,6 +89,8 @@ class Layer:
     # reads ctx.lanes/ctx.laned; None = no lane rule (raises under lanes
     # when it has params or a laned bottom)
     lane_rule: Optional[str] = None
+    # whether apply reports forward-state updates (ctx.updates)
+    updates_state = False
 
     def __init__(self, layer_param, phase: int):
         self.lp = layer_param

@@ -21,7 +21,8 @@ from .. import proto
 from ..core import prng
 from ..core.registry import LayerContext, create_layer
 from ..device import resolve_device
-from ..utils.io import array_to_blob, blob_to_array, read_net_param
+from ..utils.io import (array_to_blob, blob_to_array, read_net_param,
+                        upgrade_batchnorm)
 
 
 @dataclasses.dataclass
@@ -90,6 +91,9 @@ class Net:
             if s not in state.stage:
                 state.stage.append(s)
         self.param_proto = filter_net(net_param, state)
+        # in-memory messages (a SolverParameter's net_param) get the
+        # upgrade read_net_param gives files; filter_net copied them
+        upgrade_batchnorm(self.param_proto)
         self.name = net_param.name
         self.phase = int(phase)
         self.layers = []
@@ -158,6 +162,24 @@ class Net:
         self.fc_params_ids = [i for i, r in enumerate(self.failure_param_refs)
                               if r.slot == 0]
 
+    def feeds_batchnorm(self, layer_name: str) -> bool:
+        """Whether the first layer to read `layer_name`'s top (in place or
+        not) is a BatchNorm. The normalisation removes such a layer's
+        bias, so the bias's true gradient is zero and what a summation
+        order computes for it is rounding, often an exact 0."""
+        at = self.layers.index(self.layer_by_name[layer_name])
+        top = self.layers[at].lp.top[0]
+        reader = next((ly for ly in self.layers[at + 1:]
+                       if top in ly.lp.bottom), None)
+        return reader is not None and reader.type_name == "BatchNorm"
+
+    def bn_fed_biases(self, keys) -> set:
+        """The bias keys "layer/1" among `keys` (fault keys "layer/slot",
+        a Solver's `_fault_keys`) of the layers `feeds_batchnorm` names:
+        whether such a cell counts a write rests on rounding."""
+        return {k for k in keys if k.endswith("/1")
+                and self.feeds_batchnorm(k.rsplit("/", 1)[0])}
+
     def init(self, key) -> dict:
         """Draw every owner layer's parameters from the threefry key
         `key` (core/prng.py) on the net's device, in layer order: each
@@ -192,8 +214,11 @@ class Net:
     def apply(self, params, batch: Optional[dict] = None,
               adc_bits: int = 0, crossbar: Optional[dict] = None,
               lanes: int = 0, tiles: Optional[dict] = None,
-              conv_im2col: Optional[str] = None):
-        """Run the net; returns (blobs, loss). `batch` feeds the
+              conv_im2col: Optional[str] = None, with_updates: bool = False):
+        """Run the net; returns (blobs, loss), or (blobs, loss,
+        new_params) `with_updates`: `params` with the forward-state
+        updates (BatchNorm's moving statistics) in place of the layers'
+        lists, the tensors passed in untouched. `batch` feeds the
         data-source tops; `crossbar` routes named fault-target layers
         through the crossbar read, `tiles` names the layers read through
         tiles and `conv_im2col` their conv operand mode (see
@@ -208,7 +233,8 @@ class Net:
         batch = batch or {}
         ctx = LayerContext(phase=self.phase, adc_bits=adc_bits,
                            crossbar=crossbar, lanes=lanes, tiles=tiles,
-                           conv_im2col=conv_im2col)
+                           conv_im2col=conv_im2col,
+                           updates={} if with_updates else None)
         blobs = {}
         laned = set()
         for name in self.data_source_tops:
@@ -244,6 +270,10 @@ class Net:
                 else:
                     term = v.reshape(v.shape[0], lanes, -1).sum((0, 2))
                 loss = loss + w * term
+        if with_updates:
+            new_params = {ln: list(vals) for ln, vals in params.items()}
+            new_params.update(ctx.updates)
+            return blobs, loss, new_params
         return blobs, loss
 
     def copy_trained_from(self, params, source) -> dict:

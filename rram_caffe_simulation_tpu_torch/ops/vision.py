@@ -1,6 +1,7 @@
-"""Convolution and Pooling (counterpart of the reference package's
-ops/vision.py; reference conv_layer.cpp, base_conv_layer.cpp,
-pooling_layer.cpp). NCHW throughout, as Caffe stores blobs.
+"""Convolution, Pooling and BatchNorm (counterpart of the reference
+package's ops/vision.py; reference conv_layer.cpp, base_conv_layer.cpp,
+pooling_layer.cpp, batch_norm_layer.cpp). NCHW throughout, as Caffe
+stores blobs.
 
 Pooling keeps Caffe's CEIL output size: the input is padded explicitly
 (`pad` low, `ceil_pad_hi` high) and pooled without implicit padding, so
@@ -25,6 +26,11 @@ from the raw activation; kernel B3). The three give equal bytes. A
 laned bottom is read per lane as (C, N, ch, H, W), contiguous, for one
 launch; the (C, N*OH*OW, C_out) result goes back to (N, C*C_out, OH,
 OW). Grouped convolution has no im2col crossbar view and is refused.
+
+BatchNorm normalises each channel over the batch and the spatial axes;
+under lanes the laned blob's channels are (lane, channel) pairs, so the
+same reduction is BatchNorm per lane and per channel, and the (C, ch)
+statistics read as (C*ch,).
 """
 from __future__ import annotations
 
@@ -209,3 +215,83 @@ class PoolingLayer(Layer):
             self._div[key] = torch.as_tensor(self.divisors, dtype=x.dtype,
                                              device=x.device)
         return [s / self._div[key]]
+
+
+@register_layer("BatchNorm")
+class BatchNormLayer(Layer):
+    """Caffe's BatchNorm (batch_norm_layer.cpp:14-140): three blobs,
+    the moving mean, the moving variance and scale_factor (1,), no
+    learned affine (a Scale layer follows for that). The stored stats
+    are sums discounted by scale_factor: the global-stats forward
+    divides by it. In TRAIN the layer normalises by the batch's mean and
+    biased variance (autograd carries the full backward) and reports
+    the moving update through ctx.updates (registry.py): mean' = maf *
+    mean + batch mean, var' = maf * var + m / (m - 1) * batch var (m =
+    N*H*W), sf' = maf * sf + 1, each from detached values. sf' is the
+    fused multiply-add the reference's jitted step computes (XLA
+    contracts it), so the sequence is the reference's bit for bit."""
+    lane_rule = "own"
+    updates_state = True
+
+    def setup(self, bottom_shapes):
+        bp = self.lp.batch_norm_param
+        s = tuple(bottom_shapes[0])
+        self.channels = s[1] if len(s) > 1 else 1
+        self.use_global_stats = (bp.use_global_stats
+                                 if bp.HasField("use_global_stats")
+                                 else self.phase == proto.TEST)
+        self.maf = bp.moving_average_fraction
+        self.eps = bp.eps
+        self.top_shapes = [s]
+        return self.top_shapes
+
+    def num_params(self):
+        return 3
+
+    def param_specs(self):
+        # the statistics take no solver update (batch_norm_layer.cpp:39)
+        specs = super().param_specs()
+        for s in specs:
+            s.lr_mult = s.decay_mult = 0.0
+        return specs
+
+    def init_params(self, key, device="cpu"):
+        def zeros(n):
+            return torch.zeros((n,), dtype=torch.float32, device=device)
+        return [zeros(self.channels), zeros(self.channels), zeros(1)]
+
+    def apply(self, params, bottoms, ctx):
+        x = bottoms[0]
+        mean_b, var_b, sf = params
+        C = ctx.lanes
+        if C:
+            # lane-major channels; an unlaned bottom feeds every lane
+            if not ctx.laned[0]:
+                x = x.repeat((1, C) + (1,) * (x.dim() - 2))
+            mean_b, var_b = mean_b.reshape(-1), var_b.reshape(-1)
+        bshape = (1, -1) + (1,) * (x.dim() - 2)
+        if self.use_global_stats:
+            s = sf[..., 0]
+            scale = torch.where(s == 0, torch.zeros_like(s),
+                                torch.reciprocal(torch.clamp_min(s, 1e-30)))
+            if C:
+                scale = scale.repeat_interleave(self.channels)
+            mean, var = mean_b * scale, var_b * scale
+            return [(x - mean.reshape(bshape))
+                    * torch.rsqrt(var.reshape(bshape) + self.eps)]
+        axes = (0,) + tuple(range(2, x.dim()))
+        m = x.shape[0] * int(np.prod(x.shape[2:]))
+        mean = x.mean(axes)
+        xc = x - mean.reshape(bshape)
+        var = (xc * xc).mean(axes)
+        y = xc * torch.rsqrt(var.reshape(bshape) + self.eps)
+        if ctx.updates is not None:
+            corr = m / (m - 1.0) if m > 1 else 1.0
+            new_mean = self.maf * mean_b.detach() + mean.detach()
+            new_var = self.maf * var_b.detach() + corr * var.detach()
+            if C:
+                new_mean = new_mean.reshape(C, -1)
+                new_var = new_var.reshape(C, -1)
+            ctx.updates[self.name] = [new_mean, new_var,
+                                      prng.fma(sf.detach(), self.maf, 1.0)]
+        return [y]

@@ -14,7 +14,10 @@ axis (`Solver.make_train_step(lanes=C)`): the lanes share one batch per
 iteration, kernel B2 reads every lane's InnerProduct weights in one
 launch per layer, kernel B1 runs ApplyUpdate+Fail once per fault leaf,
 and kernel B4 (RRAM_POOL_BWD=cuda) takes each MAX pooling backward over
-all lanes' planes. A lane whose loss goes non-finite is quarantined:
+all lanes' planes. BatchNorm's statistics are per lane ((C, ch),
+scale_factor (C, 1)), advanced by the lane's own batch statistics and
+carried by checkpoints like any other param. A lane whose loss goes
+non-finite is quarantined:
 its update, and every later one, is discarded while the other lanes
 train on unchanged.
 

@@ -174,10 +174,13 @@ message LayerParameter {
   optional AccuracyParameter accuracy_param = 102;
   optional ConvolutionParameter convolution_param = 106;
   optional DataParameter data_param = 107;
+  optional BatchNormParameter batch_norm_param = 139;
+  optional BiasParameter bias_param = 141;
   optional InnerProductParameter inner_product_param = 117;
   optional InputParameter input_param = 143;
   optional PoolingParameter pooling_param = 121;
   optional ReLUParameter relu_param = 123;
+  optional ScaleParameter scale_param = 142;
   optional SoftmaxParameter softmax_param = 125;
 }
 message TransformationParameter {
@@ -233,6 +236,23 @@ message InnerProductParameter {
   optional FillerParameter bias_filler = 4;
   optional int32 axis = 5 [default = 1];
   optional bool transpose = 6 [default = false];
+}
+message BatchNormParameter {
+  optional bool use_global_stats = 1;
+  optional float moving_average_fraction = 2 [default = .999];
+  optional float eps = 3 [default = 1e-5];
+}
+message BiasParameter {
+  optional int32 axis = 1 [default = 1];
+  optional int32 num_axes = 2 [default = 1];
+  optional FillerParameter filler = 3;
+}
+message ScaleParameter {
+  optional int32 axis = 1 [default = 1];
+  optional int32 num_axes = 2 [default = 1];
+  optional FillerParameter filler = 3;
+  optional bool bias_term = 4 [default = false];
+  optional FillerParameter bias_filler = 5;
 }
 message InputParameter {
   repeated BlobShape shape = 1;

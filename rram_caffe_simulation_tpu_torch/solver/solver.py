@@ -60,6 +60,15 @@ its own norm), then per param Normalize (diff / iter_size), Regularize
 on a leading axis; sub-pass i reads with the key fold_in(step key, i)
 and the gradients add up in order.
 
+Forward state (BatchNorm's moving statistics): the forward runs
+`Net.apply(with_updates=True)` and the step takes the advanced
+statistics as its data before ComputeUpdate (reference :994); under
+`iter_size` sub-pass i + 1 reads those sub-pass i advanced, the weights
+staying the step's. The TRAIN graph never reads them, so their
+gradient is zero and, at lr_mult = decay_mult = 0, every rule's update
+for them an exact 0. The test nets read them through
+`use_global_stats` and advance nothing.
+
 Not ported yet (a solver asking for one raises): `solve(fused_chunk=)`
 (step_fused), metrics, watchdog, health, data/tensor/pipeline
 parallelism and a sub-f32 compute dtype.
@@ -592,6 +601,9 @@ class Solver:
         decay_mults = {k: r.decay_mult
                        for k, r in zip(owner_keys, self._owner_refs)}
         fault_keys = list(self._fault_keys)
+        # params a forward pass advances (BatchNorm's statistics)
+        state_keys = [k for k, r in zip(owner_keys, self._owner_refs)
+                      if net.layer_by_name[r.layer_name].updates_state]
         hp = U.Hyper(param)
         rule = U.UPDATE_RULES[self.type]
         lr_fn = self._lr_fn
@@ -681,40 +693,57 @@ class Solver:
                             wk, broken_k, stuck_k,
                             nkeys[..., i, :] if hw_sigma else None,
                             hw_sigma)
-            blobs, loss = net.apply(self._unflat(read, params), batch,
-                                    adc_bits=adc_bits, crossbar=crossbar,
-                                    lanes=lanes, tiles=tiles_ctx,
-                                    conv_im2col=conv_resolved)
+            blobs, loss, new_params = net.apply(
+                self._unflat(read, params), batch, adc_bits=adc_bits,
+                crossbar=crossbar, lanes=lanes, tiles=tiles_ctx,
+                conv_im2col=conv_resolved, with_updates=True)
             # lanes are independent: d(sum of lane losses)/d(lane c's
-            # params) is lane c's own gradient
+            # params) is lane c's own gradient. The TRAIN graph never
+            # reads BatchNorm's statistics: their gradient is zero, as
+            # the reference's is
             grads = torch.autograd.grad(loss.sum() if lanes else loss,
-                                        [leaves[k] for k in owner_keys])
+                                        [leaves[k] for k in owner_keys],
+                                        allow_unused=True)
+            unused = [k for k, g in zip(owner_keys, grads)
+                      if g is None and k not in state_keys]
+            if unused:
+                raise RuntimeError(f"no gradient reached {unused}: the "
+                                   "forward pass does not read them")
+            grads = [torch.zeros_like(leaves[k]) if g is None else g
+                     for k, g in zip(owner_keys, grads)]
             outputs = {name: blobs[name].detach()
                        for name in net.output_names}
-            return loss.detach(), dict(zip(owner_keys, grads)), outputs
+            advanced = self._flat(new_params)
+            return loss.detach(), dict(zip(owner_keys, grads)), outputs, \
+                {k: advanced[k] for k in state_keys}
 
         def step(params, history, fault_state, batch, it, rng,
                  do_remap=None):
             # -- ForwardBackward x iter_size (solver.cpp:265-269) --
             if iter_size == 1:
-                loss, g, outputs = forward_backward(params, fault_state,
-                                                    batch, rng)
+                loss, g, outputs, stats = forward_backward(
+                    params, fault_state, batch, rng)
             else:
-                # sub-pass i reads sub-batch i with fold_in(rng, i); the
-                # gradients and losses add up from zeros, in order
+                # sub-pass i reads sub-batch i with fold_in(rng, i) and
+                # the statistics sub-pass i - 1 advanced (the weights
+                # stay the step's); the gradients and losses add up from
+                # zeros, in order
                 g = {k: torch.zeros_like(v)
                      for k, v in self._flat(params).items()}
-                loss = None
+                loss, stats = None, {}
                 for i in range(iter_size):
-                    sub_loss, sub_g, outputs = forward_backward(
-                        params, fault_state, {k: v[i] for k, v in
-                                              batch.items()},
+                    sub_loss, sub_g, outputs, stats = forward_backward(
+                        self._unflat({**self._flat(params), **stats},
+                                     params),
+                        fault_state, {k: v[i] for k, v in batch.items()},
                         prng.fold_in(rng, i))
                     g = {k: g[k] + sub_g[k] for k in owner_keys}
                     loss = (torch.zeros_like(sub_loss) if loss is None
                             else loss) + sub_loss
                 loss = fault_engine._div(loss, iter_size)
-            data = {k: v.detach() for k, v in self._flat(params).items()}
+            # BatchNorm's statistics already advanced (reference :994)
+            data = {**{k: v.detach() for k, v in self._flat(params).items()},
+                    **stats}
 
             # -- ComputeUpdate (sgd_solver.cpp:102-117) --
             rate = lr_fn(it)

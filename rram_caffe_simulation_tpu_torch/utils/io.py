@@ -27,11 +27,22 @@ def write_proto_binary(path: str, message: proto.Message) -> None:
 BINARY_SUFFIXES = (".caffemodel", ".binaryproto", ".pb")
 
 
+def upgrade_batchnorm(net: proto.Message) -> proto.Message:
+    """The reference's BatchNorm upgrade (upgrade_net_batchnorm): old
+    definitions declared three `param` specs for the layer's statistics,
+    which the layer now owns; they are dropped, in place."""
+    for lp in net.layer:
+        if lp.type == "BatchNorm" and len(lp.param) == 3:
+            lp.ClearField("param")
+    return net
+
+
 def read_net_param(path: str) -> proto.Message:
     """A NetParameter: binary for a `.caffemodel`/`.binaryproto`/`.pb`
-    file, text otherwise. Legacy V0/V1 nets (`layers`, field 2, instead
-    of `layer`) need the reference package's upgrade pass, which the
-    port does not carry: text and binary ones raise."""
+    file, text otherwise, with the 3-param BatchNorm upgrade applied.
+    Legacy V0/V1 nets (`layers`, field 2, instead of `layer`) need the
+    reference package's other upgrade passes, which the port does not
+    carry: text and binary ones raise."""
     if path.endswith((".h5", ".hdf5")):
         raise NotImplementedError(f"{path}: HDF5 weights are not read by "
                                   "the port")
@@ -43,7 +54,7 @@ def read_net_param(path: str) -> proto.Message:
             f"{path}: legacy V1 `layers` nets are not supported by the "
             "port; upgrade the " + ("model" if binary else "prototxt")
             + " to `layer` entries")
-    return net
+    return upgrade_batchnorm(net)
 
 
 def read_solver_param(path: str) -> proto.Message:
