@@ -12,6 +12,7 @@
     python3 chip_smoke.py --phases 15     # the rest of the solver, and the
                                           # strategies over the lanes
     python3 chip_smoke.py --phases 16     # the VGG11-BN template net
+    python3 chip_smoke.py --phases 17     # the pipeline and the telemetry
     python3 chip_smoke.py --b2-path       # only time B2 through its wrapper
     python3 chip_smoke.py --b2t-path      # only time B2t (wrapper, kernel,
                                           # tile rows)
@@ -21,6 +22,8 @@
                                           # layer, alone, autograd's)
     python3 chip_smoke.py --b1-path       # only time B1 (through the
                                           # solver's tail, alone, a copy)
+    python3 chip_smoke.py --timed-checkout DIR  # run DIR's chip_smoke.py,
+                                          # each of its phases timed
 
 Phases (each raises on failure; the script then exits non-zero and
 prints no "ok" line):
@@ -229,7 +232,28 @@ prints no "ok" line):
    128x128 tiles, 3 lockstep steps through B3 (conv2-8), B2t (fc1-3)
    and B1 (twice a step: 22 fault leaves, 16 a launch), loss and param
    gaps reported (ADC level flips), banks identical but where one
-   path's update is an exact 0 (counted).
+   path's update is an exact 0 (counted);
+17. the sweep's pipeline and the telemetry plane: (a) phase 7's sweep
+   (C = 512, chunk 10, metrics to a JsonlSink, tracing on) at
+   pipeline_depth None, 0 and 2 from one seed, 3 chunks each: losses,
+   outputs, params, history, banks and records (timing aside) identical
+   at every depth, configs x steps per second and host_blocked_seconds
+   of each (depth 2's below depth 0's), the laned step's synchronizing
+   calls with metrics on and off (equal), depth 2's setup record and
+   bench_phase_breakdown; (b) phase 4's slice with enable_metrics and
+   display 10, 50 steps, the kernel path against the plain path in
+   lockstep: records' integers equal, floats within 1e-5 relative;
+   synchronizing calls a step with metrics on and off (equal) and the
+   step median each way, in turns; (c) health_every 10 on that Solver
+   and on a depth-2 C = 512 sweep, each census equal to a numpy recount
+   of the banks' host copy, census ms and its share of 10 steps; the
+   tiled slice's per-tile counters and census (128x128 tiles,
+   conv_also) equal to the recount; (d) a C = 8 runner whose sink
+   blocks, stall_timeout_s 2: StallError within 10 s with an emergency
+   checkpoint, which a new runner restores and continues bit for bit
+   against a run that never stalled; (e) every JSONL line valid under
+   the port's schema, the Chrome trace with its dispatcher and
+   chunk-consumer tracks.
 
 Then a JSON line of the step's numbers, a JSON line of the sweep's, one
 JSON line of per-kernel numbers (per training step, summed over the
@@ -244,7 +268,8 @@ backward through the pooling layer's autograd.Function), a JSON line of
 B3's passes by device activity at C = 1 and the tiled sweep's C, a JSON
 line "rng" of phase 13's numbers, a JSON line "formats" of phase 14's,
 a JSON line "solver_rest" of phase 15's (printed when it ends), a JSON
-line "vgg11" of phase 16's (printed when it ends, and again), the
+line "vgg11" of phase 16's (printed when it ends, and again), a JSON
+line "telemetry" of phase 17's, the
 card's name and power limit, and last {"ok": true, "device":
 {...}}.
 B2t has a row at each path's shapes: C = 1 (the tiled slice) and C
@@ -1545,8 +1570,8 @@ def _event_stepper(runner, events):
     import torch
     inner = runner._step
 
-    def stepper(*args):
-        out = inner(*args)
+    def stepper(*args, **kw):
+        out = inner(*args, **kw)
         ev = torch.cuda.Event(enable_timing=True)
         ev.record()
         events.append(ev)
@@ -1641,7 +1666,7 @@ def run_sweep(C, timed_steps, gpu):
     kernels.reset_launches()
     start.record()
     t0 = time.perf_counter()
-    losses = r.step(timed_steps, chunk=SWEEP_CHUNK)   # ends in a host read
+    losses = r.step(timed_steps, chunk=SWEEP_CHUNK)[0]  # ends in a host read
     wall = time.perf_counter() - t0
     launches = _launches()
     r._step = inner
@@ -1805,7 +1830,7 @@ def phase_sweep_checks(steps, C=8):
         bad = 3
         r.params["conv2"][0][bad, 0, 0, 0, 0] = float("nan")
         before = r.lane_state(bad)[2]["life_q"]
-        losses = r.step(2, chunk=2)
+        losses = r.step(2, chunk=2)[0]
     finally:
         if saved is None:
             os.environ.pop("RRAM_POOL_BWD", None)
@@ -2517,7 +2542,7 @@ def phase_tiled_sweep(C, timed_steps, gpu):
               and r.conv_im2col_resolved == "implicit",
               "the tiled sweep did not resolve to cuda, fused, implicit")
         check(r._dataset is not None, "the dataset is not on the device")
-        warm = r.step(SWEEP_CHUNK, chunk=SWEEP_CHUNK)
+        warm = r.step(SWEEP_CHUNK, chunk=SWEEP_CHUNK)[0]
         check(bool(np.isfinite(warm).all()), "non-finite warm-chunk loss")
         events = []
         inner, stepper = _event_stepper(r, events)
@@ -2527,7 +2552,7 @@ def phase_tiled_sweep(C, timed_steps, gpu):
         kernels.reset_launches()
         start.record()
         t0 = time.perf_counter()
-        losses = r.step(timed_steps, chunk=SWEEP_CHUNK)
+        losses = r.step(timed_steps, chunk=SWEEP_CHUNK)[0]
         wall = time.perf_counter() - t0
         launches = _launches()
         r._step = inner
@@ -3254,7 +3279,7 @@ def _sweep_steps(r, n):
     for _ in range(n):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        losses.append(r.step(1).copy())
+        losses.append(r.step(1)[0].copy())
         ms.append((time.perf_counter() - t0) * 1e3)
     return losses, ms
 
@@ -3428,9 +3453,9 @@ def formats_devices(tmp, C=8):
     differ = _leaves_differ(_host_leaves(card), _host_leaves(cpu))
     check(not differ, f"the CPU runner's leaves differ: {differ[:5]}")
     t0 = time.perf_counter()
-    cpu_loss = cpu.step(1)
+    cpu_loss = cpu.step(1)[0]
     cpu_s = time.perf_counter() - t0
-    card_loss = card.step(1)
+    card_loss = card.step(1)[0]
     rel = float((np.abs(card_loss - cpu_loss)
                  / np.maximum(np.abs(cpu_loss), 1.0)).max())
     check(bool(np.isfinite(card_loss).all()) and rel <= 1e-5,
@@ -3896,7 +3921,7 @@ def rest_sweeps(gpu, thr):
         apply()
         took.append(time.perf_counter() - t0)
     r._apply_genetic = timed_apply
-    losses = r.step(SWEEP_STRATEGY_STEPS - 1, chunk=SWEEP_CHUNK)
+    losses = r.step(SWEEP_STRATEGY_STEPS - 1, chunk=SWEEP_CHUNK)[0]
     check(len(took) == 2, f"(d) {len(took)} genetic applications in "
           f"{SWEEP_STRATEGY_STEPS} steps, expected 2 (before 2 and 7)")
     now = {ln: [None if t is None else t[bad].cpu().numpy().tobytes()
@@ -4904,13 +4929,652 @@ def phase_vgg(device, gpu):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the sweep's pipeline and the telemetry plane
+
+TELEMETRY_CHUNK = 10             # bench.py's chunk
+TELEMETRY_CHUNKS = 3             # chunks of each depth's run
+TELEMETRY_SEED = 17
+SOLVER_METRIC_STEPS = 50         # (b)'s lockstep steps, display 10
+SOLVER_TIMED_STEPS = 20          # (b)'s timed steps each way, in turns
+HEALTH_EVERY = 10
+STALL_TIMEOUT_S = 2.0
+STALL_CONFIGS = 8
+TIMING_FIELDS = ("wall_time", "step_latency_s", "iters_per_s")
+
+
+class _ListSink:
+    """A metric sink that keeps its records."""
+
+    def __init__(self):
+        self.records = []
+
+    def write(self, record):
+        self.records.append(record)
+
+
+def _timing_off(records):
+    return [{k: v for k, v in r.items() if k not in TIMING_FIELDS}
+            for r in records if r.get("type") != "span"]
+
+
+def _jsonl(path):
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def sync_sites(fn, *args):
+    """(fn(*args), ["file:line" of each synchronizing CUDA call it
+    made]), by torch's sync debug mode."""
+    import torch
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, [f"{os.path.relpath(w.filename, REPO)}:{w.lineno}"
+                 for w in caught if "synchroniz" in str(w.message)]
+
+
+def _state_equal(a: dict, b: dict) -> list:
+    """Names of the leaves of two runner states that differ in a bit."""
+    return sorted(k for k in a if not torch_equal(a[k], b[k]))
+
+
+def torch_equal(x, y) -> bool:
+    import torch
+    return x.dtype == y.dtype and x.shape == y.shape and bool(
+        torch.equal(x, y))
+
+
+def _recount_leaf(life, stuck, tiles, lead, edges):
+    """The census of one leaf recounted in numpy from host arrays: per
+    tile (mid-bin lifetimes, f32) the lifetime histogram (a value's bin
+    is the count of edges below it, 0 first), broken count and fraction
+    (count times the f32 reciprocal of the cells), mean, min, and the
+    stuck values of the broken cells."""
+    shape = life.shape[lead:]
+    nd = len(shape)
+    if nd > 2:                       # a conv kernel: its (K, N) view
+        flat = life.reshape(life.shape[:lead] + (shape[0], -1))
+        life = np.swapaxes(flat, -1, -2)
+        stuck = np.swapaxes(stuck.reshape(flat.shape), -1, -2)
+        nd = 2
+    if nd == 2 and tiles is not None and not tiles.is_default:
+        slices = [sl for _, sl in tiles.tile_slices(life.shape[-2:])]
+    else:
+        slices = [None]
+    out = {k: [] for k in ("life_hist", "broken", "broken_frac", "life_min",
+                           "life_mean", "stuck_neg", "stuck_zero",
+                           "stuck_pos")}
+    bounds = np.array([0.0] + list(edges), np.float32)
+    for sl in slices:
+        lt, st = life, stuck
+        if sl is not None:
+            r0, r1, c0, c1 = sl
+            lt, st = lt[..., r0:r1, c0:c1], st[..., r0:r1, c0:c1]
+        lt = lt.reshape(lt.shape[:lead] + (-1,))
+        st = st.reshape(lt.shape)
+        cells = lt.shape[-1]
+        idx = (lt[..., None] > bounds).sum(-1)
+        out["life_hist"].append(np.stack(
+            [(idx == b).sum(-1) for b in range(len(bounds) + 1)], -1))
+        broken = lt <= 0
+        count = broken.sum(-1)
+        out["broken"].append(count)
+        out["broken_frac"].append(count.astype(np.float32) * (
+            np.float32(1) / np.float32(cells)))
+        out["life_min"].append(lt.min(-1))
+        out["life_mean"].append(lt.astype(np.float64).mean(-1))
+        for name, v in (("stuck_neg", -1), ("stuck_zero", 0),
+                        ("stuck_pos", 1)):
+            out[name].append((broken & (st == v)).sum(-1))
+    return {k: np.stack(v, -2 if k == "life_hist" else -1)
+            for k, v in out.items()}
+
+
+def host_census(state, spec, tiles, lead):
+    """{param: recount} of a packed fault state's host copy."""
+    from rram_caffe_simulation_tpu_torch.observe.health import LIFE_EDGES
+    d = float(spec["decrement"])
+    out = {}
+    for k, q in state["life_q"].items():
+        q = q.detach().cpu().numpy()
+        life = ((q.astype(np.float32) - np.float32(0.5))
+                * np.float32(d)).astype(np.float32)
+        bank = state["stuck_bits"][k].detach().cpu().numpy()
+        codes = np.stack([(bank >> (2 * i)) & 3 for i in range(4)], -1)
+        stuck = (codes.reshape(bank.shape[:-1] + (-1,))
+                 [..., :spec["last_dim"][k]].astype(np.float32) - 1.0)
+        out[k] = _recount_leaf(life, stuck, tiles, lead, LIFE_EDGES)
+    return out
+
+
+def _census_matches(params, recount, where):
+    """A health record's payload against the numpy recount: integer
+    fields exactly, the fractions exactly (the same f32 product),
+    life_mean within 1e-6 relative."""
+    for k, st in params.items():
+        rc = recount[k]
+        for name in ("life_hist", "stuck_neg", "stuck_zero", "stuck_pos",
+                     "broken_frac"):
+            got = np.asarray(st[name])
+            check(np.array_equal(got, rc[name].astype(got.dtype)),
+                  f"{where}: {k} {name} differs from the host recount")
+        got = np.asarray(st["life_mean"], np.float64)
+        check(np.allclose(got, rc["life_mean"], rtol=1e-6, atol=0),
+              f"{where}: {k} life_mean differs from the host recount")
+        hist = rc["life_hist"]
+        cells = hist.reshape((-1,) + hist.shape[-2:])[0].sum(-1)
+        check(st["cells"] == [int(c) for c in cells],
+              f"{where}: {k} cells differ from the host recount")
+
+
+def telemetry_runner(C, depth, sink=None, health_every=0, seed=None,
+                     stall=None, mean=1e8, std=3e7):
+    """Phase 7's sweep configuration (RRAM_POOL_BWD is the caller's) with
+    metrics to `sink` and the pipeline at `depth`."""
+    from rram_caffe_simulation_tpu_torch.parallel import SweepRunner
+    s = slice_solver(mean, std, seed=TELEMETRY_SEED if seed is None
+                     else seed)
+    if sink is not None:
+        s.enable_metrics(sink)
+    return SweepRunner(s, n_configs=C, engine="cuda", packed_state=True,
+                       dtype_policy="ternary", pipeline_depth=depth,
+                       health_every=health_every, stall_timeout_s=stall)
+
+
+def telemetry_depths(tmp, gpu):
+    """(a): the C = 512 sweep at depth None, 0 and 2 from one seed."""
+    import torch
+    from rram_caffe_simulation_tpu_torch import kernels
+    from rram_caffe_simulation_tpu_torch.observe import sink as obs_sink
+    from rram_caffe_simulation_tpu_torch.observe import spans as obs_spans
+    steps = TELEMETRY_CHUNK * TELEMETRY_CHUNKS
+    C = SWEEP_CONFIGS
+    runs, out, files = {}, {}, []
+    for depth in (None, 0, 2):
+        path = tmp / f"sweep_depth_{depth}.jsonl"
+        files.append(path)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = telemetry_runner(C, depth, obs_sink.JsonlSink(str(path)))
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        check(r._dataset is not None and r.engine_resolved == "cuda"
+              and r.fused_epilogue_resolved,
+              f"(a) depth {depth}: not phase 7's path")
+        r.enable_tracing(profile_dir=str(tmp / f"trace_{depth}"))
+        syncs = None
+        if depth is None:
+            # the laned step with its metrics against the same step
+            # without them, from the runner's state (not advanced)
+            off = r.solver.make_train_step(
+                hw_engine="cuda", dtype_policy="ternary",
+                fault_format="packed", pack_spec=r._pack_spec,
+                fused_epilogue=True, lanes=r.n, with_metrics=False)
+            args = (r.params, r.history, r.fault_states, r._batch(r.iter),
+                    r.iter, r.lane_keys(r.iter))
+            syncs = {}
+            for name, fn in (("metrics_on", r._step), ("metrics_off", off)):
+                for _ in range(2):
+                    res, sites = sync_sites(fn, *args)
+                    del res
+                syncs[name] = sites
+            check(len(syncs["metrics_on"]) == len(syncs["metrics_off"]),
+                  f"(a) metrics add synchronizing calls to the laned step: "
+                  f"{syncs}")
+            del off, args
+        kernels.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses, outputs = r.step(steps, chunk=TELEMETRY_CHUNK)
+        wall = time.perf_counter() - t0
+        launches = _launches()
+        check(launches == _untiled(B2=2 * steps, B1=steps, B4=steps),
+              f"(a) depth {depth}: launches {launches}")
+        state = {k: v.clone() for k, v in r._state_arrays().items()}
+        setup = r.setup_record(setup_s)
+        breakdown = obs_spans.bench_phase_breakdown(r._tracer.events())
+        trace = r.write_trace()
+        r.close()
+        r.solver.metrics_logger.close()
+        runs[depth] = {"losses": losses, "outputs": outputs, "state": state,
+                       "chunk_losses": r.chunk_losses,
+                       "records": _jsonl(path)}
+        out[str(depth)] = {
+            "configs_steps_per_s": C * steps / wall, "wall_s": wall,
+            "step_ms": wall / steps * 1e3, "setup_s": setup_s,
+            "host_blocked_seconds": r.pipeline.host_blocked_s,
+            "drain_seconds": r.pipeline.drain_s,
+            "consumer_seconds": (r._consumer.consumer_s
+                                 if r._consumer is not None else 0.0),
+            "records": r.pipeline.records, "launches": launches,
+            "phase_breakdown": breakdown}
+        if depth == 2:
+            out["setup_record"] = setup
+            out["trace"] = trace
+        if syncs is not None:
+            out["step_syncs"] = syncs
+        print(f"phase 17: (a) depth {depth}: "
+              f"{out[str(depth)]['configs_steps_per_s']:.1f} configs*steps/s "
+              f"({wall:.3f} s for {steps} steps at C = {C}, chunk "
+              f"{TELEMETRY_CHUNK}); host blocked "
+              f"{r.pipeline.host_blocked_s:.6f} s, drain "
+              f"{r.pipeline.drain_s:.6f} s; {gpu}", flush=True)
+        del r
+        torch.cuda.empty_cache()
+    base = runs[0]
+    for depth in (None, 2):
+        run = runs[depth]
+        check(run["losses"].tobytes() == base["losses"].tobytes()
+              and sorted(run["outputs"]) == sorted(base["outputs"])
+              and all(run["outputs"][k].tobytes()
+                      == base["outputs"][k].tobytes()
+                      for k in base["outputs"])
+              and run["chunk_losses"].tobytes()
+              == base["chunk_losses"].tobytes(),
+              f"(a) depth {depth}: losses or outputs differ from depth 0")
+        differ = _state_equal(base["state"], run["state"])
+        check(not differ, f"(a) depth {depth}: state differs from depth 0 "
+              f"in {differ[:5]}")
+    check(_timing_off(runs[2]["records"]) == _timing_off(base["records"])
+          and len(_timing_off(base["records"])) == TELEMETRY_CHUNKS,
+          "(a) depth 2's records differ from depth 0's (timing aside)")
+    check(_timing_off(runs[None]["records"]) == [],
+          "(a) depth None fed the sinks")
+    check(out["2"]["host_blocked_seconds"] < out["0"]["host_blocked_seconds"],
+          f"(a) depth 2 blocked the host {out['2']['host_blocked_seconds']} "
+          f"s, not below depth 0's {out['0']['host_blocked_seconds']} s")
+    out["depth2_gain"] = (out["2"]["configs_steps_per_s"]
+                          / out["0"]["configs_steps_per_s"] - 1.0)
+    print(f"phase 17: (a) depth 2 against depth 0: "
+          f"{out['depth2_gain']:+.2%} configs*steps/s; losses, outputs, "
+          f"params, history, banks and records identical at every depth",
+          flush=True)
+    print(f"phase 17: (a) setup record {json.dumps(out['setup_record'])}",
+          flush=True)
+    print(f"phase 17: (a) bench_phase_breakdown (depth 2) "
+          f"{json.dumps(out['2']['phase_breakdown'])}", flush=True)
+    for name, sites in out["step_syncs"].items():
+        print(f"phase 17: (a) laned step, {name}: {len(sites)} "
+              f"synchronizing calls {sites}", flush=True)
+    return out, files
+
+
+def telemetry_solver(tmp, gpu):
+    """(b): the phase-4 slice with metrics, kernel path against plain
+    path in lockstep; syncs per step and the step time with metrics on
+    and off; (c)'s census of the Solver."""
+    import torch
+    from rram_caffe_simulation_tpu_torch import kernels
+    from rram_caffe_simulation_tpu_torch.fault import fused, hw_aware
+    from rram_caffe_simulation_tpu_torch.observe import sink as obs_sink
+    seed = TELEMETRY_SEED + 1
+    paths = {name: tmp / f"solver_{name}.jsonl" for name in ("kernel",
+                                                             "plain")}
+    k = slice_solver(1e8, 3e7, seed=seed)
+    p = slice_solver(1e8, 3e7, seed=seed, hw_engine="torch")
+    for s, name in ((k, "kernel"), (p, "plain")):
+        s.param.display = 10
+        s.enable_metrics(obs_sink.JsonlSink(str(paths[name])))
+    k.enable_health(HEALTH_EVERY)
+    kernels.reset_launches()
+    clone = lambda tree: {n: [None if t is None else t.clone() for t in v]
+                          for n, v in tree.items()}
+    for _ in range(SOLVER_METRIC_STEPS):
+        p.params = clone(k.params)
+        p.history = {n: {sl: t.clone() for sl, t in v.items()}
+                     for n, v in k.history.items()}
+        p.fault_state = {g: {n: t.clone() for n, t in v.items()}
+                         for g, v in k.fault_state.items()}
+        b2, b1 = hw_aware.CROSSBAR_LIB.launches, fused.FUSED_LIB.launches
+        k.step(1)
+        check(hw_aware.CROSSBAR_LIB.launches == b2 + 2
+              and fused.FUSED_LIB.launches == b1 + 1,
+              "(b) the kernel path did not launch B2 twice and B1 once")
+        p.step(1)
+        check(hw_aware.CROSSBAR_LIB.launches == b2 + 2
+              and fused.FUSED_LIB.launches == b1 + 1,
+              "(b) the plain path launched a kernel")
+    for s in (k, p):
+        s.metrics_logger.sinks[0].flush()
+    recs = {n: [r for r in _jsonl(paths[n]) if r.get("type") is None]
+            for n in paths}
+    check(len(recs["kernel"]) == len(recs["plain"])
+          == SOLVER_METRIC_STEPS // 10, f"(b) records {len(recs['kernel'])}")
+    worst = 0.0
+
+    def walk(a, b, where):
+        nonlocal worst
+        if isinstance(a, dict):
+            check(sorted(a) == sorted(b), f"(b) {where}: keys differ")
+            for key in a:
+                if key not in TIMING_FIELDS:
+                    walk(a[key], b[key], f"{where}.{key}")
+        elif isinstance(a, list):
+            check(len(a) == len(b), f"(b) {where}: lengths differ")
+            for i, (x, y) in enumerate(zip(a, b)):
+                walk(x, y, f"{where}[{i}]")
+        elif isinstance(a, int) and not isinstance(a, bool):
+            check(isinstance(b, int) and a == b,
+                  f"(b) {where}: integer {a} against {b}")
+        elif isinstance(a, float):
+            rel = abs(a - b) / max(abs(a), abs(b), 1e-30)
+            worst = max(worst, rel)
+            check(rel <= 1e-5, f"(b) {where}: {a} against {b}")
+        else:
+            check(a == b, f"(b) {where}: {a!r} against {b!r}")
+    for a, b in zip(recs["kernel"], recs["plain"]):
+        walk(a, b, f"iter {a['iter']}")
+    # (c): the Solver's censuses, the last against the final banks
+    health = [r for r in _jsonl(paths["kernel"]) if r.get("type") == "health"]
+    check([r["iter"] for r in health]
+          == list(range(HEALTH_EVERY, SOLVER_METRIC_STEPS + 1, HEALTH_EVERY)),
+          f"(c) Solver census iterations {[r['iter'] for r in health]}")
+    _census_matches(health[-1]["params"],
+                    host_census(k.fault_state, k.pack_spec, None, 0),
+                    "(c) Solver census")
+    census_ms = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        k._health_census(k.fault_state)
+        census_ms.append((time.perf_counter() - t0) * 1e3)
+    k.enable_health(0)
+    # syncs a step with metrics on against off, the same state
+    off = slice_solver(1e8, 3e7, seed=seed)
+    off.param.display = 10
+    syncs = {}
+    for name, s in (("metrics_on", k), ("metrics_off", off)):
+        batch = {n: torch.as_tensor(v).to(s.device)
+                 for n, v in s.train_feed().items()}
+        from rram_caffe_simulation_tpu_torch.core import prng
+        rng = prng.fold_in(s._key, s.iter)
+        for _ in range(2):
+            res, sites = sync_sites(s._step_fn, s.params, s.history,
+                                    s.fault_state, batch, s.iter, rng)
+            del res
+        syncs[name] = sites
+    check(len(syncs["metrics_on"]) == len(syncs["metrics_off"]),
+          f"(b) metrics add synchronizing calls to the step: {syncs}")
+    # the step time with metrics on and off, in turns
+    times = {"metrics_on": [], "metrics_off": []}
+    for _ in range(SOLVER_TIMED_STEPS):
+        for name, s in (("metrics_on", k), ("metrics_off", off)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            s.step(1)                # ends in a host read of the loss
+            times[name].append((time.perf_counter() - t0) * 1e3)
+    for s in (k, p):
+        s.metrics_logger.close()
+    # the median reads a step no record reads (its tree is writes_saved
+    # alone); the mean spreads the display steps' full trees over all
+    med = {n: float(np.median(v[2:])) for n, v in times.items()}
+    mean = {n: float(np.mean(v[2:])) for n, v in times.items()}
+    out = {"records": len(recs["kernel"]), "worst_float_rel": worst,
+           "step_syncs": syncs, "step_ms_median": med, "step_ms_mean": mean,
+           "metrics_cost_ms": med["metrics_on"] - med["metrics_off"],
+           "metrics_cost_mean_ms": mean["metrics_on"] - mean["metrics_off"],
+           "census_ms": float(np.median(census_ms)),
+           "census_share_of_every": float(np.median(census_ms))
+           / (HEALTH_EVERY * med["metrics_off"]),
+           "censuses": len(health)}
+    print(f"phase 17: (b) Solver, {SOLVER_METRIC_STEPS} lockstep steps, "
+          f"display 10: kernel and plain records equal (integers exactly, "
+          f"floats within {worst:.2e}, limit 1e-5); synchronizing calls a "
+          f"step, metrics on {len(syncs['metrics_on'])} "
+          f"{syncs['metrics_on']}, off {len(syncs['metrics_off'])}; step "
+          f"median on {med['metrics_on']:.3f} ms, off "
+          f"{med['metrics_off']:.3f} ms, mean on {mean['metrics_on']:.3f} "
+          f"ms, off {mean['metrics_off']:.3f} ms (in turns, n = "
+          f"{SOLVER_TIMED_STEPS - 2} each); {gpu}", flush=True)
+    print(f"phase 17: (c) Solver census {out['census_ms']:.3f} ms "
+          f"({out['census_share_of_every']:.3%} of {HEALTH_EVERY} steps); "
+          f"{len(health)} censuses equal to the host recount", flush=True)
+    return out, list(paths.values())
+
+
+def telemetry_health(tmp, gpu, step_ms):
+    """(c): the C = 512 sweep with health_every 10 at depth 2, and the
+    tiled slice's per-tile counters and census."""
+    import torch
+    from rram_caffe_simulation_tpu_torch.observe import schema as obs_schema
+    from rram_caffe_simulation_tpu_torch.observe import sink as obs_sink
+    path = tmp / "sweep_health.jsonl"
+    steps = TELEMETRY_CHUNK * TELEMETRY_CHUNKS
+    r = telemetry_runner(SWEEP_CONFIGS, 2, obs_sink.JsonlSink(str(path)),
+                         health_every=HEALTH_EVERY)
+    r.step(steps, chunk=TELEMETRY_CHUNK)
+    census_ms = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r._health_census(r.fault_states)
+        census_ms.append((time.perf_counter() - t0) * 1e3)
+    r.close()
+    r.solver.metrics_logger.close()
+    health = [x for x in _jsonl(path) if x.get("type") == "health"]
+    check([x["iter"] for x in health] == [20, 30],
+          f"(c) sweep census iterations {[x['iter'] for x in health]}")
+    for x in health:
+        check(obs_schema.validate_record(x) == [] and x["lane_map"]
+              == list(range(SWEEP_CONFIGS)), "(c) a sweep census record")
+    _census_matches(health[-1]["params"],
+                    host_census(r.fault_states, r._pack_spec, None, 1),
+                    "(c) sweep census")
+    summary = r.health_summary()
+    del r
+    torch.cuda.empty_cache()
+    ms = float(np.median(census_ms))
+    out = {"sweep_census_ms": ms,
+           "sweep_census_share_of_every": ms / (HEALTH_EVERY * step_ms),
+           "sweep_summary": summary}
+    # the tiled slice: per-tile counters and census after 4 steps at
+    # N(300, 50), cells breaking
+    from rram_caffe_simulation_tpu_torch.fault.mapping import TileSpec
+    tpath = tmp / "tiled_solver.jsonl"
+    s = slice_solver(300.0, 50.0, seed=TELEMETRY_SEED + 2, tiled=True)
+    s.param.display = 1
+    s.enable_metrics(obs_sink.JsonlSink(str(tpath)))
+    s.enable_health(1)
+    s.step(4)
+    s.metrics_logger.close()
+    recs = _jsonl(tpath)
+    last = [x for x in recs if x.get("type") is None][-1]
+    census = [x for x in recs if x.get("type") == "health"][-1]
+    check(last["iter"] == 3 and census["iter"] == 4
+          and census["tiles"] == TILES, "(c) the tiled slice's records")
+    tiles = TileSpec.parse(TILES)
+    rc = host_census(s.fault_state, s.pack_spec, tiles, 0)
+    _census_matches(census["params"], rc, "(c) tiled census")
+    pt = last["fault"]["per_tile"]
+    check(sorted(pt) == sorted(k for k in rc if k.endswith("/0")),
+          f"(c) per_tile leaves {sorted(pt)}")
+    broken_tiles = 0
+    for k, st in pt.items():
+        for name in ("broken_frac", "life_min", "stuck_neg", "stuck_zero",
+                     "stuck_pos"):
+            got = np.asarray(st[name])
+            check(np.array_equal(got, rc[k][name].astype(got.dtype)),
+                  f"(c) per_tile {k} {name} differs from the host recount")
+        broken_tiles += int((np.asarray(st["broken_frac"]) > 0).sum())
+    check(broken_tiles > 0, "(c) no tile of the tiled slice broke")
+    out["tiled"] = {"per_tile_leaves": len(pt), "tiles_with_broken_cells":
+                    broken_tiles,
+                    "tiles": sum(len(v["broken_frac"]) for v in pt.values())}
+    print(f"phase 17: (c) sweep census at C = {SWEEP_CONFIGS}: {ms:.3f} ms "
+          f"({out['sweep_census_share_of_every']:.3%} of {HEALTH_EVERY} "
+          f"steps at {step_ms:.3f} ms); censuses at 20 and 30 equal to the "
+          f"host recount; summary {json.dumps(summary)}; tiled slice: "
+          f"per-tile counters and census of {out['tiled']['tiles']} tiles "
+          f"({broken_tiles} with broken cells) equal to the host recount; "
+          f"{gpu}", flush=True)
+    return out, [path, tpath]
+
+
+def telemetry_stall(tmp, gpu):
+    """(d): a sink that blocks; the emergency checkpoint continues bit for
+    bit against the run that never stalled."""
+    import threading
+    import torch
+    from rram_caffe_simulation_tpu_torch import async_exec
+    release = threading.Event()
+    kept = _ListSink()
+
+    class BlockingSink:
+        def write(self, record):
+            kept.write(record)
+            if len(kept.records) >= 2:
+                release.wait(60.0)       # a wedged filesystem
+
+    seed = TELEMETRY_SEED + 3
+    r = telemetry_runner(STALL_CONFIGS, 1, BlockingSink(), seed=seed,
+                         stall=STALL_TIMEOUT_S, mean=300.0, std=50.0)
+    r.solver.param.snapshot_prefix = str(tmp / "stall")
+    t0 = time.perf_counter()
+    try:
+        r.step(200, chunk=1)
+        raise Check("(d) the blocking sink did not stall the sweep")
+    except async_exec.StallError as e:
+        took = time.perf_counter() - t0
+        path = e.checkpoint_path
+    finally:
+        release.set()
+    it = r.iter
+    check(took < 10.0, f"(d) StallError after {took:.1f} s (limit 10)")
+    check(path is not None and os.path.exists(path)
+          and path.endswith(f"_sweep_stall_iter_{it}.ckpt.npz"),
+          f"(d) no emergency checkpoint ({path})")
+    again = r.step(2)
+    check(r.iter == it, "(d) the stop is not sticky")
+    del r, again
+    more = 3
+    fresh = telemetry_runner(STALL_CONFIGS, None, seed=seed, mean=300.0,
+                             std=50.0)
+    fresh.restore(path)
+    got = fresh.step(more)[0]
+    full = telemetry_runner(STALL_CONFIGS, None, seed=seed, mean=300.0,
+                            std=50.0)
+    full.step(it, chunk=it)
+    want = full.step(more)[0]
+    check(got.tobytes() == want.tobytes(),
+          "(d) the restored run's losses differ from the unstalled run's")
+    differ = _state_equal(
+        {k: v for k, v in full._state_arrays().items()},
+        {k: v for k, v in fresh._state_arrays().items()})
+    check(not differ, f"(d) the restored state differs in {differ[:5]}")
+    out = {"stall_s": took, "iter": it, "checkpoint": os.path.basename(path),
+           "checkpoint_bytes": os.path.getsize(path),
+           "records_before": len(kept.records)}
+    print(f"phase 17: (d) C = {STALL_CONFIGS}, stall_timeout_s "
+          f"{STALL_TIMEOUT_S}: StallError after {took:.2f} s at iteration "
+          f"{it}, emergency checkpoint {out['checkpoint']} "
+          f"({out['checkpoint_bytes']} bytes) restored: {more} steps equal "
+          f"to the run that never stalled, bit for bit", flush=True)
+    del fresh, full
+    torch.cuda.empty_cache()
+    return out, kept.records
+
+
+def phase_telemetry(gpu):
+    """Phase 17: the pipeline at three depths, the Solver's metrics, the
+    health census, a stall, and every file they wrote."""
+    import tempfile
+    import torch
+    from rram_caffe_simulation_tpu_torch.observe import schema as obs_schema
+    t0 = time.perf_counter()
+    saved = os.environ.get("RRAM_POOL_BWD")
+    os.environ["RRAM_POOL_BWD"] = "cuda"
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as d:
+            tmp = Path(d)
+            depths, files = telemetry_depths(tmp, gpu)
+            os.environ.pop("RRAM_POOL_BWD")     # (b) as phase 4 runs
+            solver, more = telemetry_solver(tmp, gpu)
+            os.environ["RRAM_POOL_BWD"] = "cuda"
+            files += more
+            health, more = telemetry_health(tmp, gpu,
+                                            depths["2"]["step_ms"])
+            files += more
+            stall, stall_records = telemetry_stall(tmp, gpu)
+            # (e) every line of every file, and the stall's records
+            lines = 0
+            for path in files:
+                for rec in _jsonl(path):
+                    errs = obs_schema.validate_record(rec)
+                    check(errs == [], f"(e) {path.name}: {errs}")
+                    lines += 1
+            for rec in stall_records:
+                check(obs_schema.validate_record(rec) == [],
+                      "(e) a stall record")
+            with open(depths["trace"]) as f:
+                trace = json.load(f)
+            tracks = sorted({e["args"]["name"] for e in trace["traceEvents"]
+                             if e.get("ph") == "M"
+                             and e["name"] == "thread_name"})
+            check({"dispatcher", "chunk-consumer"} <= set(tracks),
+                  f"(e) trace tracks {tracks}")
+            depths["trace"] = os.path.basename(depths["trace"])
+    finally:
+        if saved is None:
+            os.environ.pop("RRAM_POOL_BWD", None)
+        else:
+            os.environ["RRAM_POOL_BWD"] = saved
+    torch.cuda.empty_cache()
+    out = {"depths": depths, "solver": solver, "health": health,
+           "stall": stall, "files": {"jsonl_lines": lines + len(
+               stall_records), "trace_tracks": tracks},
+           "phase_s": time.perf_counter() - t0, "gpu": gpu}
+    print(f"phase 17: (e) {out['files']['jsonl_lines']} JSONL lines valid; "
+          f"trace tracks {tracks}; phase 17 {out['phase_s']:.1f} s",
+          flush=True)
+    return out
+
+
+def timed_checkout(path: str) -> int:
+    """Run another checkout's chip_smoke.py in full, each of its phase_*
+    functions timed, and print their wall seconds as one JSON line: the
+    phase times of an older commit (which may not print its own) beside
+    this one's, in one call."""
+    import functools
+    import importlib.util
+    src = Path(path).resolve() / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke_timed", src)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod
+    spec.loader.exec_module(mod)
+    took = {}
+
+    def wrap(name, fn):
+        @functools.wraps(fn)
+        def call(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                took[name] = took.get(name, 0.0) + time.perf_counter() - t0
+        return call
+    for name in [n for n in dir(mod) if n.startswith("phase_")]:
+        if callable(getattr(mod, name)):
+            setattr(mod, name, wrap(name, getattr(mod, name)))
+    t0 = time.perf_counter()
+    rc = mod.main([])
+    took["script"] = time.perf_counter() - t0
+    print(json.dumps({"timed_checkout": {"path": str(src.parent), "rc": rc,
+                                         **took}}), flush=True)
+    return rc
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--steps", type=int, default=50,
                    help="training steps of the slice phase (default 50)")
     p.add_argument("--transition-steps", type=int, default=6)
     p.add_argument("--phases", default="all",
-                   help="comma-separated phases 2-16 to run after the "
+                   help="comma-separated phases 2-17 to run after the "
                         "build (default all; only a full run prints the "
                         "per-kernel line and the ok line)")
     p.add_argument("--b2-path", action="store_true",
@@ -4939,8 +5603,14 @@ def main(argv=None) -> int:
                         "through the wrapper on the path's layouts (C = 1 "
                         "and the tiled sweep's C), the kernel alone and "
                         "its tile heights, and print them as JSON")
+    p.add_argument("--timed-checkout", metavar="DIR",
+                   help="only run DIR/chip_smoke.py (another checkout, "
+                        "e.g. a parent commit unpacked with git archive) "
+                        "in full, each of its phase functions timed, and "
+                        "print their seconds as JSON")
     args = p.parse_args(argv)
-    every = set(range(2, 17))
+    t_main = time.perf_counter()
+    every = set(range(2, 18))
     want = every if args.phases == "all" else {
         int(v) for v in args.phases.split(",")}
 
@@ -4949,6 +5619,8 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device; this script runs on the card",
               file=sys.stderr)
         return 2
+    if args.timed_checkout:
+        return timed_checkout(args.timed_checkout)
     if not (REPO / PKG).is_dir():
         print(f"chip_smoke: {PKG}/ not found beside this script",
               file=sys.stderr)
@@ -5021,45 +5693,59 @@ def main(argv=None) -> int:
             res[str(C)].update(b4_path_numbers(device, C, current))
         print(json.dumps({"b4_path": res, "gpu": gpu}))
         return 0
+    phase_s = {}
+
+    def timed(n, fn, *a):
+        """Run phase n's function and print its wall seconds."""
+        t0 = time.perf_counter()
+        res = fn(*a)
+        phase_s[n] = time.perf_counter() - t0
+        print(f"phase {n}: done in {phase_s[n]:.1f} s", flush=True)
+        return res
     if 2 in want:
-        err_b1 = phase_b1(device)
+        err_b1 = timed(2, phase_b1, device)
     if 3 in want:
-        err_b2 = phase_b2(device)
+        err_b2 = timed(3, phase_b2, device)
     if 4 in want:
-        launches, step_s, breakdown = phase_slice(args.steps, gpu)
+        launches, step_s, breakdown = timed(4, phase_slice, args.steps, gpu)
     if 5 in want:
-        phase_transitions(args.transition_steps)
-        drift = phase_drift(args.transition_steps)
+        drift = timed(5, lambda: (phase_transitions(args.transition_steps),
+                                  phase_drift(args.transition_steps))[1])
     if 6 in want:
-        err_b4, err_b4_auto = phase_b4(device)
+        err_b4, err_b4_auto = timed(6, phase_b4, device)
     if 7 in want:
-        sweep = phase_sweep(SWEEP_CONFIGS, SWEEP_STEPS, gpu)
+        sweep = timed(7, phase_sweep, SWEEP_CONFIGS, SWEEP_STEPS, gpu)
     if 8 in want:
-        phase_sweep_checks(args.transition_steps)
+        timed(8, phase_sweep_checks, args.transition_steps)
     if 9 in want:
-        err_tiled = phase_tiled_kernels(device)
+        err_tiled = timed(9, phase_tiled_kernels, device)
     if 10 in want:
-        tiled = phase_tiled_slice(args.steps, gpu)
+        tiled = timed(10, phase_tiled_slice, args.steps, gpu)
     if 11 in want:
-        tiled_sweep = phase_tiled_sweep(TILED_SWEEP_CONFIGS, SWEEP_STEPS,
-                                        gpu)
+        tiled_sweep = timed(11, phase_tiled_sweep, TILED_SWEEP_CONFIGS,
+                            SWEEP_STEPS, gpu)
     if 12 in want:
-        phase_strategies(gpu, step_s * 1e3 if 4 in want else None)
+        timed(12, phase_strategies, gpu,
+              step_s * 1e3 if 4 in want else None)
     if 13 in want:
-        rng = phase_rng(device, gpu, step_s * 1e3 if 4 in want else None)
+        rng = timed(13, phase_rng, device, gpu,
+                    step_s * 1e3 if 4 in want else None)
     if 14 in want:
-        formats = phase_formats(sweep["configs"] if 7 in want
-                                else SWEEP_CONFIGS, gpu)
+        formats = timed(14, phase_formats, sweep["configs"] if 7 in want
+                        else SWEEP_CONFIGS, gpu)
     if 15 in want:
-        phase_rest(device, gpu)
+        timed(15, phase_rest, device, gpu)
     if 16 in want:
-        vgg = phase_vgg(device, gpu)
+        vgg = timed(16, phase_vgg, device, gpu)
+    if 17 in want:
+        telemetry = timed(17, phase_telemetry, gpu)
     if want != every:
         print(f"phases {sorted(want)} passed; no ok line for a partial run",
               flush=True)
         return 0
 
     C = sweep["configs"]
+    t_rows = time.perf_counter()
     print("per-step kernel numbers (ms on the card, summed over the "
           "step's launches):", flush=True)
     b2, _ = b2_step_numbers(device)
@@ -5206,6 +5892,10 @@ def main(argv=None) -> int:
     print(json.dumps({"rng": rng}))
     print(json.dumps({"formats": formats}))
     print(json.dumps({"vgg11": vgg}))
+    print(json.dumps({"telemetry": telemetry}))
+    print(json.dumps({"phase_s": {**{str(n): v for n, v in phase_s.items()},
+                                  "kernels_line": time.perf_counter() - t_rows,
+                                  "script": time.perf_counter() - t_main}}))
     print(json.dumps({"kernels": rows}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {

@@ -35,6 +35,7 @@ EPSILON = 1e-20  # failure_maker.cpp:56 / failure_maker.cu:25
 # the same threshold as the float32 the reference compares in; both are
 # exact float32 values, so the comparison agrees in either precision
 EPSILON32 = float(np.float32(EPSILON))
+PROCESS = "endurance_stuck_at"   # the port's one fault process
 
 
 def param_key(layer_name: str, slot: int) -> str:
@@ -176,28 +177,36 @@ def stuck_zero_flags(state: FaultState, name: str) -> torch.Tensor:
 
 
 def fault_counters(prev_life: Dict[str, torch.Tensor],
-                   new_life: Dict[str, torch.Tensor]):
+                   new_life: Dict[str, torch.Tensor], lanes: int = 0):
     """Per-parameter fault census: broken cells, cells newly expired
-    this step, min/mean remaining lifetime. Returns (totals,
-    per_param) of tensors; the host reads them only when it logs."""
+    this step, min/mean remaining lifetime (per lane under `lanes`, the
+    leading axis). Returns (totals, per_param) of device tensors; the
+    host reads them only when it logs. Counts are int64 (the
+    reference's int32 values)."""
+    def red(t, op):
+        t = t.reshape(lanes, -1) if lanes else t.reshape(-1)
+        return getattr(t, op)(-1)
     per = {}
-    broken_tot = newly_tot = 0
-    life_min = None
-    life_sum = 0.0
+    broken_tot = newly_tot = life_min = life_sum = None
     n_cells = 0
     for name in sorted(new_life):
         l_new, l_prev = new_life[name], prev_life[name]
-        broken = (l_new <= 0).sum()
-        newly = ((l_new <= 0) & (l_prev > 0)).sum()
-        pmin = l_new.min().float()
+        broken = red(l_new <= 0, "sum")
+        newly = red((l_new <= 0) & (l_prev > 0), "sum")
+        pmin = red(l_new, "amin").float()
+        psum = red(l_new.float(), "sum")
+        cells = l_new.numel() // max(lanes, 1)
         per[name] = {"broken": broken, "newly_expired": newly,
-                     "life_min": pmin, "life_mean": l_new.float().mean()}
-        broken_tot = broken_tot + broken
-        newly_tot = newly_tot + newly
-        life_min = pmin if life_min is None else torch.minimum(life_min,
-                                                               pmin)
-        life_sum = life_sum + l_new.float().sum()
-        n_cells += l_new.numel()
+                     "life_min": pmin, "life_mean": psum / cells}
+        if broken_tot is None:
+            broken_tot, newly_tot, life_min, life_sum = (broken, newly,
+                                                         pmin, psum)
+        else:
+            broken_tot = broken_tot + broken
+            newly_tot = newly_tot + newly
+            life_min = torch.minimum(life_min, pmin)
+            life_sum = life_sum + psum
+        n_cells += cells
     totals = {"broken_total": broken_tot, "newly_expired": newly_tot,
               "life_min": life_min,
               "life_mean": life_sum / max(n_cells, 1)}

@@ -17,9 +17,12 @@ crossbar tiles, each with its own fault draw and its own ADC.
   zero-padded, flattened NCHW activation.
 - `tiled_draw`: one parameter's draw assembled tile by tile, tile-major,
   tile t drawn from the threefry key folded with t (as the reference).
-
-The census helpers of the reference (`per_tile_counters`,
-`health_tiles`, `per_tile_health`, `per_tile_ages`) are not ported yet.
+- The per-tile census: `per_tile_counters` (the metrics record's
+  `fault.per_tile`), `health_tiles`, `log_histogram`, `per_tile_health`
+  and `per_tile_ages` (the `health` record's). Counts and histograms
+  are integer sums (torch.bucketize over the fixed edges, then an
+  integer bincount), equal to the reference's; leading config axes ride
+  through, so a sweep's stacked leaves give per-lane vectors.
 """
 from __future__ import annotations
 
@@ -288,3 +291,152 @@ def tiled_draw(key, shape, tiles, draw_fn):
         rows.append(torch.cat(blocks, dim=-1))
     out = torch.cat(rows, dim=-2)
     return from_im2col(out, shape).contiguous() if len(shape) > 2 else out
+
+
+# ---------------------------------------------------------------------------
+# the per-tile census (the observe `fault.per_tile` block and the
+# `health` record's sensor core)
+
+def _frac(count: torch.Tensor, cells: int) -> torch.Tensor:
+    """count / cells in f32 as the reference's jitted mean computes it:
+    the f32 count times the f32 reciprocal."""
+    return count.float() * float(np.float32(1) / np.float32(cells))
+
+
+def per_tile_counters(life: torch.Tensor, stuck: torch.Tensor,
+                      tiles: TileSpec, lanes: int = 0) -> dict:
+    """Per-tile census of ONE >=2-D fault leaf (a leading C axis under
+    `lanes`): broken-cell fraction, minimum remaining lifetime, and how
+    many broken cells read -1 / 0 / +1, per tile of the crossbar view
+    (a conv kernel over its im2col (K, N) view, whose dims ride as
+    "view"). Returns {"grid", "broken_frac", "life_min", "stuck_neg",
+    "stuck_zero", "stuck_pos"[, "view"]}, tile-major, each with the
+    lane axis first under lanes."""
+    nd = life.dim() - (1 if lanes else 0)
+    view = None
+    if nd > 2:
+        view = im2col_shape(tuple(life.shape[life.dim() - nd:]))
+        life, stuck = to_im2col(life, nd), to_im2col(stuck, nd)
+    shape = tuple(life.shape[-2:])
+    gr, gc = tiles.grid(shape)
+    cols = {k: [] for k in ("broken_frac", "life_min", "stuck_neg",
+                            "stuck_zero", "stuck_pos")}
+    for _, (r0, r1, c0, c1) in tiles.tile_slices(shape):
+        lt = life[..., r0:r1, c0:c1]
+        st = stuck[..., r0:r1, c0:c1]
+        broken = lt <= 0
+        cols["broken_frac"].append(
+            _frac(broken.sum((-2, -1)), (r1 - r0) * (c1 - c0)))
+        cols["life_min"].append(lt.amin((-2, -1)).float())
+        cols["stuck_neg"].append((broken & (st == -1.0)).sum((-2, -1)))
+        cols["stuck_zero"].append((broken & (st == 0.0)).sum((-2, -1)))
+        cols["stuck_pos"].append((broken & (st == 1.0)).sum((-2, -1)))
+    lead = tuple(life.shape[:-2])
+
+    def const(vals):
+        # host geometry: a CPU tensor, so the step copies nothing over
+        return torch.tensor(vals, dtype=torch.int64).expand(
+            lead + (len(vals),))
+    out = {"grid": const([gr, gc])}
+    out.update({k: torch.stack(v, dim=-1) for k, v in cols.items()})
+    if view is not None:
+        out["view"] = const(list(view))
+    return out
+
+
+def health_tiles(shape, tiles) -> Tuple[Tuple[int, int], list, List[int]]:
+    """Tile enumeration of the wear census over one STORED param shape:
+    ((gr, gc), [(r0, r1, c0, c1) or None per tile], [cells per tile]).
+    >=2-D shapes follow the TileSpec grid (None or the default: one
+    tile), conv kernels over their im2col view; 1-D targets (biases)
+    are one tile."""
+    if len(shape) >= 2 and tiles is not None and not tiles.is_default:
+        grid = tiles.grid(shape)
+        sls = [sl for _, sl in tiles.tile_slices(shape)]
+        cells = [(r1 - r0) * (c1 - c0) for r0, r1, c0, c1 in sls]
+        return grid, sls, cells
+    return (1, 1), [None], [int(np.prod([int(d) for d in shape]))]
+
+
+def _tile_view(arr, sl, param_ndim):
+    """One tile of `arr` (leading axes ride through)."""
+    if sl is None or param_ndim != 2:
+        return arr
+    r0, r1, c0, c1 = sl
+    return arr[..., r0:r1, c0:c1]
+
+
+def log_histogram(x: torch.Tensor, edges, axes) -> torch.Tensor:
+    """Counts of `x` over the census's fixed bins, on a new last axis:
+    bin 0 = (-inf, 0], bin i = (edges[i-1], edges[i]] with a leading
+    edge of 0, the last bin beyond the top edge; len(edges) + 2 bins.
+    torch.bucketize (right=False: the number of edges strictly below a
+    value, the reference's sum of `x > edge`) and an integer bincount,
+    int64."""
+    bounds = torch.tensor([0.0] + [float(e) for e in edges],
+                          dtype=x.dtype, device=x.device)
+    nb = len(bounds) + 1
+    nax = len(axes)
+    lead = tuple(x.shape[:x.dim() - nax])
+    cells = int(np.prod([int(d) for d in x.shape[x.dim() - nax:]]))
+    idx = torch.bucketize(x.contiguous(), bounds, right=False)
+    idx = idx.reshape(-1, cells)
+    rows = idx.shape[0]
+    idx = idx + torch.arange(rows, device=x.device).unsqueeze(1) * nb
+    counts = torch.bincount(idx.reshape(-1), minlength=rows * nb)
+    return counts.reshape(lead + (nb,))
+
+
+def per_tile_health(life: torch.Tensor, stuck: torch.Tensor, tiles, edges,
+                    param_ndim: int) -> dict:
+    """Per-tile wear census of ONE lifetime-bearing fault leaf:
+    remaining-lifetime histogram over `edges` (`log_histogram`; bin 0 =
+    broken), broken fraction, mean remaining lifetime, and the stuck
+    values of the broken cells. `param_ndim` is the STORED rank (2 =
+    a crossbar matrix on the tile grid, > 2 = a conv kernel on the grid
+    over its im2col view, 1 = one tile); leading axes ride through.
+    Returns {"life_hist": [..., T, B], "broken_frac"/"life_mean": f32
+    [..., T], "stuck_neg"/"stuck_zero"/"stuck_pos": [..., T]},
+    tile-major; the geometry comes from `health_tiles`."""
+    if param_ndim > 2:
+        life = to_im2col(life, param_ndim)
+        stuck = to_im2col(stuck, param_ndim)
+        param_ndim = 2
+    shape = tuple(life.shape[life.dim() - param_ndim:])
+    _, sls, cells = health_tiles(shape, tiles if param_ndim == 2 else None)
+    axes = (-2, -1) if param_ndim == 2 else (-1,)
+    cols = {k: [] for k in ("life_hist", "broken_frac", "life_mean",
+                            "stuck_neg", "stuck_zero", "stuck_pos")}
+    for sl, n in zip(sls, cells):
+        lt = _tile_view(life, sl, param_ndim)
+        st = _tile_view(stuck, sl, param_ndim)
+        broken = lt <= 0
+        cols["life_hist"].append(log_histogram(lt, edges, axes))
+        cols["broken_frac"].append(_frac(broken.sum(axes), n))
+        cols["life_mean"].append(lt.float().mean(axes))
+        cols["stuck_neg"].append((broken & (st == -1.0)).sum(axes))
+        cols["stuck_zero"].append((broken & (st == 0.0)).sum(axes))
+        cols["stuck_pos"].append((broken & (st == 1.0)).sum(axes))
+    return {k: torch.stack(v, dim=-2 if k == "life_hist" else -1)
+            for k, v in cols.items()}
+
+
+def per_tile_ages(age: torch.Tensor, tiles, edges, param_ndim: int) -> dict:
+    """Per-tile drift-age distribution of ONE age leaf (iterations since
+    the last write): the age histogram over `edges` (bin 0 = age <= 0),
+    mean and max age per tile; the layout of `per_tile_health`."""
+    if param_ndim > 2:
+        age = to_im2col(age, param_ndim)
+        param_ndim = 2
+    shape = tuple(age.shape[age.dim() - param_ndim:])
+    _, sls, _ = health_tiles(shape, tiles if param_ndim == 2 else None)
+    axes = (-2, -1) if param_ndim == 2 else (-1,)
+    hist, amean, amax = [], [], []
+    for sl in sls:
+        at = _tile_view(age, sl, param_ndim)
+        hist.append(log_histogram(at, edges, axes))
+        amean.append(at.float().mean(axes))
+        amax.append(at.float().amax(axes))
+    return {"age_hist": torch.stack(hist, dim=-2),
+            "age_mean": torch.stack(amean, dim=-1),
+            "age_max": torch.stack(amax, dim=-1)}

@@ -33,6 +33,27 @@ BASE_FLAGS = ("-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
 
 
+# this process's nvcc accounting (the observe `setup` record's compile
+# fields): seconds in nvcc, builds run, libraries loaded
+_BUILDS = {"seconds": 0.0, "builds": 0, "loaded": 0}
+
+
+def compile_seconds() -> float:
+    """Seconds of the nvcc builds this process ran, summed over the
+    builds (builds started together overlap)."""
+    return _BUILDS["seconds"]
+
+
+def builds() -> int:
+    """Kernel libraries this process has built with nvcc."""
+    return _BUILDS["builds"]
+
+
+def loaded() -> int:
+    """Kernel libraries this process has loaded (built or found)."""
+    return _BUILDS["loaded"]
+
+
 def nvcc_path() -> str:
     for cand in (os.environ.get("CUDA_HOME", ""), "/usr/local/cuda"):
         p = Path(cand) / "bin" / "nvcc"
@@ -98,6 +119,8 @@ class CudaLibrary:
         out, err = self._proc.communicate()
         rc, self._proc = self._proc.returncode, None
         self.build_seconds = time.perf_counter() - self._t0
+        _BUILDS["seconds"] += self.build_seconds
+        _BUILDS["builds"] += 1
         self.ptxas_log = (out + err).strip()
         if rc != 0:
             raise RuntimeError(f"nvcc failed on {self.source.name} "
@@ -114,6 +137,7 @@ class CudaLibrary:
                 fn.argtypes = list(argtypes)
                 fn.restype = ctypes.c_int
             self._lib = lib
+            _BUILDS["loaded"] += 1
         return self._lib
 
     def call(self, name: str, *args):

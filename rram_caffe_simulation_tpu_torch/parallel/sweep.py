@@ -2,8 +2,9 @@
 (counterpart of the reference package's parallel/sweep.py SweepRunner).
 
     runner = SweepRunner(solver, n_configs=512, engine="cuda",
-                         packed_state=True, dtype_policy="ternary")
-    losses = runner.step(iters, chunk=5)      # (C,) last-iteration losses
+                         packed_state=True, dtype_policy="ternary",
+                         pipeline_depth=2)
+    losses, outputs = runner.step(iters, chunk=5)   # the last iteration's
 
 Every config lane starts from the solver's params and SGD history and
 draws its own fault state, its lifetimes re-anchored to the lane's
@@ -53,28 +54,57 @@ seeded alike, before the iterations `_genetic_due_at` names (a chunk
 ends there), and never in a quarantined lane. `iter_size` > 1 feeds stacked host
 sub-batches (no device-resident dataset).
 
+The pipeline (`pipeline_depth`, the reference's async dispatch): None
+reads the results back only when `step()` returns; 0 does each chunk's
+bookkeeping inline (the host waits for the chunk's copies, then writes
+one record to the solver's metric sinks); >= 1 hands each chunk to an
+`OrderedConsumer` thread of that queue depth. After every chunk the
+dispatcher starts non-blocking copies of its losses, outputs and
+metrics into pinned host buffers and records an event; the consumer
+waits on the event (the GIL released) and reads the buffers, while the
+dispatcher goes on enqueueing the next chunk's kernels. Every depth runs
+the same kernels in the same order: results and records are equal bit
+for bit. `stall_timeout_s` turns a consumer that stops making progress
+into a `StallError` carrying an emergency checkpoint's path
+(`<snapshot_prefix>_sweep_stall_iter_N.ckpt.npz`).
+
+Telemetry: with `Solver.enable_metrics` before the runner is built, the
+step carries per-lane counters and each chunk writes one record (depth
+0 or more); `enable_tracing` records host spans (dispatch, submit_wait,
+consume, drain, checkpoint, restore, save_faults) that drain into the
+sinks at each step() return and export as a Chrome trace
+(`write_trace`); `health_every` runs the wear census over the resident
+banks every that many iterations (`health_summary`); `setup_record`
+is the observe `setup` record (dataset decode, kernel build, pipeline
+accounting, bytes per step).
+
 Not ported yet, each refused by name: mesh, config_block,
-remat_segments, compute_dtype, pipeline_depth, stall_timeout_s,
-health_every, self-healing, distributed checkpoints (writing), and a
-checkpoint of a runner whose lanes run the genetic strategy (the
-reference stores its search state as a pickle of its own classes).
+remat_segments, compute_dtype, precompile_chunk, a solver with
+debug_info, self-healing, the multi-process stall agreement,
+distributed checkpoints (writing), and a checkpoint of a runner whose
+lanes run the genetic strategy (the reference stores its search state
+as a pickle of its own classes).
 """
 from __future__ import annotations
 
 import copy
 import json
 import os
+import threading
+import time
 from typing import Dict, Optional
 
 import numpy as np
 import torch
 
 from .. import async_exec
+from ..cache import SetupStats
 from ..core import prng
 from ..data.feed import can_materialize, materialize_data_source
 from ..device import resolve_device
 from ..fault import engine as fault_engine
 from ..fault import packed as fault_packed
+from ..observe import counters as obs_counters
 from ..solver.solver import stack_batches
 
 SWEEP_ENGINES = ("auto", "cuda", "torch")
@@ -85,8 +115,7 @@ SWEEP_FOLD = 0xFA117    # the reference's fold of the solver key for the draw
 # constructor options of the reference runner this slice does not port,
 # with the value that means "off"
 UNPORTED_OPTIONS = {"mesh": None, "config_block": 0, "remat_segments": 0,
-                    "compute_dtype": None, "pipeline_depth": None,
-                    "stall_timeout_s": None, "health_every": 0}
+                    "compute_dtype": None, "precompile_chunk": 0}
 
 
 def _not_ported(what: str):
@@ -122,13 +151,20 @@ class SweepRunner:
     is "cuda" on a CUDA device. `packed_state`, `dtype_policy`,
     `fused_epilogue` and `conv_im2col` are the solver's step options;
     `conv_im2col_requested/_resolved/_reason` record the conv operand
-    mode that runs."""
+    mode that runs. `pipeline_depth`, `stall_timeout_s` and
+    `health_every` as in the module docstring. A context manager:
+    leaving it calls `close()`."""
 
     def __init__(self, solver, n_configs: int, means=None, stds=None,
                  preload: bool = True, engine: str = "auto",
                  packed_state: bool = False, dtype_policy=None,
                  fused_epilogue=None, device=None, conv_im2col=None,
-                 **options):
+                 pipeline_depth: Optional[int] = None,
+                 stall_timeout_s: Optional[float] = None,
+                 health_every: int = 0, **options):
+        if solver.param.debug_info:
+            _not_ported("debug_info (the per-blob trace and the numeric "
+                        "sentinels of every lane)")
         for name, value in options.items():
             if name not in UNPORTED_OPTIONS:
                 raise TypeError(f"SweepRunner got an unexpected option "
@@ -153,6 +189,42 @@ class SweepRunner:
         self.iter = 0
         self.last_losses: Optional[np.ndarray] = None
         self.chunk_losses: Optional[np.ndarray] = None   # (k, C)
+        # cold-start accounting (the observe `setup` record); made
+        # before the dataset decode and the first kernel build
+        self.setup = SetupStats()
+        self.pipeline = async_exec.PipelineStats(depth=pipeline_depth or 0)
+        self.setup.pipeline = self.pipeline
+        self._pipeline_on = pipeline_depth is not None
+        if pipeline_depth is not None and pipeline_depth < 0:
+            raise ValueError(f"pipeline_depth must be None or >= 0, got "
+                             f"{pipeline_depth!r}")
+        self._consumer = (
+            async_exec.OrderedConsumer(self._consume_chunk,
+                                       depth=pipeline_depth,
+                                       stall_timeout=stall_timeout_s)
+            if pipeline_depth else None)
+        self._last_host = None      # (losses, outputs) of the last chunk
+        self._pending = None        # depth None: the last chunk's tensors
+        self._record_t0 = None      # perf_counter at the last record
+        self._inline_write_s = 0.0
+        self._quar_seen: set = set()
+        self._stop = False          # a stall stopped the sweep
+        self._closed = False
+        self.last_metrics: dict = {}
+        # span tracing (enable_tracing): None = off, every site guarded
+        self._tracer = None
+        self._trace_dir = None
+        # the wear census every `health_every` iterations
+        self._health_every = int(health_every or 0)
+        if self._health_every < 0:
+            raise ValueError(f"health_every must be >= 0, got "
+                             f"{health_every!r}")
+        self._health_census = None
+        self._health_ledger = None
+        self._last_health_tick = None
+        if self._health_every:
+            from ..observe import health as obs_health
+            self._health_ledger = obs_health.HealthLedger()
         if engine == "auto":
             engine = "cuda" if self.device.type == "cuda" else "torch"
         self.engine = engine
@@ -201,11 +273,14 @@ class SweepRunner:
                 g._rng = np.random.RandomState(g.seed)
                 self._genetics.append(g)
 
+        # the metrics choice is fixed from here on (enable_metrics raises)
+        solver._step_baked = True
         self._step = solver.make_train_step(
             hw_engine=engine, dtype_policy=dtype_policy,
             fault_format="packed" if packed_state else "f32",
             pack_spec=self._pack_spec, fused_epilogue=fused_epilogue,
-            lanes=self.n, conv_im2col=conv_im2col)
+            lanes=self.n, conv_im2col=conv_im2col,
+            with_metrics=solver._metrics_enabled)
         self._noise = self._step.noise
         self.engine_resolved = self._step.hw_engine_resolved
         self.conv_im2col_requested = self._step.conv_im2col_requested
@@ -217,11 +292,13 @@ class SweepRunner:
         self._dataset = None
         self._ds_batch = self._ds_n = 0
         layer = self._materializable_layer() if preload else None
-        arrays = materialize_data_source(layer) if layer is not None \
-            else None
+        with self.setup.timed_decode():
+            arrays = (materialize_data_source(layer) if layer is not None
+                      else None)
+            if arrays is not None:
+                self._dataset = {k: torch.from_numpy(v).to(self.device)
+                                 for k, v in arrays.items()}
         if arrays is not None:
-            self._dataset = {k: torch.from_numpy(v).to(self.device)
-                             for k, v in arrays.items()}
             self._ds_batch = int(layer.lp.data_param.batch_size)
             self._ds_n = next(iter(arrays.values())).shape[0]
             self._arange = torch.arange(self._ds_batch, device=self.device)
@@ -247,28 +324,322 @@ class SweepRunner:
         idx = (self._arange + start) % self._ds_n
         return {k: a.index_select(0, idx) for k, a in self._dataset.items()}
 
-    def step(self, iters: int = 1, chunk: int = 1) -> np.ndarray:
-        """Run `iters` sweep iterations, `chunk` of them per host round
-        trip (the per-lane losses of a chunk are read back together,
-        into `chunk_losses`). Returns the last iteration's per-lane
-        losses, (C,)."""
+    def step(self, iters: int = 1, chunk: int = 1):
+        """Run `iters` sweep iterations, `chunk` of them a chunk (the
+        unit the pipeline hands to its bookkeeping: one record, one
+        read-back of the lanes' losses into `chunk_losses`). Returns the
+        last iteration's (losses (C,), {output: (C, ...)}) as host
+        arrays. A consumer failure is sticky and re-raises here; a
+        consumer stall raises `StallError` with an emergency checkpoint
+        (its `checkpoint_path`), and the sweep stops."""
+        try:
+            return self._step_impl(iters, chunk)
+        except async_exec.StallError as e:
+            raise self._on_stall(e) from None
+
+    def _step_impl(self, iters: int, chunk: int):
+        if self._stop:
+            # a stall stopped the sweep until restore()
+            return self._last_host if self._last_host is not None \
+                else (None, None)
+        if self._consumer is not None:
+            self._consumer.check()
+        tr = self._tracer
         done = 0
         while done < iters:
             self._maybe_genetic()
             k = self._genetic_chunk_cap(min(max(chunk, 1), iters - done))
-            losses = []
-            for _ in range(k):
-                p2, h2, f2, loss, _ = self._step(
+            t0 = time.perf_counter() if tr is not None else 0.0
+            losses, outputs, mets = [], {}, {}
+            for i in range(k):
+                # a chunk's record reads its last iteration's tree
+                out = self._step(
                     self.params, self.history, self.fault_states,
                     self._batch(self.iter), self.iter,
-                    self.lane_keys(self.iter))
+                    self.lane_keys(self.iter), record=i == k - 1)
+                p2, h2, f2, loss, outputs = out[:5]
+                mets = out[5] if len(out) > 5 else {}
                 self._commit(p2, h2, f2, loss)
                 losses.append(loss)
                 self.iter += 1
-            self.chunk_losses = torch.stack(losses).cpu().numpy()
-            self.last_losses = self.chunk_losses[-1]
+            if tr is not None:
+                # enqueueing the chunk's kernels (their device time is in
+                # a profiler trace, observe/trace.py)
+                tr.complete("dispatch", time.perf_counter() - t0,
+                            iteration=self.iter, args={"k": k})
+            self.last_metrics = mets
+            self._after_dispatch(k, self.iter - 1, losses, outputs, mets)
             done += k
-        return self.last_losses
+            self._maybe_health_boundary()
+        return self._finish_step()
+
+    def _after_dispatch(self, k, last_it, losses, outputs, mets):
+        """Hand one chunk's results to the bookkeeping: at depth None
+        keep them for step()'s return; otherwise start their host copies
+        (HostCopy: pinned buffers, an event) and submit them to the
+        consumer (depth >= 1, `host_blocked` counts the submit's
+        backpressure) or consume them inline (depth 0, `host_blocked`
+        counts the whole wait and the sinks)."""
+        self.pipeline.chunks += 1
+        if not self._pipeline_on:
+            self._pending = (losses, outputs)
+            return
+        item = (k, last_it, obs_counters.HostCopy({
+            "losses": torch.stack(losses), "outputs": outputs,
+            "metrics": mets, "quarantine": self.quarantine}))
+        tr = self._tracer
+        if self._consumer is not None:
+            blocked = self._consumer.submit(item)
+            self.pipeline.host_blocked_s += blocked
+            if tr is not None:
+                tr.complete("submit_wait", blocked, iteration=last_it,
+                            args={"k": k})
+        else:
+            t0 = time.perf_counter()
+            self._consume_chunk(item)
+            dt = time.perf_counter() - t0
+            self.pipeline.host_blocked_s += dt
+            if tr is not None:
+                tr.complete("consume", dt, cat="host", iteration=last_it,
+                            args={"k": k})
+
+    def _set_last_host(self, losses: torch.Tensor, outputs: dict):
+        """The host view of a chunk: (k, C) losses, the last iteration's
+        outputs."""
+        self.chunk_losses = losses.numpy()
+        self.last_losses = self.chunk_losses[-1]
+        self._last_host = (self.last_losses,
+                           {n: v.numpy() for n, v in outputs.items()})
+
+    def _consume_chunk(self, item):
+        """One chunk's bookkeeping, in chunk order (inline at depth 0,
+        on the consumer thread at depth >= 1): wait for its host copies,
+        refresh the last-result view, note new quarantines and write
+        one record to the solver's metric sinks."""
+        k, last_it, copy_ = item
+        host = copy_.wait()
+        self._set_last_host(host["losses"], host["outputs"])
+        qids = self._note_quarantine(host["quarantine"], last_it)
+        logger = (self.solver.metrics_logger
+                  if self.solver._metrics_enabled else None)
+        if logger is None or not host["metrics"]:
+            return
+        from ..observe import sink as obs_sink
+        mets = obs_counters.host_values(host["metrics"])
+        outs = {}
+        for name, v in self._last_host[1].items():
+            arr = np.ravel(v)
+            outs[name] = float(arr[0]) if arr.size == 1 else arr.tolist()
+        now = time.perf_counter()
+        elapsed = (now - self._record_t0
+                   if self._record_t0 is not None else None)
+        self._record_t0 = now
+        rec = obs_sink.make_record(iteration=last_it, metrics=mets,
+                                   outputs=outs, elapsed_s=elapsed,
+                                   n_iters=k, quarantine=qids or None)
+        self.pipeline.records += 1
+        logger.log(rec)
+
+    def _note_quarantine(self, quar: torch.Tensor, iteration: int) -> list:
+        """Announce lanes newly quarantined (once each) and return the
+        ids of every quarantined lane."""
+        ids = [int(i) for i in np.flatnonzero(quar.numpy())]
+        new = [i for i in ids if i not in self._quar_seen]
+        self._quar_seen.update(new)
+        for i in new:
+            if self._tracer is not None:
+                self._tracer.instant("quarantine", cat="healing",
+                                     iteration=int(iteration),
+                                     args={"lane": i, "config": i})
+            print(f"Sweep quarantine: config {i} went non-finite at "
+                  f"iteration {iteration} — updates frozen, healthy "
+                  "configs keep training", flush=True)
+        return ids
+
+    def _finish_step(self):
+        """step()'s barrier: drain the consumer (depth >= 1) or read the
+        last chunk back (depth None), drain the spans, run a due census;
+        returns the last iteration's host (losses, outputs)."""
+        if self._pipeline_on:
+            if self._consumer is not None:
+                waited = self._consumer.drain()
+                self.pipeline.drain_s += waited
+                if self._tracer is not None:
+                    self._tracer.complete("drain", waited,
+                                          iteration=self.iter)
+        elif self._pending is not None:
+            t0 = time.perf_counter()
+            losses, outputs = self._pending
+            self._pending = None
+            host = obs_counters.HostCopy(
+                {"losses": torch.stack(losses), "outputs": outputs}).wait()
+            self._set_last_host(host["losses"], host["outputs"])
+            self.pipeline.host_blocked_s += time.perf_counter() - t0
+        self._drain_spans()
+        self._maybe_health()
+        return self._last_host
+
+    def _drain_consumer(self):
+        """The consumer barrier (no-op without a consumer)."""
+        if self._consumer is not None:
+            self.pipeline.drain_s += self._consumer.drain()
+
+    def _on_stall(self, e: async_exec.StallError):
+        """A chunk's bookkeeping stalled: write a best-effort checkpoint
+        of the dispatcher's state without waiting on the stuck consumer,
+        abandon the consumer and stop the sweep (until restore())."""
+        path = (f"{self.solver.param.snapshot_prefix}"
+                f"_sweep_stall_iter_{self.iter}.ckpt.npz")
+        try:
+            self.checkpoint(path, _drain=False)
+            e.checkpoint_path = path
+            print(f"Sweep stalled; emergency checkpoint saved to {path}",
+                  flush=True)
+        except Exception:
+            pass
+        if self._consumer is not None:
+            self._consumer.abandon()
+        self._stop = True
+        return e
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        self.close()
+        return False
+
+    # ------------------------------------------------------------------
+    # telemetry: spans, the census, the setup record
+
+    def enable_tracing(self, tracer=None, profile_dir: Optional[str] = None,
+                       capacity: int = 0):
+        """Arm the host span tracer (observe/spans.py): dispatch,
+        submit_wait, consume and drain spans of every chunk across the
+        dispatcher and consumer threads, and checkpoint, restore,
+        save_faults and background write spans. Spans drain into the
+        solver's metric sinks at every step() return; `profile_dir`
+        sets where `write_trace()` (and `close()`) writes the Chrome
+        trace. Returns the tracer."""
+        from ..observe import spans as obs_spans
+        if tracer is None:
+            tracer = obs_spans.SpanTracer(
+                capacity=capacity or obs_spans.DEFAULT_CAPACITY)
+        self._tracer = tracer
+        if threading.current_thread() is threading.main_thread():
+            tracer.set_thread_role("dispatcher")
+        if self._consumer is not None:
+            self._consumer.tracer = tracer
+            self._consumer.span_name = "consume"
+        if self._bg_writer is not None:
+            self._bg_writer.tracer = tracer
+        if profile_dir is not None:
+            self._trace_dir = profile_dir
+        return tracer
+
+    def _drain_spans(self):
+        """Write the not-yet-drained span records to the metric sinks
+        (dispatcher thread, after a consumer barrier)."""
+        tr = self._tracer
+        logger = (self.solver.metrics_logger
+                  if self.solver._metrics_enabled else None)
+        if tr is None or logger is None:
+            return
+        for rec in tr.drain_records():
+            logger.log(rec)
+
+    def write_trace(self, path: Optional[str] = None) -> Optional[str]:
+        """Write the tracer's Chrome trace to `path` (default
+        `<profile_dir>/spans.p0.trace.json`); returns the path, None when
+        tracing is off or no destination is known."""
+        tr = self._tracer
+        if tr is None:
+            return None
+        if path is None:
+            if self._trace_dir is None:
+                return None
+            path = os.path.join(self._trace_dir,
+                                f"spans.p{tr.process_index}.trace.json")
+        return tr.write_chrome_trace(path)
+
+    def _maybe_health_boundary(self):
+        """Chunk-boundary census: when `iter` crossed a health_every
+        boundary, drain the consumer first (the census record must not
+        race its sink writes), then census."""
+        every = self._health_every
+        if not every:
+            return
+        tick = self.iter // every
+        if self._last_health_tick is not None \
+                and tick == self._last_health_tick:
+            return
+        self._drain_consumer()
+        self._maybe_health()
+
+    def _maybe_health(self):
+        """The census at a drained barrier when `iter` crossed a
+        health_every boundary since the last one (armed at the first
+        call: nothing has worn at build or restore time)."""
+        every = self._health_every
+        if not every:
+            return None
+        tick = self.iter // every
+        if self._last_health_tick is None:
+            self._last_health_tick = tick
+            return None
+        if tick == self._last_health_tick:
+            return None
+        self._last_health_tick = tick
+        from ..observe import health as obs_health
+        from ..observe import sink as obs_sink
+        solver = self.solver
+        if self._health_census is None:
+            self._health_census = obs_health.CensusProgram(
+                solver.tile_spec, stacked=True, pack_spec=self._pack_spec)
+        rec = obs_sink.make_health_record(
+            self.iter, self._health_census(self.fault_states),
+            process=fault_engine.PROCESS, every=every,
+            decrement=solver.fail_decrement,
+            life_edges=obs_health.LIFE_EDGES,
+            age_edges=obs_health.AGE_EDGES,
+            tiles=(None if solver.tile_spec.is_default
+                   else solver.tile_spec.canonical()),
+            lane_map=list(range(self.n)))
+        self._health_ledger.update(rec)
+        logger = (solver.metrics_logger
+                  if solver._metrics_enabled else None)
+        if logger is not None:
+            logger.log(rec)
+        return rec
+
+    def health_summary(self):
+        """HealthLedger.summary() of the censuses so far; None before the
+        first, or with health_every 0."""
+        if self._health_ledger is None:
+            return None
+        return self._health_ledger.summary()
+
+    def setup_record(self, setup_s: Optional[float] = None) -> dict:
+        """The observe `setup` record of this runner: dataset decode and
+        kernel build seconds, the compile state, the pipeline
+        accounting, bytes per step, the fault-bank format, the engine
+        that ran and the conv operand mode; `setup_s` is the caller's
+        total setup wall clock."""
+        if self._consumer is not None:
+            self.pipeline.consumer_s = self._consumer.consumer_s
+        self.pipeline.snapshot_write_s = self._inline_write_s + (
+            self._bg_writer.write_s if self._bg_writer is not None
+            else 0.0)
+        st = self.setup
+        st.bytes_per_step = self.bytes_per_step_est()
+        st.fault_format = "packed" if self._pack_spec is not None else "f32"
+        st.fault_model = {"spec": fault_engine.PROCESS}
+        st.engine = self.engine
+        st.conv_im2col = self.conv_im2col_resolved
+        st.conv_im2col_reason = self.conv_im2col_reason
+        cpb = self.conv_patch_bytes_est()
+        st.conv_patch_bytes = cpb if cpb else None
+        return st.record(setup_s)
 
     def _genetic_due_at(self, iteration: int) -> bool:
         """Whether the genetic search runs before `iteration`, in every
@@ -435,13 +806,16 @@ class SweepRunner:
     # durability: checkpoint / restore and the fault state files
 
     def _write(self, path: str, arrays: Dict[str, np.ndarray],
-               background: bool):
+               background: bool) -> float:
         """One atomic .npz write of host arrays, on the background
-        writer or inline."""
+        writer or inline; returns the inline seconds."""
         if background and self._bg_writer is None:
             self._bg_writer = async_exec.BackgroundWriter()
+            self._bg_writer.tracer = self._tracer
+        t0 = time.perf_counter()
         async_exec.write(path, _savez_writer(arrays),
                          self._bg_writer if background else None)
+        return 0.0 if background else time.perf_counter() - t0
 
     def save_fault_states(self, path: str, background: bool = True) -> str:
         """Write the config-stacked fault state to `path` as an .npz
@@ -455,7 +829,11 @@ class SweepRunner:
         if self._pack_spec is not None:
             flat = fault_packed.convert_flat(flat, to_packed=False,
                                              spec=self._pack_spec)
-        self._write(path, flat, background)
+        dt = self._write(path, flat, background)
+        self._inline_write_s += dt
+        if self._tracer is not None and not background:
+            self._tracer.complete("save_faults", dt, iteration=self.iter,
+                                  args={"path": os.path.basename(path)})
         return path
 
     def _state_arrays(self) -> Dict[str, torch.Tensor]:
@@ -517,14 +895,17 @@ class SweepRunner:
                 "lane_done": [int(self.iter)] * self.n}
 
     def checkpoint(self, path: str, background: bool = False,
-                   distributed: Optional[bool] = None) -> str:
+                   distributed: Optional[bool] = None,
+                   _drain: bool = True) -> str:
         """Write the whole resumable sweep state to `path`, one .npz
         (the reference's v6 layout: every `_state_arrays` leaf and
         `__meta__`, the meta as JSON bytes). The device fetch runs here;
         the write goes through a temp file and an atomic rename, on the
         background writer with `background=True`. A runner built with
         the same configuration continues from it bit for bit
-        (`restore`)."""
+        (`restore`). The pipeline is drained to a chunk boundary and
+        queued writes land first; `_drain=False` (the stall path) skips
+        every barrier that could wait on a stuck thread."""
         if distributed:
             _not_ported("checkpoint(distributed=True) (the v4 directory "
                         "layout is read by restore, not written)")
@@ -532,8 +913,11 @@ class SweepRunner:
             _not_ported("checkpoint of a sweep whose lanes run the genetic "
                         "strategy (the reference stores the search state as "
                         "a pickle of its own classes)")
-        self.wait_for_writes()
-        self.solver.wait_for_snapshots()
+        t_ckpt = time.perf_counter()
+        if _drain:
+            self._drain_consumer()
+            self.wait_for_writes()
+            self.solver.wait_for_snapshots()
         arrays = {name: _host_copy(v)
                   for name, v in self._state_arrays().items()}
         arrays["__meta__"] = np.frombuffer(
@@ -542,7 +926,12 @@ class SweepRunner:
             # a distributed checkpoint under this name: replaced
             import shutil
             shutil.rmtree(path)
-        self._write(path, arrays, background)
+        self.pipeline.checkpoint_write_s += self._write(path, arrays,
+                                                        background)
+        if self._tracer is not None:
+            self._tracer.complete("checkpoint", time.perf_counter() - t_ckpt,
+                                  iteration=self.iter,
+                                  args={"path": os.path.basename(path)})
         return path
 
     @staticmethod
@@ -604,6 +993,8 @@ class SweepRunner:
         raises. Fault leaves convert between the f32 and packed formats
         (`fault_packed.convert_flat`); every leaf lands contiguous, in
         the live leaf's dtype, on the runner's device."""
+        t_restore = time.perf_counter()
+        self._drain_consumer()
         self.wait_for_writes()
         self.solver.wait_for_snapshots()
         data, meta, gen = self._load_checkpoint_data(path)
@@ -692,6 +1083,16 @@ class SweepRunner:
         self._set_state_arrays(placed)
         self.iter = int(meta["iter"])
         self.last_losses = self.chunk_losses = None
+        self.last_metrics = {}
+        self._last_host = self._pending = self._record_t0 = None
+        self._quar_seen = {int(i) for i in meta.get("quarantined", [])}
+        # the next census comes at the next boundary after the restore
+        self._last_health_tick = None
+        self._stop = False
+        if self._tracer is not None:
+            self._tracer.complete("restore", time.perf_counter() - t_restore,
+                                  iteration=self.iter,
+                                  args={"path": os.path.basename(path)})
         return self
 
     def wait_for_writes(self):
@@ -701,11 +1102,22 @@ class SweepRunner:
             self._bg_writer.wait()
 
     def close(self):
-        """Land the queued writes and stop the writer thread (a writer
-        error re-raises here); later calls do nothing."""
+        """Drain the consumer, land the queued writes, drain the spans
+        and write the Chrome trace (with a profile_dir), then stop the
+        consumer and writer threads (a sticky error re-raises here);
+        later calls do nothing."""
+        if self._closed:
+            return
+        self._closed = True
         writer, self._bg_writer = self._bg_writer, None
-        if writer is not None:
-            try:
+        try:
+            self._drain_consumer()
+            if writer is not None:
                 writer.wait()
-            finally:
+            self._drain_spans()
+            self.write_trace()
+        finally:
+            if self._consumer is not None:
+                self._consumer.close()
+            if writer is not None:
                 writer.close()

@@ -69,9 +69,16 @@ gradient is zero and, at lr_mult = decay_mult = 0, every rule's update
 for them an exact 0. The test nets read them through
 `use_global_stats` and advance nothing.
 
-Not ported yet (a solver asking for one raises): `solve(fused_chunk=)`
-(step_fused), metrics, watchdog, health, data/tensor/pipeline
-parallelism and a sub-f32 compute dtype.
+Telemetry (observe/): `enable_metrics(*sinks)` builds the step with the
+in-step counters (loss, lr, gradient and update norms, the fault census,
+threshold-suppressed writes, per-tile counters under a tile spec), which
+stay on the device until a display boundary writes one record to every
+sink; `enable_health(every)` runs the wear census every `every`
+iterations, apart from the step, into the sinks and `health_ledger`.
+
+Not ported yet (a solver asking for one raises): `debug_info` (the deep
+trace), `solve(fused_chunk=)` (step_fused), the watchdog,
+data/tensor/pipeline parallelism and a sub-f32 compute dtype.
 """
 from __future__ import annotations
 
@@ -93,8 +100,10 @@ from ..fault import strategies as fault_strategies
 from ..fault.fused import (fused_update_fail_leaves,
                            fused_update_fail_leaves_plain)
 from ..fault.hw_aware import CONV_OPERANDS, perturb_weight, quantize_ste
+from ..fault import mapping as fault_mapping
 from ..fault.mapping import TileSpec, conv_geom
 from ..net.builder import Net
+from ..observe import counters as obs_counters
 from ..utils.io import (array_to_blob, blob_to_array, read_net_param,
                         read_proto_binary, read_solver_param,
                         write_proto_binary)
@@ -105,6 +114,34 @@ HW_ENGINES = ("auto", "cuda", "torch")
 NOISE_FOLD = 0x4A7      # the reference's fold of a step key into noise keys
 DTYPE_POLICY_BITS = {None: 0, "": 0, "f32": 0, "float32": 0, "ternary": 2,
                      "int8": 8}
+
+
+class _IntervalClock:
+    """The interval between two metrics records: training wall time
+    (test and snapshot time excluded by `exclude`), iterations, and the
+    per-step writes_saved device scalars summed into the record's
+    interval total. One lives on the Solver, so repeated `step(1)` calls
+    keep one interval."""
+
+    def __init__(self):
+        self.reset()
+
+    def reset(self, now: Optional[float] = None):
+        self.t0 = time.perf_counter() if now is None else now
+        self.excl = 0.0
+        self.n = 0
+        self.ws: list = []
+
+    def tick(self, k: int = 1, writes_saved=None):
+        self.n += k
+        if writes_saved is not None:
+            self.ws.append(writes_saved)
+
+    def exclude(self, t_start: float):
+        self.excl += time.perf_counter() - t_start
+
+    def elapsed(self, now: float) -> float:
+        return now - self.t0 - self.excl
 
 
 def fused_tail(fused_fn, keys, data, upd, fault_state):
@@ -279,6 +316,12 @@ class Solver:
                  tile_spec=None, conv_im2col=None):
         if isinstance(param, str):
             param = read_solver_param(param)
+        if param.debug_info:
+            raise NotImplementedError(
+                "Solver: debug_info is set, but the PyTorch/CUDA package "
+                "does not trace it yet (the per-blob [Forward]/[Backward]/"
+                "[Update] lines and the numeric sentinels); unset "
+                "debug_info to train without the trace")
         self.param = param
         self.device = resolve_device(device)
         self.type = U.resolve_solver_type(param)
@@ -397,10 +440,21 @@ class Solver:
                 self.fault_state, self.fail_decrement, pattern=pattern)
             self.fault_state = fault_packed.pack_state(self.fault_state,
                                                        self.pack_spec)
-        self._step_fn = self.make_train_step(
-            hw_engine=hw_engine, dtype_policy=dtype_policy,
-            fault_format=fault_format, pack_spec=self.pack_spec,
-            fused_epilogue=fused_epilogue)
+        # telemetry (enable_metrics / enable_health)
+        self.metrics_logger = None
+        self._metrics_enabled = False
+        self._mclock: Optional[_IntervalClock] = None
+        self._seed_logged = False
+        self._step_baked = False      # a step ran, or a sweep built one
+        self._health_every = 0
+        self._health_census = None
+        self._health_ledger = None
+        self._last_health_tick = None
+        self._step_opts = dict(hw_engine=hw_engine, dtype_policy=dtype_policy,
+                               fault_format=fault_format,
+                               pack_spec=self.pack_spec,
+                               fused_epilogue=fused_epilogue)
+        self._step_fn = self.make_train_step(**self._step_opts)
         self._snapshot_writer = None
 
     # ------------------------------------------------------------------
@@ -509,15 +563,23 @@ class Solver:
     def make_train_step(self, hw_engine: str = "auto", dtype_policy=None,
                         fault_format: str = "f32", pack_spec=None,
                         fused_epilogue=None, lanes: int = 0,
-                        conv_im2col=None):
+                        conv_im2col=None, with_metrics=None):
         """Build step(params, history, fault_state, batch, it, rng,
-        do_remap=None) -> (params', history', fault_state', loss,
-        outputs). `rng` is the step's key, fold_in(solver key, it) (under
-        lanes (C, 2), one per lane); fault key i reads with the noise key
-        `noise_keys(rng)[i]`, a crossbar read with its randint seed. The
-        solver's threshold and remapping strategies run inside it;
-        remapping on the iterations `_remap_due_at(it)` names, or where
-        `do_remap` says when it is given.
+        do_remap=None, record=True) -> (params', history', fault_state',
+        loss, outputs), and with the metrics on a sixth value, the
+        in-step metrics tree (`with_metrics`, default: whether
+        `enable_metrics` ran): loss, lr, grad_norm (over iter_size),
+        update_norm and, with a fault engine, `fault` (totals,
+        per_param, writes_saved, per_process, per_tile under a tile
+        spec), all device tensors, per lane under lanes. A step whose
+        tree no record reads passes `record=False`: its tree then holds
+        only `fault.writes_saved` (under a threshold strategy), which
+        the records sum over their interval. `rng` is the step's key, fold_in(solver
+        key, it) (under lanes (C, 2), one per lane); fault key i reads
+        with the noise key `noise_keys(rng)[i]`, a crossbar read with its
+        randint seed. The solver's threshold and remapping strategies run
+        inside it; remapping on the iterations `_remap_due_at(it)` names,
+        or where `do_remap` says when it is given.
 
         `lanes` = C > 0 builds the same step over C config lanes (the
         sweep, parallel/sweep.py): params, history and fault state carry
@@ -593,6 +655,9 @@ class Solver:
                              f"{fused_reason}")
         fused_fn = (fused_update_fail_leaves if use_kernel
                     else fused_update_fail_leaves_plain)
+        metrics_on = (self._metrics_enabled if with_metrics is None
+                      else bool(with_metrics))
+        tspec = self.tile_spec
 
         net = self.net
         owner_keys = [fault_engine.param_key(r.layer_name, r.slot)
@@ -625,13 +690,30 @@ class Solver:
                          for o in self.strategies.prune_orders]
                         if remap_on else None)
 
+        def life_view(fault_state):
+            """The f32 lifetimes of the fault leaves: the mid-bin view of
+            packed counters."""
+            if packed_on:
+                return {k: fault_packed.unpack_lifetimes(
+                            q, pack_spec["decrement"])
+                        for k, q in fault_state["life_q"].items()}
+            return fault_state["lifetimes"]
+
         def apply_strategy(data, upd, fault_state, it, do_remap):
             """ApplyStrategy (solver.cpp:302), in the reference's order:
-            threshold on the fault keys' updates, then remapping."""
+            threshold on the fault keys' updates, then remapping. Also
+            returns the writes the threshold suppressed (metrics on)."""
+            saved = None
             if threshold is not None:
-                upd = {**upd, **fault_strategies.threshold_diffs(
-                    {k: upd[k] for k in fault_keys}, lr_fn(it), lr_mults,
-                    threshold)}
+                before = {k: upd[k] for k in fault_keys}
+                after = fault_strategies.threshold_diffs(
+                    before, lr_fn(it), lr_mults, threshold)
+                if metrics_on:
+                    saved = obs_counters.write_traffic_saved(
+                        before, after, fault_engine.EPSILON32,
+                        lifetimes=life_view(fault_state) if has_fault
+                        else None, lanes=lanes)
+                upd = {**upd, **after}
             if remap_on and (self._remap_due_at(it) if do_remap is None
                              else do_remap):
                 view = (fault_packed.unpacked_view(fault_state, pack_spec,
@@ -646,7 +728,46 @@ class Solver:
                 else:
                     data, upd = fault_strategies.remap_fc_neurons(
                         data, upd, view, fc_pairs, prune_orders)
-            return data, upd, fault_state
+            return data, upd, fault_state, saved
+
+        def metrics_tree(loss, rate, grad_sumsq, upd, prev_life,
+                         fault_state, saved):
+            """The in-step telemetry (reference solver.py:1127-1180),
+            device tensors only: nothing here waits for the card."""
+            dev = loss.device
+            shape = (lanes,) if lanes else ()
+            metrics = {
+                "loss": loss.float(),
+                "lr": torch.full(shape, rate, dtype=torch.float32,
+                                 device=dev),
+                # over a device fill of iter_size: a tensor made from a
+                # host scalar would be a synchronizing copy
+                "grad_norm": U._sqrt(grad_sumsq) / torch.full_like(
+                    grad_sumsq, float(iter_size)),
+                "update_norm": U._sqrt(
+                    obs_counters.global_norm_sq(upd, lanes)),
+            }
+            if not has_fault:
+                return metrics
+            lv = life_view(fault_state)
+            totals, per = fault_engine.fault_counters(prev_life, lv, lanes)
+            totals["writes_saved"] = (
+                saved if saved is not None
+                else torch.zeros(shape, dtype=torch.int64, device=dev))
+            metrics["fault"] = {**totals, "per_param": per,
+                                "per_process": {fault_engine.PROCESS: {
+                                    "broken": totals["broken_total"]}}}
+            if not tspec.is_default:
+                pt = {}
+                for k in fault_keys:
+                    if lv[k].dim() - (1 if lanes else 0) < 2:
+                        continue
+                    pt[k] = fault_mapping.per_tile_counters(
+                        lv[k], broken_stuck(fault_state, k)[1], tspec,
+                        lanes)
+                if pt:
+                    metrics["fault"]["per_tile"] = pt
+            return metrics
 
         def broken_stuck(fault_state, k):
             if packed_on:
@@ -718,7 +839,8 @@ class Solver:
                 {k: advanced[k] for k in state_keys}
 
         def step(params, history, fault_state, batch, it, rng,
-                 do_remap=None):
+                 do_remap=None, record=True):
+            full = metrics_on and record
             # -- ForwardBackward x iter_size (solver.cpp:265-269) --
             if iter_size == 1:
                 loss, g, outputs, stats = forward_backward(
@@ -747,6 +869,8 @@ class Solver:
 
             # -- ComputeUpdate (sgd_solver.cpp:102-117) --
             rate = lr_fn(it)
+            grad_sumsq = (obs_counters.global_norm_sq(g, lanes)
+                          if full else None)
             if clip >= 0:
                 g = clip_gradients(g, clip, lanes)
             upd, new_hist = {}, {}
@@ -763,8 +887,8 @@ class Solver:
                                            it + 1)
 
             # -- ApplyStrategy (solver.cpp:302; strategy.cpp) --
-            data, upd, fault_state = apply_strategy(data, upd, fault_state,
-                                                    it, do_remap)
+            data, upd, fault_state, saved = apply_strategy(
+                data, upd, fault_state, it, do_remap)
 
             # -- ApplyUpdate (sgd_solver.cpp:119); under the fused
             # epilogue the fault leaves' subtract moves into Fail --
@@ -773,6 +897,8 @@ class Solver:
                     for k, v in data.items()}
 
             # -- Fail (solver.cpp:305; failure_maker.cu:23-40) --
+            prev_life = (life_view(fault_state)
+                         if full and has_fault else None)
             if has_fault:
                 if fused_on:
                     data, fault_state = fused_tail(fused_fn, fault_keys,
@@ -787,10 +913,18 @@ class Solver:
                         fp, fault_state = fault_engine.fail(
                             fp, fault_state, fd, decrement)
                     data.update(fp)
-            return (self._unflat(data, params), new_hist, fault_state, loss,
-                    outputs)
+            out = (self._unflat(data, params), new_hist, fault_state, loss,
+                   outputs)
+            if not metrics_on:
+                return out
+            if not record:
+                return out + ({"fault": {"writes_saved": saved}}
+                              if saved is not None else {},)
+            return out + (metrics_tree(loss, rate, grad_sumsq, upd,
+                                       prev_life, fault_state, saved),)
 
         step.noise = step_noise
+        step.with_metrics = metrics_on
         step.hw_engine_resolved = engine if crossbar_on else None
         step.fused_epilogue_resolved = fused_on
         step.fused_epilogue_reason = None if fused_on else fused_reason
@@ -849,39 +983,177 @@ class Solver:
 
     def step(self, iters: int):
         """Run `iters` training iterations (Solver::Step, solver.cpp:238);
-        the loss stays on the device until display or the end."""
+        the loss stays on the device until display or the end. With
+        metrics on, each display writes one record (the counters of the
+        display's step, writes_saved summed over the interval); with
+        health on, the census runs after the iterations its cadence
+        names."""
         param = self.param
         start_iter = self.iter
         average_loss = max(param.average_loss, 1)
         self.losses = []
         genetic = self.strategies.genetic
+        self._step_baked = True
+        # with display 0 no record is ever due: nothing is accumulated
+        track = self._metrics_enabled and bool(param.display)
+        clock = self._mclock if track else None
         for _ in range(iters):
             if (param.test_interval and self.iter % param.test_interval == 0
                     and (self.iter > 0 or param.test_initialization)):
+                t0 = time.perf_counter()
                 self.test_all()
+                if track:
+                    clock.exclude(t0)
             if genetic is not None and genetic.due():
                 self._apply_genetic(genetic)
             batch = self._next_batch()
-            (self.params, self.history, self.fault_state, loss,
-             self.last_outputs) = self._step_fn(
+            display = bool(param.display) and self.iter % param.display == 0
+            out = self._step_fn(
                 self.params, self.history, self.fault_state, batch,
-                self.iter, self._step_fn.noise.step_key(self._key, self.iter))
+                self.iter, self._step_fn.noise.step_key(self._key, self.iter),
+                record=track and display)
+            (self.params, self.history, self.fault_state, loss,
+             self.last_outputs) = out[:5]
+            metrics = out[5] if len(out) > 5 else {}
             self.last_loss = loss
             if len(self.losses) < average_loss:
                 self.losses.append(loss)
             else:
                 self.losses[(self.iter - start_iter) % average_loss] = loss
-            if param.display and self.iter % param.display == 0:
+            if track:
+                # a device scalar, summed at the next record
+                clock.tick(1, metrics["fault"]["writes_saved"]
+                           if "fault" in metrics else None)
+            if display:
                 self._materialize_smoothed_loss()
                 print(f"Iteration {self.iter}, lr = {self._lr_fn(self.iter):g}",
                       flush=True)
                 print(f"Iteration {self.iter}, loss = "
                       f"{self.smoothed_loss:g}", flush=True)
                 self._print_outputs(self.last_outputs)
+                if track:
+                    now = time.perf_counter()
+                    self._log_metrics_record(
+                        metrics, self.last_outputs, clock.elapsed(now),
+                        clock.n, writes_saved_acc=clock.ws)
+                    clock.reset(now)
             self.iter += 1
+            if self._health_every:
+                self._maybe_health()
             if param.snapshot and self.iter % param.snapshot == 0:
+                t0 = time.perf_counter()
                 self.snapshot()
+                if track:
+                    clock.exclude(t0)
         self._materialize_smoothed_loss()
+
+    # ------------------------------------------------------------------
+    # telemetry (observe/)
+
+    def enable_metrics(self, *sinks, logger=None):
+        """Attach metric sinks (observe/sink.py) and rebuild the step
+        with the in-step counters; one record per display interval goes
+        to every sink, the first with the run's seed. Call it before the
+        first step() and before building a SweepRunner on this solver:
+        after that it raises, as the reference's does once its step is
+        built."""
+        if self._step_baked:
+            raise ValueError(
+                "enable_metrics must be called before the train step is "
+                "built (before the first step() and before constructing "
+                "a SweepRunner)")
+        from ..observe.sink import MetricsLogger
+        self.metrics_logger = (logger if logger is not None
+                               else MetricsLogger(list(sinks)))
+        self._metrics_enabled = True
+        self._mclock = _IntervalClock()
+        self._step_fn = self.make_train_step(**self._step_opts)
+        return self.metrics_logger
+
+    def enable_health(self, every: int, threshold: Optional[float] = None):
+        """Arm the wear census (observe/health.py): every `every`
+        iterations a census of the fault state, apart from the step,
+        writes a `health` record to the metric sinks and feeds
+        `health_ledger`. Any time is fine (the step does not change);
+        `every=0` disarms. Needs a fault engine."""
+        every = int(every)
+        if every < 0:
+            raise ValueError(f"health_every must be >= 0, got {every}")
+        if every and self.fault_state is None:
+            raise ValueError(
+                "enable_health needs an active fault engine "
+                "(failure_pattern { type: 'gaussian' } and at least "
+                "one fault-target layer)")
+        from ..observe import health as obs_health
+        self._health_every = every
+        self._health_census = None
+        if every:
+            kw = ({"threshold": float(threshold)}
+                  if threshold is not None else {})
+            self._health_ledger = obs_health.HealthLedger(**kw)
+            self._last_health_tick = None
+        return self._health_ledger
+
+    @property
+    def health_ledger(self):
+        return self._health_ledger
+
+    def _maybe_health(self):
+        """The census when `iter` crossed a health_every boundary since
+        the last one (armed at the first call: the first census comes at
+        the next boundary)."""
+        every = self._health_every
+        if not every or self.fault_state is None:
+            return None
+        tick = self.iter // every
+        if self._last_health_tick is None:
+            self._last_health_tick = tick
+            return None
+        if tick == self._last_health_tick:
+            return None
+        self._last_health_tick = tick
+        from ..observe import health as obs_health
+        from ..observe import sink as obs_sink
+        if self._health_census is None:
+            self._health_census = obs_health.CensusProgram(
+                self.tile_spec, stacked=False, pack_spec=self.pack_spec)
+        params = self._health_census(self.fault_state)
+        rec = obs_sink.make_health_record(
+            self.iter, params, process=fault_engine.PROCESS, every=every,
+            decrement=self.fail_decrement,
+            life_edges=obs_health.LIFE_EDGES,
+            age_edges=obs_health.AGE_EDGES,
+            tiles=(None if self.tile_spec.is_default
+                   else self.tile_spec.canonical()))
+        if self.metrics_logger is not None:
+            self.metrics_logger.log(rec)
+        if self._health_ledger is not None:
+            self._health_ledger.update(rec)
+        return rec
+
+    def _log_metrics_record(self, metrics, outputs, elapsed_s, n_iters,
+                            iteration=None, writes_saved_acc=None):
+        """One record from the step's counters, the outputs and the
+        interval's summed writes_saved (int64 on the host), fetched in
+        one transfer at the display boundary; written to every sink."""
+        from ..observe import sink as obs_sink
+        names = [n for n in self.net.output_names if n in (outputs or {})]
+        host = obs_counters.to_host({
+            "m": metrics or {}, "ws": list(writes_saved_acc or []),
+            "o": {n: outputs[n].reshape(-1) for n in names}})
+        mets = host["m"]
+        if host["ws"] and "fault" in mets:
+            mets["fault"]["writes_saved"] = int(sum(
+                int(np.asarray(v, np.int64).sum()) for v in host["ws"]))
+        outs = {n: v[0] if len(v) == 1 else v for n, v in host["o"].items()}
+        rec = obs_sink.make_record(
+            iteration=self.iter if iteration is None else iteration,
+            metrics=mets, smoothed_loss=self.smoothed_loss, outputs=outs,
+            elapsed_s=elapsed_s, n_iters=n_iters,
+            seed=None if self._seed_logged else self.seed)
+        self._seed_logged = True
+        self.metrics_logger.log(rec)
+        return rec
 
     def solve(self, resume_file: Optional[str] = None,
               fused_chunk: Optional[int] = None):

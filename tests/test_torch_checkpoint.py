@@ -98,10 +98,10 @@ def test_continuation_is_bit_identical(tmp_path, packed):
     full = port(packed=packed)
     full.step(STEPS, chunk=STEPS)
     path = full.checkpoint(str(tmp_path / "sweep.ckpt.npz"))
-    want = [full.step(1).copy() for _ in range(STEPS)]
+    want = [full.step(1)[0].copy() for _ in range(STEPS)]
     fresh = port(start=STEPS, packed=packed)
     assert fresh.restore(path) is fresh and fresh.iter == STEPS
-    got = [fresh.step(1).copy() for _ in range(STEPS)]
+    got = [fresh.step(1)[0].copy() for _ in range(STEPS)]
     for g, w in zip(got, want):
         assert g.tobytes() == w.tobytes()
     assert_same_state(state_of(fresh), state_of(full))
@@ -151,7 +151,7 @@ def cross(tmp_path_factory):
         p = port()
         p.step(STEPS, chunk=STEPS)
         port_path = p.checkpoint(str(tmp / "port.ckpt.npz"))
-        port_cont = [p.step(1).copy() for _ in range(STEPS)]
+        port_cont = [p.step(1)[0].copy() for _ in range(STEPS)]
         ref._feed = feed_from(STEPS)
         ref.restore(port_path)
         assert ref.iter == STEPS
@@ -170,7 +170,7 @@ def test_reference_checkpoint_restores_into_the_port(cross):
     r.restore(cross["ref_path"])
     assert r.iter == STEPS
     for want in cross["ref_cont"]:
-        np.testing.assert_allclose(r.step(1), want, rtol=REL)
+        np.testing.assert_allclose(r.step(1)[0], want, rtol=REL)
     for k, q in r.fault_states["life_q"].items():
         np.testing.assert_array_equal(q.numpy(),
                                       cross["ref_banks"]["life_q"][k])
@@ -228,7 +228,7 @@ def test_format_conversion_on_restore(tmp_path, to_packed):
         if not k.startswith(("fault/", "__meta__")):
             assert got[k].tobytes() == v.tobytes(), k
     # and the converted state trains on
-    assert np.isfinite(dst.step(1)).all()
+    assert np.isfinite(dst.step(1)[0]).all()
 
 
 # ---------------------------------------------------------------------------

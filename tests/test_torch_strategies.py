@@ -355,7 +355,7 @@ def test_sweep_refuses_a_strategy_solver_by_name(monkeypatch, tmp_path):
             f'"{model_file}" }}')
     s = TSolver(tproto.parse(text, "SolverParameter"), device="cpu")
     r = SweepRunner(s, n_configs=2, device="cpu")
-    assert np.isfinite(r.step(2)).all()
+    assert np.isfinite(r.step(2)[0]).all()
     assert len(r._genetics) == 2
     with pytest.raises(NotImplementedError, match="genetic strategy"):
         r.checkpoint(str(tmp_path / "sweep.ckpt.npz"))

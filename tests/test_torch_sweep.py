@@ -143,7 +143,7 @@ def test_sweep_matches_reference(ref_engine):
                                                          ref.fault_states)))
 
     for _ in range(4):                                # 8 steps, chunk 2
-        got = port.step(2, chunk=2)
+        got = port.step(2, chunk=2)[0]
         want = np.asarray(ref.step(2, chunk=2)[0])
         np.testing.assert_allclose(got, want, rtol=1e-4)
         ref_banks = numpy_tree(ref.fault_states)["life_q"]
@@ -183,7 +183,7 @@ def test_lane_equals_single_config_solver():
         s.params, s.history, s.fault_state = sweep.lane_state(i)
         solvers.append(s)
     for _ in range(4):
-        losses = sweep.step(1)
+        losses = sweep.step(1)[0]
         for i, s in enumerate(solvers):
             s.step(1)
             assert float(s.last_loss) == pytest.approx(float(losses[i]),
@@ -200,7 +200,7 @@ def test_quarantine_freezes_a_nan_lane():
     before = poisoned.lane_state(1)
     for _ in range(2):
         clean.step(2, chunk=2)
-        got = poisoned.step(2, chunk=2)
+        got = poisoned.step(2, chunk=2)[0]
     assert list(poisoned.quarantined()) == [1]
     assert not np.isfinite(got[1])
     # the frozen lane kept its pre-step state
@@ -248,8 +248,8 @@ def test_device_dataset_follows_the_host_cursor_across_a_wrap(monkeypatch):
     assert r2._dataset is None
     r2.fault_states = {g: {k: v.clone() for k, v in grp.items()}
                        for g, grp in runner.fault_states.items()}
-    np.testing.assert_array_equal(runner.step(2, chunk=2),
-                                  r2.step(2, chunk=2))
+    np.testing.assert_array_equal(runner.step(2, chunk=2)[0],
+                                  r2.step(2, chunk=2)[0])
     assert runner.chunk_losses.shape == (2, 2)
 
 
@@ -357,10 +357,17 @@ def test_batched_crossbar_matches_reference_vmap(q_bits, x_per_lane):
 
 @pytest.mark.parametrize("option,value", [
     ("mesh", object()), ("config_block", 2), ("remat_segments", 2),
-    ("compute_dtype", "bfloat16"), ("pipeline_depth", 1),
-    ("stall_timeout_s", 5.0), ("health_every", 4)])
+    ("compute_dtype", "bfloat16"), ("precompile_chunk", 4),
+    ("debug_info", True)])
 def test_unported_options_raise_by_name(option, value):
     s = port_solver(cycling(batches(1)))
+    if option == "debug_info":
+        # a solver parameter, not a runner option: the Solver refuses
+        # it too, so it is set on the built solver's parameter
+        s.param.debug_info = value
+        with pytest.raises(NotImplementedError, match=option):
+            TSweep(s, 2, device="cpu")
+        return
     with pytest.raises(NotImplementedError, match=option):
         TSweep(s, 2, device="cpu", **{option: value})
 

@@ -222,7 +222,7 @@ def test_strategy_sweep_matches_reference(tmp_path, monkeypatch, kind):
             assert torch.equal(v, torch.arange(HIDDEN, dtype=torch.int32)
                                .repeat(C, 1))
     for _ in range(6):                               # held every step
-        losses = port.step(1)
+        losses = port.step(1)[0]
         with jax.enable_x64(False):
             ref_losses = ref.step(1)[0]
         assert_lanes_agree(port, ref, losses, ref_losses)
@@ -304,7 +304,7 @@ def test_remap_slots_round_trip_across_the_packages(tmp_path):
     for g, v in host(ref.fault_states)["remap_slots"].items():
         np.testing.assert_array_equal(port.fault_states["remap_slots"][g]
                                       .numpy(), v)
-    losses = port.step(2, chunk=2)        # a remap at 4
+    losses = port.step(2, chunk=2)[0]     # a remap at 4
     with jax.enable_x64(False):
         ref_losses = ref.step(2, chunk=2)[0]
         back_path = ref.checkpoint(str(tmp_path / "ref.ckpt.npz"))

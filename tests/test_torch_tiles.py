@@ -1013,7 +1013,7 @@ def test_tiled_sweep_matches_reference():
                                  np_tree(ref.fault_states))
     assert port.fault_states["life_q"]["conv1/0"].shape == (3, 3, 2, 3, 3)
     for _ in range(2):
-        got = port.step(2, chunk=2)
+        got = port.step(2, chunk=2)[0]
         want = np.asarray(ref.step(2, chunk=2)[0])
         np.testing.assert_allclose(got, want, rtol=1e-4)
         rb = np_tree(ref.fault_states)
@@ -1047,7 +1047,7 @@ def test_sweep_lane_equals_tiled_solver_and_modes_agree():
         s.params, s.history, s.fault_state = pre.lane_state(i)
         solvers.append(s)
     for _ in range(3):
-        lp, li = pre.step(1), imp.step(1)
+        lp, li = pre.step(1)[0], imp.step(1)[0]
         assert lp.tobytes() == li.tobytes()
         for i, s in enumerate(solvers):
             s.step(1)

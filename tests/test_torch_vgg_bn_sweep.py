@@ -139,7 +139,7 @@ def runs(tmp_path_factory):
         ref.fault_states = jax.tree.map(jax.numpy.asarray, f)
         got, want = [], []
         for _ in range(STEPS):
-            got.append(port.step(1).copy())
+            got.append(port.step(1)[0].copy())
             want.append(np.asarray(ref.step(1)[0]).copy())
         out = {"got": got, "want": want, "port": port,
                "ref_params": host_tree(ref.params),
@@ -161,7 +161,7 @@ def runs(tmp_path_factory):
         out["ref_cont_banks"] = host_tree(back.fault_states)
         back.close()
         ref.close()
-    out["port_cont"] = [port.step(1).copy() for _ in range(STEPS)]
+    out["port_cont"] = [port.step(1)[0].copy() for _ in range(STEPS)]
     return out
 
 
@@ -226,7 +226,7 @@ def test_reference_checkpoint_restores_into_the_port(runs):
     for k, v in leaves.items():
         assert v.dtype == data[k].dtype and v.tobytes() == data[k].tobytes(), k
     assert data["params/bn_fc1/2"].shape == (C, 1)
-    losses = r.step(1)
+    losses = r.step(1)[0]
     assert np.isfinite(losses).all()
 
 
@@ -243,7 +243,7 @@ def test_lanes_equal_single_config_solvers():
                           hw_engine="cuda") for i in (0, 2)}
     for _ in range(STEPS):
         states = {i: sweep.lane_state(i) for i in solvers}
-        losses = sweep.step(1)
+        losses = sweep.step(1)[0]
         for i, s in solvers.items():
             s.params, s.history, s.fault_state = states[i]
             s.step(1)
