@@ -13,6 +13,8 @@
                                           # strategies over the lanes
     python3 chip_smoke.py --phases 16     # the VGG11-BN template net
     python3 chip_smoke.py --phases 17     # the pipeline and the telemetry
+    python3 chip_smoke.py --phases 18     # config_block, evaluate,
+                                          # debug_info and the watchdog
     python3 chip_smoke.py --b2-path       # only time B2 through its wrapper
     python3 chip_smoke.py --b2t-path      # only time B2t (wrapper, kernel,
                                           # tile rows)
@@ -81,7 +83,7 @@ prints no "ok" line):
    RRAM_POOL_BWD=cuda, chunk 5: one warm chunk, a step at a time in
    lockstep with the torch engine (every lane's loss within 1e-5
    relative, the banks identical; a lane with no cell dead at init
-   within 0.05 of ln(10)), then 20 timed steps:
+   within 0.05 of ln(10)), then 10 timed steps:
    configs x steps per second, step time (median and quartiles, CUDA
    events between steps), peak device memory, bytes_per_step_est, the
    profiler's device busy time, and the launches per step whatever C
@@ -253,7 +255,32 @@ prints no "ok" line):
    checkpoint, which a new runner restores and continues bit for bit
    against a run that never stalled; (e) every JSONL line valid under
    the port's schema, the Chrome trace with its dispatcher and
-   chunk-consumer tracks.
+   chunk-consumer tracks;
+18. config_block, evaluate, debug_info and the watchdog: (a) the tiled
+   sweep (phase 11's) at C = 64 in blocks of 16 and the untiled sweep
+   (phase 7's) at C = 512 in blocks of 128, each against its unblocked
+   run from one seed (the watchdog armed, so every lane carries its
+   sentinels), 3 steps: every step's lane losses and every params,
+   history, life_q, stuck_bits and quarantine leaf and the sentinels
+   bit for bit (the float debug vectors' gap reported), the blocked run
+   launching each kernel the block count times a step; (b) the tiled
+   sweep at C = 512 in blocks of 64, one warm and 5 timed steps:
+   configs x steps per second, step median and
+   quartiles (CUDA events), peak memory, beside phase 11's C = 64; (c)
+   the VGG11-BN sweep (phase 16's) at the largest of C = 512 and 256
+   that fits, in blocks of 64, one warm and one timed step: configs x
+   steps per second, resident and peak memory, beside phase 16's; (d)
+   evaluate at C = 512 (on (a)'s blocked untiled runner) on a test
+   batch: lanes 0, 1, 255 and 511 equal to a single-config forward of
+   their params (loss within 1e-5 relative, accuracy equal), its time;
+   (e) phase 4's Solver with debug_info, 3 steps, each through the kernel
+   and the torch engine from the same state: the lines in the
+   reference's shapes, the debug vectors within 1e-5 relative, B2 2 and
+   B1 1 a step with debug on and off; (f) the watchdog: a Solver with a
+   NaN base_lr halts after iteration 0 naming conv1's update; a C = 8
+   sweep in blocks of 4 with lane 5 poisoned quarantines lane 5 alone by
+   its sentinel, "halt" stops it (also across step() calls), "snapshot"
+   writes a checkpoint that restores.
 
 Then a JSON line of the step's numbers, a JSON line of the sweep's, one
 JSON line of per-kernel numbers (per training step, summed over the
@@ -269,8 +296,8 @@ B3's passes by device activity at C = 1 and the tiled sweep's C, a JSON
 line "rng" of phase 13's numbers, a JSON line "formats" of phase 14's,
 a JSON line "solver_rest" of phase 15's (printed when it ends), a JSON
 line "vgg11" of phase 16's (printed when it ends, and again), a JSON
-line "telemetry" of phase 17's, the
-card's name and power limit, and last {"ok": true, "device":
+line "telemetry" of phase 17's, a JSON line "blocks" of phase 18's,
+the card's name and power limit, and last {"ok": true, "device":
 {...}}.
 B2t has a row at each path's shapes: C = 1 (the tiled slice) and C
 lanes (the tiled sweep). Phase 12 prints its numbers as a JSON line
@@ -1543,7 +1570,7 @@ def sweep_runner(C, mean, std, engine="cuda", seed=1, strategies=(),
 
 SWEEP_CONFIGS = 512              # the reference bench's sweep width
 SWEEP_CHUNK = 5
-SWEEP_STEPS = 20                 # timed steps of phase 7
+SWEEP_STEPS = 10                 # timed steps of phases 7 and 11
 
 
 def _launches():
@@ -5534,6 +5561,474 @@ def phase_telemetry(gpu):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 18: config_block, evaluate, debug_info and the watchdog
+
+BLOCK_STEPS = 3                  # (a)'s steps of each runner
+BLOCK_TIMED = 5                  # (b)'s timed steps, after one warm step
+BLOCK_CONFIGS = 512              # (b)'s tiled sweep and (d)'s evaluate
+BLOCK = 64                       # (b)'s and (c)'s lanes a block
+VGG_BLOCK_CONFIGS = (512, 256)   # (c): the largest that fits is taken
+VGG_BLOCK_TIMED = 1              # (c)'s timed step (8 blocks), after a warm
+                                 # one (setup draws 786M cells, about 26 s)
+EVAL_LANES = (0, 1, 255, 511)    # (d)'s lanes held to a single config
+DEBUG_STEPS = 3                  # (e)'s lockstep steps
+DEBUG_REL = 1e-5                 # (e): debug values, kernel against plain
+WATCH_CONFIGS = 8                # (f)'s sweep
+DEBUG_LINES = (                  # the reference's debug_info line shapes
+    r"    \[Forward\] Layer \S+, (top|param) blob \S+ data: \S+$",
+    r"    \[Backward\] Layer \S+, (bottom|param) blob \S+ diff: \S+$",
+    r"    \[Backward\] All net params \(data, diff\): L1 norm = "
+    r"\(\S+, \S+\); L2 norm = \(\S+, \S+\)$",
+    r"    \[Update\] Layer \S+, param \S+ data: \S+; diff: \S+$")
+
+
+def _iteration_events(r, events):
+    """Wrap the runner's iteration so a CUDA event is recorded on the
+    stream after each one (all its blocks): the gaps are the step times
+    on the device's timeline, with no host synchronization."""
+    import torch
+    inner = r._iteration
+
+    def iteration(*a, **kw):
+        out = inner(*a, **kw)
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append(ev)
+        return out
+    r._iteration = iteration
+
+
+def _debug_host(r):
+    """The last iteration's debug vectors of a runner, on the host."""
+    return {k: (v.detach().cpu() if not isinstance(v, dict) else
+                {kk: vv.detach().cpu() for kk, vv in v.items()})
+            for k, v in r.last_metrics["debug"].items()}
+
+
+def blocked_pair(make, C, B, steps, per_step, after=None):
+    """(a): runners from `make()` (one seed; the solver's watchdog armed,
+    so every lane carries its sentinels) unblocked and in blocks of B,
+    `steps` steps each, a step at a time: every step's lane losses, and
+    at the end every params, history, fault-bank and quarantine leaf and
+    the sentinels, bit for bit; the blocked run launching `per_step`
+    times C / B a step. `after(runner)` then runs on the blocked
+    runner."""
+    import torch
+    from rram_caffe_simulation_tpu_torch import kernels
+    runs = []
+    for block in (0, B):
+        r = make(block)
+        check(len(r._blocks) == (C // B if block else 1),
+              f"C = {C} in blocks of {block}: {len(r._blocks)} blocks")
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        losses = [r.step(1)[0].copy() for _ in range(steps)]
+        dt = time.perf_counter() - t0
+        launches = _launches()
+        runs.append((losses, _host_leaves(r), _debug_host(r), launches, dt))
+        if block and after is not None:
+            runs[-1] += (after(r),)
+        r.close()
+        del r
+        torch.cuda.empty_cache()
+    (la, sa, da, _, ta), (lb, sb, db, lnb, tb) = runs[0], runs[1][:5]
+    for i, (x, y) in enumerate(zip(la, lb)):
+        check(x.tobytes() == y.tobytes(),
+              f"C = {C}, blocks of {B}: step {i}'s losses differ from the "
+              f"unblocked run's ({int((x != y).sum())} lanes)")
+    differ = _leaves_differ(sa, sb)
+    check(not differ, f"C = {C}, blocks of {B}: leaves differ from the "
+          f"unblocked run's: {differ[:6]}")
+    for k, v in da["sentinel"].items():
+        check(_same_bits(v, db["sentinel"][k]), f"C = {C}, blocks of {B}: "
+              f"sentinel {k} differs")
+    # the float trace vectors are per-lane reductions, whose CUDA kernels
+    # lay out their sums by the output count: reported, not held
+    trace_rel = max(float(((da[k] - db[k]).abs()
+                           / db[k].abs().clamp_min(1e-30)).max())
+                    for k in da if k != "sentinel")
+    G = C // B
+    want = {k: n * G * steps for k, n in per_step.items()}
+    check(lnb == want, f"C = {C}, blocks of {B}: launches {lnb} in "
+          f"{steps} steps, expected {want}")
+    return {"configs": C, "block": B, "steps": steps,
+            "launches_a_step": {k: n // steps for k, n in lnb.items()},
+            "trace_rel_max": trace_rel, "unblocked_s": ta, "blocked_s": tb,
+            "after": runs[1][5] if after is not None else None}
+
+
+def _watchdog_solver(make_solver, policy):
+    s = make_solver()
+    s.enable_watchdog(policy)
+    return s
+
+
+def blocks_identity(gpu):
+    """(a) the tiled sweep (phase 11's) at C = 64 in blocks of 16 and
+    the untiled sweep (phase 7's) at C = 512 in blocks of 128, each
+    against its unblocked run; (d) on the blocked untiled runner."""
+    from rram_caffe_simulation_tpu_torch.parallel import SweepRunner
+
+    def tiled(block):
+        return SweepRunner(
+            _watchdog_solver(lambda: slice_solver(1e8, 3e7, tiled=True),
+                             "halt"),
+            n_configs=TILED_SWEEP_CONFIGS, engine="cuda",
+            packed_state=True, dtype_policy="ternary",
+            conv_im2col="implicit", config_block=block)
+
+    def untiled(block):
+        return SweepRunner(
+            _watchdog_solver(lambda: slice_solver(1e8, 3e7), "halt"),
+            n_configs=SWEEP_CONFIGS, engine="cuda", packed_state=True,
+            dtype_policy="ternary", config_block=block)
+    out = {"tiled": blocked_pair(tiled, TILED_SWEEP_CONFIGS, 16,
+                                 BLOCK_STEPS,
+                                 _tiled_per_step(TILED_SWEEP_CONFIGS)),
+           "untiled": blocked_pair(untiled, SWEEP_CONFIGS, 128, BLOCK_STEPS,
+                                   _untiled(B2=2, B1=1, B4=1),
+                                   lambda r: blocks_evaluate(r, gpu))}
+    for name, res in out.items():
+        print(f"phase 18: (a) {name} sweep, C = {res['configs']} in blocks "
+              f"of {res['block']}, {res['steps']} steps: losses, params, "
+              f"history, banks, quarantine and sentinel vectors bit for bit "
+              f"the unblocked run's (the float debug vectors within "
+              f"{res['trace_rel_max']:.2e} relative); launches a step "
+              f"{res['launches_a_step']}; {gpu}", flush=True)
+    return out
+
+
+def blocks_tiled_wide(gpu, phase11):
+    """(b) the tiled sweep at C = 512 in blocks of 64: one warm and
+    BLOCK_TIMED timed steps."""
+    import torch
+    from rram_caffe_simulation_tpu_torch import kernels
+    from rram_caffe_simulation_tpu_torch.parallel import SweepRunner
+    C = BLOCK_CONFIGS
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    r = SweepRunner(slice_solver(1e8, 3e7, tiled=True), n_configs=C,
+                    engine="cuda", packed_state=True, dtype_policy="ternary",
+                    conv_im2col="implicit", config_block=BLOCK)
+    setup_s = time.perf_counter() - t0
+    warm = r.step(1)[0]
+    check(bool(np.isfinite(warm).all()), "(b) non-finite warm loss")
+    events = []
+    _iteration_events(r, events)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    kernels.reset_launches()
+    start.record()
+    t0 = time.perf_counter()
+    losses = r.step(BLOCK_TIMED, chunk=BLOCK_TIMED)[0]
+    wall = time.perf_counter() - t0
+    launches = _launches()
+    step_ms = [a.elapsed_time(b) for a, b in zip([start] + events[:-1],
+                                                 events)]
+    G = C // BLOCK
+    want = {k: v * G * BLOCK_TIMED
+            for k, v in _tiled_per_step(C).items()}
+    check(losses.shape == (C,) and bool(np.isfinite(losses).all()),
+          "(b) non-finite or misshapen losses")
+    check(launches == want, f"(b) launches {launches}, expected {want}")
+    q1, med, q3 = (float(v) for v in np.percentile(step_ms, [25, 50, 75]))
+    out = {"configs": C, "block": BLOCK, "timed_steps": BLOCK_TIMED,
+           "configs_steps_per_s": C * BLOCK_TIMED / wall, "wall_s": wall,
+           "step_ms_median": med, "step_ms_q1": q1, "step_ms_q3": q3,
+           "peak_mem_bytes": int(torch.cuda.max_memory_allocated()),
+           "setup_s": setup_s, "launches": launches}
+    r.close()
+    del r
+    torch.cuda.empty_cache()
+    beside = ("phase 11 in this run: C = {configs}, {configs_steps_per_s:.1f}"
+              " configs*steps/s, step median {step_ms_median:.3f} ms, peak "
+              "{peak:.2f} GB".format(peak=phase11["peak_mem_bytes"] / 1e9,
+                                     **phase11)
+              if phase11 else "phase 11 not run")
+    print(f"phase 18: (b) tiled sweep, C = {C} in blocks of {BLOCK} "
+          f"({TILES}, ADC 8 bits, implicit operand, N(1e8, 3e7), ternary, "
+          f"packed, fused, RRAM_POOL_BWD=cuda): "
+          f"{out['configs_steps_per_s']:.1f} configs*steps/s over "
+          f"{BLOCK_TIMED} steps; step median {med:.3f} ms (quartiles "
+          f"{q1:.3f} / {q3:.3f}); peak memory "
+          f"{out['peak_mem_bytes'] / 1e9:.2f} GB; launches {launches}; "
+          f"{beside}; {gpu}", flush=True)
+    return out
+
+
+def blocks_vgg(gpu, phase16):
+    """(c) the VGG11-BN sweep at the largest of VGG_BLOCK_CONFIGS that
+    fits, in blocks of 64: one warm and VGG_BLOCK_TIMED timed steps."""
+    import torch
+    from rram_caffe_simulation_tpu_torch import kernels
+    from rram_caffe_simulation_tpu_torch.parallel import SweepRunner
+    r, tried = None, []
+    for C in VGG_BLOCK_CONFIGS:
+        try:
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            r = SweepRunner(vgg_solver(seed=4), n_configs=C, engine="cuda",
+                            packed_state=True, config_block=BLOCK)
+            resident = torch.cuda.memory_allocated()
+            setup_s = time.perf_counter() - t0
+            r.step(1)
+            torch.cuda.synchronize()
+            warm_s = time.perf_counter() - t0 - setup_s
+            break
+        except torch.cuda.OutOfMemoryError:
+            r = None
+            tried.append(C)
+            torch.cuda.empty_cache()
+            print(f"phase 18: (c) VGG11 C = {C} does not fit", flush=True)
+    check(r is not None, "(c) no VGG11 width of "
+          f"{VGG_BLOCK_CONFIGS} fits the card in blocks of {BLOCK}")
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    r.step(VGG_BLOCK_TIMED, chunk=VGG_BLOCK_TIMED)
+    wall = time.perf_counter() - t0
+    launches = _launches()
+    n, G = VGG_BLOCK_TIMED, C // BLOCK
+    check(launches == _untiled(B2=3 * G * n, B1=G * n, B4=5 * G * n),
+          f"(c) launches {launches}, expected B2 3, B1 1, B4 5 a block")
+    check(bool(np.isfinite(r.last_losses).all()), "(c) non-finite lane")
+    out = {"configs": C, "block": BLOCK, "did_not_fit": tried,
+           "timed_steps": n, "configs_steps_per_s": C * n / wall,
+           "step_ms": wall / n * 1e3, "resident_bytes": int(resident),
+           "setup_s": setup_s, "warm_step_s": warm_s,
+           "peak_mem_bytes": int(torch.cuda.max_memory_allocated()),
+           "launches": launches}
+    r.close()
+    del r
+    torch.cuda.empty_cache()
+    beside = (f"phase 16 in this run: C = {phase16['configs']}, "
+              f"{phase16['configs_steps_per_s']:.2f} configs*steps/s, peak "
+              f"{phase16['peak_bytes'] / 1e9:.2f} GB" if phase16
+              else "phase 16 not run")
+    print(f"phase 18: (c) VGG11-BN sweep, C = {C} in blocks of {BLOCK}: "
+          f"{out['configs_steps_per_s']:.2f} configs*steps/s, step "
+          f"{out['step_ms']:.1f} ms (setup {setup_s:.1f} s, warm step "
+          f"{warm_s:.1f} s); resident state "
+          f"{resident / 1e9:.2f} GB, peak memory "
+          f"{out['peak_mem_bytes'] / 1e9:.2f} GB; launches {launches}; "
+          f"{beside}; {gpu}", flush=True)
+    return out
+
+
+def blocks_evaluate(r, gpu):
+    """(d) evaluate at C = 512 untiled (the runner `r`, after its steps)
+    on the test net's batch: lanes EVAL_LANES against a single-config
+    forward of their params (loss within DEBUG_REL relative, accuracy
+    equal)."""
+    import torch
+    s = r.solver
+    check(r.n == BLOCK_CONFIGS, f"(d) evaluate at C = {r.n}")
+    batch = s.test_feeds[0]()
+    r.evaluate(batch)                      # the first call builds nothing
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = r.evaluate(batch)
+    eval_s = time.perf_counter() - t0
+    net, ctx = s.test_nets[0], s._test_context()
+    feed = {k: torch.as_tensor(np.asarray(v)).to(r.device) for k, v in
+            batch.items()}
+    check(all(v.shape[0] == BLOCK_CONFIGS for v in got.values()),
+          f"(d) evaluate's outputs {[v.shape for v in got.values()]}")
+    worst = 0.0
+    for i in EVAL_LANES:
+        with torch.no_grad():
+            blobs, _ = net.apply(r.lane_state(i)[0], feed, **ctx)
+        for name, v in got.items():
+            want = float(blobs[name])
+            rel = abs(float(v[i]) - want) / max(abs(want), 1e-30)
+            worst = max(worst, rel) if name == "loss" else worst
+            ok = rel <= DEBUG_REL if name == "loss" else float(v[i]) == want
+            check(ok, f"(d) lane {i}'s {name} {float(v[i])} against the "
+                  f"single-config forward's {want}")
+    out = {"configs": BLOCK_CONFIGS, "outputs": sorted(got),
+           "evaluate_s": eval_s, "lanes": list(EVAL_LANES),
+           "loss_rel_max": worst,
+           "accuracy_range": [float(got["accuracy"].min()),
+                              float(got["accuracy"].max())]
+           if "accuracy" in got else None}
+    print(f"phase 18: (d) evaluate, C = {BLOCK_CONFIGS}, the test net on "
+          f"{len(next(iter(batch.values())))} images: {eval_s * 1e3:.1f} "
+          f"ms; lanes {list(EVAL_LANES)} equal to a single-config forward "
+          f"(loss within {worst:.2e} relative, limit {DEBUG_REL}; accuracy "
+          f"equal); {gpu}", flush=True)
+    return out
+
+
+def blocks_debug(gpu):
+    """(e) phase 4's Solver with debug_info: DEBUG_STEPS steps, each
+    through the kernel step and the torch engine's from the same state,
+    batch and key: the printed lines in the reference's shapes, the
+    debug vectors within DEBUG_REL relative (sentinels equal); the
+    launches a step with debug on and off phase 4's (B2 2, B1 1)."""
+    # phase 4's Solver runs autograd's max-pool backward, its default
+    saved = os.environ.pop("RRAM_POOL_BWD", None)
+    try:
+        return _blocks_debug(gpu)
+    finally:
+        if saved is not None:
+            os.environ["RRAM_POOL_BWD"] = saved
+
+
+def _blocks_debug(gpu):
+    import io
+    import re
+    import torch
+    from rram_caffe_simulation_tpu_torch import kernels
+    s = slice_solver(1e8, 3e7, fields={"debug_info": True})
+    plain = s.make_train_step(hw_engine="torch", dtype_policy="ternary",
+                              fault_format="packed", pack_spec=s.pack_spec,
+                              fused_epilogue=True)
+    shapes = [re.compile(p) for p in DEBUG_LINES]
+    worst, lines = 0.0, 0
+    kernels.reset_launches()
+    for _ in range(DEBUG_STEPS):
+        batch = s._next_batch()
+        key = s._step_fn.noise.step_key(s._key, s.iter)
+        state = (s.params, s.history, s.fault_state)
+        launched = _launches()
+        out = s._step_fn(*state, batch, s.iter, key)
+        mine = _launches()
+        check({k: mine[k] - launched[k] for k in mine} == _untiled(
+            B2=2, B1=1, B4=0), f"(e) the debug step launched "
+            f"{ {k: mine[k] - launched[k] for k in mine} }")
+        ref = plain(*state, batch, s.iter, key)
+        for k, v in out[5]["debug"].items():
+            w = ref[5]["debug"][k]
+            if k == "sentinel":
+                for kk in v:
+                    check(torch.equal(v[kk], w[kk]), f"(e) sentinel {kk}")
+                continue
+            rel = float(((v - w).abs() / w.abs().clamp_min(1e-30)).max())
+            worst = max(worst, rel)
+            check(rel <= DEBUG_REL, f"(e) debug vector {k}: kernel and "
+                  f"plain paths {rel:.2e} apart")
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            s._process_debug(out[5]["debug"])
+        text = buf.getvalue().splitlines()
+        check(text and all(any(p.match(t) for p in shapes) for t in text),
+              f"(e) a line not in the reference's shapes: {text[:3]}")
+        lines += len(text)
+        s.params, s.history, s.fault_state = out[:3]
+        s.iter += 1
+    off = slice_solver(1e8, 3e7)
+    kernels.reset_launches()
+    off.step(DEBUG_STEPS)
+    check(_launches() == _untiled(B2=2 * DEBUG_STEPS, B1=DEBUG_STEPS, B4=0),
+          f"(e) debug off launched {_launches()}, phase 4's is B2 2, B1 1 "
+          "a step")
+    print(f"phase 18: (e) debug_info on phase 4's Solver, {DEBUG_STEPS} "
+          f"steps: {lines} lines in the reference's shapes; debug vectors "
+          f"of the kernel and plain paths within {worst:.2e} relative "
+          f"(limit {DEBUG_REL}), sentinels equal; B2 2, B1 1 a step with "
+          f"debug on and off; {gpu}", flush=True)
+    return {"steps": DEBUG_STEPS, "lines": lines, "rel_max": worst}
+
+
+def blocks_watchdog(gpu, tmp):
+    """(f) the watchdog: a Solver with a poisoned rate halts naming the
+    first bad layer; a C = 8 sweep with lane 5 poisoned quarantines that
+    lane alone, "halt" stops it (also across step() calls), "snapshot"
+    checkpoints it and the file restores."""
+    import io
+    import torch
+    from rram_caffe_simulation_tpu_torch.parallel import SweepRunner
+    s = slice_solver(300.0, 50.0, fields={"base_lr": float("nan")})
+    s.param.snapshot_prefix = str(tmp / "lr")
+    s.enable_watchdog("halt")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        s.step(5)
+    text = buf.getvalue()
+    check(s.iter == 1 and "Watchdog tripped at iteration 0: update phase, "
+          "layer conv1, param 0" in text,
+          f"(f) the poisoned rate: iter {s.iter}, {text[-300:]!r}")
+    out = {"solver_iter": s.iter}
+    for policy in ("halt", "snapshot"):
+        sv = slice_solver(300.0, 50.0, seed=5)
+        sv.param.snapshot_prefix = str(tmp / policy)
+        sv.enable_watchdog(policy)
+        r = SweepRunner(sv, n_configs=WATCH_CONFIGS, engine="cuda",
+                        packed_state=True, dtype_policy="ternary",
+                        pipeline_depth=0, config_block=4)
+        r.params["ip2"][0][5].view(-1)[0] = float("nan")
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            r.step(3)
+            it = r.iter
+            r.step(2)
+        text = buf.getvalue()
+        check(r.quarantined().tolist() == [5], f"(f) {policy}: quarantined "
+              f"{r.quarantined().tolist()}")
+        check("config 5 went non-finite at iteration 0 (forward phase, "
+              "layer ip2, top blob ip2)" in text, f"(f) {policy}: "
+              f"{text[:300]!r}")
+        if policy == "halt":
+            check(it == r.iter == 1 and "stopping the sweep" in text,
+                  f"(f) halt: iterations {it}, {r.iter}")
+        else:
+            path = str(tmp / "snapshot_sweep_iter_1.ckpt.npz")
+            check(r.iter == 5 and os.path.exists(path), f"(f) snapshot: "
+                  f"iteration {r.iter}, {os.listdir(tmp)}")
+            again = SweepRunner(slice_solver(300.0, 50.0, seed=5),
+                                n_configs=WATCH_CONFIGS, engine="cuda",
+                                packed_state=True, dtype_policy="ternary")
+            again.restore(path)
+            check(again.iter == 1 and again.quarantined().tolist() == [5],
+                  "(f) the watchdog's checkpoint did not restore")
+            again.close()
+        out[policy] = {"iter": r.iter, "quarantined": [5]}
+        r.close()
+    torch.cuda.empty_cache()
+    print(f"phase 18: (f) watchdog: the poisoned rate halted the Solver "
+          f"after iteration 0 at conv1's update; the C = {WATCH_CONFIGS} "
+          f"sweep (blocks of 4) quarantined lane 5 alone by its sentinel, "
+          f"halt stopped it at iteration 1, snapshot wrote a checkpoint at "
+          f"iteration 1 that restores; {gpu}", flush=True)
+    return out
+
+
+def phase_blocks(gpu, phase11=None, phase16=None):
+    """Phase 18: config_block (a) identity, (b) the tiled sweep at
+    C = 512, (c) VGG11-BN at the largest C that fits; (d) evaluate;
+    (e) debug_info; (f) the watchdog."""
+    import tempfile
+    import torch
+    t0 = time.perf_counter()
+    saved = os.environ.get("RRAM_POOL_BWD")
+    os.environ["RRAM_POOL_BWD"] = "cuda"
+    part = {}
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+            out = {}
+            for name, fn in (
+                    ("identity", lambda: blocks_identity(gpu)),
+                    ("tiled_512", lambda: blocks_tiled_wide(gpu, phase11)),
+                    ("vgg", lambda: blocks_vgg(gpu, phase16)),
+                    ("debug", lambda: blocks_debug(gpu)),
+                    ("watchdog", lambda: blocks_watchdog(gpu, Path(tmp)))):
+                t1 = time.perf_counter()
+                out[name] = fn()
+                part[name] = time.perf_counter() - t1
+    finally:
+        if saved is None:
+            os.environ.pop("RRAM_POOL_BWD", None)
+        else:
+            os.environ["RRAM_POOL_BWD"] = saved
+    torch.cuda.empty_cache()
+    out["evaluate"] = out["identity"]["untiled"].pop("after")
+    out.update(part_s=part, phase_s=time.perf_counter() - t0, gpu=gpu)
+    print(f"phase 18: {json.dumps(part)}", flush=True)
+    return out
+
+
 def timed_checkout(path: str) -> int:
     """Run another checkout's chip_smoke.py in full, each of its phase_*
     functions timed, and print their wall seconds as one JSON line: the
@@ -5574,7 +6069,7 @@ def main(argv=None) -> int:
                    help="training steps of the slice phase (default 50)")
     p.add_argument("--transition-steps", type=int, default=6)
     p.add_argument("--phases", default="all",
-                   help="comma-separated phases 2-17 to run after the "
+                   help="comma-separated phases 2-18 to run after the "
                         "build (default all; only a full run prints the "
                         "per-kernel line and the ok line)")
     p.add_argument("--b2-path", action="store_true",
@@ -5610,7 +6105,7 @@ def main(argv=None) -> int:
                         "print their seconds as JSON")
     args = p.parse_args(argv)
     t_main = time.perf_counter()
-    every = set(range(2, 18))
+    every = set(range(2, 19))
     want = every if args.phases == "all" else {
         int(v) for v in args.phases.split(",")}
 
@@ -5739,6 +6234,10 @@ def main(argv=None) -> int:
         vgg = timed(16, phase_vgg, device, gpu)
     if 17 in want:
         telemetry = timed(17, phase_telemetry, gpu)
+    if 18 in want:
+        blocks = timed(18, phase_blocks, gpu,
+                       tiled_sweep if 11 in want else None,
+                       vgg["sweep"] if 16 in want else None)
     if want != every:
         print(f"phases {sorted(want)} passed; no ok line for a partial run",
               flush=True)
@@ -5893,6 +6392,7 @@ def main(argv=None) -> int:
     print(json.dumps({"formats": formats}))
     print(json.dumps({"vgg11": vgg}))
     print(json.dumps({"telemetry": telemetry}))
+    print(json.dumps({"blocks": blocks}))
     print(json.dumps({"phase_s": {**{str(n): v for n, v in phase_s.items()},
                                   "kernels_line": time.perf_counter() - t_rows,
                                   "script": time.perf_counter() - t_main}}))

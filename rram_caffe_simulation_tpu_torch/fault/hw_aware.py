@@ -44,7 +44,9 @@ tensor ops (equal bits, Box-Muller equal up to libm's last ulp).
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import threading
 
 import numpy as np
 import torch
@@ -308,6 +310,24 @@ def b2_plan(C: int, M: int, K: int, N: int):
     return 32, splits
 
 
+_PLAN = threading.local()
+
+
+@contextlib.contextmanager
+def planned_lanes(lanes: int):
+    """Plan every kernel B2 call made inside (on this thread) as if it
+    ran at least `lanes` lanes: the sweep's config_block runs its blocks
+    inside the plan of the whole sweep, so a block's lanes take the
+    unblocked run's split-K and sum in its order (the tile rows do not
+    move bits; the split does)."""
+    prev = getattr(_PLAN, "lanes", 0)
+    _PLAN.lanes = int(lanes)
+    try:
+        yield
+    finally:
+        _PLAN.lanes = prev
+
+
 def b2t_plan(C: int, M: int, K: int, N: int, bk: int) -> int:
     """Tile rows of kernel B2t's GEMM pass for a shape and its K-tile
     depth bk: a block per lane, K-tile, row block and column block writes
@@ -365,7 +385,7 @@ def _launch_b2(x, w, broken, stuck, seeds, sigma, q_bits, eps):
     C, K, N = w.shape
     M = x.shape[-2]
     levels = q_levels(q_bits)
-    bm, splits = b2_plan(C, M, K, N)
+    bm, splits = b2_plan(max(C, getattr(_PLAN, "lanes", 0)), M, K, N)
     if C * splits >= 2 ** 31 or -(-M // bm) > 65535 or -(-N // B2_BN) > 65535:
         raise ValueError(f"crossbar: shape C,M,K,N = {(C, M, K, N)} exceeds "
                          "the kernel grid")

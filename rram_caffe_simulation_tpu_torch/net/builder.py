@@ -180,6 +180,32 @@ class Net:
         return {k for k in keys if k.endswith("/1")
                 and self.feeds_batchnorm(k.rsplit("/", 1)[0])}
 
+    def laned_blobs(self) -> set:
+        """The blobs `apply(lanes=C)` returns laned, the lane axis folded
+        in: every top of a layer with params or a laned bottom, the rest
+        (blobs computed from the data alone) shared by every lane."""
+        laned = set()
+        for layer in self.layers:
+            if layer.is_data_source:
+                continue
+            out = (layer.num_params() > 0
+                   or any(b in laned for b in layer.lp.bottom))
+            for t in layer.lp.top:
+                (laned.add if out else laned.discard)(t)
+        return laned
+
+    def lanes_first(self, name: str, v: torch.Tensor, lanes: int,
+                    laned: bool) -> torch.Tensor:
+        """Blob `name` as apply(lanes=C) returns it, with the lanes on a
+        leading axis, (C,) + its per-config shape; a blob no lane
+        changes is repeated for every lane."""
+        shape = tuple(self.blob_shapes[name])
+        if not laned:
+            return v.unsqueeze(0).expand((lanes,) + tuple(v.shape))
+        if shape == ():
+            return v
+        return v.reshape((shape[0], lanes) + shape[1:]).movedim(1, 0)
+
     def init(self, key) -> dict:
         """Draw every owner layer's parameters from the threefry key
         `key` (core/prng.py) on the net's device, in layer order: each
@@ -214,7 +240,9 @@ class Net:
     def apply(self, params, batch: Optional[dict] = None,
               adc_bits: int = 0, crossbar: Optional[dict] = None,
               lanes: int = 0, tiles: Optional[dict] = None,
-              conv_im2col: Optional[str] = None, with_updates: bool = False):
+              conv_im2col: Optional[str] = None, with_updates: bool = False,
+              probes: Optional[dict] = None,
+              trace_sites: Optional[dict] = None):
         """Run the net; returns (blobs, loss), or (blobs, loss,
         new_params) `with_updates`: `params` with the forward-state
         updates (BatchNorm's moving statistics) in place of the layers'
@@ -229,8 +257,19 @@ class Net:
         computed from params is "laned": a per-config blob of shape
         (d0, d1, ...) is held as (d0, C*d1, ...), lane-major along axis
         1, and a per-config scalar (a loss) as (C,). The loss is then
-        one value per lane, (C,)."""
+        one value per lane, (C,).
+
+        The `debug_info` capture points (observe/debug.py; both off by
+        default, and then nothing is added): `probes` maps (layer, top)
+        production sites to zero tensors added to that top as it is
+        produced, so the gradient with respect to a probe is the blob's
+        cotangent at that site; `trace_sites`, a dict, receives the
+        mean-abs of every computed top under the same site, and of
+        every fed data top under ("__data__", top) when it is fed (per
+        lane under `lanes`)."""
         batch = batch or {}
+        if trace_sites is not None:
+            from ..observe.debug import blob_mean_abs
         ctx = LayerContext(phase=self.phase, adc_bits=adc_bits,
                            crossbar=crossbar, lanes=lanes, tiles=tiles,
                            conv_im2col=conv_im2col,
@@ -240,6 +279,11 @@ class Net:
         for name in self.data_source_tops:
             if name in batch:
                 blobs[name] = batch[name]
+                if trace_sites is not None:
+                    # captured when fed: an in-place layer on a data top
+                    # must not alias the data layer's own line
+                    trace_sites[("__data__", name)] = blob_mean_abs(
+                        batch[name], lanes)
         for layer in self.layers:
             if layer.is_data_source:
                 continue
@@ -256,6 +300,13 @@ class Net:
             tops = layer.apply(self._gather_layer_params(params, layer),
                                [blobs[b] for b in layer.lp.bottom], ctx)
             for t, v in zip(layer.lp.top, tops):
+                if probes is not None:
+                    probe = probes.get((layer.name, t))
+                    if probe is not None:
+                        v = v + probe.to(v.dtype)
+                if trace_sites is not None:
+                    trace_sites[(layer.name, t)] = blob_mean_abs(
+                        v, lanes, out_laned, self.blob_shapes[t] == ())
                 blobs[t] = v
                 (laned.add if out_laned else laned.discard)(t)
         loss = torch.zeros((lanes,) if lanes else (), dtype=torch.float32,

@@ -3,15 +3,17 @@ emitter (counterpart of the reference package's observe/sink.py).
 
 The logger is a plain registry: `MetricsLogger([sink, ...]).log(record)`
 fans a record out to every sink. Records are built with `make_record`,
-`make_setup_record` and `make_health_record` (schema.py documents the
-shapes) and are plain dicts of Python scalars, so any sink is a few
-lines.
+`make_setup_record`, `make_health_record` and
+`make_fault_redraw_record` (schema.py documents the shapes) and are
+plain dicts of Python scalars, so any sink is a few lines.
 
 `CaffeLogSink` emits glog-prefixed lines with the shapes the reference
 solver printed ("Iteration N, lr = X", "Iteration N, loss = X", "    Train
 net output #j: name = v", after a timestamped "Solving <net>" banner), so
-the Caffe log tools scrape it unchanged; `setup`, `span` and `health`
-records become one line each.
+the Caffe log tools scrape it unchanged; `setup`, `span`, `health`,
+`fault_redraw` and `sentinel` records become one line each, and a
+`debug_trace` record the reference's `debug_info` lines
+(`debug_trace_lines`).
 """
 from __future__ import annotations
 
@@ -98,6 +100,38 @@ def make_health_record(iteration: int, params: dict, process: str,
     if lane_map is not None:
         rec["lane_map"] = [int(i) for i in lane_map]
     return rec
+
+
+def make_fault_redraw_record(iteration: int, snapshot: str,
+                             reason: str,
+                             tiles: Optional[str] = None) -> dict:
+    """The restore-fallback announcement (schema.py
+    FAULT_REDRAW_FIELDS): a snapshot with no fault-state file resumed
+    with the construction-time fresh draw. `tiles` is the active
+    canonical tile spec (a redraw under a non-default grid re-rolls
+    every tile's draw)."""
+    rec = {
+        "schema_version": SCHEMA_VERSION,
+        "type": "fault_redraw",
+        "iter": int(iteration),
+        "wall_time": time.time(),
+        "snapshot": str(snapshot),
+        "reason": str(reason),
+    }
+    if tiles is not None:
+        rec["tiles"] = str(tiles)
+    return rec
+
+
+def fault_redraw_line(record: dict) -> str:
+    """One-line text form of a `fault_redraw` record."""
+    tiles = ""
+    if record.get("tiles"):
+        tiles = f" under tile mapping {record['tiles']}"
+    return (f"Fault state RE-DRAWN at iteration {record.get('iter')}"
+            f"{tiles}: {record.get('reason')} (expected "
+            f"{record.get('snapshot')}); resumed degradation will NOT "
+            "match the pre-snapshot trajectory")
 
 
 def _flat_max(v):
@@ -334,6 +368,41 @@ def _span_line(record: dict) -> str:
     return span_line(record)
 
 
+def debug_trace_lines(record: dict) -> list:
+    """The reference's `debug_info` lines of a `debug_trace` record
+    (net.cpp:618-668 ForwardDebugInfo / BackwardDebugInfo /
+    UpdateDebugInfo and Net::Backward's all-params totals): the solver
+    prints them, `CaffeLogSink` writes them glog-prefixed."""
+    lines = []
+    for e in record.get("forward", ()):
+        kind = "top blob" if e["kind"] == "top" else "param blob"
+        lines.append(f"    [Forward] Layer {e['layer']}, {kind} "
+                     f"{e['blob']} data: {e['value']:g}")
+    for e in record.get("backward", ()):
+        kind = "bottom blob" if e["kind"] == "bottom" else "param blob"
+        lines.append(f"    [Backward] Layer {e['layer']}, {kind} "
+                     f"{e['blob']} diff: {e['value']:g}")
+    l1 = record.get("params_l1", (0.0, 0.0))
+    l2 = record.get("params_l2", (0.0, 0.0))
+    lines.append(f"    [Backward] All net params (data, diff): "
+                 f"L1 norm = ({l1[0]:g}, {l1[1]:g}); "
+                 f"L2 norm = ({l2[0]:g}, {l2[1]:g})")
+    for e in record.get("update", ()):
+        lines.append(f"    [Update] Layer {e['layer']}, param "
+                     f"{e['param']} data: {e['data']:g}; "
+                     f"diff: {e['diff']:g}")
+    return lines
+
+
+def sentinel_line(record: dict) -> str:
+    """One-line text form of a `sentinel` record."""
+    flags = ", ".join(f for f in ("nan", "inf", "overflow")
+                      if record.get(f))
+    where = record.get("entry") or record.get("phase", "?")
+    return (f"Numeric sentinel tripped at iteration {record['iter']}: "
+            f"{record.get('phase')} phase, {where} [{flags or 'loss'}]")
+
+
 class CaffeLogSink:
     """Caffe/glog-format text emitter (see module docstring). The banner
     and every line carry a glog timestamp prefix so elapsed-seconds
@@ -380,8 +449,14 @@ class CaffeLogSink:
 
     def write(self, record: dict):
         rtype = record.get("type")
+        if rtype == "debug_trace":
+            for text in debug_trace_lines(record):
+                self._emit(text)
+            self._maybe_flush()
+            return
         line = {"setup": setup_line, "health": health_line,
-                "span": _span_line}.get(rtype)
+                "span": _span_line, "fault_redraw": fault_redraw_line,
+                "sentinel": sentinel_line}.get(rtype)
         if line is not None:
             self._emit(line(record))
             self._maybe_flush()

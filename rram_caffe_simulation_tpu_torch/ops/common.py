@@ -8,6 +8,8 @@ Under config lanes the weight is (C, num_output, K): a laned bottom
 (N, C*ch, ...) is read as (C, N, K) (each lane in Caffe's flatten
 order), the product is one batched matmul, or one launch of kernel B2
 through `crossbar_matmul_lanes`, and the top is laned (N, C*num_output).
+The bias gradient sums each (lane, output)'s rows as one contiguous row
+(`_LaneBias`), so it does not depend on how many lanes share the call.
 
 A layer the tile mapping names (ctx.tiles, cells per tile over the
 stored weight) reads its (K, N) view through per-tile ADCs: kernel B2t
@@ -31,6 +33,23 @@ from ..core.registry import Layer, register_layer
 from ..fault.hw_aware import (crossbar_matmul, crossbar_matmul_lanes,
                               quantize_ste, tiled_crossbar_matmul)
 from ._util import flat_shape_from
+
+
+class _LaneBias(torch.autograd.Function):
+    """y (C, M, N) + b (C, N) lane by lane, whose backward sums each
+    (lane, output)'s M cotangents as one contiguous row: autograd's
+    broadcast reduction over M sums in an order that depends on how many
+    lanes share the call (the sweep's config_block)."""
+
+    @staticmethod
+    def forward(ctx, y, b):
+        return y + b[:, None, :]
+
+    @staticmethod
+    def backward(ctx, g):
+        gb = g.transpose(1, 2).contiguous().sum(-1) \
+            if ctx.needs_input_grad[1] else None
+        return g, gb
 
 
 @register_layer("InnerProduct")
@@ -131,7 +150,7 @@ class InnerProductLayer(Layer):
         if ctx.adc_bits and tiles is None:
             y = quantize_ste(y, ctx.adc_bits, lanes=C)
         if self.bias_term:
-            y = y + params[1][:, None, :]
+            y = _LaneBias.apply(y, params[1])
         return [y.transpose(0, 1).reshape(M, C * self.num_output)]
 
 

@@ -99,7 +99,10 @@ class SoftmaxWithLossLayer(Layer):
 @register_layer("Accuracy")
 class AccuracyLayer(Layer):
     """Top-k accuracy with ignore_label and the optional per-class top;
-    an evaluation output, outside the objective."""
+    an evaluation output, outside the objective. Under config lanes a
+    laned bottom (N, C*ch, ...) gives one accuracy per lane, a (C,) top;
+    the per-class top has no laned form yet and raises there."""
+    lane_rule = "own"
 
     def setup(self, bottom_shapes):
         ap = self.lp.accuracy_param
@@ -115,17 +118,33 @@ class AccuracyLayer(Layer):
 
     def apply(self, params, bottoms, ctx):
         x, labels = bottoms[0].detach(), bottoms[1]
-        xm = torch.movedim(x, self.axis, -1)
-        lab = labels.reshape(xm.shape[:-1]).long()
+        C = ctx.lanes if ctx.lanes and ctx.laned[0] else 0
+        if C:
+            if len(self.top_shapes) > 1:
+                raise NotImplementedError(
+                    f"layer {self.name!r} (Accuracy): the per-class top "
+                    "over config lanes is not ported")
+            # (N, C*ch, ...) -> (C, N, ch, ...): the lane axis leads
+            x = torch.movedim(x.reshape((x.shape[0], C, -1)
+                                        + tuple(x.shape[2:])), 1, 0)
+        xm = torch.movedim(x, self.axis + (1 if C else 0), -1)
+        lab = labels.reshape(xm.shape[1 if C else 0:-1]).long()
+        lab = lab.expand(xm.shape[:-1])            # shared by every lane
         score_true = torch.gather(xm, -1, lab.unsqueeze(-1))
         # correct when fewer than top_k classes score strictly higher
         correct = (xm > score_true).sum(-1) < self.top_k
+        # per lane: the sums over each lane's samples
+        lane = (lambda t: t.reshape(C, -1)) if C else (
+            lambda t: t.reshape(1, -1))
         if self.ignore_label is not None:
             mask = lab != self.ignore_label
-            acc = (correct & mask).sum() / mask.sum().clamp_min(1)
+            acc = (lane(correct & mask).sum(1)
+                   / lane(mask).sum(1).clamp_min(1))
         else:
             mask = torch.ones_like(correct)
-            acc = correct.to(x.dtype).mean()
+            acc = lane(correct.to(x.dtype)).mean(1)
+        if not C:
+            acc = acc[0]
         tops = [acc.to(x.dtype)]
         if len(self.top_shapes) > 1:
             flat = lab.reshape(-1)

@@ -14,8 +14,19 @@ default is XLA's; "cuda" is kernel B4).
 
 Config lanes (the sweep): a laned blob folds the lanes into channels,
 (N, C*ch, H, W), lane-major, so a convolution runs every lane in one
-grouped call (groups = C * group; a shared bottom feeds a group-1
-convolution directly) and pooling needs no change.
+grouped call (groups = C * group; a bottom every lane shares is
+repeated once per lane) and pooling needs no change. A lane's result
+must not depend on how many lanes share the call (the sweep's
+config_block), so: on CPU tensors the call runs without oneDNN
+(`_PerGroupConv2d`: oneDNN's grouped weight gradient sums in an order
+that depends on the group count, ATen's own path computes each group
+alone); a bottom every lane shares is, on the card, one group-1 forward
+call whose weight gradient runs as batched im2col GEMMs of LANE_CHUNK
+lanes each (`_SharedBottomConv2d`: cuDNN splits a group-1 call's
+weight-gradient sums by its filter count), on the CPU repeated once per
+lane into the grouped call; and the bias gradient sums each (sample,
+channel) plane first (`_LaneConvBias`: one reduction over N, H and W
+splits by the channel count on the card).
 
 A Convolution the tile mapping names (ctx.tiles, cells per tile over
 its im2col (K, N) = (C_in*kh*kw, C_out) view) is the explicit im2col
@@ -51,6 +62,119 @@ from ..fault.mapping import conv_geom, conv_patch_rows, to_im2col
 from .pool_backward import max_pool
 from ._util import (ave_pool_divisors, ceil_pad_hi, conv_spatial_params,
                     pool_spatial_params, pooled_size)
+
+
+class _NoOneDNN:
+    """oneDNN off for a block (the global switch, restored after)."""
+
+    def __enter__(self):
+        self.prev = torch.backends.mkldnn.enabled
+        torch.backends.mkldnn.enabled = False
+
+    def __exit__(self, *exc):
+        torch.backends.mkldnn.enabled = self.prev
+        return False
+
+
+class _PerGroupConv2d(torch.autograd.Function):
+    """F.conv2d of CPU tensors, forward and backward, on ATen's own
+    convolution (oneDNN off): each group computed alone, whatever the
+    group count."""
+
+    @staticmethod
+    def forward(ctx, x, w, stride, pad, dilation, groups):
+        ctx.save_for_backward(x, w)
+        ctx.conf = (list(stride), list(pad), list(dilation), groups)
+        with _NoOneDNN():
+            return F.conv2d(x, w, None, stride, pad, dilation, groups)
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, w = ctx.saved_tensors
+        stride, pad, dilation, groups = ctx.conf
+        with _NoOneDNN():
+            gx, gw, _ = torch.ops.aten.convolution_backward(
+                gy.contiguous(), x, w, None, stride, pad, dilation, False,
+                [0] * len(pad), groups,
+                [ctx.needs_input_grad[0], ctx.needs_input_grad[1], False])
+        return gx, gw, None, None, None, None
+
+
+LANE_CHUNK = 16      # lanes a batched GEMM of a shared bottom's dw
+
+
+class _SharedBottomConv2d(torch.autograd.Function):
+    """F.conv2d of one bottom (N, ch, H, W) every lane reads with
+    `lanes` lanes' filters (lanes*o, ch, kh, kw), on the card: the
+    forward one group-1 call (cuDNN); the weight gradient the im2col
+    GEMM, LANE_CHUNK lanes a batched call, so a lane's sums are the
+    same in any run whose lane count is a multiple of LANE_CHUNK (cuDNN
+    splits a group-1 call's weight-gradient sums by its filter count,
+    cuBLAS a batched GEMM's by its batch count)."""
+
+    @staticmethod
+    def forward(ctx, x, w, stride, pad, dilation, lanes):
+        ctx.save_for_backward(x, w)
+        ctx.conf = (list(stride), list(pad), list(dilation), lanes)
+        return F.conv2d(x, w, None, stride, pad, dilation, 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        stride, pad, dilation, lanes = ctx.conf
+        out = [0] * len(pad)
+        gx = gw = None
+        if ctx.needs_input_grad[0]:
+            gx = torch.ops.aten.convolution_backward(
+                g, x, w, None, stride, pad, dilation, False, out, 1,
+                [True, False, False])[0]
+        if ctx.needs_input_grad[1]:
+            # each lane's (o, N*L) cotangent rows against the shared
+            # patch rows, LANE_CHUNK lanes a batched GEMM (cuBLAS splits
+            # the N*L sums by the batch count)
+            n, (kh, kw) = x.shape[0], w.shape[2:]
+            cols = F.unfold(x, (kh, kw), dilation, pad, stride)
+            L = cols.shape[-1]
+            patches = cols.transpose(1, 2).reshape(n * L, -1)
+            rows = g.reshape(n, lanes, -1, L).permute(1, 2, 0, 3) \
+                .reshape(lanes, -1, n * L)
+            gw = torch.cat([torch.matmul(r, patches)
+                            for r in rows.split(LANE_CHUNK)]).reshape(w.shape)
+        return gx, gw, None, None, None, None
+
+
+def lane_conv2d(x, w, stride, pad, dilation, groups):
+    """The laned (grouped) convolution: cuDNN's one call on the card,
+    the per-group ATen call on the CPU."""
+    if x.is_cuda:
+        return F.conv2d(x, w, None, stride, pad, dilation, groups)
+    return _PerGroupConv2d.apply(x, w, tuple(stride), tuple(pad),
+                                 tuple(dilation), groups)
+
+
+class _LaneConvBias(torch.autograd.Function):
+    """y (N, C*ch, H, W) + b (C, ch), whose backward sums each (sample,
+    channel) plane, then the samples, in an order no lane count moves
+    (the CPU's second sum over contiguous rows)."""
+
+    @staticmethod
+    def forward(ctx, y, b):
+        ctx.b_shape = b.shape
+        return y + b.reshape(1, -1, 1, 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        gb = None
+        if ctx.needs_input_grad[1]:
+            planes = g.sum((2, 3))
+            gb = (planes.sum(0) if g.is_cuda
+                  else planes.t().contiguous().sum(1)).reshape(ctx.b_shape)
+        return g, gb
+
+
+def add_conv_bias(y, b, lanes: int):
+    return _LaneConvBias.apply(y, b) if lanes else \
+        y + b.reshape(1, -1, 1, 1)
 
 
 @register_layer("Convolution")
@@ -150,7 +274,7 @@ class ConvolutionLayer(Layer):
                 y = self._crossbar_conv(x, w, ctx, tl,
                                         bool(C) and ctx.laned[i])
                 if self.bias_term:
-                    y = y + params[1].reshape(1, -1, 1, 1)
+                    y = add_conv_bias(y, params[1], C)
                 tops.append(y)
             return tops
         if C:
@@ -158,15 +282,20 @@ class ConvolutionLayer(Layer):
             w = w.reshape((-1,) + tuple(w.shape[2:]))
         tops = []
         for i, x in enumerate(bottoms):
-            groups = self.group
-            if C and (ctx.laned[i] or self.group > 1):
+            if C and x.is_cuda and not ctx.laned[i] and self.group == 1:
+                y = _SharedBottomConv2d.apply(x, w, tuple(self.stride),
+                                              tuple(self.pad),
+                                              tuple(self.dilation), C)
+            elif C:
                 if not ctx.laned[i]:
                     x = x.repeat(1, C, 1, 1)
-                groups = C * self.group
-            y = F.conv2d(x, w, None, self.stride, self.pad, self.dilation,
-                         groups)
+                y = lane_conv2d(x, w, self.stride, self.pad, self.dilation,
+                                C * self.group)
+            else:
+                y = F.conv2d(x, w, None, self.stride, self.pad,
+                             self.dilation, self.group)
             if self.bias_term:
-                y = y + params[1].reshape(1, -1, 1, 1)
+                y = add_conv_bias(y, params[1], C)
             tops.append(y)
         return tops
 

@@ -78,12 +78,32 @@ banks every that many iterations (`health_summary`); `setup_record`
 is the observe `setup` record (dataset decode, kernel build, pipeline
 accounting, bytes per step).
 
-Not ported yet, each refused by name: mesh, config_block,
-remat_segments, compute_dtype, precompile_chunk, a solver with
-debug_info, self-healing, the multi-process stall agreement,
-distributed checkpoints (writing), and a checkpoint of a runner whose
-lanes run the genetic strategy (the reference stores its search state
-as a pickle of its own classes).
+`config_block` = B runs each iteration's lanes in C / B blocks: one
+step built for B lanes, called on the lane slices of the resident
+params, history, fault banks and quarantine mask with the slice of the
+(C, 2) step keys (derived once for all C), on the one shared batch.
+Each block's result is written back into its rows of the resident
+tensors in place, so the peak is the resident state plus one block's
+new state and activations; losses, outputs and every metrics leaf are
+joined along the lane axis. Every lane's result is the unblocked run's,
+bit for bit; the kernels launch once per block (B2b twice, B1b and B4
+once a block on the untiled path). Without blocks the step's outputs
+replace the resident tensors. `evaluate(batch)` is a per-config forward
+of a test net over all C lanes at once.
+
+Debug: with the solver's `debug_info` or watchdog (observe/debug.py)
+the step carries every lane's trace and sentinels; a lane whose
+sentinels trip is quarantined like a non-finite one, `sentinel_state()`
+names each lane's first bad phase and layer, and an armed watchdog
+checkpoints the sweep ("snapshot") or stops it until restore() ("halt")
+at the next chunk boundary after a new quarantine.
+
+Not ported yet, each refused by name: mesh, remat_segments,
+compute_dtype, precompile_chunk, self-healing (and `virtual_time`), the
+multi-process forms (the stall and watchdog agreement, the owned config
+block), distributed checkpoints (writing), and a checkpoint of a runner
+whose lanes run the genetic strategy (the reference stores its search
+state as a pickle of its own classes).
 """
 from __future__ import annotations
 
@@ -103,6 +123,7 @@ from ..core import prng
 from ..data.feed import can_materialize, materialize_data_source
 from ..device import resolve_device
 from ..fault import engine as fault_engine
+from ..fault import hw_aware
 from ..fault import packed as fault_packed
 from ..observe import counters as obs_counters
 from ..solver.solver import stack_batches
@@ -114,7 +135,7 @@ LEGACY_TILES = "1x1"    # the mapping of a checkpoint older than v6
 SWEEP_FOLD = 0xFA117    # the reference's fold of the solver key for the draw
 # constructor options of the reference runner this slice does not port,
 # with the value that means "off"
-UNPORTED_OPTIONS = {"mesh": None, "config_block": 0, "remat_segments": 0,
+UNPORTED_OPTIONS = {"mesh": None, "remat_segments": 0,
                     "compute_dtype": None, "precompile_chunk": 0}
 
 
@@ -125,6 +146,30 @@ def _not_ported(what: str):
 
 def _lane_mask(mask: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     return mask.view((-1,) + (1,) * (like.dim() - 1))
+
+
+def _join_lanes(parts: list):
+    """Per-block trees of lane-first tensors joined along the lane
+    axis (the step's metrics: every leaf carries the lanes first)."""
+    first = parts[0]
+    if isinstance(first, dict):
+        return {k: _join_lanes([p[k] for p in parts]) for k in first}
+    if isinstance(first, torch.Tensor):
+        return torch.cat(parts)
+    return first
+
+
+def _lane_of(tree, i: int):
+    """Lane i of a host tree (nested dicts of per-lane lists)."""
+    if isinstance(tree, dict):
+        return {k: _lane_of(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+def _masked_new(mask: torch.Tensor, old: torch.Tensor, new: torch.Tensor):
+    """where(lane masked, old, new), written into `new` (the step's own
+    output): no second copy."""
+    return torch.where(_lane_mask(mask, new), old, new, out=new)
 
 
 def _host_copy(t: torch.Tensor) -> np.ndarray:
@@ -151,9 +196,9 @@ class SweepRunner:
     is "cuda" on a CUDA device. `packed_state`, `dtype_policy`,
     `fused_epilogue` and `conv_im2col` are the solver's step options;
     `conv_im2col_requested/_resolved/_reason` record the conv operand
-    mode that runs. `pipeline_depth`, `stall_timeout_s` and
-    `health_every` as in the module docstring. A context manager:
-    leaving it calls `close()`."""
+    mode that runs. `pipeline_depth`, `stall_timeout_s`,
+    `health_every` and `config_block` as in the module docstring. A
+    context manager: leaving it calls `close()`."""
 
     def __init__(self, solver, n_configs: int, means=None, stds=None,
                  preload: bool = True, engine: str = "auto",
@@ -161,10 +206,8 @@ class SweepRunner:
                  fused_epilogue=None, device=None, conv_im2col=None,
                  pipeline_depth: Optional[int] = None,
                  stall_timeout_s: Optional[float] = None,
-                 health_every: int = 0, **options):
-        if solver.param.debug_info:
-            _not_ported("debug_info (the per-blob trace and the numeric "
-                        "sentinels of every lane)")
+                 health_every: int = 0, config_block: int = 0,
+                 **options):
         for name, value in options.items():
             if name not in UNPORTED_OPTIONS:
                 raise TypeError(f"SweepRunner got an unexpected option "
@@ -176,6 +219,17 @@ class SweepRunner:
                              f"one of {SWEEP_ENGINES})")
         if n_configs < 1:
             raise ValueError(f"n_configs must be >= 1, got {n_configs}")
+        self.config_block = int(config_block or 0)
+        block = int(n_configs)
+        if 0 < self.config_block < n_configs:
+            if n_configs % self.config_block:
+                raise ValueError(
+                    f"n_configs {n_configs} not divisible by "
+                    f"config_block {self.config_block}")
+            block = self.config_block
+        # the lane slices each iteration runs one after another
+        self._blocks = [slice(g, g + block)
+                        for g in range(0, int(n_configs), block)]
         if solver.fault_state is None:
             raise ValueError("SweepRunner needs a solver with a "
                              "failure_pattern")
@@ -208,7 +262,12 @@ class SweepRunner:
         self._record_t0 = None      # perf_counter at the last record
         self._inline_write_s = 0.0
         self._quar_seen: set = set()
-        self._stop = False          # a stall stopped the sweep
+        self._stop = False          # a stall or the watchdog stopped it
+        # the watchdog event the bookkeeping notes for the dispatcher
+        # (the consumer thread writes it, the dispatcher clears it)
+        self._watchdog_event = None
+        self._watchdog_lock = threading.Lock()
+        self._eval_fns: dict = {}
         self._closed = False
         self.last_metrics: dict = {}
         # span tracing (enable_tracing): None = off, every site guarded
@@ -279,9 +338,19 @@ class SweepRunner:
             hw_engine=engine, dtype_policy=dtype_policy,
             fault_format="packed" if packed_state else "f32",
             pack_spec=self._pack_spec, fused_epilogue=fused_epilogue,
-            lanes=self.n, conv_im2col=conv_im2col,
+            lanes=block, conv_im2col=conv_im2col,
             with_metrics=solver._metrics_enabled)
         self._noise = self._step.noise
+        if solver._watchdog is not None:
+            # the Solver's "snapshot" policy captures the sweep's state
+            solver._sweep_checkpoint = self._watchdog_checkpoint
+        # each output's lane axis (a laned blob's axis 1, a per-config
+        # scalar's axis 0; None: the same for every lane)
+        laned = solver.net.laned_blobs()
+        self._out_axis = {
+            n: (None if n not in laned
+                else 0 if solver.net.blob_shapes[n] == () else 1)
+            for n in solver.net.output_names}
         self.engine_resolved = self._step.hw_engine_resolved
         self.conv_im2col_requested = self._step.conv_im2col_requested
         self.conv_im2col_resolved = self._step.conv_im2col_resolved
@@ -353,13 +422,7 @@ class SweepRunner:
             losses, outputs, mets = [], {}, {}
             for i in range(k):
                 # a chunk's record reads its last iteration's tree
-                out = self._step(
-                    self.params, self.history, self.fault_states,
-                    self._batch(self.iter), self.iter,
-                    self.lane_keys(self.iter), record=i == k - 1)
-                p2, h2, f2, loss, outputs = out[:5]
-                mets = out[5] if len(out) > 5 else {}
-                self._commit(p2, h2, f2, loss)
+                loss, outputs, mets = self._iteration(record=i == k - 1)
                 losses.append(loss)
                 self.iter += 1
             if tr is not None:
@@ -371,7 +434,73 @@ class SweepRunner:
             self._after_dispatch(k, self.iter - 1, losses, outputs, mets)
             done += k
             self._maybe_health_boundary()
+            if self._service_watchdog():
+                break
         return self._finish_step()
+
+    def _iteration(self, record: bool):
+        """One sweep iteration, block after block over the lanes: the
+        step on each lane slice of the resident state (one batch, the
+        slice of the (C, 2) keys), its result committed into those rows.
+        Returns (losses (C,), outputs, metrics) joined over the
+        blocks."""
+        it = self.iter
+        batch, keys = self._batch(it), self.lane_keys(it)
+        if len(self._blocks) == 1:
+            out = self._step(self.params, self.history, self.fault_states,
+                             batch, it, keys, record=record)
+            mets = out[5] if len(out) > 5 else {}
+            self._commit(*out[:4], mets)
+            return out[3], out[4], mets
+        parts, bads = [], []
+        with hw_aware.planned_lanes(self.n):
+            for sl in self._blocks:
+                state = obs_counters.tree_map(
+                    lambda t, sl=sl: t[sl],
+                    (self.params, self.history, self.fault_states))
+                out = self._step(*state, batch, it, keys[sl],
+                                 record=record)
+                mets = out[5] if len(out) > 5 else {}
+                bad = self._bad_lanes(self.quarantine[sl], out[3], mets)
+                for old, new in zip(state, out[:3]):
+                    self._write_back(old, new, bad)
+                bads.append(bad)
+                parts.append((out[3], out[4], mets))
+        self.quarantine = torch.cat(bads)
+        outputs = {}
+        for name, axis in self._out_axis.items():
+            vals = [p[1][name] for p in parts]
+            outputs[name] = vals[0] if axis is None else torch.cat(vals, axis)
+        return (torch.cat([p[0] for p in parts]), outputs,
+                _join_lanes([p[2] for p in parts]))
+
+    @staticmethod
+    def _bad_lanes(quar, loss, mets) -> torch.Tensor:
+        """The quarantine after a step (the reference's
+        _make_quarantine_step): lanes quarantined before, lanes whose
+        loss is non-finite and, with the debug trace on, lanes whose
+        sentinels tripped in any phase."""
+        bad = quar | ~torch.isfinite(loss)
+        if "debug" in mets:
+            bad = bad | (mets["debug"]["sentinel"]["first"] >= 0).any(-1)
+        return bad
+
+    @staticmethod
+    def _write_back(old_tree, new_tree, bad):
+        """A block's committed state into its rows of the resident
+        tensors (`old_tree` holds the lane-slice views the step read):
+        masked lanes keep their rows."""
+        if isinstance(old_tree, dict):
+            for k in old_tree:
+                SweepRunner._write_back(old_tree[k], new_tree[k], bad)
+            return
+        if isinstance(old_tree, (list, tuple)):
+            for o, n in zip(old_tree, new_tree):
+                SweepRunner._write_back(o, n, bad)
+            return
+        if new_tree is None or new_tree is old_tree:
+            return
+        old_tree.copy_(_masked_new(bad, old_tree, new_tree))
 
     def _after_dispatch(self, k, last_it, losses, outputs, mets):
         """Hand one chunk's results to the bookkeeping: at depth None
@@ -383,6 +512,14 @@ class SweepRunner:
         self.pipeline.chunks += 1
         if not self._pipeline_on:
             self._pending = (losses, outputs)
+            if self.solver._watchdog is not None:
+                # no bookkeeping at depth None: an armed watchdog reads
+                # the (C,) mask and the sentinels each chunk
+                host = obs_counters.HostCopy({
+                    "quarantine": self.quarantine,
+                    "debug": mets["debug"]}).wait()
+                self._note_quarantine(host["quarantine"], last_it,
+                                      host["debug"])
             return
         item = (k, last_it, obs_counters.HostCopy({
             "losses": torch.stack(losses), "outputs": outputs,
@@ -419,13 +556,16 @@ class SweepRunner:
         k, last_it, copy_ = item
         host = copy_.wait()
         self._set_last_host(host["losses"], host["outputs"])
-        qids = self._note_quarantine(host["quarantine"], last_it)
+        qids = self._note_quarantine(host["quarantine"], last_it,
+                                     host["metrics"].get("debug"))
         logger = (self.solver.metrics_logger
                   if self.solver._metrics_enabled else None)
-        if logger is None or not host["metrics"]:
+        # deep traces are not record fields
+        mets = {k: v for k, v in host["metrics"].items() if k != "debug"}
+        if logger is None or not mets:
             return
         from ..observe import sink as obs_sink
-        mets = obs_counters.host_values(host["metrics"])
+        mets = obs_counters.host_values(mets)
         outs = {}
         for name, v in self._last_host[1].items():
             arr = np.ravel(v)
@@ -440,21 +580,75 @@ class SweepRunner:
         self.pipeline.records += 1
         logger.log(rec)
 
-    def _note_quarantine(self, quar: torch.Tensor, iteration: int) -> list:
-        """Announce lanes newly quarantined (once each) and return the
-        ids of every quarantined lane."""
+    def _note_quarantine(self, quar: torch.Tensor, iteration: int,
+                         debug: Optional[dict] = None) -> list:
+        """Announce lanes newly quarantined (once each), with the first
+        bad phase and layer from the chunk's sentinels when the trace is
+        on (`debug`, the step's debug tree), note a watchdog event for
+        the dispatcher, and return the ids of every quarantined lane.
+        `quar` and `debug` are host tensors."""
         ids = [int(i) for i in np.flatnonzero(quar.numpy())]
         new = [i for i in ids if i not in self._quar_seen]
+        if not new:
+            return ids
         self._quar_seen.update(new)
         for i in new:
             if self._tracer is not None:
                 self._tracer.instant("quarantine", cat="healing",
                                      iteration=int(iteration),
                                      args={"lane": i, "config": i})
+            where = self._quarantine_entry(i, debug)
             print(f"Sweep quarantine: config {i} went non-finite at "
-                  f"iteration {iteration} — updates frozen, healthy "
+                  f"iteration {iteration}{where} — updates frozen, healthy "
                   "configs keep training", flush=True)
+        if self.solver._watchdog is not None:
+            with self._watchdog_lock:
+                if self._watchdog_event is None:
+                    self._watchdog_event = {
+                        "iter": int(iteration), "configs": new,
+                        "policy": self.solver._watchdog}
+                else:
+                    # a not yet serviced event takes the new lanes too
+                    self._watchdog_event["configs"].extend(new)
         return ids
+
+    def _quarantine_entry(self, i: int, debug: Optional[dict]) -> str:
+        """Lane i's first bad phase and layer from a chunk's host
+        sentinels (" (phase, entry)"), or "" without the trace or when
+        only the loss went bad."""
+        if debug is None:
+            return ""
+        summ = self.solver.debug_spec.sentinel_summary(_lane_of(
+            obs_counters.host_values({"sentinel": debug["sentinel"],
+                                      "loss": debug["loss"]}), i))
+        return f" ({summ['phase']} phase, {summ['entry']})" \
+            if summ["tripped"] else ""
+
+    def _watchdog_checkpoint(self) -> str:
+        path = (f"{self.solver.param.snapshot_prefix}"
+                f"_sweep_iter_{self.iter}.ckpt.npz")
+        return self.checkpoint(path)
+
+    def _service_watchdog(self) -> bool:
+        """The armed watchdog's policy on a quarantine event the
+        bookkeeping noted, on the dispatcher thread (checkpoint()
+        drains the consumer, which the consumer cannot do itself):
+        checkpoint the sweep ("snapshot") or stop it ("halt", sticky
+        until restore()). Returns True when the sweep stops."""
+        with self._watchdog_lock:
+            ev, self._watchdog_event = self._watchdog_event, None
+        if ev is None:
+            return self._stop
+        names = ", ".join(str(i) for i in ev["configs"])
+        print(f"Sweep watchdog tripped at iteration {ev['iter']}: "
+              f"config {names} quarantined", flush=True)
+        if ev["policy"] == "snapshot":
+            path = self._watchdog_checkpoint()
+            print(f"Sweep watchdog checkpoint saved to {path}", flush=True)
+        else:
+            print("Sweep watchdog stopping the sweep.", flush=True)
+            self._stop = True
+        return self._stop
 
     def _finish_step(self):
         """step()'s barrier: drain the consumer (depth >= 1) or read the
@@ -467,6 +661,7 @@ class SweepRunner:
                 if self._tracer is not None:
                     self._tracer.complete("drain", waited,
                                           iteration=self.iter)
+            self._service_watchdog()
         elif self._pending is not None:
             t0 = time.perf_counter()
             losses, outputs = self._pending
@@ -692,18 +887,19 @@ class SweepRunner:
         fold_in(fold_in(solver key, it), c), as the reference's sweep
         derives them (with the step's noise, a block of iterations in one
         vectorised pass: Solver's StepNoise)."""
-        return self._noise.step_key(self.solver._key, it, self.n)
+        return self._noise.step_key(self.solver._key, it, self.n,
+                                    self._blocks[0].stop)
 
-    def _commit(self, params, history, fault_states, loss):
-        """The per-lane quarantine (the reference's
-        _make_quarantine_step): a lane whose loss is non-finite, or that
-        was quarantined before, keeps its pre-step state."""
-        bad = self.quarantine | ~torch.isfinite(loss)
+    def _commit(self, params, history, fault_states, loss, mets=None):
+        """The per-lane quarantine of an unblocked iteration: a lane in
+        `_bad_lanes` keeps its pre-step state; the step's outputs,
+        masked in place, become the resident tensors."""
+        bad = self._bad_lanes(self.quarantine, loss, mets or {})
 
         def keep(old, new):
             if new is old or new is None:
                 return new
-            return torch.where(_lane_mask(bad, new), old, new)
+            return _masked_new(bad, old, new)
         self.params = {ln: [keep(o, v) for o, v in zip(self.params[ln],
                                                         vals)]
                        for ln, vals in params.items()}
@@ -719,6 +915,45 @@ class SweepRunner:
     def quarantined(self) -> np.ndarray:
         """Ids of quarantined lanes, ascending."""
         return np.flatnonzero(self.quarantine.cpu().numpy())
+
+    def sentinel_state(self) -> list:
+        """Every lane's numeric-health summary of the last iteration
+        (observe/debug.py): n_configs dicts {tripped, phase, entry,
+        flags, loss}; [] until a step runs with the trace on (the
+        solver's debug_info or watchdog set before the runner is
+        built)."""
+        m = self.last_metrics
+        if not m or "debug" not in m:
+            return []
+        host = obs_counters.to_host(m["debug"])
+        spec = self.solver.debug_spec
+        return [spec.sentinel_summary(_lane_of(host, i))
+                for i in range(self.n)]
+
+    def evaluate(self, batch, net=None) -> Dict[str, np.ndarray]:
+        """Every config's forward of a shared batch through `net` (the
+        first test net, else the train net): the test forward of
+        Solver.test (the training's ADC, the tile mapping, sigma 0, no
+        crossbar masks) over all C lanes at once. Returns {output: (C,
+        ...) array}; the evaluator is cached per net."""
+        s = self.solver
+        net = net or (s.test_nets[0] if s.test_nets else s.net)
+        run = self._eval_fns.get(id(net))
+        if run is None:
+            ctx = s._test_context()
+            laned = net.laned_blobs()
+
+            def run(params, feed):
+                with torch.no_grad():
+                    blobs, _ = net.apply(params, feed, lanes=self.n, **ctx)
+                return {name: net.lanes_first(name, blobs[name], self.n,
+                                              name in laned)
+                        for name in net.output_names}
+            self._eval_fns[id(net)] = run
+        feed = {k: torch.as_tensor(np.asarray(v)).to(self.device)
+                for k, v in batch.items()}
+        return {k: v.cpu().numpy() for k, v in run(self.params,
+                                                    feed).items()}
 
     def broken_fractions(self) -> np.ndarray:
         """Per-lane share of broken cells over every fault leaf, (C,):
@@ -987,7 +1222,8 @@ class SweepRunner:
 
     def restore(self, path: str):
         """Load a checkpoint of either package into this runner, which
-        must have the same configuration: the configs, fault process,
+        must have the same configuration (its config_block may differ):
+        the configs, fault process,
         tile spec, solver key, no virtual time, no genetic or
         self-healing state, the same leaves and shapes; each mismatch
         raises. Fault leaves convert between the f32 and packed formats

@@ -76,9 +76,17 @@ stay on the device until a display boundary writes one record to every
 sink; `enable_health(every)` runs the wear census every `every`
 iterations, apart from the step, into the sinks and `health_ledger`.
 
-Not ported yet (a solver asking for one raises): `debug_info` (the deep
-trace), `solve(fused_chunk=)` (step_fused), the watchdog,
-data/tensor/pipeline parallelism and a sub-f32 compute dtype.
+`debug_info: true` (observe/debug.py) prints the reference's
+[Forward] / [Backward] / [Update] lines every iteration and writes a
+`debug_trace` record to the sinks: the step reduces every capture point
+into a few device vectors, with the numeric sentinels beside them.
+`enable_watchdog("halt" | "snapshot")` reads the sentinels every
+iteration: on a trip or a non-finite loss it names the first bad phase
+and layer, snapshots under "snapshot", and stops the run.
+
+Not ported yet (a solver asking for one raises): `solve(fused_chunk=)`
+(step_fused), data/tensor/pipeline parallelism and a sub-f32 compute
+dtype.
 """
 from __future__ import annotations
 
@@ -192,7 +200,10 @@ class StepNoise:
     at once, in one vectorised numpy pass per fold (with `subs` > 1, the
     iter_size sub-pass keys fold_in(step key, i) instead); calling the
     object with such a key then finds its noise there, and derives any
-    other key on the spot. The host's share of a step stays a few
+    other key on the spot. With `block` B < lanes (the sweep's
+    config_block) the lanes' keys of every slice [g*B, (g+1)*B) find
+    their noise too: the slices of the block's one derivation, never a
+    derivation of their own. The host's share of a step stays a few
     microseconds however many lanes there are."""
     BLOCK = 64
 
@@ -207,9 +218,12 @@ class StepNoise:
         return nk, (prng.randint(nk[..., self.seeded, :]) if self.seeded
                     else None)
 
-    def step_key(self, key, it: int, lanes: int = 0) -> np.ndarray:
+    def step_key(self, key, it: int, lanes: int = 0,
+                 block: int = 0) -> np.ndarray:
         at = (np.asarray(key).tobytes(), int(it), int(lanes))
         if at not in self._steps:
+            cuts = ([slice(g, g + block) for g in range(0, lanes, block)]
+                    if lanes and 0 < block < lanes else [])
             rng = prng.fold_in(key, np.arange(it, it + self.BLOCK))
             if lanes:
                 rng = prng.fold_in(rng[:, None], np.arange(lanes))
@@ -219,10 +233,12 @@ class StepNoise:
             for read in ([rng] if self.subs == 1 else
                          [prng.fold_in(rng, i) for i in range(self.subs)]):
                 nk, seeds = self._derive(read)
-                self._memo.update({(read[b].shape, read[b].tobytes()): (
-                    None if nk is None else nk[b],
-                    None if seeds is None else seeds[b])
-                    for b in range(self.BLOCK)})
+                for sl in [slice(None)] + cuts:
+                    self._memo.update({
+                        (read[b][sl].shape, read[b][sl].tobytes()): (
+                            None if nk is None else nk[b][sl],
+                            None if seeds is None else seeds[b][sl])
+                        for b in range(self.BLOCK)})
         return self._steps[at]
 
     def __call__(self, rng):
@@ -316,12 +332,6 @@ class Solver:
                  tile_spec=None, conv_im2col=None):
         if isinstance(param, str):
             param = read_solver_param(param)
-        if param.debug_info:
-            raise NotImplementedError(
-                "Solver: debug_info is set, but the PyTorch/CUDA package "
-                "does not trace it yet (the per-blob [Forward]/[Backward]/"
-                "[Update] lines and the numeric sentinels); unset "
-                "debug_info to train without the trace")
         self.param = param
         self.device = resolve_device(device)
         self.type = U.resolve_solver_type(param)
@@ -341,6 +351,7 @@ class Solver:
         self.iter = 0
         self.losses: list = []
         self.smoothed_loss = 0.0
+        self._requested_action = None   # "stop": the step loop ends
         self.last_loss = None
         self.last_outputs = {}
         self.seed = solver_seed(param)
@@ -450,6 +461,13 @@ class Solver:
         self._health_census = None
         self._health_ledger = None
         self._last_health_tick = None
+        # the deep trace (observe/debug.py): the watchdog's policy makes
+        # the step carry the sentinels without debug_info too
+        self._watchdog = None           # None | "halt" | "snapshot"
+        self.debug_spec = None          # NetDebugSpec once a step traces
+        # a SweepRunner puts its checkpoint here, so the watchdog's
+        # "snapshot" captures the sweep's state
+        self._sweep_checkpoint = None
         self._step_opts = dict(hw_engine=hw_engine, dtype_policy=dtype_policy,
                                fault_format=fault_format,
                                pack_spec=self.pack_spec,
@@ -563,7 +581,8 @@ class Solver:
     def make_train_step(self, hw_engine: str = "auto", dtype_policy=None,
                         fault_format: str = "f32", pack_spec=None,
                         fused_epilogue=None, lanes: int = 0,
-                        conv_im2col=None, with_metrics=None):
+                        conv_im2col=None, with_metrics=None,
+                        with_debug=None):
         """Build step(params, history, fault_state, batch, it, rng,
         do_remap=None, record=True) -> (params', history', fault_state',
         loss, outputs), and with the metrics on a sixth value, the
@@ -574,7 +593,14 @@ class Solver:
         spec), all device tensors, per lane under lanes. A step whose
         tree no record reads passes `record=False`: its tree then holds
         only `fault.writes_saved` (under a threshold strategy), which
-        the records sum over their interval. `rng` is the step's key, fold_in(solver
+        the records sum over their interval. `with_debug` (default:
+        `debug_info` or an armed watchdog) adds the deep trace
+        (observe/debug.py) as `metrics["debug"]`, every step and per lane
+        under lanes: the forward, backward, update and fault-clamp
+        mean-abs vectors, the all-params norms, the loss and the
+        sentinels; the step then returns the sixth value with the
+        metrics off too. Off, the step runs the same operations as
+        without it. `rng` is the step's key, fold_in(solver
         key, it) (under lanes (C, 2), one per lane); fault key i reads
         with the noise key `noise_keys(rng)[i]`, a crossbar read with its
         randint seed. The solver's threshold and remapping strategies run
@@ -657,6 +683,16 @@ class Solver:
                     else fused_update_fail_leaves_plain)
         metrics_on = (self._metrics_enabled if with_metrics is None
                       else bool(with_metrics))
+        debug_on = (bool(param.debug_info) or self._watchdog is not None
+                    if with_debug is None else bool(with_debug))
+        spec = None
+        if debug_on:
+            from ..observe import debug as obs_debug
+            if self.debug_spec is None:
+                self.debug_spec = obs_debug.NetDebugSpec(
+                    self.net, self._owner_refs, self._fault_keys)
+            spec = self.debug_spec
+            spec.check_lanes(lanes)
         tspec = self.tile_spec
 
         net = self.net
@@ -788,7 +824,8 @@ class Solver:
 
         def forward_backward(params, fault_state, batch, rng):
             """One forward and backward pass: (loss, {owner key: grad},
-            outputs)."""
+            outputs, advanced statistics, debug), debug being (the
+            forward trace vector, {site: cotangent}) or None."""
             leaves = {k: v.detach().requires_grad_()
                       for k, v in self._flat(params).items()}
             read = dict(leaves)
@@ -814,17 +851,32 @@ class Solver:
                             wk, broken_k, stuck_k,
                             nkeys[..., i, :] if hw_sigma else None,
                             hw_sigma)
+            read_params = self._unflat(read, params)
+            probes = trace = None
+            if debug_on:
+                probes = spec.make_probes(lanes, self.device)
+                trace = {}
             blobs, loss, new_params = net.apply(
-                self._unflat(read, params), batch, adc_bits=adc_bits,
+                read_params, batch, adc_bits=adc_bits,
                 crossbar=crossbar, lanes=lanes, tiles=tiles_ctx,
-                conv_im2col=conv_resolved, with_updates=True)
+                conv_im2col=conv_resolved, with_updates=True,
+                probes=probes, trace_sites=trace)
             # lanes are independent: d(sum of lane losses)/d(lane c's
             # params) is lane c's own gradient. The TRAIN graph never
             # reads BatchNorm's statistics: their gradient is zero, as
             # the reference's is
-            grads = torch.autograd.grad(loss.sum() if lanes else loss,
-                                        [leaves[k] for k in owner_keys],
-                                        allow_unused=True)
+            sites = list(probes) if debug_on else []
+            grads = torch.autograd.grad(
+                loss.sum() if lanes else loss,
+                [leaves[k] for k in owner_keys] + [probes[s] for s in sites],
+                allow_unused=True)
+            dbg = None
+            if debug_on:
+                pgrads = {s: torch.zeros_like(probes[s]) if g is None else g
+                          for s, g in zip(sites, grads[len(owner_keys):])}
+                dbg = (spec.forward_values(read_params, trace, lanes,
+                                           self.device), pgrads)
+                grads = grads[:len(owner_keys)]
             unused = [k for k, g in zip(owner_keys, grads)
                       if g is None and k not in state_keys]
             if unused:
@@ -836,14 +888,14 @@ class Solver:
                        for name in net.output_names}
             advanced = self._flat(new_params)
             return loss.detach(), dict(zip(owner_keys, grads)), outputs, \
-                {k: advanced[k] for k in state_keys}
+                {k: advanced[k] for k in state_keys}, dbg
 
         def step(params, history, fault_state, batch, it, rng,
                  do_remap=None, record=True):
             full = metrics_on and record
             # -- ForwardBackward x iter_size (solver.cpp:265-269) --
             if iter_size == 1:
-                loss, g, outputs, stats = forward_backward(
+                loss, g, outputs, stats, dbg = forward_backward(
                     params, fault_state, batch, rng)
             else:
                 # sub-pass i reads sub-batch i with fold_in(rng, i) and
@@ -852,20 +904,29 @@ class Solver:
                 # zeros, in order
                 g = {k: torch.zeros_like(v)
                      for k, v in self._flat(params).items()}
-                loss, stats = None, {}
+                loss, stats, dbg = None, {}, None
                 for i in range(iter_size):
-                    sub_loss, sub_g, outputs, stats = forward_backward(
-                        self._unflat({**self._flat(params), **stats},
-                                     params),
-                        fault_state, {k: v[i] for k, v in batch.items()},
-                        prng.fold_in(rng, i))
+                    sub_loss, sub_g, outputs, stats, sub_dbg = \
+                        forward_backward(
+                            self._unflat({**self._flat(params), **stats},
+                                         params),
+                            fault_state, {k: v[i] for k, v in batch.items()},
+                            prng.fold_in(rng, i))
                     g = {k: g[k] + sub_g[k] for k in owner_keys}
+                    if debug_on:
+                        # the last sub-batch's forward; the cotangents
+                        # add up like the gradients
+                        dbg = sub_dbg if dbg is None else (sub_dbg[0], {
+                            s: dbg[1][s] + v for s, v in sub_dbg[1].items()})
                     loss = (torch.zeros_like(sub_loss) if loss is None
                             else loss) + sub_loss
                 loss = fault_engine._div(loss, iter_size)
             # BatchNorm's statistics already advanced (reference :994)
             data = {**{k: v.detach() for k, v in self._flat(params).items()},
                     **stats}
+            if debug_on:
+                g_dbg = g                   # the raw, pre-clip diffs
+                norms_dbg = spec.all_param_norms(data, g_dbg, lanes)
 
             # -- ComputeUpdate (sgd_solver.cpp:102-117) --
             rate = lr_fn(it)
@@ -889,6 +950,14 @@ class Solver:
             # -- ApplyStrategy (solver.cpp:302; strategy.cpp) --
             data, upd, fault_state, saved = apply_strategy(
                 data, upd, fault_state, it, do_remap)
+            if debug_on:
+                # UpdateDebugInfo (net.cpp:652-668): before the update,
+                # with the data and diffs ApplyStrategy left
+                upd_keys = spec.update_keys()
+                upd_data_dbg = spec.values_for_keys(data, upd_keys, lanes,
+                                                    self.device)
+                upd_diff_dbg = spec.values_for_keys(upd, upd_keys, lanes,
+                                                    self.device)
 
             # -- ApplyUpdate (sgd_solver.cpp:119); under the fused
             # epilogue the fault leaves' subtract moves into Fail --
@@ -915,16 +984,34 @@ class Solver:
                     data.update(fp)
             out = (self._unflat(data, params), new_hist, fault_state, loss,
                    outputs)
-            if not metrics_on:
+            if not (metrics_on or debug_on):
                 return out
-            if not record:
-                return out + ({"fault": {"writes_saved": saved}}
-                              if saved is not None else {},)
-            return out + (metrics_tree(loss, rate, grad_sumsq, upd,
-                                       prev_life, fault_state, saved),)
+            if not metrics_on:
+                mets = {}
+            elif not record:
+                mets = ({"fault": {"writes_saved": saved}}
+                        if saved is not None else {})
+            else:
+                mets = metrics_tree(loss, rate, grad_sumsq, upd, prev_life,
+                                    fault_state, saved)
+            if debug_on:
+                dbg_bwd = spec.backward_values(dbg[1], g_dbg, lanes,
+                                               self.device)
+                fault_dbg = spec.values_for_keys(data, spec.fault, lanes,
+                                                 self.device)
+                mets = {**mets, "debug": {
+                    "fwd": dbg[0], "bwd": dbg_bwd,
+                    "upd_data": upd_data_dbg, "upd_diff": upd_diff_dbg,
+                    "fault": fault_dbg, "norms": norms_dbg,
+                    "loss": loss.float(),
+                    "sentinel": obs_debug.sentinel_tree({
+                        "forward": dbg[0], "backward": dbg_bwd,
+                        "update": upd_diff_dbg, "fault": fault_dbg})}}
+            return out + (mets,)
 
         step.noise = step_noise
         step.with_metrics = metrics_on
+        step.with_debug = debug_on
         step.hw_engine_resolved = engine if crossbar_on else None
         step.fused_epilogue_resolved = fused_on
         step.fused_epilogue_reason = None if fused_on else fused_reason
@@ -1020,6 +1107,10 @@ class Solver:
                 self.losses.append(loss)
             else:
                 self.losses[(self.iter - start_iter) % average_loss] = loss
+            if "debug" in metrics:
+                # the debug lines print before the display block; a
+                # watchdog stop takes effect at this loop's tail
+                self._process_debug(metrics["debug"])
             if track:
                 # a device scalar, summed at the next record
                 clock.tick(1, metrics["fault"]["writes_saved"]
@@ -1045,6 +1136,8 @@ class Solver:
                 self.snapshot()
                 if track:
                     clock.exclude(t0)
+            if self._requested_action == "stop":
+                break
         self._materialize_smoothed_loss()
 
     # ------------------------------------------------------------------
@@ -1093,6 +1186,76 @@ class Solver:
             self._health_ledger = obs_health.HealthLedger(**kw)
             self._last_health_tick = None
         return self._health_ledger
+
+    def enable_watchdog(self, policy: str = "halt"):
+        """Arm the divergence watchdog: the step then carries the
+        numeric sentinels (observe/debug.py) without debug_info too, and
+        every iteration the host reads them. On a tripped sentinel or a
+        non-finite loss it prints a diagnostic naming the first bad
+        phase and layer or param, snapshots under "snapshot" (the
+        sweep's checkpoint when a SweepRunner armed it), and stops the
+        run. "none" leaves it off. Call it before the first step() and
+        before building a SweepRunner on this solver, as
+        enable_metrics."""
+        if policy == "none":
+            return
+        if policy not in ("halt", "snapshot"):
+            raise ValueError(
+                f"unknown watchdog policy {policy!r} "
+                "(expected halt, snapshot, or none)")
+        if self._step_baked:
+            raise ValueError(
+                "enable_watchdog must be called before the train step "
+                "is built (before the first step() and before "
+                "constructing a SweepRunner)")
+        self._watchdog = policy
+        self._step_fn = self.make_train_step(**self._step_opts)
+
+    def _process_debug(self, dbg, iteration: Optional[int] = None) -> bool:
+        """One iteration's debug tree to the host, and what follows from
+        it: the reference's lines printed and a `debug_trace` record
+        logged (debug_info), a `sentinel` record on a trip, and the
+        watchdog's policy. Returns True when the watchdog stopped the
+        run. One transfer an iteration: the trace's own cost."""
+        from ..observe import sink as obs_sink
+        spec = self.debug_spec
+        it = self.iter if iteration is None else iteration
+        if self.param.debug_info:
+            host = obs_counters.to_host(dbg)
+        else:
+            # the watchdog alone reads the sentinels and the loss
+            host = obs_counters.to_host({"sentinel": dbg["sentinel"],
+                                         "loss": dbg["loss"]})
+        summ = spec.sentinel_summary(host)
+        if self.param.debug_info:
+            rec = spec.trace_record(it, host)
+            for line in obs_sink.debug_trace_lines(rec):
+                print(line, flush=True)
+            if self.metrics_logger is not None:
+                self.metrics_logger.log(rec)
+        loss_bad = not np.isfinite(summ["loss"])
+        if (summ["tripped"] or loss_bad) and self.metrics_logger is not None:
+            self.metrics_logger.log(spec.sentinel_record(it, summ))
+        if self._watchdog is None or not (summ["tripped"] or loss_bad):
+            return False
+        where = (f"{summ['phase']} phase, {summ['entry']}"
+                 if summ["tripped"]
+                 else f"loss = {summ['loss']} (non-finite)")
+        flags = summ["flags"]
+        print(f"Watchdog tripped at iteration {it}: {where} "
+              f"(nan={flags['nan']}, inf={flags['inf']}, "
+              f"overflow={flags['overflow']})", flush=True)
+        if self._watchdog == "snapshot":
+            if self._sweep_checkpoint is not None:
+                path = self._sweep_checkpoint()
+                print(f"Watchdog sweep checkpoint saved to {path}",
+                      flush=True)
+            else:
+                path = self.snapshot()
+                print(f"Watchdog snapshot saved to {path}", flush=True)
+        print("Watchdog stopping optimization.", flush=True)
+        self._requested_action = "stop"
+        return True
 
     @property
     def health_ledger(self):
@@ -1408,14 +1571,20 @@ class Solver:
         if fault_file.endswith(".solverstate"):
             fault_file = fault_file[:-len(".solverstate")] + ".faultstate"
         if not os.path.exists(fault_file):
-            tiles = ("" if self.tile_spec.is_default else
-                     f" under tile mapping {self.tile_spec.canonical()}")
-            print(f"WARNING: Fault state RE-DRAWN at iteration {self.iter}"
-                  f"{tiles}: snapshot predates fault-state capture; fault "
-                  "state re-drawn from the failure_pattern (active fault "
-                  f"process: endurance_stuck_at) (expected {fault_file}); "
-                  "resumed degradation will NOT match the pre-snapshot "
-                  "trajectory", file=sys.stderr, flush=True)
+            # the construction-time draw stays: a stderr line always, a
+            # `fault_redraw` record when sinks are attached
+            from ..observe import sink as obs_sink
+            rec = obs_sink.make_fault_redraw_record(
+                self.iter, fault_file,
+                "snapshot predates fault-state capture; fault state "
+                "re-drawn from the failure_pattern (active fault "
+                f"process: {fault_engine.PROCESS})",
+                tiles=(None if self.tile_spec.is_default
+                       else self.tile_spec.canonical()))
+            print("WARNING: " + obs_sink.fault_redraw_line(rec),
+                  file=sys.stderr, flush=True)
+            if self.metrics_logger is not None:
+                self.metrics_logger.log(rec)
             return
         restored = fault_engine.fault_state_from_proto(
             read_proto_binary(fault_file, "NetParameter"), self.device)

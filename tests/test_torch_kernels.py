@@ -275,6 +275,19 @@ def test_b2_one_lane_against_lane_0_of_four(cuda_device, M, K, N):
     assert within_sum_bound(one, four[:1], x, w_eff, slack=8.0)
 
 
+@pytest.mark.parametrize("M,K,N", [(100, 1024, 64), (100, 64, 10)])
+def test_b2_block_under_the_sweeps_plan_equals_its_lanes(cuda_device, M, K,
+                                                         N):
+    """A block of 4 lanes read inside planned_lanes(16) takes the 16-lane
+    call's plan, and its lanes' bits (the sweep's config_block)."""
+    x, w, br, st, _, seeds = b2_case(cuda_device, 16, M, K, N, False, 6)
+    whole = thw.crossbar_forward(x, w, br, st, seeds, 0.05, 2)
+    with thw.planned_lanes(16):
+        block = thw.crossbar_forward(x, w[4:8], br[4:8], st[4:8],
+                                     seeds[4:8], 0.05, 2)
+    assert torch.equal(block, whole[4:8])
+
+
 def test_b2_in_kernel_noise_statistics(cuda_device):
     K = N = 256
     x = torch.eye(K, device=cuda_device)

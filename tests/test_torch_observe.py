@@ -17,8 +17,9 @@ per_tile under a 2x2 tile spec. The records a port Solver writes
 validate under the port's schema and under the reference's
 scripts/check_metrics_schema.py, and
 the first record (iteration 0, one seed, one state) equals the
-reference Solver's. `debug_info` builds in the reference (its first
-step prints the [Forward] lines) and raises by name in the port."""
+reference Solver's. With `debug_info` both packages print the same
+[Forward] / [Backward] / [Update] lines on that net (the tolerance of
+tests/test_torch_debug_trace.py)."""
 import ast
 import copy
 import json
@@ -478,6 +479,11 @@ def test_enable_metrics_raises_once_the_step_ran():
 
 def test_debug_info_runs_in_the_reference_and_raises_in_the_port(
         monkeypatch, capsys):
+    """(Named when the port refused debug_info.) The first step's
+    debug_info lines of the narrow CIFAR solver: the reference's and
+    the port's, names and order exact, values within REL = 1e-5 of
+    tests/test_torch_debug_trace.py."""
+    from test_torch_debug_trace import assert_lines_equal, debug_lines
     monkeypatch.chdir(REPO)
     text = SOLVER + " debug_info: true"
     sp = pb.SolverParameter()
@@ -486,8 +492,11 @@ def test_debug_info_runs_in_the_reference_and_raises_in_the_port(
         js = JSolver(sp, train_feed=jfeed._python_data_feed(
             JNet(sp.net_param, pb.TRAIN).layers[0]))
         js.step(1)
-    lines = capsys.readouterr().out.splitlines()
+    want = debug_lines(capsys.readouterr().out)
     assert any(re.match(r"\s+\[Forward\] Layer conv1, top blob conv1 "
-                        r"data: ", line) for line in lines)
-    with pytest.raises(NotImplementedError, match="debug_info"):
-        TSolver(tproto.parse(text, "SolverParameter"), device="cpu")
+                        r"data: ", line) for line in want)
+    ts = TSolver(tproto.parse(text, "SolverParameter"), device="cpu")
+    ts.step(1)
+    got = debug_lines(capsys.readouterr().out)
+    assert len(got) == len(want) > 40
+    assert_lines_equal(got, want)

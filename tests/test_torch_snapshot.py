@@ -378,6 +378,61 @@ def test_missing_faultstate_warns_as_the_reference(tmp_path, capsys):
     assert fresh.iter == 2
 
 
+class _ListSink:
+    def __init__(self):
+        self.records = []
+
+    def write(self, record):
+        self.records.append(record)
+
+
+@pytest.mark.parametrize("tiles", [None, "2x2"])
+def test_missing_faultstate_logs_the_reference_redraw_record(tmp_path,
+                                                             capsys, tiles):
+    """With sinks attached, a restore whose .faultstate is missing logs
+    one `fault_redraw` record equal to the reference's (every field but
+    wall_time; `tiles` under a non-default grid), valid under the port's
+    schema; the stderr WARNING and the CaffeLogSink line are the
+    reference's."""
+    from rram_caffe_simulation_tpu.observe import schema as jschema
+    from rram_caffe_simulation_tpu.observe import sink as jsink
+    from rram_caffe_simulation_tpu_torch.observe import schema as tschema
+    from rram_caffe_simulation_tpu_torch.observe import sink as tsink
+    extra = f'rram_forward {{ tiles: "{tiles}" }}' if tiles else ""
+    prefix = str(tmp_path / "s")
+    s = port_solver(prefix, extra)
+    s.step(2)
+    s.snapshot()
+    os.remove(files(prefix, 2)["faultstate"])
+    runs = []
+    for make, mod, name in ((port_solver, tsink, "p"),
+                            (ref_solver, jsink, "r")):
+        solver = make(str(tmp_path / name), extra)
+        sink, log = _ListSink(), str(tmp_path / f"{name}.log")
+        caffe = mod.CaffeLogSink(log, net_name=solver.net.name)
+        solver.enable_metrics(sink, caffe)
+        capsys.readouterr()
+        with jax.enable_x64(False):
+            solver.restore(files(prefix, 2)["solverstate"])
+        err = [ln for ln in capsys.readouterr().err.splitlines()
+               if ln.startswith("WARNING")]
+        caffe.close()
+        lines = [ln.split("] ", 1)[1] for ln in open(log).read()
+                 .splitlines() if "] " in ln]
+        runs.append((sink.records, err, lines))
+    (got, got_err, got_log), (want, want_err, want_log) = runs
+    assert [r["type"] for r in got] == [r["type"] for r in want] == \
+        ["fault_redraw"]
+    drop = lambda r: {k: v for k, v in r.items() if k != "wall_time"}
+    assert drop(got[0]) == drop(want[0])
+    assert got[0]["iter"] == 2 and got[0].get("tiles") == (
+        None if tiles is None else want[0]["tiles"])
+    assert tschema.validate_record(got[0]) == []
+    assert jschema.validate_record(got[0]) == []
+    assert got_err == want_err and len(got_err) == 1
+    assert got_log == want_log and len(got_log) == 2
+
+
 def _edit_faultstate(path, edit):
     msg = tio.read_proto_binary(path, "NetParameter")
     edit(msg)

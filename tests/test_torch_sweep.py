@@ -356,18 +356,10 @@ def test_batched_crossbar_matches_reference_vmap(q_bits, x_per_lane):
 # refusals and the device default
 
 @pytest.mark.parametrize("option,value", [
-    ("mesh", object()), ("config_block", 2), ("remat_segments", 2),
-    ("compute_dtype", "bfloat16"), ("precompile_chunk", 4),
-    ("debug_info", True)])
+    ("mesh", object()), ("remat_segments", 2),
+    ("compute_dtype", "bfloat16"), ("precompile_chunk", 4)])
 def test_unported_options_raise_by_name(option, value):
     s = port_solver(cycling(batches(1)))
-    if option == "debug_info":
-        # a solver parameter, not a runner option: the Solver refuses
-        # it too, so it is set on the built solver's parameter
-        s.param.debug_info = value
-        with pytest.raises(NotImplementedError, match=option):
-            TSweep(s, 2, device="cpu")
-        return
     with pytest.raises(NotImplementedError, match=option):
         TSweep(s, 2, device="cpu", **{option: value})
 
