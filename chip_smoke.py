@@ -15,6 +15,8 @@
     python3 chip_smoke.py --phases 17     # the pipeline and the telemetry
     python3 chip_smoke.py --phases 18     # config_block, evaluate,
                                           # debug_info and the watchdog
+    python3 chip_smoke.py --phases 19     # the self-healing sweep and the
+                                          # genetic search's checkpoint
     python3 chip_smoke.py --b2-path       # only time B2 through its wrapper
     python3 chip_smoke.py --b2t-path      # only time B2t (wrapper, kernel,
                                           # tile rows)
@@ -280,7 +282,27 @@ prints no "ok" line):
    NaN base_lr halts after iteration 0 naming conv1's update; a C = 8
    sweep in blocks of 4 with lane 5 poisoned quarantines lane 5 alone by
    its sentinel, "halt" stops it (also across step() calls), "snapshot"
-   writes a checkpoint that restores.
+   writes a checkpoint that restores;
+19. the self-healing sweep and the genetic search's checkpoint: (a)
+   phase 7's sweep at C = 512 with metrics, pipeline_depth 2,
+   enable_self_healing(budget=12, max_retries=1), chunk 2, NaN written
+   into ip2's weights of lanes 7, 200 and 511 after 4 iterations, run
+   until healing_complete(), against a clean run of 12 iterations: each
+   healthy lane's final loss and every params, history and bank row bit
+   for bit, every config completed (the poisoned ones in 2 attempts),
+   one requeue and one reseed record each, every record schema-valid,
+   B2 2, B1 1, B4 1 a step; configs x steps per second of both runs, the
+   median and largest _heal_pass in ms, a refill's row bytes; (b) at
+   C = 8 a config poisoned at every attempt fails with the reference's
+   diagnosis, every config accounted for; (c) at C = 64 (int16 banks) 16
+   extra_configs seeded as lanes free up, a spec past int16 refused by
+   submit_configs, a start_empty runner completing its submissions
+   (their own budget held); (d) a checkpoint mid-sweep, then a poisoned
+   lane re-seeded from it (recovery "checkpoint", the lane's rows equal
+   to the file's slice); (e) phase 15 (d)'s genetic sweep at C = 64
+   checkpointed with `__genetics__` and restored into a new runner,
+   whose next 6 steps equal the never-stopped run's bit for bit (losses,
+   every state row, prune masks, generators).
 
 Then a JSON line of the step's numbers, a JSON line of the sweep's, one
 JSON line of per-kernel numbers (per training step, summed over the
@@ -296,8 +318,9 @@ B3's passes by device activity at C = 1 and the tiled sweep's C, a JSON
 line "rng" of phase 13's numbers, a JSON line "formats" of phase 14's,
 a JSON line "solver_rest" of phase 15's (printed when it ends), a JSON
 line "vgg11" of phase 16's (printed when it ends, and again), a JSON
-line "telemetry" of phase 17's, a JSON line "blocks" of phase 18's,
-the card's name and power limit, and last {"ok": true, "device":
+line "telemetry" of phase 17's, a JSON line "blocks" of phase 18's, a
+JSON line "healing" of phase 19's, the card's name and power limit,
+and last {"ok": true, "device":
 {...}}.
 B2t has a row at each path's shapes: C = 1 (the tiled slice) and C
 lanes (the tiled sweep). Phase 12 prints its numbers as a JSON line
@@ -6029,6 +6052,330 @@ def phase_blocks(gpu, phase11=None, phase16=None):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the self-healing sweep and the genetic search's checkpoint
+
+HEAL_CONFIGS = 512        # (a): phase 7's sweep
+HEAL_BUDGET = 12
+HEAL_POISON = (7, 200, 511)   # (a)'s lanes poisoned after 4 iterations
+HEAL_SMALL = 8            # (b)
+HEAL_BATCH = 64           # (c), (d), (e)
+
+
+class _ListSink:
+    def __init__(self):
+        self.records = []
+
+    def write(self, record):
+        self.records.append(record)
+
+
+def healing_runner(C, mean, std, depth, seed=1, sink=None):
+    """Phase 7's sweep (device dataset, ternary read, packed banks, fused
+    epilogue) at pipeline depth `depth`, metrics to `sink`."""
+    from rram_caffe_simulation_tpu_torch.parallel import SweepRunner
+    s = slice_solver(mean, std, seed=seed)
+    if sink is not None:
+        s.enable_metrics(sink)
+    return SweepRunner(s, n_configs=C, engine="cuda", packed_state=True,
+                       dtype_policy="ternary", pipeline_depth=depth)
+
+
+def poison_lanes(r, lanes):
+    """NaN into ip2's first weight of each lane: the lane's loss goes
+    non-finite at its next step."""
+    import torch
+    with torch.no_grad():
+        r.params["ip2"][0][list(lanes), 0, 0] = float("nan")
+
+
+def _retries(sink):
+    return [x for x in sink.records if x.get("type") == "retry"]
+
+
+def _same_bytes(a, b) -> bool:
+    import torch
+    return torch.equal(a.contiguous().view(torch.uint8),
+                       b.contiguous().view(torch.uint8))
+
+
+def _rows_equal(a, b, lanes) -> list:
+    """Names of the state leaves whose rows `lanes` differ between
+    runners a and b (quarantine aside)."""
+    import torch
+    idx = torch.as_tensor(lanes, device=a.quarantine.device)
+    sa, sb = a._state_arrays(), b._state_arrays()
+    return [n for n in sa if n != "quarantine"
+            and not _same_bytes(sa[n].index_select(0, idx),
+                                sb[n].index_select(0, idx))]
+
+
+def heal_wide(gpu):
+    """(a) phase 7's sweep at C = 512 with self-healing (depth 2, budget
+    12, one retry, chunk 2), three lanes poisoned after 4 iterations,
+    against a clean run of the same budget."""
+    import torch
+    from rram_caffe_simulation_tpu_torch import kernels
+    from rram_caffe_simulation_tpu_torch.observe import schema as obs_schema
+    C, budget, chunk = HEAL_CONFIGS, HEAL_BUDGET, 2
+    clean = healing_runner(C, 1e8, 3e7, 2, sink=_ListSink())
+    clean.step(chunk, chunk=chunk)            # warms cuDNN's plans
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    clean.step(budget - chunk, chunk=chunk)
+    clean_wall = time.perf_counter() - t0
+    clean_losses = clean.last_losses.copy()
+    check(bool(np.isfinite(clean_losses).all()), "(a) the clean run went "
+          "non-finite")
+    sink = _ListSink()
+    r = healing_runner(C, 1e8, 3e7, 2, sink=sink)
+    r.enable_self_healing(budget=budget, max_retries=1)
+    heal_ms, calls = [], [0]
+    heal, step = r._heal_pass, r._step
+
+    def timed_heal(*a, **kw):
+        t1 = time.perf_counter()
+        try:
+            return heal(*a, **kw)
+        finally:
+            heal_ms.append((time.perf_counter() - t1) * 1e3)
+
+    def counted_step(*a, **kw):
+        calls[0] += 1
+        return step(*a, **kw)
+    r._heal_pass, r._step = timed_heal, counted_step
+    kernels.reset_launches()
+    r.step(4, chunk=chunk)
+    poison_lanes(r, HEAL_POISON)
+    torch.cuda.synchronize()
+    it0, t0 = r.iter, time.perf_counter()
+    while not r.healing_complete():
+        r.step(4, chunk=chunk)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _launches()
+    n = calls[0]
+    check(launches == _untiled(B2=2 * n, B1=n, B4=n),
+          f"(a) launches {launches} in {n} steps, expected B2 2, B1 1, B4 1 "
+          "a step")
+    rep = r.config_report()
+    check(rep["requested"] == list(range(C)) and rep["failed"] == {}
+          and sorted(rep["completed"]) == list(range(C)),
+          f"(a) not every config completed: failed {rep['failed']}")
+    for cfg, res in rep["completed"].items():
+        want = 2 if cfg in HEAL_POISON else 1
+        check(res["attempts"] == want, f"(a) config {cfg} took "
+              f"{res['attempts']} attempts, expected {want}")
+    events = _retries(sink)
+    for cfg in HEAL_POISON:
+        kinds = sorted(x["event"] for x in events if x["config"] == cfg)
+        check(kinds == ["requeue", "reseed"], f"(a) config {cfg}'s retry "
+              f"records are {kinds}")
+    check(len(events) == 2 * len(HEAL_POISON), f"(a) {len(events)} retry "
+          "records")
+    for rec in sink.records:
+        errs = obs_schema.validate_record(rec)
+        check(errs == [], f"(a) an invalid record: {errs}")
+    healthy = [i for i in range(C) if i not in HEAL_POISON]
+    gaps = [i for i in healthy
+            if rep["completed"][i]["loss"] != float(clean_losses[i])]
+    check(not gaps, f"(a) healthy lanes {gaps[:8]} end on another loss "
+          "than the clean run's")
+    differ = _rows_equal(r, clean, healthy)
+    check(not differ, f"(a) healthy lanes' {differ} differ from the clean "
+          "run's")
+    rows = r._fresh_rows(HEAL_POISON[0], 2)
+    out = {"configs": C, "budget": budget, "chunk": chunk, "depth": 2,
+           "poisoned": list(HEAL_POISON),
+           "clean_configs_steps_per_s": C * (budget - chunk) / clean_wall,
+           "healing_configs_steps_per_s": C * (r.iter - it0) / wall,
+           "healing_iterations_after_poison": r.iter - it0,
+           "heal_pass_ms_median": float(np.median(heal_ms)),
+           "heal_pass_ms_max": float(np.max(heal_ms)),
+           "heal_passes": len(heal_ms), "steps": n, "launches": launches,
+           "refill_row_bytes": int(sum(v.nbytes for v in rows.values())),
+           "retry_records": len(events), "gpu": gpu}
+    del clean, r
+    return out
+
+
+def heal_failure():
+    """(b) at C = 8 a config poisoned at every attempt fails for good
+    with the reference's diagnosis; every requested config is in the
+    report."""
+    sink = _ListSink()
+    r = healing_runner(HEAL_SMALL, 300.0, 50.0, 0, seed=7, sink=sink)
+    r.enable_self_healing(budget=6, max_retries=1)
+    target = 3
+    while not r.healing_complete():
+        act = r.config_report()["active"].get(target)
+        if act is not None:
+            poison_lanes(r, [act["lane"]])
+        r.step(2, chunk=2)
+    rep = r.config_report()
+    bad = rep["failed"].get(target)
+    check(bad is not None and bad["attempts"] == 2,
+          f"(b) config {target} did not fail after 2 attempts: {rep}")
+    check(bad["diagnosis"] == f"non-finite loss at iteration {bad['iter']}",
+          f"(b) diagnosis {bad['diagnosis']!r}")
+    check(rep["requested"] == list(range(HEAL_SMALL))
+          and sorted(set(rep["completed"]) | set(rep["failed"]))
+          == list(range(HEAL_SMALL)), "(b) a config is unaccounted for")
+    check([x["event"] for x in _retries(sink)]
+          == ["requeue", "reseed", "failed"], "(b) retry records "
+          f"{[x['event'] for x in _retries(sink)]}")
+    return {"configs": HEAL_SMALL, "failed": {target: bad},
+            "completed": len(rep["completed"])}
+
+
+def heal_batching():
+    """(c) continuous batching at C = 64 with int16 banks: 16 extra
+    configs seeded as lanes free up; a spec past int16 refused; a
+    start_empty runner takes its work from submissions."""
+    C = HEAL_BATCH
+    specs = [{"mean": 280.0 + 2.5 * i, "std": 40.0} for i in range(16)]
+    r = healing_runner(C, 300.0, 50.0, 2, seed=9)
+    check(r._pack_spec["life_dtype"] == "int16", "(c) banks are not int16")
+    r.enable_self_healing(budget=4, extra_configs=specs)
+    try:
+        r.submit_configs([{"mean": 1e8, "std": 3e7}])
+        refused = ""
+    except ValueError as e:
+        refused = str(e)
+    check("int16" in refused, "(c) a spec past int16 was not refused")
+    while not r.healing_complete():
+        r.step(4, chunk=2)
+    rep = r.config_report()
+    want = list(range(C + len(specs)))
+    check(sorted(rep["completed"]) == want and rep["failed"] == {},
+          f"(c) completed {len(rep['completed'])} of {len(want)}")
+    check(min(rep["completed"][c]["iter"] for c in range(C, C + 16)) == 8,
+          "(c) the extra configs did not train after the first wave")
+    del r
+    e = healing_runner(C, 300.0, 50.0, 0, seed=9)
+    e.enable_self_healing(budget=3, start_empty=True)
+    first = e.submit_configs(specs[:8], budget=2)
+    e.step(1)
+    later = e.submit_configs(specs[8:12])
+    while not e.healing_complete():
+        e.step(2, chunk=2)
+    rep = e.config_report()
+    check(sorted(rep["completed"]) == first + later,
+          f"(c) start_empty completed {sorted(rep['completed'])}")
+    check(all(rep["completed"][c]["iter"] == 2 for c in first),
+          "(c) a submission's own budget did not hold")
+    return {"configs": C, "extra": len(specs), "refused": refused,
+            "start_empty_completed": len(rep["completed"])}
+
+
+def heal_recovery(tmp):
+    """(d) escalating recovery at C = 64: a checkpoint mid-sweep, then a
+    poisoned lane is re-seeded from its slice of the file."""
+    sink = _ListSink()
+    r = healing_runner(HEAL_BATCH, 300.0, 50.0, 0, seed=10, sink=sink)
+    r.enable_self_healing(budget=10, max_retries=1)
+    r.step(4, chunk=2)
+    path = r.checkpoint(str(tmp / "heal.ckpt.npz"))
+    lane = min(17, HEAL_BATCH - 1)
+    poison_lanes(r, [lane])
+    r.step(2, chunk=2)          # depth 0: reclaimed, refilled at the end
+    reseed = _retries(sink)[-1]
+    check(reseed["event"] == "reseed"
+          and reseed.get("recovery") == "checkpoint",
+          f"(d) the retry's record is {reseed}")
+    with np.load(path) as z:
+        off = [n for n, t in r._state_arrays().items()
+               if n != "quarantine"
+               and t[lane].cpu().numpy().tobytes() != z[n][lane].tobytes()]
+    check(not off, f"(d) the refilled lane's {off} differ from the "
+          "checkpoint's slice")
+    while not r.healing_complete():
+        r.step(4, chunk=2)
+    rep = r.config_report()
+    check(rep["completed"][lane]["attempts"] == 2
+          and len(rep["completed"]) == HEAL_BATCH, "(d) the sweep did not "
+          "complete")
+    return {"configs": HEAL_BATCH, "lane": lane, "reseed": reseed,
+            "file_bytes": os.path.getsize(path)}
+
+
+def heal_genetic(tmp):
+    """(e) phase 15 (d)'s genetic sweep at C = 64: a checkpoint holds
+    `__genetics__`, a new runner restores it, and both go on equal bit
+    for bit, the search included."""
+    files = strategy_files(tmp)
+    genetic = {"type": "genetic", "start": 3, "period": 5,
+               "switch_time": 50, "prune_net_file": files[1],
+               "prune_model_file": files[2]}
+    a = sweep_runner(HEAL_BATCH, 300.0, 50.0, seed=8, strategies=[genetic])
+    a.step(3, chunk=3)                     # an application before 2
+    t0 = time.perf_counter()
+    path = a.checkpoint(str(tmp / "genetic.ckpt.npz"))
+    ckpt_s = time.perf_counter() - t0
+    with np.load(path) as z:
+        check("__genetics__" in z.files, "(e) no __genetics__ in the file")
+        gbytes = int(z["__genetics__"].nbytes)
+    b = sweep_runner(HEAL_BATCH, 300.0, 50.0, seed=8, strategies=[genetic])
+    t0 = time.perf_counter()
+    b.restore(path)
+    restore_s = time.perf_counter() - t0
+    masks = [[m.copy() for m in g.prune_weights] for g in a._genetics]
+    pos0 = [g._rng.get_state()[2] for g in a._genetics]
+    la = a.step(6, chunk=3)[0]             # an application before 7
+    lb = b.step(6, chunk=3)[0]
+    check(la.tobytes() == lb.tobytes(), "(e) the restored run's losses "
+          "differ")
+    differ = _rows_equal(a, b, list(range(HEAL_BATCH)))
+    check(not differ, f"(e) the restored run's {differ} differ")
+    for i, (ga, gb) in enumerate(zip(a._genetics, b._genetics)):
+        check(all(np.array_equal(x, y) for x, y in
+                  zip(ga.prune_weights, gb.prune_weights))
+              and ga._rng.randint(1 << 30) == gb._rng.randint(1 << 30),
+              f"(e) lane {i}'s search differs after the restore")
+    moved = sum(any(not np.array_equal(x, y) for x, y in
+                    zip(m0, g.prune_weights))
+                for m0, g in zip(masks, a._genetics))
+    check(any(g._rng.get_state()[2] != p for g, p in
+              zip(b._genetics, pos0)), "(e) no search ran after the restore")
+    return {"configs": HEAL_BATCH, "genetics_bytes": gbytes,
+            "checkpoint_s": ckpt_s, "restore_s": restore_s,
+            "lanes_swapped_after": moved}
+
+
+def phase_healing(gpu):
+    """Phase 19: (a) the C = 512 sweep with self-healing against a clean
+    run; (b) permanent failure; (c) continuous batching; (d) escalating
+    recovery; (e) the genetic search across a checkpoint."""
+    import tempfile
+    import torch
+    t0 = time.perf_counter()
+    saved = os.environ.get("RRAM_POOL_BWD")
+    os.environ["RRAM_POOL_BWD"] = "cuda"
+    out, part = {}, {}
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+            for name, fn in (
+                    ("a_wide", lambda: heal_wide(gpu)),
+                    ("b_failure", heal_failure),
+                    ("c_batching", heal_batching),
+                    ("d_recovery", lambda: heal_recovery(Path(tmp))),
+                    ("e_genetic", lambda: heal_genetic(Path(tmp)))):
+                t1 = time.perf_counter()
+                out[name] = fn()
+                part[name] = time.perf_counter() - t1
+                print(f"phase 19: ({name[0]}) {json.dumps(out[name])}",
+                      flush=True)
+                torch.cuda.empty_cache()
+    finally:
+        if saved is None:
+            os.environ.pop("RRAM_POOL_BWD", None)
+        else:
+            os.environ["RRAM_POOL_BWD"] = saved
+    out.update(part_s=part, phase_s=time.perf_counter() - t0, gpu=gpu)
+    print(f"phase 19: {json.dumps(part)}", flush=True)
+    return out
+
+
 def timed_checkout(path: str) -> int:
     """Run another checkout's chip_smoke.py in full, each of its phase_*
     functions timed, and print their wall seconds as one JSON line: the
@@ -6069,7 +6416,7 @@ def main(argv=None) -> int:
                    help="training steps of the slice phase (default 50)")
     p.add_argument("--transition-steps", type=int, default=6)
     p.add_argument("--phases", default="all",
-                   help="comma-separated phases 2-18 to run after the "
+                   help="comma-separated phases 2-19 to run after the "
                         "build (default all; only a full run prints the "
                         "per-kernel line and the ok line)")
     p.add_argument("--b2-path", action="store_true",
@@ -6105,7 +6452,7 @@ def main(argv=None) -> int:
                         "print their seconds as JSON")
     args = p.parse_args(argv)
     t_main = time.perf_counter()
-    every = set(range(2, 19))
+    every = set(range(2, 20))
     want = every if args.phases == "all" else {
         int(v) for v in args.phases.split(",")}
 
@@ -6238,6 +6585,8 @@ def main(argv=None) -> int:
         blocks = timed(18, phase_blocks, gpu,
                        tiled_sweep if 11 in want else None,
                        vgg["sweep"] if 16 in want else None)
+    if 19 in want:
+        healing = timed(19, phase_healing, gpu)
     if want != every:
         print(f"phases {sorted(want)} passed; no ok line for a partial run",
               flush=True)
@@ -6393,6 +6742,7 @@ def main(argv=None) -> int:
     print(json.dumps({"vgg11": vgg}))
     print(json.dumps({"telemetry": telemetry}))
     print(json.dumps({"blocks": blocks}))
+    print(json.dumps({"healing": healing}))
     print(json.dumps({"phase_s": {**{str(n): v for n, v in phase_s.items()},
                                   "kernels_line": time.perf_counter() - t_rows,
                                   "script": time.perf_counter() - t_main}}))

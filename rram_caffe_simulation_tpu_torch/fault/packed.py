@@ -63,6 +63,20 @@ def make_pack_spec(state, decrement: float, means=None, stds=None,
     }
 
 
+def check_spec_bounds(spec: dict, mean: float, std: float):
+    """Raise if a (mean, std) spec could overflow the counter dtype the
+    banks were sized with (a self-healing config submitted after the
+    int16 choice was frozen)."""
+    if spec["life_dtype"] == "int32":
+        return
+    if choose_life_dtype([mean], [std], spec["decrement"]) != "int16":
+        raise ValueError(
+            f"fault spec (mean={mean}, std={std}) exceeds the int16 "
+            "lifetime banks this packed sweep was built with; build the "
+            "runner with this spec present (the dtype choice covers "
+            "every known spec) or with packed_state=False")
+
+
 def pack_lifetimes(life, decrement: float, dtype) -> np.ndarray:
     """f32 lifetimes -> integer write counters (host)."""
     q = np.ceil(np.asarray(fault_engine.host_array(life), np.float64)

@@ -3,7 +3,7 @@ emitter (counterpart of the reference package's observe/sink.py).
 
 The logger is a plain registry: `MetricsLogger([sink, ...]).log(record)`
 fans a record out to every sink. Records are built with `make_record`,
-`make_setup_record`, `make_health_record` and
+`make_setup_record`, `make_health_record`, `make_retry_record` and
 `make_fault_redraw_record` (schema.py documents the shapes) and are
 plain dicts of Python scalars, so any sink is a few lines.
 
@@ -11,7 +11,7 @@ plain dicts of Python scalars, so any sink is a few lines.
 solver printed ("Iteration N, lr = X", "Iteration N, loss = X", "    Train
 net output #j: name = v", after a timestamped "Solving <net>" banner), so
 the Caffe log tools scrape it unchanged; `setup`, `span`, `health`,
-`fault_redraw` and `sentinel` records become one line each, and a
+`retry`, `fault_redraw` and `sentinel` records become one line each, and a
 `debug_trace` record the reference's `debug_info` lines
 (`debug_trace_lines`).
 """
@@ -100,6 +100,56 @@ def make_health_record(iteration: int, params: dict, process: str,
     if lane_map is not None:
         rec["lane_map"] = [int(i) for i in lane_map]
     return rec
+
+
+def make_retry_record(iteration: int, config: int, lane: int,
+                      attempt: int, event: str,
+                      recovery: Optional[str] = None,
+                      eligible_iter: Optional[int] = None,
+                      diagnosis: Optional[str] = None) -> dict:
+    """One self-healing lane event (schema.py RETRY_FIELDS): `event` is
+    "requeue" (attempt voided, config back on the queue), "reseed" (lane
+    refilled; `recovery` "checkpoint" or "fresh") or "failed" (retries
+    exhausted; `diagnosis` names the first bad iteration, phase and
+    layer)."""
+    rec = {
+        "schema_version": SCHEMA_VERSION,
+        "type": "retry",
+        "iter": int(iteration),
+        "wall_time": time.time(),
+        "config": int(config),
+        "lane": int(lane),
+        "attempt": int(attempt),
+        "event": str(event),
+    }
+    if recovery is not None:
+        rec["recovery"] = str(recovery)
+    if eligible_iter is not None:
+        rec["eligible_iter"] = int(eligible_iter)
+    if diagnosis is not None:
+        rec["diagnosis"] = str(diagnosis)
+    return rec
+
+
+def retry_line(record: dict) -> str:
+    """One-line text form of a `retry` record."""
+    event = record.get("event")
+    head = (f"Sweep retry: config {record.get('config')} "
+            f"(lane {record.get('lane')}, attempt "
+            f"{record.get('attempt')})")
+    it = record.get("iter")
+    if event == "requeue":
+        tail = f" re-queued after quarantine at iteration {it}"
+        if "eligible_iter" in record:
+            tail += f"; eligible at iteration {record['eligible_iter']}"
+    elif event == "reseed":
+        tail = (f" re-seeded at iteration {it} "
+                f"({record.get('recovery', 'fresh')} recovery)")
+    else:
+        tail = f" permanently failed at iteration {it}"
+        if record.get("diagnosis"):
+            tail += f": {record['diagnosis']}"
+    return head + tail
 
 
 def make_fault_redraw_record(iteration: int, snapshot: str,
@@ -455,7 +505,8 @@ class CaffeLogSink:
             self._maybe_flush()
             return
         line = {"setup": setup_line, "health": health_line,
-                "span": _span_line, "fault_redraw": fault_redraw_line,
+                "span": _span_line, "retry": retry_line,
+                "fault_redraw": fault_redraw_line,
                 "sentinel": sentinel_line}.get(rtype)
         if line is not None:
             self._emit(line(record))

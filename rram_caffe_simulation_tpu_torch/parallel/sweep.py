@@ -98,21 +98,49 @@ names each lane's first bad phase and layer, and an armed watchdog
 checkpoints the sweep ("snapshot") or stops it until restore() ("halt")
 at the next chunk boundary after a new quarantine.
 
+Self-healing (`enable_self_healing`, the reference's layer in shared
+time: every lane follows the one iteration clock) turns the lanes into
+slots of a work queue. Each config has an iteration budget; at every
+chunk boundary the dispatcher harvests configs that reached it (the
+result into `config_report()`, `on_lane_complete(cfg, lane, result)`
+called while the lane still holds the config's rows, the lane frozen
+by its quarantine bit), reclaims the lanes of quarantined configs once
+the bookkeeping has announced them (behind a consumer drain: the
+attempt is voided and the config queued again after `backoff_iters *
+attempt` iterations, or, with its `max_retries` spent, failed with the
+first bad iteration, phase and layer), and re-seeds free lanes from the
+queue in (config, attempt) order or the order of `set_refill_policy`.
+A refill writes the lane's rows of the resident tensors in place (host
+to device, behind a drain), so every other lane keeps its storage byte
+for byte: a first retry from the config's slice of the last checkpoint
+(`use_checkpoint`), otherwise fresh params and history and a fault draw
+under fold_in(fold_in(fold_in(solver key, 0xFA117), config), attempt).
+`submit_configs` queues more configs (refused under packed banks when
+their spec would overflow the int16 counters); the sweep is done when
+`healing_complete()`. Every event is a `retry` record and line, and a
+`heal` span with `requeue`/`reseed`/`failed` instants on the trace.
+Checkpoints carry the lane map, per-lane progress and the queue
+(`healing`), and both packages restore each other's.
+
+The genetic search's state (`__genetics__`) is the reference's pickle of
+one GeneticStrategy a lane; fault/genetic_state.py writes it under the
+reference's class name and reads it back allowing numpy's names alone.
+
 Not ported yet, each refused by name: mesh, remat_segments,
-compute_dtype, precompile_chunk, self-healing (and `virtual_time`), the
-multi-process forms (the stall and watchdog agreement, the owned config
-block), distributed checkpoints (writing), and a checkpoint of a runner
-whose lanes run the genetic strategy (the reference stores its search
-state as a pickle of its own classes).
+compute_dtype, precompile_chunk, self-healing's `virtual_time`
+(per-lane clocks), the multi-process forms (the stall and watchdog
+agreement, the owned config block) and distributed checkpoints
+(writing).
 """
 from __future__ import annotations
 
 import copy
 import json
 import os
+import sys
 import threading
 import time
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -123,6 +151,7 @@ from ..core import prng
 from ..data.feed import can_materialize, materialize_data_source
 from ..device import resolve_device
 from ..fault import engine as fault_engine
+from ..fault import genetic_state
 from ..fault import hw_aware
 from ..fault import packed as fault_packed
 from ..observe import counters as obs_counters
@@ -186,6 +215,82 @@ def _savez_writer(arrays: Dict[str, np.ndarray]):
     return write
 
 
+class _HealingState:
+    """The self-healing layer's host bookkeeping (the reference's
+    _HealingState, plain numpy and Python): the lane -> config map, the
+    pending-config queue with at-least-once completion, per-config
+    attempts and budgets, and the completed and failed ledgers. It rides
+    the checkpoint as JSON."""
+
+    def __init__(self, n: int, budget: int, max_retries: int,
+                 backoff_iters: int, use_checkpoint: bool,
+                 start_iter: int):
+        self.budget = int(budget)
+        self.max_retries = int(max_retries)
+        self.backoff_iters = int(backoff_iters)
+        self.use_checkpoint = bool(use_checkpoint)
+        # config id occupying each lane; -1 = free
+        self.lane_cfg = np.arange(n, dtype=np.int64)
+        # iterations the lane's current occupant has completed
+        self.lane_done = np.full(n, int(start_iter), dtype=np.int64)
+        # 1-based attempt of the lane's current occupant
+        self.lane_attempt = np.ones(n, dtype=np.int64)
+        # pending work: [{"config", "attempt", "eligible_iter"}]
+        self.pending: List[dict] = []
+        # per-config budget overrides (live submissions)
+        self.cfg_budget: Dict[int, int] = {}
+        self.results: Dict[int, dict] = {}
+        self.failures: Dict[int, dict] = {}
+        # lanes the host froze (completed or idle): not a divergence,
+        # left out of quarantine announcements and record fields
+        self.benign: set = set()
+        # id allocator for configs queued beyond the resident n
+        self.next_config = n
+
+    def requested(self) -> List[int]:
+        """Every config id this sweep has been asked to complete."""
+        ids = set(self.results) | set(self.failures)
+        ids.update(int(c) for c in self.lane_cfg if c >= 0)
+        ids.update(int(e["config"]) for e in self.pending)
+        return sorted(ids)
+
+    def complete(self) -> bool:
+        return not self.pending and bool(np.all(self.lane_cfg < 0))
+
+    def to_json(self) -> dict:
+        return {
+            "budget": self.budget, "max_retries": self.max_retries,
+            "backoff_iters": self.backoff_iters,
+            "use_checkpoint": self.use_checkpoint,
+            "lane_cfg": [int(x) for x in self.lane_cfg],
+            "lane_done": [int(x) for x in self.lane_done],
+            "lane_attempt": [int(x) for x in self.lane_attempt],
+            "pending": list(self.pending),
+            "cfg_budget": {str(k): int(v)
+                           for k, v in self.cfg_budget.items()},
+            "results": {str(k): v for k, v in self.results.items()},
+            "failures": {str(k): v for k, v in self.failures.items()},
+            "benign": sorted(int(x) for x in self.benign),
+            "next_config": int(self.next_config),
+        }
+
+    @classmethod
+    def from_json(cls, d: dict) -> "_HealingState":
+        h = cls(len(d["lane_cfg"]), d["budget"], d["max_retries"],
+                d["backoff_iters"], d["use_checkpoint"], 0)
+        h.lane_cfg = np.asarray(d["lane_cfg"], np.int64)
+        h.lane_done = np.asarray(d["lane_done"], np.int64)
+        h.lane_attempt = np.asarray(d["lane_attempt"], np.int64)
+        h.pending = list(d["pending"])
+        h.cfg_budget = {int(k): int(v)
+                        for k, v in d.get("cfg_budget", {}).items()}
+        h.results = {int(k): v for k, v in d["results"].items()}
+        h.failures = {int(k): v for k, v in d["failures"].items()}
+        h.benign = set(d["benign"])
+        h.next_config = int(d["next_config"])
+        return h
+
+
 class SweepRunner:
     """C fault configs of one solver, trained together on `device` (the
     card by default; raises without one unless device="cpu", which
@@ -241,6 +346,26 @@ class SweepRunner:
         self.solver = solver
         self.n = int(n_configs)
         self.iter = 0
+        self._means = None if means is None else np.asarray(means,
+                                                            np.float64)
+        self._stds = None if stds is None else np.asarray(stds, np.float64)
+        # the self-healing layer (enable_self_healing); None = off
+        self._healing: Optional[_HealingState] = None
+        # the service's seams: the refill order, a callback fired with a
+        # completed config's rows still in its lane
+        self._refill_policy = None
+        self.on_lane_complete = None
+        self._virtual_time = False
+        # (mean, std) of configs queued beyond the resident lanes
+        self._cfg_specs: Dict[int, dict] = {}
+        # the last checkpoint written or restored: a retry's recovery
+        self._last_ckpt_path: Optional[str] = None
+        # set by the bookkeeping when it announces a quarantine: the
+        # dispatcher reclaims lanes at its next chunk boundary
+        self._reclaim_flag = threading.Event()
+        # lane -> {"iter", "where"} of an announced quarantine (read by
+        # the dispatcher after a consumer drain)
+        self._quar_diag: Dict[int, dict] = {}
         self.last_losses: Optional[np.ndarray] = None
         self.chunk_losses: Optional[np.ndarray] = None   # (k, C)
         # cold-start accounting (the observe `setup` record); made
@@ -413,11 +538,17 @@ class SweepRunner:
                 else (None, None)
         if self._consumer is not None:
             self._consumer.check()
+        # the entry pass: events noted in the last call's final drain or
+        # restored from a checkpoint, before anything is dispatched
+        if self._heal_pass():
+            return self._last_host if self._last_host is not None \
+                else (None, None)
         tr = self._tracer
         done = 0
         while done < iters:
             self._maybe_genetic()
-            k = self._genetic_chunk_cap(min(max(chunk, 1), iters - done))
+            k = self._budget_chunk_cap(self._genetic_chunk_cap(
+                min(max(chunk, 1), iters - done)))
             t0 = time.perf_counter() if tr is not None else 0.0
             losses, outputs, mets = [], {}, {}
             for i in range(k):
@@ -435,6 +566,8 @@ class SweepRunner:
             done += k
             self._maybe_health_boundary()
             if self._service_watchdog():
+                break
+            if self._heal_pass(k, losses):
                 break
         return self._finish_step()
 
@@ -510,6 +643,9 @@ class SweepRunner:
         backpressure) or consume them inline (depth 0, `host_blocked`
         counts the whole wait and the sinks)."""
         self.pipeline.chunks += 1
+        h = self._healing
+        lane_map = [int(c) for c in h.lane_cfg] if h is not None else None
+        benign = frozenset(h.benign) if h is not None else frozenset()
         if not self._pipeline_on:
             self._pending = (losses, outputs)
             if self.solver._watchdog is not None:
@@ -519,11 +655,12 @@ class SweepRunner:
                     "quarantine": self.quarantine,
                     "debug": mets["debug"]}).wait()
                 self._note_quarantine(host["quarantine"], last_it,
-                                      host["debug"])
+                                      host["debug"], lane_map, benign)
             return
         item = (k, last_it, obs_counters.HostCopy({
             "losses": torch.stack(losses), "outputs": outputs,
-            "metrics": mets, "quarantine": self.quarantine}))
+            "metrics": mets, "quarantine": self.quarantine}),
+            lane_map, benign)
         tr = self._tracer
         if self._consumer is not None:
             blocked = self._consumer.submit(item)
@@ -553,11 +690,12 @@ class SweepRunner:
         on the consumer thread at depth >= 1): wait for its host copies,
         refresh the last-result view, note new quarantines and write
         one record to the solver's metric sinks."""
-        k, last_it, copy_ = item
+        k, last_it, copy_, lane_map, benign = item
         host = copy_.wait()
         self._set_last_host(host["losses"], host["outputs"])
         qids = self._note_quarantine(host["quarantine"], last_it,
-                                     host["metrics"].get("debug"))
+                                     host["metrics"].get("debug"),
+                                     lane_map, benign)
         logger = (self.solver.metrics_logger
                   if self.solver._metrics_enabled else None)
         # deep traces are not record fields
@@ -576,31 +714,44 @@ class SweepRunner:
         self._record_t0 = now
         rec = obs_sink.make_record(iteration=last_it, metrics=mets,
                                    outputs=outs, elapsed_s=elapsed,
-                                   n_iters=k, quarantine=qids or None)
+                                   n_iters=k, quarantine=qids or None,
+                                   lane_map=lane_map)
         self.pipeline.records += 1
         logger.log(rec)
 
     def _note_quarantine(self, quar: torch.Tensor, iteration: int,
-                         debug: Optional[dict] = None) -> list:
+                         debug: Optional[dict] = None, lane_map=None,
+                         benign=frozenset()) -> list:
         """Announce lanes newly quarantined (once each), with the first
         bad phase and layer from the chunk's sentinels when the trace is
-        on (`debug`, the step's debug tree), note a watchdog event for
+        on (`debug`, the step's debug tree), note the triage entry and
+        wake the reclamation (self-healing), note a watchdog event for
         the dispatcher, and return the ids of every quarantined lane.
-        `quar` and `debug` are host tensors."""
-        ids = [int(i) for i in np.flatnonzero(quar.numpy())]
+        Lanes the host froze (`benign`: completed or idle) did not
+        diverge and are left out. `quar` and `debug` are host tensors;
+        `lane_map` the config each lane held in the chunk."""
+        ids = [int(i) for i in np.flatnonzero(quar.numpy())
+               if int(i) not in benign]
         new = [i for i in ids if i not in self._quar_seen]
         if not new:
             return ids
         self._quar_seen.update(new)
         for i in new:
             if self._tracer is not None:
-                self._tracer.instant("quarantine", cat="healing",
-                                     iteration=int(iteration),
-                                     args={"lane": i, "config": i})
+                self._tracer.instant(
+                    "quarantine", cat="healing", iteration=int(iteration),
+                    args={"lane": i, "config": (int(lane_map[i])
+                                                if lane_map is not None
+                                                else i)})
             where = self._quarantine_entry(i, debug)
-            print(f"Sweep quarantine: config {i} went non-finite at "
+            self._quar_diag[i] = {"iter": int(iteration), "where": where}
+            who = (f"config {lane_map[i]} (lane {i})"
+                   if lane_map is not None else f"config {i}")
+            print(f"Sweep quarantine: {who} went non-finite at "
                   f"iteration {iteration}{where} — updates frozen, healthy "
                   "configs keep training", flush=True)
+        if self._healing is not None:
+            self._reclaim_flag.set()
         if self.solver._watchdog is not None:
             with self._watchdog_lock:
                 if self._watchdog_event is None:
@@ -799,7 +950,9 @@ class SweepRunner:
             age_edges=obs_health.AGE_EDGES,
             tiles=(None if solver.tile_spec.is_default
                    else solver.tile_spec.canonical()),
-            lane_map=list(range(self.n)))
+            lane_map=([int(c) for c in self._healing.lane_cfg]
+                      if self._healing is not None
+                      else list(range(self.n))))
         self._health_ledger.update(rec)
         logger = (solver.metrics_logger
                   if solver._metrics_enabled else None)
@@ -842,25 +995,53 @@ class SweepRunner:
         g = self.solver.strategies.genetic
         return g is not None and g.due_at(iteration)
 
+    def _active_lanes(self) -> list:
+        """Lanes whose config is training (self-healing on): occupied
+        and not frozen by the host."""
+        h = self._healing
+        return [lane for lane in range(self.n)
+                if h.lane_cfg[lane] >= 0 and lane not in h.benign]
+
     def _genetic_chunk_cap(self, k: int) -> int:
         """Cut a chunk of k iterations short of the next iteration the
-        genetic search is due at, so the search runs between chunks."""
-        if self._genetics is not None:
+        genetic search is due at, so the search runs between chunks.
+        Under self-healing each lane follows its own iteration count: a
+        re-seeded config's schedule restarts with it."""
+        if self._genetics is None:
+            return k
+        if self._healing is None:
             for j in range(1, k):
                 if self._genetic_due_at(self.iter + j):
                     return j
+            return k
+        done = self._healing.lane_done
+        lanes = self._active_lanes()
+        for j in range(1, k):
+            if any(self._genetic_due_at(int(done[lane]) + j)
+                   for lane in lanes):
+                return j
         return k
 
     def _maybe_genetic(self):
-        if self._genetics is not None and self._genetic_due_at(self.iter):
-            self._apply_genetic()
+        if self._genetics is None:
+            return
+        if self._healing is None:
+            if self._genetic_due_at(self.iter):
+                self._apply_genetic()
+            return
+        done = self._healing.lane_done
+        lanes = [lane for lane in self._active_lanes()
+                 if self._genetic_due_at(int(done[lane]))]
+        if lanes:
+            self._apply_genetic(lanes)
 
-    def _apply_genetic(self):
-        """One genetic application in every lane that is not
-        quarantined (a quarantined lane's params and generator stay as
-        they are): the lanes' FC params and weight lifetimes (the
-        mid-bin view of packed banks) to the host, each lane's search on
-        its own slices with zero diffs, the params back."""
+    def _apply_genetic(self, lanes=None):
+        """One genetic application in every lane (or in `lanes`, the
+        self-healing per-lane schedule) that is not quarantined (a
+        quarantined lane's params and generator stay as they are): the
+        lanes' FC params and weight lifetimes (the mid-bin view of
+        packed banks) to the host, each lane's search on its own slices
+        with zero diffs, the params back."""
         s = self.solver
         flat = s._flat(self.params)
         keys = [k for pair in s.fc_pairs for k in pair if k is not None]
@@ -873,7 +1054,7 @@ class SweepRunner:
                      for k in weights}
         quarantined = self.quarantine.cpu().numpy()
         for i, g in enumerate(self._genetics):
-            if quarantined[i]:
+            if quarantined[i] or (lanes is not None and i not in lanes):
                 continue
             lane = {k: v[i] for k, v in data.items()}     # views
             g.apply(lane, {k: np.zeros_like(v) for k, v in lane.items()},
@@ -1030,12 +1211,439 @@ class SweepRunner:
                  for g, grp in self.fault_states.items()}
         return params, history, fault
 
-    # the reference runner's self-healing layer
-    def enable_self_healing(self, *args, **kwargs):
-        _not_ported("self-healing")
+    # ------------------------------------------------------------------
+    # self-healing: lane reclamation, retries, refills, the service hooks
 
-    def submit_configs(self, *args, **kwargs):
-        _not_ported("self-healing (submit_configs)")
+    def enable_self_healing(self, budget: int, max_retries: int = 1,
+                            backoff_iters: int = 0,
+                            use_checkpoint: bool = True,
+                            extra_configs=None, start_empty: bool = False,
+                            virtual_time: bool = False):
+        """Arm the self-healing layer (the reference's, shared time):
+        every resident config becomes a work item with an iteration
+        `budget` and at-least-once completion. At chunk boundaries the
+        dispatcher harvests configs that completed their budget (the
+        lane freezes), reclaims the lanes of quarantined configs (the
+        attempt is voided; the config is queued again after
+        `backoff_iters * attempt` iterations until `max_retries` retries
+        are spent, then failed with the first bad iteration, phase and
+        layer), and re-seeds free lanes from the queue: a first retry
+        from the config's slice of the last checkpoint when there is one
+        (`use_checkpoint`), else fresh params, history and a fault draw
+        under a key folded from (config, attempt). Healthy lanes are
+        untouched byte for byte. `extra_configs` ({"mean", "std"} specs)
+        queue configs beyond the resident lanes; `start_empty=True`
+        starts every lane idle, for work that arrives through
+        `submit_configs`. `virtual_time` (per-lane clocks) is not
+        ported."""
+        if not self._pipeline_on:
+            raise ValueError(
+                "self-healing needs the chunk bookkeeping path: build "
+                "the SweepRunner with pipeline_depth=0 (synchronous) or "
+                ">= 1 (consumer thread), not None")
+        if virtual_time:
+            _not_ported("virtual_time=True (per-lane iteration clocks of "
+                        "the self-healing service sweep)")
+        h = _HealingState(self.n, budget, max_retries, backoff_iters,
+                          use_checkpoint, self.iter)
+        if start_empty:
+            # every lane idle and frozen until a submission seeds it
+            h.lane_cfg[:] = -1
+            h.benign = set(range(self.n))
+        self._healing = h
+        if start_empty:
+            self._set_quarantine_bits(set_lanes=range(self.n))
+        if extra_configs:
+            self.submit_configs(extra_configs)
+        return self
+
+    def submit_configs(self, specs, budget: Optional[int] = None):
+        """Queue {"mean", "std"} config specs into a self-healing sweep;
+        free lanes take them at the next chunk boundary. `budget`
+        overrides the sweep's iteration budget for these configs.
+        Returns their config ids. Under packed banks a spec the int16
+        counters could not hold raises (check_spec_bounds)."""
+        h = self._healing
+        if h is None:
+            raise ValueError("submit_configs() needs "
+                             "enable_self_healing() first")
+        fp = self.solver.param.failure_pattern
+        ids = []
+        for spec in specs:
+            cfg = h.next_config
+            h.next_config += 1
+            self._cfg_specs[cfg] = {
+                "mean": float(spec.get("mean", fp.mean)),
+                "std": float(spec.get("std", fp.std))}
+            if self._pack_spec is not None:
+                fault_packed.check_spec_bounds(
+                    self._pack_spec, self._cfg_specs[cfg]["mean"],
+                    self._cfg_specs[cfg]["std"])
+            if budget is not None:
+                if int(budget) <= 0:
+                    raise ValueError("submit_configs budget must be "
+                                     f"> 0, got {budget!r}")
+                h.cfg_budget[cfg] = int(budget)
+            h.pending.append({"config": cfg, "attempt": 1,
+                              "eligible_iter": int(self.iter)})
+            ids.append(cfg)
+        return ids
+
+    def set_refill_policy(self, policy):
+        """The refill order: at each pass the eligible pending entries
+        ({"config", "attempt", "eligible_iter"}) go through
+        `policy(entries, lane_map)` (`lane_map` the occupancy, -1 for
+        the free lanes about to be seeded) and are seeded in the order
+        it returns; None restores (config, attempt) order."""
+        self._refill_policy = policy
+
+    def healing_complete(self) -> bool:
+        """True when self-healing is armed and every requested config is
+        completed or failed."""
+        return self._healing is not None and self._healing.complete()
+
+    def config_report(self) -> dict:
+        """The completion ledger: every requested config id, the
+        completed and failed records (attempts, final loss, broken share,
+        diagnosis), the active lanes, the pending queue and the lane
+        map."""
+        h = self._healing
+        if h is None:
+            raise ValueError("config_report() needs "
+                             "enable_self_healing() first")
+        active = {}
+        for lane in range(self.n):
+            cfg = int(h.lane_cfg[lane])
+            if cfg >= 0:
+                active[cfg] = {"lane": lane,
+                               "done": int(h.lane_done[lane]),
+                               "attempt": int(h.lane_attempt[lane])}
+        return {"requested": h.requested(),
+                "completed": {int(k): dict(v)
+                              for k, v in h.results.items()},
+                "failed": {int(k): dict(v)
+                           for k, v in h.failures.items()},
+                "active": active,
+                "pending": [dict(e) for e in h.pending],
+                "lane_map": [int(c) for c in h.lane_cfg]}
+
+    def _cfg_mean_std(self, cfg: int):
+        """A config's (mean, std): its queued spec, else the runner's
+        per-config arrays, else the pattern's."""
+        spec = self._cfg_specs.get(cfg)
+        if spec is not None:
+            return float(spec["mean"]), float(spec["std"])
+        fp = self.solver.param.failure_pattern
+        mean = (float(self._means[cfg])
+                if self._means is not None and cfg < len(self._means)
+                else float(fp.mean))
+        std = (float(self._stds[cfg])
+               if self._stds is not None and cfg < len(self._stds)
+               else float(fp.std))
+        return mean, std
+
+    def _fresh_genetic(self):
+        g = copy.deepcopy(self.solver.strategies.genetic)
+        g._rng = np.random.RandomState(g.seed)
+        return g
+
+    def _fresh_rows(self, cfg: int, attempt: int) -> Dict[str, np.ndarray]:
+        """A fresh lane image for `cfg` under the `_state_arrays` names,
+        as host arrays: the solver's initial params and history, and a
+        fault draw under fold_in(fold_in(fold_in(solver key, 0xFA117),
+        cfg), attempt) re-anchored to the config's (mean, std), packed
+        under packed banks: each retry an independent sample of the
+        spec."""
+        s = self.solver
+        rows: Dict[str, np.ndarray] = {}
+        for layer, vals in s.params.items():
+            for slot, v in enumerate(vals):
+                if v is not None:
+                    rows[f"params/{layer}/{slot}"] = _host_copy(v)
+        for key, slots in s.history.items():
+            for sname, v in slots.items():
+                rows[f"history/{key}/{sname}"] = _host_copy(v)
+        flat = s._flat(s.params)
+        shapes = {k: tuple(flat[k].shape) for k in s._fault_keys}
+        mean, std = self._cfg_mean_std(cfg)
+        key = prng.fold_in(prng.fold_in(prng.fold_in(s._key, SWEEP_FOLD),
+                                        cfg), attempt)
+        st = fault_engine.draw_rescaled_state(
+            key, shapes, s.param.failure_pattern, mean, std,
+            tiles=s.tile_spec, device=self.device)
+        if "remap_slots" in s.fault_state:
+            # tracked remapping restarts at the identity map
+            st["remap_slots"] = s.fault_state["remap_slots"]
+        if self._pack_spec is not None:
+            st = fault_packed.pack_state(st, self._pack_spec)
+        for name, v in fault_engine.iter_state_leaves(st):
+            rows[f"fault/{name}"] = _host_copy(v)
+        return rows
+
+    def _ckpt_lane_rows(self, cfg: int):
+        """The config's last good slice of the last checkpoint, as
+        (rows, lane_done, GeneticStrategy or None), or None when there
+        is none (no checkpoint, the config not in it, or quarantined
+        there). Either layout and either bank format."""
+        path = self._last_ckpt_path
+        if not path or not os.path.exists(path):
+            return None
+        try:
+            self.wait_for_writes()
+            data, meta, gen = self._load_checkpoint_data(path)
+            if int(meta.get("version", 1)) < 2:
+                return None          # v1 has no lane map to slice by
+            lane_map = list(meta.get("lane_map") or [])
+            if cfg not in lane_map:
+                return None
+            j = lane_map.index(cfg)
+            if bool(np.asarray(data["quarantine"])[j]):
+                return None          # not a good slice
+            done = int(meta.get("lane_done",
+                                [meta["iter"]] * len(lane_map))[j])
+            genetic = None
+            if self._genetics is not None:
+                if gen is None:
+                    return None
+                genetic = genetic_state.loads(gen)[j]
+            rows = {name: arr[j] for name, arr in data.items()
+                    if name != "quarantine"}
+            ck_fmt = meta.get("fault_format", "f32")
+            ck_spec = meta.get("pack_spec")
+            my_fmt = "packed" if self._pack_spec is not None else "f32"
+            if ck_fmt != my_fmt or (ck_fmt == "packed"
+                                    and ck_spec != self._pack_spec):
+                bare = {n[len("fault/"):]: rows.pop(n)
+                        for n in [n for n in rows
+                                  if n.startswith("fault/")]}
+                if ck_fmt == "packed":
+                    bare = fault_packed.convert_flat(
+                        bare, to_packed=False, spec=ck_spec)
+                if my_fmt == "packed":
+                    bare = fault_packed.convert_flat(
+                        bare, to_packed=True, spec=self._pack_spec)
+                rows.update({f"fault/{n}": a for n, a in bare.items()})
+            if set(rows) != set(self._state_arrays()) - {"quarantine"}:
+                return None
+            return rows, done, genetic
+        except Exception as e:       # best effort: the fresh path
+            print(f"Sweep retry: config {cfg}'s slice of {path} is "
+                  f"unreadable ({type(e).__name__}: {e}); recovering "
+                  "fresh", file=sys.stderr, flush=True)
+            return None
+
+    def _recovery_rows(self, cfg: int, attempt: int):
+        """Escalating recovery: a first retry from the config's
+        checkpointed slice when there is one, otherwise (and for later
+        retries and first seedings) fresh. Returns (rows, start_done,
+        GeneticStrategy or None, recovery name)."""
+        if self._healing.use_checkpoint and attempt == 2:
+            got = self._ckpt_lane_rows(cfg)
+            if got is not None:
+                rows, done, genetic = got
+                return rows, done, genetic, "checkpoint"
+        return self._fresh_rows(cfg, attempt), 0, None, "fresh"
+
+    def _write_lanes(self, updates: Dict[int, Dict[str, np.ndarray]]):
+        """Each refilled lane's rows copied from the host into the
+        resident tensors in place: untouched lanes keep their storage,
+        byte for byte."""
+        cur = self._state_arrays()
+        for lane, rows in updates.items():
+            for name, row in rows.items():
+                t = cur[name]
+                if tuple(row.shape) != tuple(t.shape[1:]):
+                    raise ValueError(
+                        f"lane refill: leaf {name!r} row has shape "
+                        f"{tuple(row.shape)}, expected "
+                        f"{tuple(t.shape[1:])}")
+                t[int(lane)].copy_(torch.from_numpy(
+                    np.ascontiguousarray(row)).to(t.dtype))
+
+    def _set_quarantine_bits(self, set_lanes=(), clear_lanes=()):
+        """The host's edit of the quarantine mask: freeze completed or
+        idle lanes, release refilled ones (a new mask tensor: a pending
+        host copy may still read the old one)."""
+        m = self.quarantine.clone()
+        lanes = sorted(set(set_lanes))
+        if lanes:
+            m[torch.tensor(lanes, device=m.device)] = True
+        lanes = sorted(set(clear_lanes))
+        if lanes:
+            m[torch.tensor(lanes, device=m.device)] = False
+        self.quarantine = m
+
+    def _cfg_budget_of(self, cfg: int) -> int:
+        """A config's iteration budget: its submission's, else the
+        sweep's."""
+        h = self._healing
+        return int(h.cfg_budget.get(int(cfg), h.budget))
+
+    def _budget_chunk_cap(self, k: int) -> int:
+        """Cut a chunk so no active config runs past its budget (a
+        completing lane freezes exactly at the boundary)."""
+        h = self._healing
+        if h is None:
+            return k
+        rem = [self._cfg_budget_of(h.lane_cfg[lane]) - int(h.lane_done[lane])
+               for lane in self._active_lanes()]
+        rem = [r for r in rem if r > 0]
+        if rem:
+            k = min(k, min(rem))
+        return max(k, 1)
+
+    def _emit_retry(self, rec: dict):
+        """A retry record: its line printed, a healing instant on the
+        trace, the record to the metric sinks."""
+        from ..observe import sink as obs_sink
+        print(obs_sink.retry_line(rec), flush=True)
+        if self._tracer is not None:
+            self._tracer.instant(
+                rec["event"], cat="healing", iteration=rec["iter"],
+                args={"config": rec["config"], "lane": rec["lane"],
+                      "attempt": rec["attempt"]})
+        if self.solver._metrics_enabled \
+                and self.solver.metrics_logger is not None:
+            self.solver.metrics_logger.log(rec)
+
+    def _heal_pass(self, k: int = 0, losses=None) -> bool:
+        """One chunk boundary of the self-healing dispatcher: advance
+        each active lane by the `k` iterations just dispatched, harvest
+        configs that completed their budget, reclaim quarantined lanes
+        when the bookkeeping flagged one (behind a consumer drain: void
+        the attempt, queue the config again or fail it), fast-forward
+        the clock when nothing trains but work is queued, and re-seed
+        free lanes from the queue (behind a drain). `losses` are the
+        chunk's per-iteration (C,) tensors. Returns True when every
+        requested config is completed or failed."""
+        from ..observe import sink as obs_sink
+        h = self._healing
+        if h is None:
+            return False
+        t_heal = time.perf_counter() if self._tracer is not None else 0.0
+        refilled, newly_benign = [], []
+        if k:
+            occupied = h.lane_cfg >= 0
+            if h.benign:
+                occupied &= ~np.isin(np.arange(self.n), list(h.benign))
+            h.lane_done[occupied] += k
+
+        # completion harvest
+        done_lanes = [lane for lane in self._active_lanes()
+                      if h.lane_done[lane]
+                      >= self._cfg_budget_of(h.lane_cfg[lane])]
+        if done_lanes:
+            mask = self.quarantine.cpu().numpy()
+            bf = self.broken_fractions()
+            lvals = (losses[-1].detach().cpu().numpy()
+                     if losses is not None else None)
+            for lane in done_lanes:
+                if mask[lane]:
+                    continue   # diverged in its last chunk: reclaimed below
+                cfg = int(h.lane_cfg[lane])
+                h.results[cfg] = {
+                    "status": "completed",
+                    "attempts": int(h.lane_attempt[lane]),
+                    "iter": int(self.iter), "lane": int(lane),
+                    "loss": (float(lvals[lane])
+                             if lvals is not None else None),
+                    "broken": float(bf[lane])}
+                if self.on_lane_complete is not None:
+                    # the lane still holds the config's rows here
+                    self.on_lane_complete(cfg, lane, h.results[cfg])
+                h.lane_cfg[lane] = -1
+                h.benign.add(lane)
+                newly_benign.append(lane)
+
+        # failure reclamation
+        if self._reclaim_flag.is_set():
+            # every dispatched chunk's announcement lands first
+            self._drain_consumer()
+            self._reclaim_flag.clear()
+            mask = self.quarantine.cpu().numpy()
+            for lane in np.flatnonzero(mask):
+                lane = int(lane)
+                if lane in h.benign or h.lane_cfg[lane] < 0:
+                    continue
+                cfg = int(h.lane_cfg[lane])
+                attempt = int(h.lane_attempt[lane])
+                diag = self._quar_diag.pop(lane, {})
+                bad_iter = int(diag.get("iter", self.iter))
+                diagnosis = (f"non-finite loss at iteration "
+                             f"{bad_iter}{diag.get('where', '')}")
+                if attempt < 1 + h.max_retries:
+                    eligible = self.iter + h.backoff_iters * attempt
+                    h.pending.append({"config": cfg,
+                                      "attempt": attempt + 1,
+                                      "eligible_iter": int(eligible)})
+                    self._emit_retry(obs_sink.make_retry_record(
+                        self.iter, cfg, lane, attempt, "requeue",
+                        eligible_iter=int(eligible)))
+                else:
+                    h.failures[cfg] = {
+                        "status": "failed", "attempts": attempt,
+                        "iter": bad_iter, "lane": lane,
+                        "diagnosis": diagnosis}
+                    self._emit_retry(obs_sink.make_retry_record(
+                        self.iter, cfg, lane, attempt, "failed",
+                        diagnosis=diagnosis))
+                h.lane_cfg[lane] = -1   # the mask bit keeps it frozen
+
+        # fast-forward: nothing trains but work is queued
+        if h.pending and not np.any(h.lane_cfg >= 0):
+            min_el = min(int(e["eligible_iter"]) for e in h.pending)
+            if min_el > self.iter:
+                self.iter = min_el
+
+        # refill free lanes from the queue
+        free = [lane for lane in range(self.n) if h.lane_cfg[lane] < 0]
+        eligible = sorted(
+            (e for e in h.pending if e["eligible_iter"] <= self.iter),
+            key=lambda e: (e["config"], e["attempt"]))
+        if free and eligible and self._refill_policy is not None:
+            eligible = list(self._refill_policy(
+                eligible, [int(c) for c in h.lane_cfg]))
+        if free and eligible:
+            # behind a drain: a chunk queued before the refill carries
+            # the freed lane's mask bit and would mark the new occupant
+            # as announced
+            self._drain_consumer()
+            updates = {}
+            for lane in free:
+                if not eligible:
+                    break
+                e = eligible.pop(0)
+                h.pending.remove(e)
+                cfg, attempt = int(e["config"]), int(e["attempt"])
+                rows, done0, genetic, recovery = self._recovery_rows(
+                    cfg, attempt)
+                updates[lane] = rows
+                h.lane_cfg[lane] = cfg
+                h.lane_done[lane] = done0
+                h.lane_attempt[lane] = attempt
+                h.benign.discard(lane)
+                self._quar_seen.discard(lane)
+                if self._genetics is not None:
+                    self._genetics[lane] = (genetic if genetic is not None
+                                            else self._fresh_genetic())
+                refilled.append(lane)
+                self._emit_retry(obs_sink.make_retry_record(
+                    self.iter, cfg, lane, attempt, "reseed",
+                    recovery=recovery))
+            if updates:
+                self._write_lanes(updates)
+
+        complete = h.complete()
+        if not complete and (refilled or newly_benign):
+            self._set_quarantine_bits(set_lanes=newly_benign,
+                                      clear_lanes=refilled)
+        if self._tracer is not None:
+            self._tracer.complete(
+                "heal", time.perf_counter() - t_heal, cat="healing",
+                iteration=self.iter,
+                args={"refilled": len(refilled),
+                      "harvested": len(newly_benign)})
+        return complete
 
     # ------------------------------------------------------------------
     # durability: checkpoint / restore and the fault state files
@@ -1113,9 +1721,12 @@ class SweepRunner:
 
     def _ckpt_meta(self) -> dict:
         """The checkpoint's meta block, every key the reference writes:
-        no virtual time, the identity lane map, every lane at `iter`,
-        and no self-healing block."""
-        return {"version": CHECKPOINT_VERSION, "iter": int(self.iter),
+        no virtual time, the announced quarantines, the lane map and
+        each lane's progress (the identity and `iter` without
+        self-healing), and the self-healing block (with the queued
+        configs' specs and the triage notes not yet reclaimed)."""
+        h = self._healing
+        meta = {"version": CHECKPOINT_VERSION, "iter": int(self.iter),
                 "n_configs": int(self.n),
                 "fault_format": ("packed" if self._pack_spec is not None
                                  else "f32"),
@@ -1124,17 +1735,31 @@ class SweepRunner:
                 "tile_spec": self._tile_canonical(),
                 "key": [int(x) for x in np.asarray(self.solver._key).ravel()],
                 "seed": int(self.solver.seed),
-                "virtual_time": False,
-                "quarantined": [int(i) for i in self.quarantined()],
-                "lane_map": list(range(self.n)),
-                "lane_done": [int(self.iter)] * self.n}
+                "virtual_time": bool(self._virtual_time),
+                "quarantined": sorted(self._quar_seen),
+                "lane_map": ([int(c) for c in h.lane_cfg] if h is not None
+                             else list(range(self.n))),
+                "lane_done": ([int(x) for x in h.lane_done]
+                              if h is not None
+                              else [int(self.iter)] * self.n)}
+        if h is not None:
+            meta["healing"] = h.to_json()
+            meta["healing"]["cfg_specs"] = {
+                str(k): v for k, v in self._cfg_specs.items()}
+            # a copy first: on the stall path the consumer may still
+            # own the dict
+            meta["healing"]["quar_diag"] = {
+                str(k): v for k, v in dict(self._quar_diag).items()}
+        return meta
 
     def checkpoint(self, path: str, background: bool = False,
                    distributed: Optional[bool] = None,
                    _drain: bool = True) -> str:
         """Write the whole resumable sweep state to `path`, one .npz
         (the reference's v6 layout: every `_state_arrays` leaf and
-        `__meta__`, the meta as JSON bytes). The device fetch runs here;
+        `__meta__`, the meta as JSON bytes, and `__genetics__`, the
+        lanes' genetic search state in the reference's pickle
+        (fault/genetic_state.py)). The device fetch runs here;
         the write goes through a temp file and an atomic rename, on the
         background writer with `background=True`. A runner built with
         the same configuration continues from it bit for bit
@@ -1144,10 +1769,6 @@ class SweepRunner:
         if distributed:
             _not_ported("checkpoint(distributed=True) (the v4 directory "
                         "layout is read by restore, not written)")
-        if self._genetics is not None:
-            _not_ported("checkpoint of a sweep whose lanes run the genetic "
-                        "strategy (the reference stores the search state as "
-                        "a pickle of its own classes)")
         t_ckpt = time.perf_counter()
         if _drain:
             self._drain_consumer()
@@ -1157,6 +1778,9 @@ class SweepRunner:
                   for name, v in self._state_arrays().items()}
         arrays["__meta__"] = np.frombuffer(
             json.dumps(self._ckpt_meta()).encode(), np.uint8)
+        if self._genetics is not None:
+            arrays["__genetics__"] = np.frombuffer(
+                genetic_state.dumps(self._genetics), np.uint8)
         if os.path.isdir(path):
             # a distributed checkpoint under this name: replaced
             import shutil
@@ -1167,6 +1791,8 @@ class SweepRunner:
             self._tracer.complete("checkpoint", time.perf_counter() - t_ckpt,
                                   iteration=self.iter,
                                   args={"path": os.path.basename(path)})
+        # a retry's escalating recovery re-seeds from this file
+        self._last_ckpt_path = path
         return path
 
     @staticmethod
@@ -1223,10 +1849,15 @@ class SweepRunner:
     def restore(self, path: str):
         """Load a checkpoint of either package into this runner, which
         must have the same configuration (its config_block may differ):
-        the configs, fault process,
-        tile spec, solver key, no virtual time, no genetic or
-        self-healing state, the same leaves and shapes; each mismatch
-        raises. Fault leaves convert between the f32 and packed formats
+        the configs, fault process, tile spec, solver key, no virtual
+        time, genetic state exactly when the runner's lanes run the
+        genetic search, self-healing armed when the file carries its
+        state, the same leaves and shapes; each mismatch raises before
+        anything changes. A healing runner takes the file's lane map,
+        queue and ledgers back, or, from a file without them, the
+        identity map with its own queued extra configs kept; a
+        quarantined lane not yet reclaimed is reclaimed at the next
+        boundary. Fault leaves convert between the f32 and packed formats
         (`fault_packed.convert_flat`); every leaf lands contiguous, in
         the live leaf's dtype, on the runner's device."""
         t_restore = time.perf_counter()
@@ -1266,24 +1897,26 @@ class SweepRunner:
                 f"checkpoint {path} was taken under a different solver RNG "
                 f"key (seed {meta.get('seed')}); resume with the same "
                 "random_seed the checkpoint was written under")
-        if bool(meta.get("virtual_time", False)):
+        if bool(meta.get("virtual_time", False)) != self._virtual_time:
             raise ValueError(
-                f"checkpoint {path} was written with virtual_time=True (a "
-                "self-healing service sweep); the port's runner has no "
-                "virtual time")
-        if gen is not None:
-            raise ValueError(
-                f"checkpoint {path} carries genetic-strategy state (a "
-                "pickle of the reference's classes), which the port "
-                "cannot read")
-        if self._genetics is not None:
+                f"checkpoint {path} was written with virtual_time="
+                f"{bool(meta.get('virtual_time', False))} but this "
+                f"runner has virtual_time={self._virtual_time}; the "
+                "per-lane clock changes the batch/RNG timeline, so "
+                "resume with the same enable_self_healing mode")
+        if (gen is None) != (self._genetics is None):
             raise ValueError(
                 f"checkpoint {path} and this runner disagree on the "
-                "genetic strategy (the runner's lanes run it, the "
-                "checkpoint holds no search state)")
-        if meta.get("healing") is not None:
-            _not_ported(f"self-healing (checkpoint {path} carries its "
-                        "lane map and retry queue)")
+                "genetic strategy (one has episodic search state, the "
+                "other does not); resume with the same solver strategy "
+                "configuration")
+        genetics = genetic_state.loads(gen) if gen is not None else None
+        heal_meta = meta.get("healing")
+        if heal_meta is not None and self._healing is None:
+            raise ValueError(
+                f"checkpoint {path} carries self-healing state (lane "
+                "map / retry queue) but this runner has it disabled; "
+                "call enable_self_healing(...) before restore()")
         ck_fmt = meta.get("fault_format", "f32")
         my_fmt = "packed" if self._pack_spec is not None else "f32"
         ck_spec = meta.get("pack_spec")
@@ -1322,6 +1955,12 @@ class SweepRunner:
         self.last_metrics = {}
         self._last_host = self._pending = self._record_t0 = None
         self._quar_seen = {int(i) for i in meta.get("quarantined", [])}
+        if genetics is not None:
+            self._genetics = genetics
+        self._restore_healing(meta, heal_meta)
+        self._last_ckpt_path = path
+        with self._watchdog_lock:
+            self._watchdog_event = None
         # the next census comes at the next boundary after the restore
         self._last_health_tick = None
         self._stop = False
@@ -1330,6 +1969,42 @@ class SweepRunner:
                                   iteration=self.iter,
                                   args={"path": os.path.basename(path)})
         return self
+
+    def _restore_healing(self, meta: dict, heal_meta: Optional[dict]):
+        """The self-healing state after a restore: the file's (v2 and
+        later), or the identity map with every lane mid-first-attempt
+        from a file without it (the runner's queued extra configs kept);
+        the reclamation re-armed for a quarantined lane not yet
+        reclaimed."""
+        self._quar_diag.clear()
+        self._reclaim_flag.clear()
+        if self._healing is None:
+            return
+        if heal_meta is not None:
+            self._healing = _HealingState.from_json(heal_meta)
+            self._cfg_specs = {int(k): v for k, v in
+                               heal_meta.get("cfg_specs", {}).items()}
+        else:
+            h = self._healing
+            h.lane_cfg = np.asarray(
+                meta.get("lane_map", list(range(self.n))), np.int64)
+            h.lane_done = np.asarray(
+                meta.get("lane_done", [self.iter] * self.n), np.int64)
+            h.lane_attempt = np.ones(self.n, np.int64)
+            # configs queued beyond the resident lanes were requested
+            # of this runner: keep them
+            h.pending = [dict(e, attempt=1, eligible_iter=int(self.iter))
+                         for e in h.pending if int(e["config"]) >= self.n]
+            h.results, h.failures = {}, {}
+            h.benign = set()
+        h = self._healing
+        self._quar_diag.update({int(k): v for k, v in
+                                (heal_meta or {}).get("quar_diag",
+                                                      {}).items()})
+        mask = self.quarantine.cpu().numpy()
+        if any(bool(mask[lane]) and h.lane_cfg[lane] >= 0
+               and lane not in h.benign for lane in range(self.n)):
+            self._reclaim_flag.set()
 
     def wait_for_writes(self):
         """Barrier for background writes (re-raises the first writer

@@ -254,17 +254,30 @@ def _edited(saved, tmp_path, edit=None, edit_data=None):
     return path
 
 
+def genetics_bytes():
+    """A real `__genetics__` entry: one GeneticStrategy a lane, as a
+    genetic sweep writes it."""
+    from rram_caffe_simulation_tpu_torch.fault import genetic_state
+    from rram_caffe_simulation_tpu_torch.fault import strategies as tstrat
+    pw = [np.ones((12, 24), np.float32), np.ones((5, 12), np.float32)]
+    lanes = [tstrat.GeneticStrategy([("ip1/0", "ip1/1"), ("ip2/0", "ip2/1")],
+                                    pw, 2, 2, 20) for _ in range(3)]
+    raw = np.frombuffer(genetic_state.dumps(lanes), np.uint8)
+    assert len(genetic_state.loads(raw)) == 3
+    return raw
+
+
 @pytest.mark.parametrize("case,match", [
     ("n_configs", "holds 5 configs"),
     ("key", "different solver RNG key"),
     ("tile_spec", "tile spec '2x2'"),
     ("fault_process", "fault process 'conductance_drift'"),
-    ("healing", "self-healing"),
+    ("healing", "self-healing state"),
     ("missing_key", "missing \\['params/ip2/1'\\]"),
     ("leaf_shape", "leaf 'params/ip2/0' has shape"),
     ("version", "format version 7"),
     ("virtual_time", "virtual_time"),
-    ("genetics", "genetic"),
+    ("genetics", "disagree on the genetic"),
 ])
 def test_restore_refusals(saved, tmp_path, case, match):
     edits = {
@@ -281,14 +294,12 @@ def test_restore_refusals(saved, tmp_path, case, match):
         "missing_key": lambda d: d.pop("params/ip2/1"),
         "leaf_shape": lambda d: d.update(
             {"params/ip2/0": d["params/ip2/0"][:, :2]}),
-        "genetics": lambda d: d.update(
-            __genetics__=np.zeros(4, np.uint8)),
+        "genetics": lambda d: d.update(__genetics__=genetics_bytes()),
     }
     path = _edited(saved, tmp_path, edits.get(case), data_edits.get(case))
     r = port()
     before = state_of(r)
-    err = NotImplementedError if case == "healing" else ValueError
-    with pytest.raises(err, match=match):
+    with pytest.raises(ValueError, match=match):
         r.restore(path)
     assert_same_state(state_of(r), before)     # nothing half-restored
     assert r.iter == 0

@@ -342,9 +342,10 @@ def test_track_identity_needs_a_fault_engine(monkeypatch, tmp_path):
 
 def test_sweep_refuses_a_strategy_solver_by_name(monkeypatch, tmp_path):
     """The sweep runs every strategy in its lanes (threshold, remapping,
-    genetic); what it still refuses, by name, is a checkpoint of lanes
-    that run the genetic search (tests/test_torch_sweep_strategies.py
-    holds the lanes against the reference)."""
+    genetic), and its checkpoint carries the genetic search; what it
+    refuses, by name, is a restore that disagrees on the genetic
+    strategy (tests/test_torch_sweep_strategies.py holds the lanes
+    against the reference)."""
     monkeypatch.chdir(REPO)
     net_file, model_file, _ = prune_model(tmp_path)
     text = (f'{SOLVER} failure_strategy {{ type: "threshold" threshold: '
@@ -357,8 +358,19 @@ def test_sweep_refuses_a_strategy_solver_by_name(monkeypatch, tmp_path):
     r = SweepRunner(s, n_configs=2, device="cpu")
     assert np.isfinite(r.step(2)[0]).all()
     assert len(r._genetics) == 2
-    with pytest.raises(NotImplementedError, match="genetic strategy"):
-        r.checkpoint(str(tmp_path / "sweep.ckpt.npz"))
+    path = r.checkpoint(str(tmp_path / "sweep.ckpt.npz"))
+    again = SweepRunner(TSolver(tproto.parse(text, "SolverParameter"),
+                                device="cpu"), n_configs=2, device="cpu")
+    again.restore(path)
+    assert again.iter == 2
+    for a, b in zip(again._genetics, r._genetics):
+        assert a._rng.randint(1 << 30) == b._rng.randint(1 << 30)
+        for x, y in zip(a.prune_weights, b.prune_weights):
+            np.testing.assert_array_equal(x, y)
+    plain = SweepRunner(TSolver(tproto.parse(SOLVER, "SolverParameter"),
+                                device="cpu"), n_configs=2, device="cpu")
+    with pytest.raises(ValueError, match="disagree on the genetic"):
+        plain.restore(path)
 
 
 def test_remap_slots_ride_through_the_state_helpers(monkeypatch, tmp_path):

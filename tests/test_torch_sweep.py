@@ -365,17 +365,31 @@ def test_unported_options_raise_by_name(option, value):
 
 
 @pytest.mark.parametrize("method,kwargs,match", [
-    pytest.param("enable_self_healing", {}, "self-healing",
-                 id="enable_self_healing"),
-    pytest.param("submit_configs", {}, "self-healing", id="submit_configs"),
+    pytest.param("enable_self_healing", {"budget": 4, "virtual_time": True},
+                 "virtual_time", id="enable_self_healing"),
+    pytest.param("submit_configs", {
+        "budget": 4, "virtual_time": True,
+        "extra_configs": [{"mean": 300.0, "std": 20.0}]},
+        "virtual_time", id="submit_configs"),
     pytest.param("checkpoint", {"distributed": True}, "distributed",
                  id="checkpoint-distributed"),
 ])
 def test_unported_methods_raise(method, kwargs, match, tmp_path):
-    r = port_sweep(cycling(batches(1)), C=2)
+    """What stays refused by name: self-healing's per-lane clocks
+    (`virtual_time`; its queued configs are then never submitted) and
+    writing the distributed checkpoint layout."""
+    r = port_sweep(cycling(batches(1)), C=2, pipeline_depth=0)
     with pytest.raises(NotImplementedError, match=match):
-        getattr(r, method)(str(tmp_path / "x"), **kwargs)
+        if method == "checkpoint":
+            r.checkpoint(str(tmp_path / "x"), **kwargs)
+        else:
+            r.enable_self_healing(**kwargs)
     assert not os.listdir(tmp_path)
+    assert r._healing is None
+    if method == "submit_configs":
+        with pytest.raises(ValueError, match="enable_self_healing"):
+            r.submit_configs(kwargs["extra_configs"])
+    r.close()
 
 
 def test_sweep_argument_errors():

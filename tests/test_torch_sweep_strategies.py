@@ -22,8 +22,8 @@ Held:
 - a quarantined lane skips the genetic search and its generator does
   not advance;
 - a checkpoint of a tracked-remap sweep restores across the packages,
-  `remap_slots` included; a checkpoint of a genetic sweep raises by
-  name.
+  `remap_slots` included; a checkpoint of a genetic sweep carries the
+  search state and restores, and a file without it is refused by name.
 """
 import numpy as np
 import pytest
@@ -319,11 +319,26 @@ def test_remap_slots_round_trip_across_the_packages(tmp_path):
 
 
 def test_genetic_checkpoint_raises_by_name(tmp_path):
-    port = port_runner(strategy_text(tmp_path, "genetic"), batches(2))
+    """A genetic sweep's checkpoint carries `__genetics__` (the reference's
+    pickle, fault/genetic_state.py) and restores into a genetic runner,
+    every lane's search included; a file without the search state is
+    refused by name (tests/test_torch_genetic_checkpoint.py holds the
+    bytes and the continuations against the reference)."""
+    from rram_caffe_simulation_tpu_torch.fault import genetic_state
+    text = strategy_text(tmp_path, "genetic")
+    port = port_runner(text, batches(2))
     port.step(1)
-    with pytest.raises(NotImplementedError, match="genetic strategy"):
-        port.checkpoint(str(tmp_path / "g.ckpt.npz"))
-    assert not list(tmp_path.glob("g.ckpt*"))
+    path = port.checkpoint(str(tmp_path / "g.ckpt.npz"))
+    with np.load(path) as z:
+        saved = genetic_state.loads(z["__genetics__"])
+    back = port_runner(text, batches(2))
+    back.restore(path)
+    assert back.iter == 1 and len(back._genetics) == len(saved) == C
+    for a, b in zip(back._genetics, port._genetics):
+        assert a.times == b.times
+        assert a._rng.randint(1 << 30) == b._rng.randint(1 << 30)
+        for x, y in zip(a.prune_weights, b.prune_weights):
+            np.testing.assert_array_equal(x, y)
     plain = port_runner(SOLVER, batches(2))
     path = plain.checkpoint(str(tmp_path / "plain.ckpt.npz"))
     with pytest.raises(ValueError, match="disagree on the genetic"):

@@ -426,3 +426,61 @@ def test_convert_carries_the_statistics_and_scales():
                                                     else 2)
         for a, b in zip(params[ln], back[ln]):
             assert b.dtype == a.dtype and torch.equal(a, b)
+
+
+def test_reference_engines_agree_read_by_read_under_conv_also():
+    """ROADMAP's check of the tiled read under an ADC: the narrow net
+    with `conv_also` on 128x128 tiles and 8-bit ADCs, three steps of the
+    reference's jitted step on its "jax" engine and on its "pallas"
+    engine (interpret mode), both from the same state at each step (the
+    "jax" engine's). Every forward top (debug_info's mean-abs vector)
+    through fc1's read (the reads conv1, conv2, fc1) is equal bit for
+    bit at the first step, and every top within 1e-6 relative at every
+    step (where they differ, by one or two ulps of a mean |output|: the
+    two engines sum some products in other orders): the reference's
+    engines do not part read by read. They part in the backward (the
+    "jax" engine's straight-through gradient of broken cells, ROADMAP
+    §C). The port's kernel and plain tiled reads part on the card (phase
+    16 (g): 97% of VGG11 fc1's outputs one ADC level apart)."""
+    text = SOLVER.replace(
+        'mean: 250 std: 120 }', 'mean: 250 std: 120 conv_also: true } '
+        'rram_forward { adc_bits: 8 tiles: "cells=128x128" }')
+    sp = ref_param(text)
+    with jax.enable_x64(False):
+        js = JSolver(sp, train_feed=jfeed._python_data_feed(
+            JNet(sp.net_param, pb.TRAIN).layers[0]))
+        assert js.tile_spec.canonical() == "cells=128x128"
+        assert {"conv1/0", "conv2/0", "fc1/0"} <= set(js._fault_keys)
+        spec = jpacked.make_pack_spec(js.fault_state, 100.0,
+                                      pattern=sp.failure_pattern)
+        state = jax.tree.map(jnp.asarray, jpacked.pack_state(
+            {g: {k: np.asarray(v) for k, v in leaves.items()}
+             for g, leaves in js.fault_state.items()}, spec))
+        steps = {}
+        for engine in ("jax", "pallas"):
+            steps[engine] = jax.jit(js.make_train_step(
+                hw_engine=engine, dtype_policy="ternary",
+                fault_format="packed", pack_spec=spec, fused_epilogue=False,
+                with_debug=True))
+            assert steps[engine].hw_engine_resolved == engine
+        tops = [i for i, entry in enumerate(js.debug_spec.fwd)
+                if entry[0] == "top"]
+        last = [i for i in tops if js.debug_spec.fwd[i][1] == "fc2"]
+        tops = [i for i in tops if i < last[0]]
+        assert len(tops) == 16 and len(last) == 1
+        p, h, st = js.params, js.history, state
+        for it in range(3):
+            batch = {k: jnp.asarray(np.asarray(v)) for k, v in
+                     js.train_feed().items()}
+            out = {e: step(p, h, st, batch, jnp.int32(it),
+                           jax.random.fold_in(js._key, it), False)
+                   for e, step in steps.items()}
+            (p, h, st, la, _, ma), (_, _, _, lb, _, mb) = \
+                out["jax"], out["pallas"]
+            fa, fb = (np.asarray(m["debug"]["fwd"]) for m in (ma, mb))
+            if it == 0:
+                np.testing.assert_array_equal(bits(fa[tops]),
+                                              bits(fb[tops]))
+            np.testing.assert_allclose(fa[tops + last], fb[tops + last],
+                                       rtol=1e-6, err_msg=str(it))
+            np.testing.assert_allclose(float(la), float(lb), rtol=1e-6)
