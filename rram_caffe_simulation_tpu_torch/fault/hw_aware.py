@@ -28,7 +28,15 @@ Two spellings with one contract:
   the digital sum over K-tiles. Kernel B2t (csrc/crossbar.cu, B2's GEMM
   core with a tile-ADC epilogue; its tile rows from `b2t_plan`) on the card,
   reading the operands as B2 does, `tiled_crossbar_matmul` in the plain
-  version.
+  version. The kernels' plain versions (`crossbar_forward_plain`,
+  `crossbar_conv_forward_plain`) sum each tile's partial product in the
+  kernels' k order on CUDA tensors (`ordered_tile_partials`: the two
+  fmaf chains of each K-tile's 32-deep stages, emulated exactly in
+  float64), so kernel and plain reads agree bit for bit, ADC levels
+  included. On CPU tensors, and in the tiled read of a layer with no
+  crossbar read armed (`tiled_crossbar_matmul` as ops/ call it), the
+  partials are `torch.matmul` products: the order the CPU tests hold
+  against the reference, and cuBLAS's speed on the card.
 - `crossbar_conv_matmul_lanes`: the same tiled read for a convolution
   whose operand is gathered from the raw NCHW activation through the
   address plan of `mapping.im2col_index_plan`: kernel B3 on the card
@@ -50,6 +58,7 @@ import threading
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from .. import kernels
 from ..core import prng
@@ -229,14 +238,15 @@ def crossbar_forward_plain(x, w, broken, stuck, seeds, sigma: float,
     shared by every lane or (C, M, K); w, stuck (C, K, N) f32 and broken
     (C, K, N) bool, uint8 or f32 0/1, in any strides; seeds (C,); eps
     (C, K, N) host noise, or None to draw the kernel's own Philox
-    noise."""
+    noise. On CUDA tensors the tiled read sums in B2t's k order."""
     # the product runs on dense copies, so its summation order does not
     # depend on how the caller's views are laid out
     w_eff = _lane_w_eff(w, broken, stuck, seeds, sigma, q_bits,
                         eps).contiguous()
     x = x.contiguous()
     if tiles is not None:
-        return tiled_crossbar_matmul(x, w_eff, *tiles)
+        return tiled_crossbar_matmul(x, w_eff, *tiles,
+                                     kernel_order=w_eff.is_cuda)
     return torch.matmul(x, w_eff)
 
 
@@ -606,33 +616,183 @@ def adc_read(part: torch.Tensor, adc_bits: int) -> torch.Tensor:
     return part + (q - part.detach())
 
 
+# Kernel B2t's and B3's k order (csrc/crossbar.cu `crossbar_kernel`): a
+# K-tile runs in stages of KSTAGE k from its first k, the last stage cut
+# at the tile's edge; two groups of threads each carry one fmaf chain per
+# output across the stages, group 0 over the first KGROUP k of every
+# stage and group 1 over the last; the tile's partial is group 0's sum +
+# group 1's.
+KSTAGE, KGROUP = 32, 16
+# elements of one chain step of the ordered twin (its temporaries are
+# float64 and int64 of this size: the memory per M-chunk)
+ORDERED_ELEMS = 1 << 25
+_LOW29, _HALF29 = (1 << 29) - 1, 1 << 28     # f64 bits below f32's 24
+_NO_SUBNORMAL = 2.0 ** -40
+
+
+def fma_f32(acc: torch.Tensor, a: torch.Tensor, b: torch.Tensor):
+    """The correctly rounded float32 acc + a * b, CUDA's fmaf: acc float32,
+    a and b float64 holding float32 values (their product is exact).
+    The float64 sum is rounded once more to float32, which is the correct
+    rounding unless the sum lies exactly on a float32 midpoint (its 29
+    low mantissa bits 100...0); a step with such a sum is taken again
+    through `prng.fma` (TwoSum's error, round to odd), which is exact
+    everywhere. Sums in float32's subnormal range are not detected here:
+    the caller takes `prng.fma` for every step where they can occur."""
+    s = torch.addcmul(acc, a, b)
+    if ((s.view(torch.int64) & _LOW29) == _HALF29).any():
+        return prng.fma(a, b, acc)
+    return s.float()
+
+
+def _subnormal_free(*ts) -> bool:
+    """Whether every nonzero value is at least 2^-40 in magnitude: then
+    every product is a multiple of 2^-126, and so is every sum of them
+    in any rounding, so no chain value is a float32 subnormal."""
+    return not any(bool(((t.abs() < _NO_SUBNORMAL) & (t != 0)).any())
+                   for t in ts)
+
+
+def _k_tiles(t: torch.Tensor, axis: int, bk: int, gk: int, depth: int):
+    """`t` with its K axis (`axis`, counted from the end) cut into gk
+    tiles of bk, each zero-padded to `depth` k: (..., gk, depth, ...)."""
+    K = t.shape[axis]
+    pad = [0, 0] * (-axis - 1)
+    t = F.pad(t, pad + [0, gk * bk - K]).unflatten(axis, (gk, bk))
+    return F.pad(t, pad + [0, depth - bk])
+
+
+def ordered_tile_partials(x: torch.Tensor, w: torch.Tensor,
+                          bk: int) -> torch.Tensor:
+    """(..., gk, M, N) raw partials x[..., kt] @ w[..., kt, :] of the
+    K-tiles of bk, each output summed in kernel B2t's and B3's order
+    (KSTAGE, KGROUP): per group a chain of correctly rounded float32
+    fused multiply-adds (`fma_f32`), then group 0's + group 1's in
+    float32. x (..., M, K), w (..., K, N) float32, leading axes
+    broadcast. Vectorised over rows, columns, tiles, groups and lanes;
+    only the k steps of a group (depth / 2 of them) run in sequence,
+    over chunks of rows of ORDERED_ELEMS elements. Zero padding may turn
+    a -0 into +0 (equal values)."""
+    bk = int(bk)
+    K, M, N = x.shape[-1], x.shape[-2], w.shape[-1]
+    gk = -(-K // bk)
+    depth = -(-bk // KSTAGE) * KSTAGE
+    stages = depth // KSTAGE
+    lead = torch.broadcast_shapes(x.shape[:-2], w.shape[:-2])
+    exact_fma = not _subnormal_free(x, w)
+    # w as (..., stage, k of the group, K-tile, group, 1, N)
+    wt = _k_tiles(w, -2, bk, gk, depth).unflatten(-2, (stages, 2, KGROUP))
+    wt = wt.movedim((-4, -2, -5, -3), (-5, -4, -3, -2)).double()
+    wt = wt.unsqueeze(-2)
+    out = torch.empty(lead + (gk, M, N), dtype=torch.float32,
+                      device=x.device)
+    rows = max(1, ORDERED_ELEMS // max(1, lead.numel() * gk * 2 * N))
+    for m0 in range(0, M, rows):
+        m1 = min(m0 + rows, M)
+        # x's rows as (..., stage, k of the group, K-tile, group, rows, 1)
+        xt = _k_tiles(x[..., m0:m1, :], -1, bk, gk, depth).unflatten(
+            -1, (stages, 2, KGROUP))
+        xt = xt.movedim((-3, -1, -4, -2, -5), (-5, -4, -3, -2, -1))
+        xt = xt.double().unsqueeze(-1)
+        acc = torch.zeros(lead + (gk, 2, m1 - m0, N), dtype=torch.float32,
+                          device=x.device)
+        for s in range(stages):
+            for i in range(KGROUP):
+                a, b = xt[..., s, i, :, :, :, :], wt[..., s, i, :, :, :, :]
+                acc = (prng.fma(a, b, acc) if exact_fma
+                       else fma_f32(acc, a, b))
+        out[..., m0:m1, :] = acc[..., 0, :, :] + acc[..., 1, :, :]
+    return out
+
+
+def matmul_tile_partials(x: torch.Tensor, w: torch.Tensor,
+                         bk: int) -> torch.Tensor:
+    """The same (..., gk, M, N) partials as `torch.matmul` products."""
+    K = x.shape[-1]
+    return torch.stack([torch.matmul(x[..., k0:k0 + bk],
+                                     w[..., k0:k0 + bk, :])
+                        for k0 in range(0, K, int(bk))], dim=-3)
+
+
+class OrderedPartials(torch.autograd.Function):
+    """`ordered_tile_partials` forward; the backward is the gradient of
+    `matmul_tile_partials` (autograd's own, through the products)."""
+
+    @staticmethod
+    def forward(ctx, x, w, bk):
+        ctx.save_for_backward(x, w)
+        ctx.bk = bk
+        return ordered_tile_partials(x, w, bk)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        need = ctx.needs_input_grad[:2]
+        with torch.enable_grad():
+            xr = x.detach().requires_grad_(need[0])
+            wr = w.detach().requires_grad_(need[1])
+            parts = matmul_tile_partials(xr, wr, ctx.bk)
+        grads = iter(torch.autograd.grad(
+            parts, [t for t, n in zip((xr, wr), need) if n], g))
+        return (next(grads) if need[0] else None,
+                next(grads) if need[1] else None, None)
+
+
+def _ordered_k_tiles(x_slab, w_eff, bk: int):
+    """Each K-tile's (..., M, N) raw partial in the kernels' k order
+    (`OrderedPartials`), in ascending K-tile order. The K-tiles are taken
+    together in groups whose operand slab holds at most ORDERED_ELEMS
+    elements, so the operand is never built whole beyond that."""
+    K = w_eff.shape[-2]
+    group = max(1, ORDERED_ELEMS // max(1, x_slab(0, min(bk, K)).numel()))
+    for k0 in range(0, K, group * bk):
+        k1 = min(k0 + group * bk, K)
+        yield from OrderedPartials.apply(x_slab(k0, k1),
+                                         w_eff[..., k0:k1, :], bk).unbind(-3)
+
+
 def tiled_crossbar_matmul_slabs(x_slab, w_eff, bk: int, bn: int,
-                                adc_bits: int):
+                                adc_bits: int, kernel_order: bool = False):
     """The tiled read with a lazy operand: `x_slab(k0, k1)` gives the
     (..., M, k1-k0) columns [k0, k1) of the conceptual (..., M, K)
     operand. y[..., jt] = sum over kt, ascending, of adc_read(slab_kt @
     w_eff[kt, jt]). w_eff (K, N) or (C, K, N); differentiable
-    (adc_read's straight-through identity)."""
+    (adc_read's straight-through identity).
+
+    Each tile's raw partial slab_kt @ w_eff[kt, jt] is a `torch.matmul`
+    product, or with `kernel_order` summed in kernel B2t's and B3's k
+    order (`ordered_tile_partials`), so that the read gives the kernels'
+    bits, ADC levels included. Only the kernels' plain versions ask for
+    that order, and only on the card: it runs one float64 pass per k
+    step, where the matmul form is one library call per tile."""
     bk, bn = int(bk), int(bn)
     K, N = w_eff.shape[-2:]
+    ordered = _ordered_k_tiles(x_slab, w_eff, bk) if kernel_order else None
     accs = [None] * len(range(0, N, bn))
     for k0 in range(0, K, bk):
         k1 = min(k0 + bk, K)
-        slab = x_slab(k0, k1)
+        if ordered is None:
+            slab = x_slab(k0, k1)
+        else:
+            tile = next(ordered)
         for j, n0 in enumerate(range(0, N, bn)):
-            part = adc_read(torch.matmul(slab, w_eff[..., k0:k1, n0:n0 + bn]),
-                            adc_bits)
+            raw = (torch.matmul(slab, w_eff[..., k0:k1, n0:n0 + bn])
+                   if ordered is None else tile[..., n0:n0 + bn])
+            part = adc_read(raw, adc_bits)
             accs[j] = part if accs[j] is None else accs[j] + part
     return accs[0] if len(accs) == 1 else torch.cat(accs, dim=-1)
 
 
-def tiled_crossbar_matmul(x, w_eff, bk: int, bn: int, adc_bits: int):
+def tiled_crossbar_matmul(x, w_eff, bk: int, bn: int, adc_bits: int,
+                          kernel_order: bool = False):
     """The tiled crossbar read over an already effective weight
     (`tiled_crossbar_matmul` of the reference): each (bk x bn) block of
     w_eff is one crossbar tile whose partial product passes its own
-    adc_bits ADC before the sum over K-tiles. x (..., M, K)."""
+    adc_bits ADC before the sum over K-tiles. x (..., M, K);
+    `kernel_order` as in `tiled_crossbar_matmul_slabs`."""
     return tiled_crossbar_matmul_slabs(
-        lambda k0, k1: x[..., k0:k1].contiguous(), w_eff, bk, bn, adc_bits)
+        lambda k0, k1: x[..., k0:k1].contiguous(), w_eff, bk, bn, adc_bits,
+        kernel_order)
 
 
 def reference_crossbar_matmul(x, w, broken, stuck, key, sigma: float,
@@ -699,12 +859,14 @@ def crossbar_conv_forward_plain(x, w, broken, stuck, seeds, sigma: float,
     """The plain PyTorch version of kernel B3: the lanes' w_eff, then the
     tiled read over the conv operand slabs (`conv_operand_slabs`). x
     (N, ch, H, W) shared or (C, N, ch, H, W); w, broken, stuck (C, K, N)
-    im2col views. Returns (C, M, N)."""
+    im2col views. Returns (C, M, N). On CUDA tensors each tile sums in
+    B3's k order."""
     # a dense w_eff, so the product's order does not depend on the layout
     w_eff = _lane_w_eff(w, broken, stuck, seeds, sigma, q_bits,
                         eps).contiguous()
     return tiled_crossbar_matmul_slabs(conv_operand_slabs(x, geom, operand),
-                                       w_eff, *tiles)
+                                       w_eff, *tiles,
+                                       kernel_order=w_eff.is_cuda)
 
 
 def crossbar_conv_forward(x, w, broken, stuck, seeds, sigma: float,

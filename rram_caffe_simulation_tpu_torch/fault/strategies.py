@@ -42,10 +42,14 @@ FcPairs = Sequence[Tuple[str, Optional[str]]]
 # ---------------------------------------------------------------------------
 # Threshold
 
-def threshold_cutoff(threshold: float, rate: float, lr_mult: float) -> float:
+def threshold_cutoff(threshold: float, rate, lr_mult: float):
     """threshold * rate * lr_mult in float32, rounded after each product
     (the order of the reference's `threshold * rate * lr_mult` on its
-    float32 rate)."""
+    float32 rate). `rate` a number, or a (C,) float32 tensor of per-lane
+    rates (a (C,) cutoff, the same float32 products on the device)."""
+    if isinstance(rate, torch.Tensor):
+        return (rate * float(np.float32(threshold))) \
+            * float(np.float32(lr_mult))
     return float(np.float32(np.float32(threshold) * np.float32(rate))
                  * np.float32(lr_mult))
 
@@ -54,10 +58,13 @@ def threshold_diffs(fault_diffs: Dict[str, torch.Tensor], rate,
                     lr_mults: Dict[str, float],
                     threshold: float) -> Dict[str, torch.Tensor]:
     """Zero small updates (ThresholdFailureStrategy::Apply): a diff with
-    |diff| <= the param's cutoff becomes +0."""
+    |diff| <= the param's cutoff becomes +0. Per-lane rates (a (C,)
+    tensor) cut each lane of a (C, ...) diff at its own cutoff."""
     out = {}
     for name, diff in fault_diffs.items():
         cutoff = threshold_cutoff(threshold, rate, lr_mults.get(name, 1.0))
+        if isinstance(cutoff, torch.Tensor):
+            cutoff = cutoff.view((-1,) + (1,) * (diff.dim() - 1))
         out[name] = diff.masked_fill(diff.abs() <= cutoff, 0.0)
     return out
 

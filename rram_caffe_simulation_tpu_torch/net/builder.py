@@ -180,13 +180,16 @@ class Net:
         return {k for k in keys if k.endswith("/1")
                 and self.feeds_batchnorm(k.rsplit("/", 1)[0])}
 
-    def laned_blobs(self) -> set:
+    def laned_blobs(self, laned_data: bool = False) -> set:
         """The blobs `apply(lanes=C)` returns laned, the lane axis folded
         in: every top of a layer with params or a laned bottom, the rest
-        (blobs computed from the data alone) shared by every lane."""
+        (blobs computed from the data alone) shared by every lane; with
+        `laned_data` the data tops and everything after them."""
         laned = set()
         for layer in self.layers:
             if layer.is_data_source:
+                if laned_data:
+                    laned.update(layer.lp.top)
                 continue
             out = (layer.num_params() > 0
                    or any(b in laned for b in layer.lp.bottom))
@@ -242,7 +245,8 @@ class Net:
               lanes: int = 0, tiles: Optional[dict] = None,
               conv_im2col: Optional[str] = None, with_updates: bool = False,
               probes: Optional[dict] = None,
-              trace_sites: Optional[dict] = None):
+              trace_sites: Optional[dict] = None,
+              laned_data: bool = False):
         """Run the net; returns (blobs, loss), or (blobs, loss,
         new_params) `with_updates`: `params` with the forward-state
         updates (BatchNorm's moving statistics) in place of the layers'
@@ -257,7 +261,10 @@ class Net:
         computed from params is "laned": a per-config blob of shape
         (d0, d1, ...) is held as (d0, C*d1, ...), lane-major along axis
         1, and a per-config scalar (a loss) as (C,). The loss is then
-        one value per lane, (C,).
+        one value per lane, (C,). With `laned_data` each lane reads its
+        own samples: the batch's tops come laned, a per-config (d0, d1,
+        ...) as (d0, C*d1, ...) and a per-config (d0,) (labels) as
+        (d0, C).
 
         The `debug_info` capture points (observe/debug.py; both off by
         default, and then nothing is added): `probes` maps (layer, top)
@@ -279,11 +286,13 @@ class Net:
         for name in self.data_source_tops:
             if name in batch:
                 blobs[name] = batch[name]
+                if laned_data:
+                    laned.add(name)
                 if trace_sites is not None:
                     # captured when fed: an in-place layer on a data top
                     # must not alias the data layer's own line
                     trace_sites[("__data__", name)] = blob_mean_abs(
-                        batch[name], lanes)
+                        batch[name], lanes, laned_data)
         for layer in self.layers:
             if layer.is_data_source:
                 continue

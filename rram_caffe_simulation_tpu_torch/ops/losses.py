@@ -28,6 +28,17 @@ def _normalization_mode(loss_param):
     return loss_param.normalization
 
 
+def _lane_labels(labels, ctx, C: int, shape):
+    """Labels shaped `shape` ((C, N, ...) under lanes): per lane where the
+    label blob is laned ((N, C, ...) folded, each lane's own samples),
+    else one set shared by every lane."""
+    if C and ctx.laned[1]:
+        lab = labels.reshape((shape[1], C, -1)).movedim(1, 0)
+        return lab.reshape(shape).long()
+    lab = labels.reshape(shape[1 if C else 0:]).long()
+    return lab.expand(shape)
+
+
 def _normalizer(mode, outer, spatial, valid):
     """softmax_loss_layer.cpp:70-91 get_normalizer, clamped at 1."""
     if mode == proto.NORM_FULL:
@@ -73,8 +84,7 @@ class SoftmaxWithLossLayer(Layer):
         axis = self.axis + (1 if C else 0)
         prob = _softmax(x, axis)
         pm = torch.movedim(prob, axis, -1)
-        lab = labels.reshape(pm.shape[1 if C else 0:-1]).long()
-        lab = lab.expand(pm.shape[:-1])            # shared by every lane
+        lab = _lane_labels(labels, ctx, C, pm.shape[:-1])
         p_true = torch.gather(pm, -1, lab.unsqueeze(-1)).squeeze(-1)
         nll = -torch.log(torch.clamp_min(p_true, _FLT_MIN))
         per_lane = x[0] if C else x
@@ -83,7 +93,8 @@ class SoftmaxWithLossLayer(Layer):
         if self.ignore_label is not None:
             mask = lab != self.ignore_label
             nll = torch.where(mask, nll, torch.zeros((), device=x.device))
-            valid = (mask[0] if C else mask).sum().to(x.dtype)
+            valid = (mask.reshape(C, -1).sum(1) if C and ctx.laned[1]
+                     else (mask[0] if C else mask).sum()).to(x.dtype)
         else:
             valid = float(outer * spatial)
         total = nll.reshape(C, -1).sum(1) if C else nll.sum()
@@ -128,8 +139,7 @@ class AccuracyLayer(Layer):
             x = torch.movedim(x.reshape((x.shape[0], C, -1)
                                         + tuple(x.shape[2:])), 1, 0)
         xm = torch.movedim(x, self.axis + (1 if C else 0), -1)
-        lab = labels.reshape(xm.shape[1 if C else 0:-1]).long()
-        lab = lab.expand(xm.shape[:-1])            # shared by every lane
+        lab = _lane_labels(labels, ctx, C, xm.shape[:-1])
         score_true = torch.gather(xm, -1, lab.unsqueeze(-1))
         # correct when fewer than top_k classes score strictly higher
         correct = (xm > score_true).sum(-1) < self.top_k

@@ -98,10 +98,9 @@ names each lane's first bad phase and layer, and an armed watchdog
 checkpoints the sweep ("snapshot") or stops it until restore() ("halt")
 at the next chunk boundary after a new quarantine.
 
-Self-healing (`enable_self_healing`, the reference's layer in shared
-time: every lane follows the one iteration clock) turns the lanes into
-slots of a work queue. Each config has an iteration budget; at every
-chunk boundary the dispatcher harvests configs that reached it (the
+Self-healing (`enable_self_healing`, the reference's layer) turns the
+lanes into slots of a work queue. Each config has an iteration budget;
+at every chunk boundary the dispatcher harvests configs that reached it (the
 result into `config_report()`, `on_lane_complete(cfg, lane, result)`
 called while the lane still holds the config's rows, the lane frozen
 by its quarantine bit), reclaims the lanes of quarantined configs once
@@ -122,14 +121,32 @@ their spec would overflow the int16 counters); the sweep is done when
 Checkpoints carry the lane map, per-lane progress and the queue
 (`healing`), and both packages restore each other's.
 
+In shared time every lane follows the one iteration clock. With
+`enable_self_healing(virtual_time=True)` (the sweep-as-a-service mode)
+each lane runs its own clock, its occupant's progress `lane_done`: a
+chunk's iteration j steps lane c at t = lane_done[c] + j, on records
+(t*B + arange(B)) % N of the device dataset gathered per lane (each lane
+its own batch, a laned data top), with the step key fold_in(fold_in(
+solver key, t), config id), the LR schedule's float32 rate at t (a (C,)
+rate through ComputeUpdate, the update rules and the threshold's
+cutoff), Adam's correction at t + 1 and the remap cadence at t (every
+lane remapped when any is due, kept in the due lanes). The offsets,
+rates, corrections and flags of a chunk reach the card in one pinned,
+non-blocking copy; the keys and their noise are derived on the host in
+one vectorised pass. A config's result then depends only on its spec,
+id, attempt, budget and the solver seed, whichever lane and wave it
+lands in: the reproducibility contract of the reference's service. Idle
+and frozen lanes step too, masked, their clocks inert. The mode needs
+the device dataset and no `config_block`, and rides the checkpoint
+(`virtual_time`); a runner in the other mode refuses the file.
+
 The genetic search's state (`__genetics__`) is the reference's pickle of
 one GeneticStrategy a lane; fault/genetic_state.py writes it under the
 reference's class name and reads it back allowing numpy's names alone.
 
 Not ported yet, each refused by name: mesh, remat_segments,
-compute_dtype, precompile_chunk, self-healing's `virtual_time`
-(per-lane clocks), the multi-process forms (the stall and watchdog
-agreement, the owned config block) and distributed checkpoints
+compute_dtype, precompile_chunk, the multi-process forms (the stall and
+watchdog agreement, the owned config block) and distributed checkpoints
 (writing).
 """
 from __future__ import annotations
@@ -155,6 +172,7 @@ from ..fault import genetic_state
 from ..fault import hw_aware
 from ..fault import packed as fault_packed
 from ..observe import counters as obs_counters
+from ..solver import solver as solver_mod
 from ..solver.solver import stack_batches
 
 SWEEP_ENGINES = ("auto", "cuda", "torch")
@@ -469,13 +487,7 @@ class SweepRunner:
         if solver._watchdog is not None:
             # the Solver's "snapshot" policy captures the sweep's state
             solver._sweep_checkpoint = self._watchdog_checkpoint
-        # each output's lane axis (a laned blob's axis 1, a per-config
-        # scalar's axis 0; None: the same for every lane)
-        laned = solver.net.laned_blobs()
-        self._out_axis = {
-            n: (None if n not in laned
-                else 0 if solver.net.blob_shapes[n] == () else 1)
-            for n in solver.net.output_names}
+        self._out_axis = self._output_axes(laned_data=False)
         self.engine_resolved = self._step.hw_engine_resolved
         self.conv_im2col_requested = self._step.conv_im2col_requested
         self.conv_im2col_resolved = self._step.conv_im2col_resolved
@@ -497,6 +509,15 @@ class SweepRunner:
             self._ds_n = next(iter(arrays.values())).shape[0]
             self._arange = torch.arange(self._ds_batch, device=self.device)
 
+    def _output_axes(self, laned_data: bool) -> dict:
+        """Each output's lane axis (a laned blob's axis 1, a per-config
+        scalar's axis 0; None: the same for every lane)."""
+        net = self.solver.net
+        laned = net.laned_blobs(laned_data)
+        return {n: (None if n not in laned
+                    else 0 if net.blob_shapes[n] == () else 1)
+                for n in net.output_names}
+
     # ------------------------------------------------------------------
     def _materializable_layer(self):
         """The single Data layer whose DB can live on the device, or
@@ -517,6 +538,42 @@ class SweepRunner:
         start = (it * self._ds_batch) % self._ds_n
         idx = (self._arange + start) % self._ds_n
         return {k: a.index_select(0, idx) for k, a in self._dataset.items()}
+
+    def _lane_batch(self, starts: torch.Tensor) -> dict:
+        """Each lane's own batch under virtual time: lane c reads records
+        (starts[c] + arange(B)) % N of the device dataset (`starts` (C,)
+        on the device, exact host integers), gathered straight into the
+        laned layout, (B, C*ch, ...) and labels (B, C)."""
+        B = self._ds_batch
+        idx = (starts.long()[None, :] + self._arange[:, None]) % self._ds_n
+        out = {}
+        for k, a in self._dataset.items():
+            rows = a.index_select(0, idx.reshape(-1))
+            rest = tuple(a.shape[1:])
+            out[k] = rows.view((B, self.n * rest[0]) + rest[1:] if rest
+                               else (B, self.n))
+        return out
+
+    def _lane_clocks(self, k: int):
+        """The next k iterations' per-lane clocks under virtual time
+        (the reference's dispatch): lane c's clock runs from its own
+        progress, t[j, c] = lane_done[c] + j; the step keys fold in the
+        lane's config id; the batch offsets (t * B) % N are exact host
+        integers. The offsets, rates, Adam corrections and remap flags of
+        the whole chunk reach the card in one pinned, non-blocking copy.
+        Returns (t (k, C), keys (k, C, 2), remap flags (k, C), device
+        rows (k, 1 + R, C) float64: the offsets, then the step's
+        `lane_clock_rows`)."""
+        h = self._healing
+        t = h.lane_done.astype(np.int64)[None, :] + np.arange(
+            k, dtype=np.int64)[:, None]
+        remaps = self.solver._remap_due_grid(t)
+        keys = self._noise.lane_step_keys(
+            self.solver._key, t, np.maximum(h.lane_cfg, 0))
+        starts = (t * self._ds_batch) % self._ds_n
+        rows = np.concatenate([starts[:, None, :].astype(np.float64),
+                               self._step.lane_clock_rows(t, remaps)], 1)
+        return t, keys, remaps, solver_mod._to_device(rows, self.device)
 
     def step(self, iters: int = 1, chunk: int = 1):
         """Run `iters` sweep iterations, `chunk` of them a chunk (the
@@ -550,10 +607,14 @@ class SweepRunner:
             k = self._budget_chunk_cap(self._genetic_chunk_cap(
                 min(max(chunk, 1), iters - done)))
             t0 = time.perf_counter() if tr is not None else 0.0
+            clocks = self._lane_clocks(k) if self._virtual_time else None
             losses, outputs, mets = [], {}, {}
             for i in range(k):
                 # a chunk's record reads its last iteration's tree
-                loss, outputs, mets = self._iteration(record=i == k - 1)
+                loss, outputs, mets = self._iteration(
+                    record=i == k - 1,
+                    clock=None if clocks is None else
+                    tuple(c[i] for c in clocks))
                 losses.append(loss)
                 self.iter += 1
             if tr is not None:
@@ -571,12 +632,23 @@ class SweepRunner:
                 break
         return self._finish_step()
 
-    def _iteration(self, record: bool):
+    def _iteration(self, record: bool, clock=None):
         """One sweep iteration, block after block over the lanes: the
         step on each lane slice of the resident state (one batch, the
         slice of the (C, 2) keys), its result committed into those rows.
-        Returns (losses (C,), outputs, metrics) joined over the
-        blocks."""
+        Under virtual time `clock` is this iteration's row of
+        `_lane_clocks` (no blocks): each lane steps at its own clock, on
+        its own batch. Returns (losses (C,), outputs, metrics) joined
+        over the blocks."""
+        if clock is not None:
+            t, keys, remap, dev = clock
+            out = self._step(self.params, self.history, self.fault_states,
+                             self._lane_batch(dev[0]), t, keys,
+                             do_remap=remap, record=record,
+                             clocks=dev[1:].float())
+            mets = out[5] if len(out) > 5 else {}
+            self._commit(*out[:4], mets)
+            return out[3], out[4], mets
         it = self.iter
         batch, keys = self._batch(it), self.lane_keys(it)
         if len(self._blocks) == 1:
@@ -1219,7 +1291,7 @@ class SweepRunner:
                             use_checkpoint: bool = True,
                             extra_configs=None, start_empty: bool = False,
                             virtual_time: bool = False):
-        """Arm the self-healing layer (the reference's, shared time):
+        """Arm the self-healing layer (the reference's):
         every resident config becomes a work item with an iteration
         `budget` and at-least-once completion. At chunk boundaries the
         dispatcher harvests configs that completed their budget (the
@@ -1234,16 +1306,33 @@ class SweepRunner:
         untouched byte for byte. `extra_configs` ({"mean", "std"} specs)
         queue configs beyond the resident lanes; `start_empty=True`
         starts every lane idle, for work that arrives through
-        `submit_configs`. `virtual_time` (per-lane clocks) is not
-        ported."""
+        `submit_configs`. `virtual_time=True` gives every lane its own
+        iteration clock, its occupant's progress: the batch gather, the
+        step keys (folded by config id, not lane index), the LR schedule,
+        Adam's correction, the threshold's cutoff and the remap cadence
+        all follow it, so a config's result depends only on (spec,
+        config id, attempt, budget, solver seed), not on when it was
+        seeded, which lane it landed in or what else shared the sweep.
+        It needs the device-resident dataset and no config_block, and
+        costs a C-wide batch gather a step."""
         if not self._pipeline_on:
             raise ValueError(
                 "self-healing needs the chunk bookkeeping path: build "
                 "the SweepRunner with pipeline_depth=0 (synchronous) or "
                 ">= 1 (consumer thread), not None")
         if virtual_time:
-            _not_ported("virtual_time=True (per-lane iteration clocks of "
-                        "the self-healing service sweep)")
+            if self._dataset is None:
+                raise ValueError(
+                    "virtual_time=True needs the device-resident "
+                    "dataset path (a materializable Data layer, "
+                    "preload=True): per-lane iteration clocks gather "
+                    "each lane's batch by its own index, which a "
+                    "sequential host feed cursor cannot replay")
+            if self.config_block:
+                raise ValueError(
+                    "virtual_time=True is incompatible with "
+                    "config_block (the blocked lax.map packs a shared "
+                    "batch across the block)")
         h = _HealingState(self.n, budget, max_retries, backoff_iters,
                           use_checkpoint, self.iter)
         if start_empty:
@@ -1251,6 +1340,8 @@ class SweepRunner:
             h.lane_cfg[:] = -1
             h.benign = set(range(self.n))
         self._healing = h
+        self._virtual_time = bool(virtual_time)
+        self._out_axis = self._output_axes(laned_data=self._virtual_time)
         if start_empty:
             self._set_quarantine_bits(set_lanes=range(self.n))
         if extra_configs:
@@ -1721,7 +1812,7 @@ class SweepRunner:
 
     def _ckpt_meta(self) -> dict:
         """The checkpoint's meta block, every key the reference writes:
-        no virtual time, the announced quarantines, the lane map and
+        the virtual-time mode, the announced quarantines, the lane map and
         each lane's progress (the identity and `iter` without
         self-healing), and the self-healing block (with the queued
         configs' specs and the triage notes not yet reclaimed)."""
@@ -1849,8 +1940,8 @@ class SweepRunner:
     def restore(self, path: str):
         """Load a checkpoint of either package into this runner, which
         must have the same configuration (its config_block may differ):
-        the configs, fault process, tile spec, solver key, no virtual
-        time, genetic state exactly when the runner's lanes run the
+        the configs, fault process, tile spec, solver key, virtual-time
+        mode, genetic state exactly when the runner's lanes run the
         genetic search, self-healing armed when the file carries its
         state, the same leaves and shapes; each mismatch raises before
         anything changes. A healing runner takes the file's lane map,

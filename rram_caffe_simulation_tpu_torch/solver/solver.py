@@ -241,6 +241,21 @@ class StepNoise:
                         for b in range(self.BLOCK)})
         return self._steps[at]
 
+    def lane_step_keys(self, key, its, cfgs) -> np.ndarray:
+        """(k, C, 2) step keys of per-lane clocks `its` (k, C) (the
+        self-healing sweep's virtual time): lane c's key at row j is
+        fold_in(fold_in(key, its[j, c]), cfgs[c]), folded by the lane's
+        config id, as the reference's virtual-time step derives it. The
+        noise of all k rows is derived here in one vectorised pass, and
+        found by calling the object with a row."""
+        rng = prng.fold_in(prng.fold_in(key, np.asarray(its, np.int64)),
+                           np.asarray(cfgs, np.int64)[None])
+        nk, seeds = self._derive(rng)
+        self._memo = {(rng[b].shape, rng[b].tobytes()): (
+            None if nk is None else nk[b],
+            None if seeds is None else seeds[b]) for b in range(len(rng))}
+        return rng
+
     def __call__(self, rng):
         rng = np.asarray(rng, dtype=np.uint32)
         hit = self._memo.get((rng.shape, rng.tobytes()))
@@ -259,14 +274,25 @@ def stack_batches(feed: Callable, iter_size: int, device) -> dict:
             .to(device) for k in subs[0]}
 
 
+def _lane_view(v: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """A (C,) per-lane vector shaped to broadcast over `like` (C, ...)."""
+    return v.view((-1,) + (1,) * (like.dim() - 1))
+
+
+def _to_device(a: np.ndarray, device) -> torch.Tensor:
+    """A host array on `device` without a blocking copy (a pinned buffer
+    and a non-blocking copy on the card)."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if torch.device(device).type != "cuda":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)
+
+
 def _lane_seeds(seeds: np.ndarray, device) -> torch.Tensor:
     """(lanes,) int32 crossbar seeds placed on `device` without a
     blocking copy (a pinned buffer; a plain copy to the card would wait
     for the stream at every step)."""
-    t = torch.from_numpy(np.ascontiguousarray(seeds, dtype=np.int32))
-    if torch.device(device).type != "cuda":
-        return t
-    return t.pin_memory().to(device, non_blocking=True)
+    return _to_device(np.asarray(seeds, dtype=np.int32), device)
 
 
 def solver_seed(param) -> int:
@@ -513,11 +539,18 @@ class Solver:
     def _remap_due_at(self, iteration: int) -> bool:
         """Whether remapping runs at `iteration` (strategy.cpp:91-93:
         Apply runs every iteration, so times_ == iteration + 1)."""
+        return bool(self._remap_due_grid(iteration))
+
+    def _remap_due_grid(self, t) -> np.ndarray:
+        """`_remap_due_at` over an array of iteration clocks in one
+        vectorised pass (the virtual-time sweep's (k, C) grid of lane
+        clocks)."""
         s = self.strategies
+        t = np.asarray(t, np.int64)
         if s.prune_orders is None or self.fault_state is None:
-            return False
-        times = iteration + 1
-        return times >= s.remap_start and (
+            return np.zeros(t.shape, dtype=bool)
+        times = t + 1
+        return (times >= s.remap_start) & (
             (times - s.remap_start) % s.remap_period == 0)
 
     def _check_tile_coverage(self):
@@ -612,6 +645,12 @@ class Solver:
         a leading C axis, the batch is shared, the loss is (C,), each
         lane has its own quantization grid and crossbar seed, and every
         kernel launches once for all lanes (Net.apply gives the layout).
+        Per-lane clocks (the sweep's virtual time) are on where `clocks`
+        is given, the (R, C) float32 device rows of
+        `step.lane_clock_rows(it, do_remap)`: each lane's rate, Adam's
+        correction at its clock + 1, its remap flag. `it` is then the
+        (C,) host int64 clocks, `do_remap` their (C,) host flags, and the
+        batch each lane's own (laned data tops).
 
         `hw_engine`: "cuda" reads crossbar weights through kernel B2 and
         runs the fused tail as kernel B1 (their wrappers: on CPU tensors
@@ -735,35 +774,52 @@ class Solver:
                         for k, q in fault_state["life_q"].items()}
             return fault_state["lifetimes"]
 
-        def apply_strategy(data, upd, fault_state, it, do_remap):
+        def apply_strategy(data, upd, fault_state, it, do_remap, rate,
+                           remap_mask=None):
             """ApplyStrategy (solver.cpp:302), in the reference's order:
             threshold on the fault keys' updates, then remapping. Also
-            returns the writes the threshold suppressed (metrics on)."""
+            returns the writes the threshold suppressed (metrics on).
+            Under per-lane clocks `rate` is the (C,) rates, `do_remap`
+            the (C,) host flags and `remap_mask` their device copy: when
+            any lane is due, every lane is remapped and the result kept
+            in the due lanes alone (the reference's vmapped cond)."""
             saved = None
             if threshold is not None:
                 before = {k: upd[k] for k in fault_keys}
                 after = fault_strategies.threshold_diffs(
-                    before, lr_fn(it), lr_mults, threshold)
+                    before, rate, lr_mults, threshold)
                 if metrics_on:
                     saved = obs_counters.write_traffic_saved(
                         before, after, fault_engine.EPSILON32,
                         lifetimes=life_view(fault_state) if has_fault
                         else None, lanes=lanes)
                 upd = {**upd, **after}
-            if remap_on and (self._remap_due_at(it) if do_remap is None
-                             else do_remap):
+            if remap_on and bool(np.any(self._remap_due_at(it)
+                                        if do_remap is None else do_remap)):
                 view = (fault_packed.unpacked_view(fault_state, pack_spec,
                                                    weight_keys)
                         if packed_on else fault_state)
+                slots = None
                 if tracked:
-                    data, upd, slots = \
+                    new_d, new_u, slots = \
                         fault_strategies.remap_fc_neurons_tracked(
                             data, upd, view, fc_pairs, prune_orders,
                             fault_state["remap_slots"])
-                    fault_state = {**fault_state, "remap_slots": slots}
                 else:
-                    data, upd = fault_strategies.remap_fc_neurons(
+                    new_d, new_u = fault_strategies.remap_fc_neurons(
                         data, upd, view, fc_pairs, prune_orders)
+                if remap_mask is not None:
+                    def due(new, old):
+                        return new if new is old else torch.where(
+                            _lane_view(remap_mask, new), new, old)
+                    new_d = {k: due(v, data[k]) for k, v in new_d.items()}
+                    new_u = {k: due(v, upd[k]) for k, v in new_u.items()}
+                    if slots is not None:
+                        slots = {g: due(v, fault_state["remap_slots"][g])
+                                 for g, v in slots.items()}
+                data, upd = new_d, new_u
+                if slots is not None:
+                    fault_state = {**fault_state, "remap_slots": slots}
             return data, upd, fault_state, saved
 
         def metrics_tree(loss, rate, grad_sumsq, upd, prev_life,
@@ -774,8 +830,9 @@ class Solver:
             shape = (lanes,) if lanes else ()
             metrics = {
                 "loss": loss.float(),
-                "lr": torch.full(shape, rate, dtype=torch.float32,
-                                 device=dev),
+                "lr": (rate.clone() if isinstance(rate, torch.Tensor)
+                       else torch.full(shape, rate, dtype=torch.float32,
+                                       device=dev)),
                 # over a device fill of iter_size: a tensor made from a
                 # host scalar would be a synchronizing copy
                 "grad_norm": U._sqrt(grad_sumsq) / torch.full_like(
@@ -821,11 +878,31 @@ class Solver:
         seeded = [i for i, k in enumerate(fault_keys) if k in crossbar_keys]
         step_noise = StepNoise(max(noisy) + 1 if crossbar_on and noisy
                                else 0, seeded, subs=iter_size)
+        adam = rule is U.adam
 
-        def forward_backward(params, fault_state, batch, rng):
+        def lane_clock_rows(its, do_remap) -> np.ndarray:
+            """(..., rows, C) float64 host rows of per-lane clocks `its`
+            (..., C): each lane's float32 rate, Adam's correction at its
+            clock + 1 (Adam only) and its remap flag `do_remap`
+            (remapping only), from the host schedule at each distinct
+            clock."""
+            its = np.asarray(its, np.int64)
+            uniq, inv = np.unique(its, return_inverse=True)
+            inv = inv.reshape(its.shape)
+            rows = [np.array([lr_fn(int(t)) for t in uniq], np.float32)[inv]]
+            if adam:
+                rows.append(np.array([U.adam_correction(hp, int(t) + 1)
+                                      for t in uniq], np.float32)[inv])
+            if remap_on:
+                rows.append(np.asarray(do_remap, bool))
+            return np.stack(rows, axis=-2).astype(np.float64)
+
+        def forward_backward(params, fault_state, batch, rng,
+                             laned_data=False):
             """One forward and backward pass: (loss, {owner key: grad},
             outputs, advanced statistics, debug), debug being (the
-            forward trace vector, {site: cotangent}) or None."""
+            forward trace vector, {site: cotangent}) or None.
+            `laned_data`: the batch holds each lane's own samples."""
             leaves = {k: v.detach().requires_grad_()
                       for k, v in self._flat(params).items()}
             read = dict(leaves)
@@ -860,7 +937,7 @@ class Solver:
                 read_params, batch, adc_bits=adc_bits,
                 crossbar=crossbar, lanes=lanes, tiles=tiles_ctx,
                 conv_im2col=conv_resolved, with_updates=True,
-                probes=probes, trace_sites=trace)
+                probes=probes, trace_sites=trace, laned_data=laned_data)
             # lanes are independent: d(sum of lane losses)/d(lane c's
             # params) is lane c's own gradient. The TRAIN graph never
             # reads BatchNorm's statistics: their gradient is zero, as
@@ -891,12 +968,15 @@ class Solver:
                 {k: advanced[k] for k in state_keys}, dbg
 
         def step(params, history, fault_state, batch, it, rng,
-                 do_remap=None, record=True):
+                 do_remap=None, record=True, clocks=None):
             full = metrics_on and record
+            # per-lane clocks: each lane on its own batch, rate and remap
+            # cadence
+            lane_time = clocks is not None
             # -- ForwardBackward x iter_size (solver.cpp:265-269) --
             if iter_size == 1:
                 loss, g, outputs, stats, dbg = forward_backward(
-                    params, fault_state, batch, rng)
+                    params, fault_state, batch, rng, lane_time)
             else:
                 # sub-pass i reads sub-batch i with fold_in(rng, i) and
                 # the statistics sub-pass i - 1 advanced (the weights
@@ -929,7 +1009,7 @@ class Solver:
                 norms_dbg = spec.all_param_norms(data, g_dbg, lanes)
 
             # -- ComputeUpdate (sgd_solver.cpp:102-117) --
-            rate = lr_fn(it)
+            rate = clocks[0] if lane_time else lr_fn(it)
             grad_sumsq = (obs_counters.global_norm_sq(g, lanes)
                           if full else None)
             if clip >= 0:
@@ -943,13 +1023,23 @@ class Solver:
                 if local_decay:             # Regularize (sgd_solver.cpp:149)
                     diff = diff + local_decay * (
                         data[k] if reg_type == "L2" else torch.sign(data[k]))
-                local_rate = float(np.float32(rate) * np.float32(lr_mults[k]))
+                if lane_time:
+                    # float32 rate * lr_mult per lane; Adam reads each
+                    # lane's correction in place of the step count
+                    local_rate = _lane_view(
+                        rate * float(np.float32(lr_mults[k])), diff)
+                    t = _lane_view(clocks[1], diff) if adam else None
+                else:
+                    local_rate = float(np.float32(rate)
+                                       * np.float32(lr_mults[k]))
+                    t = it + 1
                 upd[k], new_hist[k] = rule(diff, history[k], local_rate, hp,
-                                           it + 1)
+                                           t)
 
             # -- ApplyStrategy (solver.cpp:302; strategy.cpp) --
             data, upd, fault_state, saved = apply_strategy(
-                data, upd, fault_state, it, do_remap)
+                data, upd, fault_state, it, do_remap, rate,
+                clocks[-1] > 0 if lane_time and remap_on else None)
             if debug_on:
                 # UpdateDebugInfo (net.cpp:652-668): before the update,
                 # with the data and diffs ApplyStrategy left
@@ -1010,6 +1100,7 @@ class Solver:
             return out + (mets,)
 
         step.noise = step_noise
+        step.lane_clock_rows = lane_clock_rows
         step.with_metrics = metrics_on
         step.with_debug = debug_on
         step.hw_engine_resolved = engine if crossbar_on else None

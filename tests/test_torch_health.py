@@ -11,7 +11,8 @@ life_min exactly, the f32 fractions and means within 1e-6 relative
 equal the reference's fed the same records. A port Solver with
 enable_health and a port sweep with health_every write the reference's
 health records (from one seed: the same banks), the sweep's with its
-lane map, every one valid under both schemas."""
+lane map, every one valid under both schemas: those two runs are in
+tests/test_torch_health_runs.py."""
 import numpy as np
 import pytest
 import torch
@@ -22,18 +23,12 @@ import jax.numpy as jnp
 from rram_caffe_simulation_tpu.fault import mapping as jmapping
 from rram_caffe_simulation_tpu.fault.processes import FaultSpec
 from rram_caffe_simulation_tpu.observe import health as jhealth
-from rram_caffe_simulation_tpu.observe import schema as jschema
-from rram_caffe_simulation_tpu.parallel import SweepRunner as JSweep
 from rram_caffe_simulation_tpu_torch.fault import mapping as tmapping
 from rram_caffe_simulation_tpu_torch.fault import packed as tpacked
 from rram_caffe_simulation_tpu_torch.observe import counters as tcounters
 from rram_caffe_simulation_tpu_torch.observe import health as thealth
-from rram_caffe_simulation_tpu_torch.observe import schema as tschema
 
-from test_torch_async_pipeline import ListSink
-from test_torch_checkpoint import feed_from, ref_solver
 from test_torch_observe import close
-from test_torch_sweep import MEANS, STDS, port_solver
 
 SHAPES = {"conv/0": (6, 3, 3, 3), "ip/0": (10, 27), "ip/1": (10,)}
 DECREMENT = 100.0
@@ -196,70 +191,3 @@ def test_ledger_equals_the_reference(threshold):
     assert t.summary() == j.summary()
     assert t.forecast() == j.forecast()
     assert t.worst_tiles(5) == j.worst_tiles(5)
-
-
-def test_solver_health_records_equal_the_reference(monkeypatch):
-    """Both Solvers from one prototxt and seed (the same fault state),
-    no crossbar read: the banks stay equal, so do the censuses."""
-    from test_torch_observe import SOLVER, REPO, jfeed, JNet, pb, \
-        text_format, JSolver, TSolver, tproto, jsink, tsink
-    monkeypatch.chdir(REPO)
-    sp = pb.SolverParameter()
-    text_format.Parse(SOLVER, sp)
-    recs = {}
-    with jax.enable_x64(False):
-        js = JSolver(sp, train_feed=jfeed._python_data_feed(
-            JNet(sp.net_param, pb.TRAIN).layers[0]), tile_spec="2x2")
-        recs["j"] = ListSink()
-        js.metrics_logger = jsink.MetricsLogger([recs["j"]])
-        js.enable_health(2)
-        js.step(4)
-    ts = TSolver(tproto.parse(SOLVER, "SolverParameter"), device="cpu",
-                 tile_spec="2x2")
-    recs["t"] = ListSink()
-    ts.metrics_logger = tsink.MetricsLogger([recs["t"]])
-    ts.enable_health(2)
-    ts.step(4)
-    got, want = recs["t"].records, recs["j"].records
-    assert [r["iter"] for r in got] == [r["iter"] for r in want] == [2, 4]
-    for a, b in zip(got, want):
-        assert tschema.validate_record(a) == jschema.validate_record(a) == []
-        a, b = dict(a), dict(b)
-        a.pop("wall_time"), b.pop("wall_time")
-        assert close(a, b) == []
-    assert ts.health_ledger.summary() == js.health_ledger.summary()
-
-
-@pytest.mark.parametrize("depth", [None, 2])
-def test_sweep_health_records_equal_the_reference(depth):
-    """One seed, both packages: the port's sweep and the reference's
-    (engine "jax") with health_every 2, chunk 2; the banks stay equal,
-    so do the censuses, lane map and summary."""
-    tsink_, jsink_ = ListSink(), ListSink()
-    s = port_solver(feed_from(0))
-    s.enable_metrics(tsink_)
-    from rram_caffe_simulation_tpu_torch.parallel import SweepRunner
-    r = SweepRunner(s, 3, means=MEANS, stds=STDS, engine="cuda",
-                    packed_state=True, dtype_policy="ternary", device="cpu",
-                    pipeline_depth=depth, health_every=2)
-    with jax.enable_x64(False):
-        js = ref_solver(feed_from(0))
-        js.enable_metrics(jsink_)
-        ref = JSweep(js, 3, means=MEANS, stds=STDS, engine="jax",
-                     packed_state=True, dtype_policy="ternary",
-                     pipeline_depth=depth, health_every=2)
-        ref.step(6, chunk=2)
-        ref_summary = ref.health_summary()
-        ref.close()
-    r.step(6, chunk=2)
-    r.close()
-    health = lambda sink: [dict(x) for x in sink.records
-                           if x.get("type") == "health"]
-    got, want = health(tsink_), health(jsink_)
-    assert [x["iter"] for x in got] == [x["iter"] for x in want] == [4, 6]
-    for a, b in zip(got, want):
-        assert a["lane_map"] == [0, 1, 2]
-        assert tschema.validate_record(a) == []
-        a.pop("wall_time"), b.pop("wall_time")
-        assert close(a, b) == []
-    assert r.health_summary() == ref_summary

@@ -13,7 +13,10 @@ packed banks and the fused epilogue. The reference runs with engine
 draw, carried across with convert.py. Held after every chunk: life_q
 banks identical, per-lane losses within 1e-4 relative (the two
 packages sum convolutions and products in other orders; the tolerance
-of tests/test_torch_solver.py), broken fractions equal."""
+of tests/test_torch_solver.py), broken fractions equal.
+
+The sweep's parts (the device dataset's order, the draws and pack
+spec, the batched read) are held in tests/test_torch_sweep_parts.py."""
 import os
 
 import numpy as np
@@ -24,22 +27,15 @@ from google.protobuf import text_format
 import jax
 import jax.numpy as jnp
 
-from rram_caffe_simulation_tpu.fault import hw_aware as jhw
 from rram_caffe_simulation_tpu.parallel import SweepRunner as JSweep
 from rram_caffe_simulation_tpu.proto import pb
 from rram_caffe_simulation_tpu.solver import Solver as JSolver
 from rram_caffe_simulation_tpu_torch import convert
 from rram_caffe_simulation_tpu_torch import proto as tproto
-from rram_caffe_simulation_tpu_torch.core import prng
-from rram_caffe_simulation_tpu_torch.fault import engine as tengine
-from rram_caffe_simulation_tpu_torch.fault import hw_aware as thw
-from rram_caffe_simulation_tpu_torch.fault import packed as tpacked
 from rram_caffe_simulation_tpu_torch.parallel import SweepRunner as TSweep
 from rram_caffe_simulation_tpu_torch.parallel import sweep as tsweep
 from rram_caffe_simulation_tpu_torch.solver import Solver as TSolver
 
-from test_torch_crossbar import assert_within_sum_bound, operands, t
-from test_torch_solver import NET as CIFAR_NARROW
 
 MEANS = [250.0, 450.0, 300.0]
 STDS = [30.0, 250.0, 120.0]
@@ -76,6 +72,29 @@ SOLVER = (f'net_param {{ {NET} }} base_lr: 0.05 momentum: 0.9 '
           'weight_decay: 0.004 lr_policy: "fixed" display: 0 max_iter: 100 '
           'random_seed: 4 failure_pattern { type: "gaussian" mean: 250 '
           'std: 30 }')
+
+
+def lmdb_solver_text(root, records=20, extra=""):
+    """SOLVER with the Input layer replaced by a Data layer over a small
+    LMDB written under `root` (`records` 3x8x8 images, labels 0-4): a
+    net whose dataset can live on the device. `extra` is appended to
+    the solver text."""
+    from rram_caffe_simulation_tpu.data import lmdb_py
+    from rram_caffe_simulation_tpu.data.db import array_to_datum
+    db = os.path.join(str(root), "db")
+    if not os.path.exists(db):
+        rng = np.random.RandomState(0)
+        with lmdb_py.BulkWriter(db) as w:
+            for i in range(records):
+                img = rng.randint(0, 255, (3, 8, 8), dtype=np.uint8)
+                w.put(b"%08d" % i, array_to_datum(
+                    img, int(img.mean() // 52)).SerializeToString())
+    data = (f'layer {{ name: "data" type: "Data" top: "data" top: "label" '
+            f'data_param {{ source: "{db}" batch_size: {BATCH} }} '
+            'transform_param { scale: 0.00390625 } }')
+    net = NET.replace(NET[NET.index("layer { name: \"in\""):
+                          NET.index("layer { name: \"conv1\"")], data + "\n")
+    return SOLVER.replace(NET, net) + " " + extra
 
 
 def batches(n, seed=0):
@@ -220,139 +239,6 @@ def test_quarantine_freezes_a_nan_lane():
 
 
 # ---------------------------------------------------------------------------
-# the device-resident dataset
-
-def test_device_dataset_follows_the_host_cursor_across_a_wrap(monkeypatch):
-    """The in-repo CIFAR LMDB holds 200 records; at batch 64 the fourth
-    batch wraps. Batch t gathered on the device equals the t-th batch
-    of a fresh host cursor."""
-    import os
-    monkeypatch.chdir(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))))
-    net = CIFAR_NARROW.replace("batch_size: 8", "batch_size: 64")
-    text = (f'net_param {{ {net} }} base_lr: 0.01 lr_policy: "fixed" '
-            'random_seed: 3 failure_pattern { type: "gaussian" mean: 1e6 '
-            'std: 1e5 }')
-    s = TSolver(tproto.parse(text, "SolverParameter"), device="cpu")
-    runner = TSweep(s, 2, device="cpu")
-    assert runner._dataset is not None and runner._ds_n == 200
-    host = s.train_feed
-    for it in range(7):
-        want = host()
-        got = runner._batch(it)
-        for k in want:
-            np.testing.assert_array_equal(got[k].numpy(), want[k])
-    # preload=False reads the host feed: the same losses
-    s2 = TSolver(tproto.parse(text, "SolverParameter"), device="cpu")
-    r2 = TSweep(s2, 2, device="cpu", preload=False)
-    assert r2._dataset is None
-    r2.fault_states = {g: {k: v.clone() for k, v in grp.items()}
-                       for g, grp in runner.fault_states.items()}
-    np.testing.assert_array_equal(runner.step(2, chunk=2)[0],
-                                  r2.step(2, chunk=2)[0])
-    assert runner.chunk_losses.shape == (2, 2)
-
-
-# ---------------------------------------------------------------------------
-# parts: draws, pack spec, the batched crossbar read
-
-def test_stack_fault_states_reanchors_each_lane():
-    pattern = tproto.parse("mean: 1000 std: 100", "FailurePattern")
-    means, stds = [1000.0, 5000.0, 300.0], [100.0, 800.0, 50.0]
-    shapes = {"ip1/0": (64, 128), "ip1/1": (64,)}
-    st = tengine.stack_fault_states(prng.PRNGKey(0), shapes, pattern, 3,
-                                    means, stds)
-    life = st["lifetimes"]["ip1/0"]
-    assert life.shape == (3, 64, 128) and st["stuck"]["ip1/1"].shape == (3,
-                                                                         64)
-    for c in range(3):
-        z = (life[c].double() - means[c]) / stds[c]
-        assert abs(float(z.mean())) < 0.03 and abs(float(z.std()) - 1) < 0.03
-    # lanes are independent draws, not one draw rescaled
-    z0 = (life[0] - means[0]) / stds[0]
-    z1 = (life[1] - means[1]) / stds[1]
-    assert abs(float(torch.corrcoef(torch.stack([z0.flatten(),
-                                                 z1.flatten()]))[0, 1])) < 0.05
-    stuck = st["stuck"]["ip1/0"]
-    assert set(torch.unique(stuck).tolist()) <= {-1.0, 0.0, 1.0}
-    # default: the pattern's own (mean, std) on every lane
-    d = tengine.stack_fault_states(prng.PRNGKey(1), shapes, pattern,
-                                   2)["lifetimes"]["ip1/0"]
-    assert abs(float(d.mean()) - 1000) < 5
-
-
-def test_pack_spec_sized_from_every_config():
-    state = {"lifetimes": {"w": torch.zeros((2, 3, 5))}}
-    small = tpacked.make_pack_spec(state, 100.0, means=[300, 250],
-                                   stds=[50, 30])
-    big = tpacked.make_pack_spec(state, 100.0, means=[300, 1e8],
-                                 stds=[50, 3e7])
-    assert small["life_dtype"] == "int16" and big["life_dtype"] == "int32"
-    assert small["last_dim"] == {"w": 5}
-    # pack/unpack over (C, ...) leaves
-    rng = np.random.RandomState(0)
-    life = torch.from_numpy((rng.randn(3, 4, 7) * 300 + 200)
-                            .astype(np.float32))
-    stuck = torch.from_numpy(rng.choice([-1.0, 0.0, 1.0], (3, 4, 7))
-                             .astype(np.float32))
-    spec = tpacked.make_pack_spec({"lifetimes": {"w": life}}, 100.0,
-                                  means=[200], stds=[300])
-    packed = tpacked.pack_state({"lifetimes": {"w": life},
-                                 "stuck": {"w": stuck}}, spec)
-    assert packed["stuck_bits"]["w"].shape == (3, 4, 2)
-    assert torch.equal(tpacked.unpack_stuck(packed["stuck_bits"]["w"], 7),
-                       stuck)
-    assert torch.equal(packed["life_q"]["w"] <= 0, life <= 0)
-
-
-@pytest.mark.parametrize("q_bits", [0, 2, 8])
-@pytest.mark.parametrize("x_per_lane", [False, True])
-def test_batched_crossbar_matches_reference_vmap(q_bits, x_per_lane):
-    """crossbar_matmul_lanes (one B2 launch for C lanes) against the
-    reference crossbar_matmul under jax.vmap over the lanes, forward and
-    backward, sigma 0, on odd per-lane operands (C = 3, 48x72x40)."""
-    C, M, K, N = 3, 48, 72, 40
-    rng = np.random.RandomState(50 + q_bits)
-    x, xs, w, broken, stuck, seeds = operands(rng, C, M, K, N)
-    xin = xs if x_per_lane else x
-    g = rng.randn(C, M, N).astype(np.float32)
-
-    def ref(a, ww):
-        fn = lambda xa, wa, b, s, sd: jhw.crossbar_matmul(xa, wa, b, s, sd,
-                                                          0.0, q_bits)
-        return jax.vmap(fn, in_axes=(0 if x_per_lane else None, 0, 0, 0, 0))(
-            a, ww, jnp.asarray(broken), jnp.asarray(stuck),
-            jnp.asarray(seeds))
-    y_ref, vjp = jax.vjp(ref, jnp.asarray(xin), jnp.asarray(w))
-    dx_ref, dw_ref = vjp(jnp.asarray(g))
-
-    xt, wt = t(xin).requires_grad_(), t(w).requires_grad_()
-    y = thw.crossbar_matmul_lanes(xt, wt, t(broken), t(stuck), t(seeds), 0.0,
-                                  q_bits)
-    dx, dw = torch.autograd.grad(y, (xt, wt), t(g))
-    levels = thw.q_levels(q_bits)
-    w_eff = thw.effective_weight_plain(
-        t(w), t(broken.astype(np.float32)), t(stuck), 0.0, None, levels,
-        t(w).abs().amax(dim=(1, 2))).numpy()
-    assert_within_sum_bound(y.detach().numpy(), y_ref, xin, w_eff)
-    # dx against the lane's masked grid weights; dw straight-through,
-    # zero on broken cells
-    w_masked = w_eff          # sigma 0: the masked grid weights
-    dx_each = np.matmul(g, np.swapaxes(w_masked, 1, 2))
-    if x_per_lane:
-        assert_within_sum_bound(dx.numpy(), dx_ref, g,
-                                np.swapaxes(w_masked, 1, 2))
-    else:
-        bound = (K * 2.0 ** -24 * np.abs(np.matmul(np.abs(g), np.abs(
-            np.swapaxes(w_masked, 1, 2)))).sum(0)
-            + C * 2.0 ** -24 * np.abs(dx_each).sum(0) + 1e-30)
-        assert (np.abs(dx.numpy() - np.asarray(dx_ref)) <= bound).all()
-    xT = np.swapaxes(xin, -1, -2)
-    assert_within_sum_bound(dw.numpy(), dw_ref, xT, g)
-    assert (dw.numpy()[broken] == 0).all()
-
-
-# ---------------------------------------------------------------------------
 # refusals and the device default
 
 @pytest.mark.parametrize("option,value", [
@@ -366,29 +252,45 @@ def test_unported_options_raise_by_name(option, value):
 
 @pytest.mark.parametrize("method,kwargs,match", [
     pytest.param("enable_self_healing", {"budget": 4, "virtual_time": True},
-                 "virtual_time", id="enable_self_healing"),
+                 "device-resident dataset", id="enable_self_healing"),
     pytest.param("submit_configs", {
         "budget": 4, "virtual_time": True,
         "extra_configs": [{"mean": 300.0, "std": 20.0}]},
-        "virtual_time", id="submit_configs"),
+        "device-resident dataset", id="submit_configs"),
     pytest.param("checkpoint", {"distributed": True}, "distributed",
                  id="checkpoint-distributed"),
 ])
 def test_unported_methods_raise(method, kwargs, match, tmp_path):
-    """What stays refused by name: self-healing's per-lane clocks
-    (`virtual_time`; its queued configs are then never submitted) and
-    writing the distributed checkpoint layout."""
+    """What stays refused: writing the distributed checkpoint layout (by
+    name), and self-healing's per-lane clocks (`virtual_time`) on a host
+    feed, with the reference's ValueError (nothing is armed and its
+    queued configs are never submitted). Over a device-resident dataset
+    the same call arms the clocks and the sweep runs to completion."""
     r = port_sweep(cycling(batches(1)), C=2, pipeline_depth=0)
-    with pytest.raises(NotImplementedError, match=match):
+    exc = NotImplementedError if method == "checkpoint" else ValueError
+    with pytest.raises(exc, match=match):
         if method == "checkpoint":
             r.checkpoint(str(tmp_path / "x"), **kwargs)
         else:
             r.enable_self_healing(**kwargs)
     assert not os.listdir(tmp_path)
-    assert r._healing is None
+    assert r._healing is None and not r._virtual_time
     if method == "submit_configs":
         with pytest.raises(ValueError, match="enable_self_healing"):
             r.submit_configs(kwargs["extra_configs"])
+    r.close()
+    if method == "checkpoint":
+        return
+    s = port_solver(None, text=lmdb_solver_text(tmp_path / "lmdb"))
+    r = TSweep(s, 2, packed_state=True, dtype_policy="ternary",
+               device="cpu", pipeline_depth=0)
+    assert r.enable_self_healing(**kwargs) is r and r._virtual_time
+    while not r.healing_complete():
+        r.step(2, chunk=2)
+    rep = r.config_report()
+    assert sorted(rep["completed"]) == (
+        [0, 1, 2] if method == "submit_configs" else [0, 1])
+    assert all(e["iter"] >= 4 for e in rep["completed"].values())
     r.close()
 
 

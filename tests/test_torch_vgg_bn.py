@@ -2,9 +2,9 @@
 reference package, on the CPU.
 
 - Full width (models/cifar10_vgg11/cifar10_vgg11_template.prototxt and
-  its net): the port's Solver draws the reference's params from the
-  seed, bit for bit (msra fillers, Scale's key split, BatchNorm's
-  zeros); one forward and backward at batch 8 matches: loss within 1e-5
+  its net; the port's Solver drawing the reference's params from the
+  seed is held in tests/test_torch_vgg_bn_full.py): one forward and
+  backward at batch 8 matches: loss within 1e-5
   relative, every gradient and every moving statistic within 1e-4 of
   its tensor's largest value (a batch mean of mixed signs cancels).
   Batch 8, not 2: at batch 2
@@ -78,34 +78,6 @@ def template_param(mean=40.0, std=10.0):
     sp.failure_pattern.std = std
     sp.snapshot_format = tproto.BINARYPROTO
     return sp
-
-
-def test_full_width_params_equal_the_reference(monkeypatch):
-    """The port's Solver from the template draws the reference's
-    params: the solver key split once, then every owner layer's split."""
-    monkeypatch.chdir(REPO)
-    ts = TSolver(template_param(), device="cpu")
-    assert ts.net.name == "CIFAR10_VGG11_BN"
-    assert [ly.type_name for ly in ts.net.layers].count("BatchNorm") == 10
-    assert [ly.type_name for ly in ts.net.layers].count("Scale") == 10
-    assert [r.layer_name for r in ts.net.failure_param_refs] == [
-        "fc1", "fc1", "fc2", "fc2", "fc3", "fc3"]
-    jmsg = pb.NetParameter()
-    with open(f"{REPO}/{ts.param.net}") as f:
-        text_format.Parse(f.read(), jmsg)
-    with jax.enable_x64(False):
-        jnet = JNet(jmsg, pb.TRAIN)
-        _, k_init = jax.random.split(jax.random.PRNGKey(ts.seed))
-        jp = jnet.init(k_init)
-    assert set(jp) == set(ts.params)
-    for ln, vals in jp.items():
-        assert len(vals) == len(ts.params[ln]), ln
-        for a, b in zip(vals, ts.params[ln]):
-            assert b.shape == a.shape, ln
-            np.testing.assert_array_equal(bits(b.numpy()), bits(a),
-                                          err_msg=ln)
-    assert ts.params["scale_conv1"][0].eq(1).all()
-    assert tuple(ts.params["bn_fc2"][2].shape) == (1,)
 
 
 def test_full_width_forward_backward_matches(monkeypatch):
