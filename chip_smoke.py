@@ -20,6 +20,8 @@
     python3 chip_smoke.py --phases 20     # the tiled read's k order, and
                                           # the per-lane clocks (virtual
                                           # time)
+    python3 chip_smoke.py --phases 21     # the multi-group durable sweep
+                                          # driver (run_1000_sweep.py)
     python3 chip_smoke.py --b2-path       # only time B2 through its wrapper
     python3 chip_smoke.py --b2t-path      # only time B2t (wrapper, kernel,
                                           # tile rows)
@@ -31,6 +33,9 @@
                                           # solver's tail, alone, a copy)
     python3 chip_smoke.py --timed-checkout DIR  # run DIR's chip_smoke.py,
                                           # each of its phases timed
+    python3 chip_smoke.py --cold-start    # only time the C = 512 sweep's
+                                          # cold start with and without
+                                          # precompile_chunk
 
 Phases (each raises on failure; the script then exits non-zero and
 prints no "ok" line):
@@ -330,7 +335,23 @@ prints no "ok" line):
    virtual-time checkpoint
    written mid-sweep, restored into a new runner: the report and every
    state leaf equal to the never-stopped run's; a shared-time runner
-   refuses the file with the reference's ValueError.
+   refuses the file with the reference's ValueError;
+21. the multi-group durable sweep: the port's
+   examples/gaussian_failure/run_1000_sweep.py, in this process, over
+   CIFAR-10-quick at full width from the in-repo LMDB, 1024 configs in
+   two groups of 512, N(1e8, 3e7), ternary, packed banks, engine "cuda",
+   depth 2, no block, RRAM_POOL_BWD=cuda, 20 iterations in chunks of 5,
+   a run directory: (a) group 1 built by the GroupPrefetcher while group
+   0 runs (each group's runner construction, build and wait seconds,
+   setup_overlap_seconds, host_blocked_seconds, decode and compile
+   seconds, configs x steps per second and the device step times, those
+   enqueued while the build ran apart; peak memory, wall time, B2 2, B1
+   1, B4 1 a step); (b) the same with --no-overlap; (c) the same with
+   --checkpoint-every 10 and SIGTERM once group 1 has stepped: exit 75
+   with group 1's checkpoint journaled, then --resume to exit 0. The
+   journals' group records, every metrics stream, sweep_report.json and
+   every group_*_faults.npz array of (b) and of the resumed (c) equal
+   (a)'s, timing fields aside.
 
 Then a JSON line of the step's numbers, a JSON line of the sweep's, one
 JSON line of per-kernel numbers (per training step, summed over the
@@ -348,7 +369,8 @@ a JSON line "solver_rest" of phase 15's (printed when it ends), a JSON
 line "vgg11" of phase 16's (printed when it ends, and again), a JSON
 line "telemetry" of phase 17's, a JSON line "blocks" of phase 18's, a
 JSON line "healing" of phase 19's, a JSON line "virtual_time" of phase
-20's, the card's name and power limit,
+20's, a JSON line "driver" of phase 21's, the card's name and power
+limit,
 and last {"ok": true, "device":
 {...}}.
 B2t has a row at each path's shapes: C = 1 (the tiled slice) and C
@@ -6738,6 +6760,392 @@ def phase_virtual_time(gpu, tiled_checks=None):
     return out
 
 
+DRIVER_CONFIGS = 1024           # phase 21: two resident groups
+DRIVER_GROUP = 512              # phase 7's sweep width
+DRIVER_ITERS = 20
+DRIVER_CHUNK = 5
+DRIVER_CKPT_EVERY = 10          # (c): group 1 is preempted at iteration 10
+DRIVER_DEVICE = "cuda"
+# the resume guard's (scripts/check_resume_equivalence.py) timing fields
+DRIVER_TIMING = ("wall_time", "step_latency_s", "iters_per_s",
+                 "wall_seconds", "setup_overlap_seconds",
+                 "host_blocked_seconds", "checkpoint_write_seconds")
+
+
+def driver_flags():
+    """The flags phase 21 runs the driver with and resumes it with (the
+    manifest pins the others)."""
+    return ["--packed-state", "--dtype-policy", "ternary", "--engine",
+            "cuda", "--device", DRIVER_DEVICE]
+
+
+def driver_argv(run_dir, *extra):
+    return ["--solver", SOLVER, "--configs", str(DRIVER_CONFIGS),
+            "--group", str(DRIVER_GROUP), "--iters", str(DRIVER_ITERS),
+            "--chunk", str(DRIVER_CHUNK), "--mean", "1e8", "--std", "3e7",
+            "--pipeline-depth", "2", "--block", "0", "--run-dir",
+            str(run_dir), *driver_flags(), *extra]
+
+
+def run_driver(argv, preempted=False):
+    """The port's run_1000_sweep.main(argv) in this process, this
+    script's SIGTERM and SIGINT handlers restored after it. With
+    `preempted` the run must end in SystemExit(75) (caught, and nothing
+    else); otherwise it must return its record."""
+    import signal
+    from rram_caffe_simulation_tpu_torch.examples.gaussian_failure import \
+        run_1000_sweep as driver
+    handlers = {s: signal.getsignal(s) for s in (signal.SIGTERM,
+                                                 signal.SIGINT)}
+    try:
+        if not preempted:
+            return driver.main(argv)
+        try:
+            driver.main(argv)
+        except SystemExit as e:
+            if e.code != driver.PREEMPTED_EXIT:
+                raise
+            return None
+        check(False, "(c) the preempted run did not exit 75")
+    finally:
+        for s, h in handlers.items():
+            signal.signal(s, h)
+
+
+def driver_files(run_dir):
+    """Every durable file of a run directory, timing fields aside: the
+    journal's group and done records, each metrics stream, the report,
+    and a sha256 of every fault npz array's bytes."""
+    import hashlib
+
+    def jsonl(path):
+        with open(path) as f:
+            recs = [json.loads(ln) for ln in f if ln.strip()]
+        return [{k: v for k, v in r.items() if k not in DRIVER_TIMING}
+                for r in recs]
+    out = {"journal": json.dumps([r for r in jsonl(
+        os.path.join(run_dir, "journal.jsonl"))
+        if r["event"] in ("group", "done")])}
+    for name in sorted(os.listdir(run_dir)):
+        path = os.path.join(run_dir, name)
+        if name.startswith("metrics_g"):
+            out[name] = json.dumps(jsonl(path))
+        elif name == "sweep_report.json":
+            with open(path) as f:
+                out[name] = json.load(f)
+        elif name.endswith("_faults.npz"):
+            with np.load(path) as z:
+                out[name] = {k: hashlib.sha256(z[k].tobytes()).hexdigest()
+                             for k in z.files}
+    return out
+
+
+def driver_journal(run_dir):
+    with open(os.path.join(run_dir, "journal.jsonl")) as f:
+        return [json.loads(ln) for ln in f if ln.strip()]
+
+
+@contextlib.contextmanager
+def driver_probes(probe):
+    """Instrument the driver's runners and prefetcher for one run: each
+    runner's construction seconds, a CUDA event after each of its
+    iterations (with whether a group build was in flight when it was
+    enqueued), each prefetched build's build and wait seconds, and each
+    runner's setup record; runners in construction order."""
+    import threading
+    import torch
+    from rram_caffe_simulation_tpu_torch.parallel import sweep as psweep
+    cls, pf = psweep.SweepRunner, psweep.GroupPrefetcher
+    real = (cls.__init__, cls._iteration, cls.setup_record, pf.take)
+
+    def init(self, *a, **kw):
+        t0 = time.perf_counter()
+        real[0](self, *a, **kw)
+        with lock:
+            self._probe_index = len(probe["init_s"])
+            probe["init_s"].append(time.perf_counter() - t0)
+            probe["events"].append([])
+
+    def iteration(self, *a, **kw):
+        out = real[1](self, *a, **kw)
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        building = any(t.name == "group-prefetch" and t.is_alive()
+                       for t in threading.enumerate())
+        probe["events"][self._probe_index].append((ev, building))
+        return out
+
+    def setup_record(self, *a, **kw):
+        rec = real[2](self, *a, **kw)
+        probe["setup"][self._probe_index] = rec
+        return rec
+
+    def take(self):
+        r = real[3](self)
+        probe["builds"][r._probe_index] = (self.last_build_s,
+                                           self.last_wait_s)
+        return r
+
+    lock = threading.Lock()
+    probe.update(init_s=[], events=[], setup={}, builds={})
+    cls.__init__, cls._iteration, cls.setup_record = init, iteration, \
+        setup_record
+    pf.take = take
+    try:
+        yield probe
+    finally:
+        cls.__init__, cls._iteration, cls.setup_record, pf.take = real
+
+
+def driver_steps(probe):
+    """Per runner, in construction order: the device ms between
+    consecutive iterations (CUDA events) and whether a build was in
+    flight when the later one was enqueued."""
+    import torch
+    torch.cuda.synchronize()
+    return [[(a.elapsed_time(b), bb) for (a, _), (b, bb) in
+             zip(evs, evs[1:])] for evs in probe["events"]]
+
+
+def driver_run(tmp, name, *extra):
+    """One overlapped or serial run (a) or (b), timed and probed."""
+    import torch
+    from rram_caffe_simulation_tpu_torch import kernels
+    run_dir = Path(tmp) / name
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    with driver_probes({}) as probe:
+        t0 = time.perf_counter()
+        rec = run_driver(driver_argv(run_dir, *extra))
+        wall = time.perf_counter() - t0
+        steps = driver_steps(probe)
+    launches = _launches()
+    peak = torch.cuda.max_memory_allocated()
+    check(rec["status"] == "clean" and rec["completed_configs"]
+          == DRIVER_CONFIGS, f"({name}) not every config completed: {rec}")
+    n = (DRIVER_CONFIGS // DRIVER_GROUP) * DRIVER_ITERS
+    check(launches == _untiled(B2=2 * n, B1=n, B4=n),
+          f"({name}) launches {launches} in {n} steps, expected B2 2, B1 "
+          "1, B4 1 a step")
+    journal = driver_journal(run_dir)
+    groups = [r for r in journal if r["event"] == "group"]
+    check(all(math.isfinite(v) for g in groups for v in g["loss"]),
+          f"({name}) a non-finite loss")
+    out = {"wall_s": wall, "peak_gb": peak / 1e9, "launches": launches,
+           "steps": n, "groups": []}
+    for gi, g in enumerate(groups):
+        ms = [m for m, _ in steps[gi]]
+        during = [m for m, b in steps[gi] if b]
+        setup = probe["setup"][gi]
+        build_s, wait_s = probe["builds"].get(gi, (None, None))
+        out["groups"].append({
+            "runner_init_s": probe["init_s"][gi],
+            "last_build_s": build_s, "last_wait_s": wait_s,
+            "wall_seconds": g["wall_seconds"],
+            "configs_steps_per_s": DRIVER_GROUP * DRIVER_ITERS
+            / g["wall_seconds"],
+            "setup_overlap_seconds": g["setup_overlap_seconds"],
+            "host_blocked_seconds": g["host_blocked_seconds"],
+            "decode_seconds": setup["decode_seconds"],
+            "compile_seconds": setup["compile_seconds"],
+            "compile": setup["cache"]["compile"],
+            "step_ms_median": float(np.median(ms)) if ms else None,
+            "step_ms": ms,
+            "steps_enqueued_while_building": len(during),
+            "step_ms_while_building_median":
+                float(np.median(during)) if during else None,
+            "broken_mean": g["broken_mean"]})
+    return run_dir, out
+
+
+def phase_driver(gpu):
+    """Phase 21: the port's run_1000_sweep.py driver on the card, two
+    groups of 512 (CIFAR-10-quick at full width, N(1e8, 3e7), ternary,
+    packed banks, engine "cuda", depth 2, RRAM_POOL_BWD=cuda): (a) the
+    next group built while the current one runs, (b) the same with
+    --no-overlap, (c) the same with group 1 preempted by SIGTERM after
+    its first slice, then --resume. (a) = (b) = resumed (c) in every
+    durable file, timing fields aside."""
+    import shutil
+    import signal
+    import tempfile
+    import torch
+    t0 = time.perf_counter()
+    saved = os.environ.get("RRAM_POOL_BWD")
+    os.environ["RRAM_POOL_BWD"] = "cuda"
+    out = {"configs": DRIVER_CONFIGS, "group": DRIVER_GROUP,
+           "iters": DRIVER_ITERS, "chunk": DRIVER_CHUNK, "gpu": gpu}
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+            dir_a, out["a_overlap"] = driver_run(tmp, "a")
+            files_a = driver_files(dir_a)
+            shutil.rmtree(dir_a)
+            print(f"phase 21: (a) {json.dumps(out['a_overlap'])}",
+                  flush=True)
+            dir_b, out["b_serial"] = driver_run(tmp, "b", "--no-overlap")
+            differ = sorted(k for k, v in driver_files(dir_b).items()
+                            if files_a.get(k) != v)
+            check(not differ, f"(b) --no-overlap differs from (a) in "
+                  f"{differ}")
+            shutil.rmtree(dir_b)
+            # what the overlap saved, measured, beside what the driver's
+            # records credit it with (the build's seconds take() did not
+            # wait for)
+            out["overlap_saved_s"] = (out["b_serial"]["wall_s"]
+                                      - out["a_overlap"]["wall_s"])
+            out["overlap_credited_s"] = sum(
+                g["setup_overlap_seconds"]
+                for g in out["a_overlap"]["groups"])
+            print(f"phase 21: (b) {json.dumps(out['b_serial'])}; "
+                  f"saved {out['overlap_saved_s']:.3f} s, credited "
+                  f"{out['overlap_credited_s']:.2f} s", flush=True)
+
+            from rram_caffe_simulation_tpu_torch.parallel import sweep
+            real, seen, sent = sweep.SweepRunner.step, set(), []
+
+            def step(self, *a, **kw):
+                seen.add(self.solver.param.random_seed)
+                res = real(self, *a, **kw)
+                if len(seen) == 2 and not sent:
+                    sent.append(self.iter)
+                    os.kill(os.getpid(), signal.SIGTERM)
+                return res
+            dir_c = Path(tmp) / "c"
+            t1 = time.perf_counter()
+            sweep.SweepRunner.step = step
+            try:
+                run_driver(driver_argv(dir_c, "--checkpoint-every",
+                                       str(DRIVER_CKPT_EVERY)),
+                           preempted=True)
+            finally:
+                sweep.SweepRunner.step = real
+            pre = driver_journal(dir_c)[-1]
+            check(pre["event"] == "preempt" and pre["group"] == 1
+                  and pre["checkpoint"] == "group_1.ckpt.npz"
+                  and (dir_c / pre["checkpoint"]).exists(),
+                  f"(c) no journaled checkpoint of group 1: {pre}")
+            ck_bytes = (dir_c / pre["checkpoint"]).stat().st_size
+            t2 = time.perf_counter()
+            rec = run_driver(["--resume", str(dir_c), *driver_flags()])
+            t3 = time.perf_counter()
+            check(rec["groups_resumed"] == 1 and rec["status"] == "clean",
+                  f"(c) the resumed run: {rec}")
+            differ = sorted(k for k, v in driver_files(dir_c).items()
+                            if files_a.get(k) != v)
+            check(not differ, f"(c) the resumed run differs from (a) in "
+                  f"{differ}")
+            out["c_preempt"] = {"signal_at_iter": sent[0],
+                                "checkpoint_iter": pre["iter"],
+                                "checkpoint_bytes": ck_bytes,
+                                "preempted_run_s": t2 - t1,
+                                "resume_s": t3 - t2}
+            print(f"phase 21: (c) {json.dumps(out['c_preempt'])}",
+                  flush=True)
+    finally:
+        if saved is None:
+            os.environ.pop("RRAM_POOL_BWD", None)
+        else:
+            os.environ["RRAM_POOL_BWD"] = saved
+        torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t0
+    return out
+
+
+
+COLD_RUNS = ("precompile", "serial", "serial", "precompile")
+
+
+def cold_start_child(mode, build_dir):
+    """One cold start of phase 7's C = 512 sweep in this process, its
+    kernels built into the empty `build_dir`: the runner built with
+    `precompile_chunk` (mode "precompile": the decode on its thread
+    beside nvcc and the kernels' load) or without it ("serial": nvcc
+    and the load at the first launch), then two chunks; prints one JSON
+    line."""
+    import threading
+    import torch
+    from rram_caffe_simulation_tpu_torch import kernels
+    from rram_caffe_simulation_tpu_torch.data import feed
+    from rram_caffe_simulation_tpu_torch.parallel import SweepRunner
+    from rram_caffe_simulation_tpu_torch.parallel import sweep as psweep
+    check(mode in ("precompile", "serial"), f"unknown mode {mode!r}")
+    kernels.BUILD_DIR = Path(build_dir)
+    os.environ["RRAM_POOL_BWD"] = "cuda"
+    threads = []
+
+    def decode(layer):
+        threads.append(threading.current_thread().name)
+        return feed.materialize_data_source(layer)
+    psweep.materialize_data_source = decode
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    s = slice_solver(1e8, 3e7)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    r = SweepRunner(s, n_configs=SWEEP_CONFIGS, engine="cuda",
+                    packed_state=True, dtype_policy="ternary",
+                    precompile_chunk=SWEEP_CHUNK if mode == "precompile"
+                    else 0)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    chunks = []
+    for _ in range(2):
+        t = time.perf_counter()
+        losses, _ = r.step(SWEEP_CHUNK, chunk=SWEEP_CHUNK)
+        torch.cuda.synchronize()
+        chunks.append(time.perf_counter() - t)
+        check(np.isfinite(np.asarray(losses)).all(),
+              "cold start: a non-finite loss")
+    rec = r.setup_record(setup_s=t2 - t0)
+    launches = _launches()
+    steps = 2 * SWEEP_CHUNK
+    check(launches == _untiled(B2=2 * steps, B1=steps, B4=steps),
+          f"cold start: launches {launches} in {steps} steps")
+    r.close()
+    print(json.dumps({"cold_start": {
+        "mode": mode, "solver_s": t1 - t0, "runner_s": t2 - t1,
+        "setup_s": t2 - t0, "first_chunk_s": chunks[0],
+        "second_chunk_s": chunks[1],
+        "to_first_chunk_s": t2 - t0 + chunks[0],
+        "decode_seconds": rec["decode_seconds"],
+        "compile_seconds": rec["compile_seconds"],
+        "compile": rec["cache"]["compile"], "decode_threads": threads,
+        "nvcc_builds": kernels.builds(),
+        "load_ms": {lib.source.name: lib.load_seconds * 1e3
+                    for lib in kernels.all_libraries()
+                    if lib.load_seconds is not None},
+        "launches": launches}}), flush=True)
+    return 0
+
+
+def cold_start(gpu):
+    """`precompile_chunk`'s cold start against the serial order: each
+    run of COLD_RUNS in a fresh process with an empty kernel build
+    directory (under build/, removed after), one JSON line of them."""
+    import shutil
+    runs = []
+    for i, mode in enumerate(COLD_RUNS):
+        d = REPO / "build" / "cold_start" / str(i)
+        shutil.rmtree(d, ignore_errors=True)
+        try:
+            proc = subprocess.run(
+                [sys.executable, str(REPO / "chip_smoke.py"),
+                 "--cold-start-child", mode, str(d)],
+                capture_output=True, text=True, timeout=600)
+        finally:
+            shutil.rmtree(d, ignore_errors=True)
+        lines = [ln for ln in proc.stdout.splitlines()
+                 if ln.startswith('{"cold_start"')]
+        check(proc.returncode == 0 and lines,
+              f"cold start {i} ({mode}) failed, rc {proc.returncode}:\n"
+              f"{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
+        runs.append(json.loads(lines[-1])["cold_start"])
+        print(f"cold start {i}: {lines[-1]}", flush=True)
+    print(json.dumps({"cold_start": runs, "gpu": gpu}), flush=True)
+    return 0
+
+
 def timed_checkout(path: str) -> int:
     """Run another checkout's chip_smoke.py in full, each of its phase_*
     functions timed, and print their wall seconds as one JSON line: the
@@ -6778,7 +7186,7 @@ def main(argv=None) -> int:
                    help="training steps of the slice phase (default 50)")
     p.add_argument("--transition-steps", type=int, default=6)
     p.add_argument("--phases", default="all",
-                   help="comma-separated phases 2-20 to run after the "
+                   help="comma-separated phases 2-21 to run after the "
                         "build (default all; only a full run prints the "
                         "per-kernel line and the ok line)")
     p.add_argument("--b2-path", action="store_true",
@@ -6807,6 +7215,14 @@ def main(argv=None) -> int:
                         "through the wrapper on the path's layouts (C = 1 "
                         "and the tiled sweep's C), the kernel alone and "
                         "its tile heights, and print them as JSON")
+    p.add_argument("--cold-start", action="store_true",
+                   help="only time phase 7's C = 512 sweep from an empty "
+                        "kernel build directory, with and without "
+                        "precompile_chunk, each in a fresh process "
+                        "(order precompile, serial, serial, precompile), "
+                        "and print the runs as JSON")
+    p.add_argument("--cold-start-child", nargs=2, metavar=("MODE", "DIR"),
+                   help=argparse.SUPPRESS)
     p.add_argument("--timed-checkout", metavar="DIR",
                    help="only run DIR/chip_smoke.py (another checkout, "
                         "e.g. a parent commit unpacked with git archive) "
@@ -6814,7 +7230,7 @@ def main(argv=None) -> int:
                         "print their seconds as JSON")
     args = p.parse_args(argv)
     t_main = time.perf_counter()
-    every = set(range(2, 21))
+    every = set(range(2, 22))
     want = every if args.phases == "all" else {
         int(v) for v in args.phases.split(",")}
 
@@ -6835,7 +7251,11 @@ def main(argv=None) -> int:
     from rram_caffe_simulation_tpu_torch.device import resolve_device
 
     device = resolve_device("cuda")
+    if args.cold_start_child:
+        return cold_start_child(*args.cold_start_child)
     gpu = gpu_line()
+    if args.cold_start:
+        return cold_start(gpu)
     print(f"phase 1: {gpu}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}",
           flush=True)
@@ -6962,6 +7382,8 @@ def main(argv=None) -> int:
                                         "rounding_cells")}
                 for adc, v in vgg["solver"]["tiled"].items()}
         virtual = timed(20, phase_virtual_time, gpu, tightened)
+    if 21 in want:
+        driver = timed(21, phase_driver, gpu)
     if want != every:
         print(f"phases {sorted(want)} passed; no ok line for a partial run",
               flush=True)
@@ -7119,6 +7541,7 @@ def main(argv=None) -> int:
     print(json.dumps({"blocks": blocks}))
     print(json.dumps({"healing": healing}))
     print(json.dumps({"virtual_time": virtual}))
+    print(json.dumps({"driver": driver}))
     print(json.dumps({"phase_s": {**{str(n): v for n, v in phase_s.items()},
                                   "kernels_line": time.perf_counter() - t_rows,
                                   "script": time.perf_counter() - t_main}}))

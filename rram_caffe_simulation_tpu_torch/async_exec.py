@@ -260,7 +260,8 @@ class PipelineStats:
     """Host-overlap accounting of one runner, the `pipeline` field of
     the observe `setup` record. At depth 0 `host_blocked_s` is the
     inline bookkeeping time per chunk; at depth >= 1 the submit
-    backpressure alone."""
+    backpressure alone. `setup_overlap_s` is the runner's build time
+    hidden behind the previous group's run (`GroupPrefetcher.take`)."""
 
     def __init__(self, depth: int = 0):
         self.depth = int(depth)
@@ -271,6 +272,7 @@ class PipelineStats:
         self.drain_s = 0.0
         self.snapshot_write_s = 0.0
         self.checkpoint_write_s = 0.0
+        self.setup_overlap_s = 0.0
 
     def record(self) -> dict:
         """The `pipeline` sub-record (observe/schema.py
@@ -286,7 +288,8 @@ class PipelineStats:
                          ("drain_seconds", self.drain_s),
                          ("snapshot_write_seconds", self.snapshot_write_s),
                          ("checkpoint_write_seconds",
-                          self.checkpoint_write_s)):
+                          self.checkpoint_write_s),
+                         ("setup_overlap_seconds", self.setup_overlap_s)):
             if val:
                 rec[key] = round(float(val), 6)
         return rec

@@ -34,6 +34,7 @@ class SetupStats:
         self.fault_format = None
         self.fault_model = None
         self.engine = None
+        self.engine_fallback_reason = None
         self.conv_im2col = None
         self.conv_im2col_reason = None
         self.conv_patch_bytes = None
@@ -66,6 +67,7 @@ class SetupStats:
             bytes_per_step_est=self.bytes_per_step,
             fault_state_format=self.fault_format,
             fault_model=self.fault_model, engine=self.engine,
+            engine_fallback_reason=self.engine_fallback_reason,
             conv_im2col=self.conv_im2col,
             conv_im2col_reason=self.conv_im2col_reason,
             conv_patch_bytes=self.conv_patch_bytes)

@@ -881,6 +881,31 @@ void align_to_tiles(Params& p, int bk) {
 
 }  // namespace
 
+// Load every kernel this library can launch into the current context (under
+// CUDA's lazy loading a kernel is otherwise loaded at its first launch);
+// launches nothing. Returns the first CUDA error, or 0.
+extern "C" int rram_crossbar_load_module() {
+  cudaFuncAttributes a;
+  const void* kernels[] = {
+      (const void*)crossbar_kernel<128, 64, kPlain, false>,
+      (const void*)crossbar_kernel<112, 64, kPlain, false>,
+      (const void*)crossbar_kernel<32, 64, kPlain, false>,
+      (const void*)crossbar_kernel<128, 64, kTile, false>,
+      (const void*)crossbar_kernel<112, 64, kTile, false>,
+      (const void*)crossbar_kernel<32, 64, kTile, false>,
+      (const void*)crossbar_kernel<256, 32, kTile, true>,
+      (const void*)crossbar_kernel<128, 64, kTile, true>,
+      (const void*)lane_absmax_kernel,
+      (const void*)weff_kernel,
+      (const void*)rram::adc_sum_kernel,
+      (const void*)rram::adc_sum_any_kernel};
+  for (const void* k : kernels) {
+    const cudaError_t err = cudaFuncGetAttributes(&a, k);
+    if (err != cudaSuccess) return (int)err;
+  }
+  return 0;
+}
+
 // Resident blocks of the GEMM pass per SM (`bm` rows a tile, with or without
 // an eps tile in the ring), or minus the CUDA error; launches nothing.
 extern "C" int rram_crossbar_blocks_per_sm(int bm, int has_eps) {

@@ -229,6 +229,17 @@ int launch(const Table& table, int mode, cudaStream_t stream) {
 
 }  // namespace
 
+// Load both counter widths' kernels into the current context (under CUDA's
+// lazy loading a kernel is otherwise loaded at its first launch); launches
+// nothing. Returns the first CUDA error, or 0.
+extern "C" int rram_fused_epilogue_load_module() {
+  cudaFuncAttributes a;
+  cudaError_t err = cudaFuncGetAttributes(&a, fused_update_fail_kernel<int16_t>);
+  if (err == cudaSuccess)
+    err = cudaFuncGetAttributes(&a, fused_update_fail_kernel<int32_t>);
+  return (int)err;
+}
+
 // One launch for `n` leaves (1 <= n <= 16) of one counter width (2 or 4
 // bytes). `ptrs` holds six pointers a leaf (data, upd, life_q, bank,
 // data', life_q'), `plan` three numbers a leaf (cells, L, first tile), in

@@ -423,6 +423,14 @@ long long smem_bytes(int pt, int W, int bh, int bw, int xh, int xpitch, int wh,
 
 }  // namespace
 
+// Load the kernel into the current context (under CUDA's lazy loading it is
+// otherwise loaded at its first launch); launches nothing. Returns the CUDA
+// error, or 0.
+extern "C" int rram_pool_backward_load_module() {
+  cudaFuncAttributes a;
+  return (int)cudaFuncGetAttributes(&a, pool_backward_kernel);
+}
+
 // dx from x and g over `planes` planes in one launch. The plan's numbers
 // come from pool_backward.b4_plan; `smem` is its byte count, checked here
 // against this file's own layout. Returns cudaGetLastError(), or

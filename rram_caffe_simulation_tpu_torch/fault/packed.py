@@ -11,9 +11,8 @@ fault/packed.py, bit for bit down to the bank bytes).
 There is no broken-mask bank: broken is ``life_q <= 0``. Unpacking a
 counter gives the mid-bin lifetime ``(q - 0.5) * decrement``, so every
 zero comparison agrees with the counter's and pack(unpack(q)) == q.
-Packing runs on the host (numpy, float64 division so the 1e8 point's
-ceil lands on the right side); `fail_packed` and `unpacked_view` run on
-the state's device.
+Packing runs where the state lies (float64 division so the 1e8 point's
+ceil lands on the right side), as do `fail_packed` and `unpacked_view`.
 """
 from __future__ import annotations
 
@@ -77,16 +76,46 @@ def check_spec_bounds(spec: dict, mean: float, std: float):
             "every known spec) or with packed_state=False")
 
 
+def _tensor(a) -> torch.Tensor:
+    """A tensor as it is (on its own device), a host array as a CPU
+    tensor."""
+    if isinstance(a, torch.Tensor):
+        return a.detach()
+    return torch.from_numpy(np.array(a))
+
+
+def pack_life_bank(life, decrement: float, dtype) -> torch.Tensor:
+    """f32 lifetimes -> integer write counters, on the lifetimes' own
+    device (float64 division by a tensor, then ceil)."""
+    life = _tensor(life)
+    q = torch.ceil(life.double() / torch.tensor(
+        float(decrement), dtype=torch.float64, device=life.device))
+    if q.numel():
+        lo, hi = (float(v) for v in torch.stack(torch.aminmax(q)).tolist())
+        info = np.iinfo(np.dtype(dtype))
+        if lo < info.min or hi > info.max:
+            raise ValueError(
+                f"lifetime write-counts [{lo:.0f}, {hi:.0f}] do not fit "
+                f"{np.dtype(dtype).name} banks")
+    return q.to(getattr(torch, np.dtype(dtype).name))
+
+
+def pack_stuck_bank(stuck) -> torch.Tensor:
+    """Stuck values in {-1, 0, +1} -> 2-bit codes, 4 cells per uint8
+    along the last axis, on the values' own device."""
+    codes = (_tensor(stuck) + 1.0).to(torch.uint8)
+    pad = -codes.shape[-1] % 4
+    if pad:
+        codes = torch.nn.functional.pad(codes, (0, pad))
+    codes = codes.reshape(codes.shape[:-1] + (-1, 4))
+    return (codes[..., 0] | (codes[..., 1] << 2) | (codes[..., 2] << 4)
+            | (codes[..., 3] << 6))
+
+
 def pack_lifetimes(life, decrement: float, dtype) -> np.ndarray:
-    """f32 lifetimes -> integer write counters (host)."""
-    q = np.ceil(np.asarray(fault_engine.host_array(life), np.float64)
-                / float(decrement))
-    info = np.iinfo(np.dtype(dtype))
-    if q.size and (q.min() < info.min or q.max() > info.max):
-        raise ValueError(
-            f"lifetime write-counts [{q.min():.0f}, {q.max():.0f}] do "
-            f"not fit {np.dtype(dtype).name} banks")
-    return (q + 0.0).astype(dtype)      # + 0.0: ceil(-0.x) is -0.0
+    """`pack_life_bank` as a host array."""
+    return pack_life_bank(fault_engine.host_array(life), decrement,
+                          dtype).numpy()
 
 
 def unpack_lifetimes(life_q: torch.Tensor, decrement: float):
@@ -95,15 +124,8 @@ def unpack_lifetimes(life_q: torch.Tensor, decrement: float):
 
 
 def pack_stuck(stuck) -> np.ndarray:
-    """Stuck values in {-1, 0, +1} -> 2-bit codes, 4 cells per uint8
-    along the last axis (host)."""
-    codes = (fault_engine.host_array(stuck) + 1.0).astype(np.uint8)
-    pad = -codes.shape[-1] % 4
-    if pad:
-        codes = np.pad(codes, [(0, 0)] * (codes.ndim - 1) + [(0, pad)])
-    codes = codes.reshape(codes.shape[:-1] + (-1, 4))
-    shifts = np.arange(4, dtype=np.uint8) * 2
-    return np.bitwise_or.reduce(codes << shifts, axis=-1).astype(np.uint8)
+    """`pack_stuck_bank` as a host array."""
+    return pack_stuck_bank(fault_engine.host_array(stuck)).numpy()
 
 
 def unpack_stuck(bank: torch.Tensor, last_dim: int) -> torch.Tensor:
@@ -115,14 +137,15 @@ def unpack_stuck(bank: torch.Tensor, last_dim: int) -> torch.Tensor:
 
 def pack_state(state, spec: dict, device=None) -> dict:
     """f32 FaultState -> packed banks, as tensors on `device` (default:
-    the lifetimes' device). Extra groups ride along."""
+    the lifetimes' device). Each leaf packs where it lies, so a runner's
+    state on the card never makes the host round trip. Extra groups
+    ride along."""
     d, dtype = spec["decrement"], np.dtype(spec["life_dtype"])
     life_q, stuck_bits = {}, {}
     for k, life in state["lifetimes"].items():
-        dev = device if device is not None else life.device
-        life_q[k] = torch.from_numpy(pack_lifetimes(life, d, dtype)).to(dev)
-        stuck_bits[k] = torch.from_numpy(
-            pack_stuck(state["stuck"][k])).to(dev)
+        dev = device if device is not None else _tensor(life).device
+        life_q[k] = pack_life_bank(life, d, dtype).to(dev)
+        stuck_bits[k] = pack_stuck_bank(state["stuck"][k]).to(dev)
     out = {"life_q": life_q, "stuck_bits": stuck_bits}
     for group in state:
         if group not in ("lifetimes", "stuck"):

@@ -6,9 +6,14 @@ ctypes loads; pointers and the stream pass as `c_void_p`. The build
 runs at first use, into build/torch_kernels/ of the checkout, under a
 name that hashes the source and flags, so an edited source never loads
 a stale library (the hash covers csrc/*.cuh, the headers the sources
-share). `build_all` starts one nvcc per source at once. Launches are
-counted per exported C function, so two kernels that share a source
-keep their own counts.
+share). Loading a library also loads its kernels into the CUDA context
+(each source exports `rram_<stem>_load_module`), which CUDA's lazy
+loading would otherwise do at each kernel's first launch. `build_all`
+starts one nvcc per source at once. Launches are counted per exported C
+function, so two kernels that share a source keep their own counts.
+One lock guards every build, load and count, so a runner built on
+another thread (`parallel.GroupPrefetcher`) never starts nvcc or loads
+a library twice.
 
 Nothing here runs at import: the CPU tests import every module on a
 host with no nvcc and no card.
@@ -20,6 +25,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict, Iterable, Optional, Sequence
@@ -36,6 +42,7 @@ BASE_FLAGS = ("-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 # this process's nvcc accounting (the observe `setup` record's compile
 # fields): seconds in nvcc, builds run, libraries loaded
 _BUILDS = {"seconds": 0.0, "builds": 0, "loaded": 0}
+_LOCK = threading.RLock()
 
 
 def compile_seconds() -> float:
@@ -79,6 +86,7 @@ class CudaLibrary:
         self.flags = ARCH_FLAGS + BASE_FLAGS
         self.counts = dict.fromkeys(self.functions, 0)
         self.build_seconds: Optional[float] = None
+        self.load_seconds: Optional[float] = None   # CDLL + module load
         self.ptxas_log = ""
         self._lib = None
         self._proc = None          # nvcc while a build runs
@@ -102,16 +110,17 @@ class CudaLibrary:
 
     def start_build(self):
         """Start nvcc unless the library is already built."""
-        if self._lib is not None or self._proc is not None \
-                or self.so_path.exists():
-            return
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        self._tmp = self.so_path.with_suffix(f".{os.getpid()}.tmp")
-        self._t0 = time.perf_counter()
-        self._proc = subprocess.Popen(
-            [nvcc_path(), *self.flags, "-o", str(self._tmp),
-             str(self.source)],
-            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        with _LOCK:
+            if self._lib is not None or self._proc is not None \
+                    or self.so_path.exists():
+                return
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            self._tmp = self.so_path.with_suffix(f".{os.getpid()}.tmp")
+            self._t0 = time.perf_counter()
+            self._proc = subprocess.Popen(
+                [nvcc_path(), *self.flags, "-o", str(self._tmp),
+                 str(self.source)],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
 
     def finish_build(self):
         if self._proc is None:
@@ -128,16 +137,29 @@ class CudaLibrary:
         os.replace(self._tmp, self.so_path)   # atomic under concurrent builds
 
     def lib(self) -> ctypes.CDLL:
-        if self._lib is None:
-            self.start_build()
-            self.finish_build()
-            lib = ctypes.CDLL(str(self.so_path))
-            for name, argtypes in self.functions.items():
-                fn = getattr(lib, name)
-                fn.argtypes = list(argtypes)
-                fn.restype = ctypes.c_int
-            self._lib = lib
-            _BUILDS["loaded"] += 1
+        """The loaded library, built first if need be; its kernels are
+        loaded into the current CUDA context with it."""
+        if self._lib is not None:
+            return self._lib
+        with _LOCK:
+            if self._lib is None:
+                self.start_build()
+                self.finish_build()
+                t0 = time.perf_counter()
+                lib = ctypes.CDLL(str(self.so_path))
+                for name, argtypes in self.functions.items():
+                    fn = getattr(lib, name)
+                    fn.argtypes = list(argtypes)
+                    fn.restype = ctypes.c_int
+                load = getattr(lib, f"rram_{self.source.stem}_load_module")
+                load.restype = ctypes.c_int
+                rc = load()
+                if rc != 0:
+                    raise RuntimeError(f"loading {self.source.name}'s "
+                                       f"kernels failed: cudaError {rc}")
+                self.load_seconds = time.perf_counter() - t0
+                self._lib = lib
+                _BUILDS["loaded"] += 1
         return self._lib
 
     def call(self, name: str, *args):
@@ -147,7 +169,8 @@ class CudaLibrary:
         if rc != 0:
             raise RuntimeError(f"{name} ({self.source.name}) launch "
                                f"failed: cudaError {rc}")
-        self.counts[name] += 1
+        with _LOCK:
+            self.counts[name] += 1
 
 
 def stream_ptr(device: torch.device) -> ctypes.c_void_p:

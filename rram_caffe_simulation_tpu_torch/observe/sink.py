@@ -217,6 +217,7 @@ def make_setup_record(decode_s: float, compile_s: float,
                       fault_state_format: Optional[str] = None,
                       fault_model: Optional[dict] = None,
                       engine: Optional[str] = None,
+                      engine_fallback_reason: Optional[str] = None,
                       conv_im2col: Optional[str] = None,
                       conv_im2col_reason: Optional[str] = None,
                       conv_patch_bytes: Optional[int] = None) -> dict:
@@ -227,7 +228,8 @@ def make_setup_record(decode_s: float, compile_s: float,
     `fault_state_format` ("f32" | "packed") the resident-state traffic
     fields; `fault_model` the fault process ({"spec": ...}); `engine`
     the engine that ran ("cuda" | "torch", a field the schema leaves
-    undeclared); `conv_im2col`, `conv_im2col_reason` and
+    undeclared) and `engine_fallback_reason` why the requested engine
+    launches no crossbar kernel; `conv_im2col`, `conv_im2col_reason` and
     `conv_patch_bytes` the resolved conv operand mode of a tiled-conv
     sweep."""
     rec = {
@@ -250,6 +252,8 @@ def make_setup_record(decode_s: float, compile_s: float,
         rec["fault_model"] = dict(fault_model)
     if engine is not None:
         rec["engine"] = str(engine)
+    if engine_fallback_reason:
+        rec["engine_fallback_reason"] = str(engine_fallback_reason)
     if conv_im2col is not None:
         rec["conv_im2col"] = str(conv_im2col)
     if conv_im2col_reason is not None:

@@ -1,3 +1,3 @@
-from .sweep import SweepRunner
+from .sweep import GroupPrefetcher, SweepRunner
 
-__all__ = ["SweepRunner"]
+__all__ = ["GroupPrefetcher", "SweepRunner"]

@@ -144,9 +144,23 @@ The genetic search's state (`__genetics__`) is the reference's pickle of
 one GeneticStrategy a lane; fault/genetic_state.py writes it under the
 reference's class name and reads it back allowing numpy's names alone.
 
+`precompile_chunk` = k > 0 overlaps the two halves of a cold start: once
+the DB is found to open and hold records, the decode runs on a
+`dataset-decode` thread, and meanwhile the constructor's thread builds
+or loads every kernel library the resolved step launches (nvcc, the
+library load and its kernels' module load: the port's counterpart of the
+reference's ahead-of-time compile of the k-iteration chunk, which needs
+no shapes here). It touches no lane's state: a runner built with it
+equals one built without it, bit for bit.
+
+`GroupPrefetcher` builds the next resident group's runner on a thread
+while the current group runs (the multi-group driver,
+examples/gaussian_failure/run_1000_sweep.py); on the card the build
+issues its device work on a stream of its own.
+
 Not ported yet, each refused by name: mesh, remat_segments,
-compute_dtype, precompile_chunk, the multi-process forms (the stall and
-watchdog agreement, the owned config block) and distributed checkpoints
+compute_dtype, the multi-process forms (the stall and watchdog
+agreement, the owned config block) and distributed checkpoints
 (writing).
 """
 from __future__ import annotations
@@ -162,16 +176,19 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from .. import async_exec
+from .. import async_exec, kernels, proto
 from ..cache import SetupStats
 from ..core import prng
-from ..data.feed import can_materialize, materialize_data_source
+from ..data.feed import (can_materialize, materialize_data_source,
+                         open_lmdb)
 from ..device import resolve_device
 from ..fault import engine as fault_engine
+from ..fault import fused as fault_fused
 from ..fault import genetic_state
 from ..fault import hw_aware
 from ..fault import packed as fault_packed
 from ..observe import counters as obs_counters
+from ..ops import pool_backward
 from ..solver import solver as solver_mod
 from ..solver.solver import stack_batches
 
@@ -183,7 +200,7 @@ SWEEP_FOLD = 0xFA117    # the reference's fold of the solver key for the draw
 # constructor options of the reference runner this slice does not port,
 # with the value that means "off"
 UNPORTED_OPTIONS = {"mesh": None, "remat_segments": 0,
-                    "compute_dtype": None, "precompile_chunk": 0}
+                    "compute_dtype": None}
 
 
 def _not_ported(what: str):
@@ -320,8 +337,10 @@ class SweepRunner:
     `fused_epilogue` and `conv_im2col` are the solver's step options;
     `conv_im2col_requested/_resolved/_reason` record the conv operand
     mode that runs. `pipeline_depth`, `stall_timeout_s`,
-    `health_every` and `config_block` as in the module docstring. A
-    context manager: leaving it calls `close()`."""
+    `health_every`, `config_block` and `precompile_chunk` as in the
+    module docstring; `engine_fallback_reason` says why the requested
+    engine launches no crossbar kernel (None when it does). A context
+    manager: leaving it calls `close()`."""
 
     def __init__(self, solver, n_configs: int, means=None, stds=None,
                  preload: bool = True, engine: str = "auto",
@@ -330,7 +349,7 @@ class SweepRunner:
                  pipeline_depth: Optional[int] = None,
                  stall_timeout_s: Optional[float] = None,
                  health_every: int = 0, config_block: int = 0,
-                 **options):
+                 precompile_chunk: int = 0, **options):
         for name, value in options.items():
             if name not in UNPORTED_OPTIONS:
                 raise TypeError(f"SweepRunner got an unexpected option "
@@ -427,6 +446,7 @@ class SweepRunner:
         if self._health_every:
             from ..observe import health as obs_health
             self._health_ledger = obs_health.HealthLedger()
+        requested = engine
         if engine == "auto":
             engine = "cuda" if self.device.type == "cuda" else "torch"
         self.engine = engine
@@ -489,6 +509,20 @@ class SweepRunner:
             solver._sweep_checkpoint = self._watchdog_checkpoint
         self._out_axis = self._output_axes(laned_data=False)
         self.engine_resolved = self._step.hw_engine_resolved
+        self.engine_fallback_reason = None
+        if engine == "cuda" and self.engine_resolved is None:
+            self.engine_fallback_reason = (
+                "no crossbar read to arm (rram_forward.sigma == 0 and no "
+                "ADC-grid dtype_policy): kernel B2 has no weight to read")
+        elif requested == "auto" and self.engine_resolved == "torch":
+            self.engine_fallback_reason = (
+                "auto engine runs the plain versions: the runner is on "
+                f"{self.device}")
+        if requested == "cuda" and self.engine_fallback_reason:
+            print(f"SweepRunner: engine 'cuda' requested, "
+                  f"{self.engine_fallback_reason}", file=sys.stderr,
+                  flush=True)
+        self.setup.engine_fallback_reason = self.engine_fallback_reason
         self.conv_im2col_requested = self._step.conv_im2col_requested
         self.conv_im2col_resolved = self._step.conv_im2col_resolved
         self.conv_im2col_reason = self._step.conv_im2col_reason
@@ -497,17 +531,8 @@ class SweepRunner:
 
         self._dataset = None
         self._ds_batch = self._ds_n = 0
-        layer = self._materializable_layer() if preload else None
-        with self.setup.timed_decode():
-            arrays = (materialize_data_source(layer) if layer is not None
-                      else None)
-            if arrays is not None:
-                self._dataset = {k: torch.from_numpy(v).to(self.device)
-                                 for k, v in arrays.items()}
-        if arrays is not None:
-            self._ds_batch = int(layer.lp.data_param.batch_size)
-            self._ds_n = next(iter(arrays.values())).shape[0]
-            self._arange = torch.arange(self._ds_batch, device=self.device)
+        if preload:
+            self._preload(int(precompile_chunk or 0))
 
     def _output_axes(self, laned_data: bool) -> dict:
         """Each output's lane axis (a laned blob's axis 1, a per-config
@@ -528,6 +553,92 @@ class SweepRunner:
         if len(src) != 1 or not can_materialize(src[0]):
             return None
         return src[0]
+
+    def _preload(self, precompile_chunk: int = 0):
+        """The device-resident dataset, when the Data layer decodes
+        deterministically (module docstring). With `precompile_chunk` > 0
+        and a DB that opens and holds records (`_probe_dataset`), the
+        decode runs on a `dataset-decode` thread while this thread builds
+        or loads the step's kernel libraries (`_step_libraries`). A decode error
+        re-raises here. The upload runs on this thread, on its current
+        stream."""
+        layer = self._materializable_layer()
+        if layer is None:
+            return
+        result: dict = {}
+
+        def decode():
+            try:
+                with self.setup.timed_decode():
+                    result["arrays"] = materialize_data_source(layer)
+            except BaseException as e:
+                result["error"] = e
+
+        if precompile_chunk > 0 and self._probe_dataset(layer):
+            t = threading.Thread(target=decode, name="dataset-decode")
+            t.start()
+            try:
+                kernels.build_all(self._step_libraries())
+            finally:
+                t.join()
+        else:
+            decode()
+        if "error" in result:
+            raise result["error"]
+        arrays = result.get("arrays")
+        if arrays is None:
+            return
+        with self.setup.timed_decode():
+            self._dataset = {k: torch.from_numpy(v).to(self.device)
+                             for k, v in arrays.items()}
+        self._ds_batch = int(layer.lp.data_param.batch_size)
+        self._ds_n = next(iter(arrays.values())).shape[0]
+        self._arange = torch.arange(self._ds_batch, device=self.device)
+
+    @staticmethod
+    def _probe_dataset(layer) -> bool:
+        """Whether the precompile may run beside the decode: the DB
+        opens and holds records (the reference's probe declines on no DB
+        or an empty one; the decode then raises or finds nothing on this
+        thread, as without the precompile)."""
+        try:
+            env = open_lmdb(layer.lp.data_param.source)
+        except Exception:
+            return False
+        try:
+            return len(env) > 0
+        finally:
+            env.close()
+
+    def _step_libraries(self) -> list:
+        """The kernel libraries the resolved step launches: B2's source
+        when the crossbar read runs on engine "cuda", B1's when the fused
+        epilogue does too, B4's under RRAM_POOL_BWD=cuda with a MAX pool;
+        none off the card."""
+        if self.device.type != "cuda" or self.engine != "cuda":
+            return []
+        libs = []
+        if self.engine_resolved == "cuda":
+            libs.append(hw_aware.CROSSBAR_LIB)
+        if self.fused_epilogue_resolved:
+            libs.append(fault_fused.FUSED_LIB)
+        if pool_backward.pool_bwd_engine() == "cuda" and any(
+                getattr(ly, "method", None) == proto.POOL_MAX
+                for ly in self.solver.net.layers):
+            libs.append(pool_backward.POOL_BWD_LIB)
+        return libs
+
+    def _record_stream(self, stream):
+        """Mark every resident card tensor as used on `stream`: a runner
+        built on another stream (`GroupPrefetcher`) then frees none of
+        them back to that stream's pool while `stream` may still read
+        it."""
+        tensors = list(self._state_arrays().values())
+        tensors += list((self._dataset or {}).values())
+        tensors.append(getattr(self, "_arange", None))
+        for t in tensors:
+            if isinstance(t, torch.Tensor) and t.is_cuda:
+                t.record_stream(stream)
 
     def _batch(self, it: int) -> dict:
         if self._dataset is None:
@@ -1535,6 +1646,24 @@ class SweepRunner:
                 return rows, done, genetic, "checkpoint"
         return self._fresh_rows(cfg, attempt), 0, None, "fresh"
 
+    @staticmethod
+    def _edit_leaf_rows(stacked: torch.Tensor, rows: Dict[int, object]):
+        """`stacked` (lanes first) with the given lanes' rows replaced in
+        place, every other lane's storage untouched; returns `stacked`.
+        A row may be a host array or a callable `fn(current row as a host
+        array) -> new row` (the driver's NaN-injection hook)."""
+        for lane, row in rows.items():
+            dst = stacked[int(lane)]
+            if callable(row):
+                row = row(_host_copy(dst))
+            row = np.ascontiguousarray(row)
+            if tuple(row.shape) != tuple(dst.shape):
+                raise ValueError(f"lane {lane}: row of shape "
+                                 f"{tuple(row.shape)}, expected "
+                                 f"{tuple(dst.shape)}")
+            dst.copy_(torch.from_numpy(row).to(stacked.dtype))
+        return stacked
+
     def _write_lanes(self, updates: Dict[int, Dict[str, np.ndarray]]):
         """Each refilled lane's rows copied from the host into the
         resident tensors in place: untouched lanes keep their storage,
@@ -2123,3 +2252,110 @@ class SweepRunner:
                 self._consumer.close()
             if writer is not None:
                 writer.close()
+
+
+class GroupPrefetcher:
+    """Builds the next resident group of a multi-group sweep while the
+    current group runs (the reference's GroupPrefetcher; the driver
+    examples/gaussian_failure/run_1000_sweep.py). `start(build_fn,
+    *args)` runs `build_fn(*args)` (returning a runner) on a daemon
+    `group-prefetch` thread, one build in flight at a time; `take()`
+    joins it, returns the runner, re-raises a build error, and credits
+    max(build - wait, 0) seconds, the build's seconds that `take()` did
+    not wait for, to the runner's `pipeline.setup_overlap_s` (the
+    reference's measure: wall time saved only where the build did not
+    compete with the running group; on the card its draws share the
+    SMs). `cancel()` joins and
+    closes an abandoned build's runner (its errors dropped); leaving the
+    context manager cancels. With `tracer` set, each build is a
+    `group_build` span (cat "setup") on the thread's track.
+
+    On the card the build issues its device work (the key chain's draws,
+    the state's placement, the dataset upload) on a CUDA stream of its
+    own, which the thread synchronizes before it ends: the running
+    group's kernels on the main stream do not queue behind it, and
+    `take()` hands over a runner whose tensors are ready. `take()` marks
+    the runner's resident tensors as used on the caller's stream, so the
+    caching allocator does not hand their blocks back to the build
+    stream while the main stream may still read them."""
+
+    def __init__(self):
+        self._thread = None
+        self._box: dict = {}
+        self.last_build_s = 0.0   # the last build's own wall seconds
+        self.last_wait_s = 0.0    # how long take() still blocked on it
+        self.tracer = None
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        self.cancel()
+        return False
+
+    def start(self, build_fn, *args):
+        """Start `build_fn(*args)` on the prefetch thread."""
+        if self._thread is not None:
+            raise RuntimeError("a group prefetch is already in flight; "
+                               "take() it first")
+        box = self._box = {}
+        tracer = self.tracer
+
+        def run():
+            t0 = time.perf_counter()
+            try:
+                if torch.cuda.is_available():
+                    stream = torch.cuda.Stream()
+                    with torch.cuda.stream(stream):
+                        box["result"] = build_fn(*args)
+                    stream.synchronize()
+                else:
+                    box["result"] = build_fn(*args)
+            except BaseException as e:
+                box["error"] = e
+            finally:
+                box["seconds"] = time.perf_counter() - t0
+                if tracer is not None:
+                    tracer.complete("group_build", box["seconds"],
+                                    cat="setup")
+
+        self._thread = threading.Thread(target=run, daemon=True,
+                                        name="group-prefetch")
+        self._thread.start()
+
+    def take(self):
+        """Join the build and return its runner (a build error re-raises
+        here), recording `last_build_s` and `last_wait_s`."""
+        if self._thread is None:
+            raise RuntimeError("no group prefetch in flight")
+        t0 = time.perf_counter()
+        self._thread.join()
+        self.last_wait_s = time.perf_counter() - t0
+        self._thread = None
+        box = self._box
+        self.last_build_s = box.get("seconds", 0.0)
+        if "error" in box:
+            raise box["error"]
+        runner = box["result"]
+        if torch.cuda.is_available() and hasattr(runner, "_record_stream"):
+            runner._record_stream(torch.cuda.current_stream())
+        pipe = getattr(runner, "pipeline", None)
+        if pipe is not None:
+            pipe.setup_overlap_s += max(self.last_build_s
+                                        - self.last_wait_s, 0.0)
+        return runner
+
+    def cancel(self):
+        """Abandon the build in flight: join the thread and close the
+        runner it made (its consumer and writer threads); a build error
+        is dropped. Nothing in flight: nothing to do."""
+        if self._thread is None:
+            return
+        self._thread.join()
+        self._thread = None
+        runner = self._box.get("result")
+        if runner is not None:
+            try:
+                runner.close()
+            except Exception:
+                pass

@@ -243,7 +243,7 @@ def test_quarantine_freezes_a_nan_lane():
 
 @pytest.mark.parametrize("option,value", [
     ("mesh", object()), ("remat_segments", 2),
-    ("compute_dtype", "bfloat16"), ("precompile_chunk", 4)])
+    ("compute_dtype", "bfloat16")])
 def test_unported_options_raise_by_name(option, value):
     s = port_solver(cycling(batches(1)))
     with pytest.raises(NotImplementedError, match=option):
