@@ -22,6 +22,8 @@
                                           # time)
     python3 chip_smoke.py --phases 21     # the multi-group durable sweep
                                           # driver (run_1000_sweep.py)
+    python3 chip_smoke.py --phases 22     # the fault processes and the
+                                          # co-design driver
     python3 chip_smoke.py --b2-path       # only time B2 through its wrapper
     python3 chip_smoke.py --b2t-path      # only time B2t (wrapper, kernel,
                                           # tile rows)
@@ -249,7 +251,7 @@ prints no "ok" line):
    for bit;
 17. the sweep's pipeline and the telemetry plane: (a) phase 7's sweep
    (C = 512, chunk 10, metrics to a JsonlSink, tracing on) at
-   pipeline_depth None, 0 and 2 from one seed, 3 chunks each: losses,
+   pipeline_depth None, 0 and 2 from one seed, 2 chunks each: losses,
    outputs, params, history, banks and records (timing aside) identical
    at every depth, configs x steps per second and host_blocked_seconds
    of each (depth 2's below depth 0's), the laned step's synchronizing
@@ -276,7 +278,7 @@ prints no "ok" line):
    history, life_q, stuck_bits and quarantine leaf and the sentinels
    bit for bit (the float debug vectors' gap reported), the blocked run
    launching each kernel the block count times a step; (b) the tiled
-   sweep at C = 512 in blocks of 64, one warm and 5 timed steps:
+   sweep at C = 512 in blocks of 64, one warm and 3 timed steps:
    configs x steps per second, step median and
    quartiles (CUDA events), peak memory, beside phase 11's C = 64; (c)
    the VGG11-BN sweep (phase 16's) at the largest of C = 512 and 256
@@ -340,7 +342,7 @@ prints no "ok" line):
    examples/gaussian_failure/run_1000_sweep.py, in this process, over
    CIFAR-10-quick at full width from the in-repo LMDB, 1024 configs in
    two groups of 512, N(1e8, 3e7), ternary, packed banks, engine "cuda",
-   depth 2, no block, RRAM_POOL_BWD=cuda, 20 iterations in chunks of 5,
+   depth 2, no block, RRAM_POOL_BWD=cuda, 15 iterations in chunks of 5,
    a run directory: (a) group 1 built by the GroupPrefetcher while group
    0 runs (each group's runner construction, build and wait seconds,
    setup_overlap_seconds, host_blocked_seconds, decode and compile
@@ -351,7 +353,29 @@ prints no "ok" line):
    with group 1's checkpoint journaled, then --resume to exit 0. The
    journals' group records, every metrics stream, sweep_report.json and
    every group_*_faults.npz array of (b) and of the resumed (c) equal
-   (a)'s, timing fields aside.
+   (a)'s, timing fields aside;
+22. the fault processes (fault/processes/) over CIFAR-10-quick at full
+   width, N(1e8, 3e7), ternary, packed banks, engine "cuda": (a) the
+   Solver under read_disturb (kernel B1 in mode "always"),
+   read_disturb:reads_per_step=400, permanent_fault_map:fraction=0.05
+   (mode "never") and endurance_stuck_at+conductance_drift:nu=0.2,
+   sigma=0.1 (unfused: its fused_epilogue_reason printed), kernel path
+   against plain path in lockstep for 4 steps: every bank (counters,
+   stuck codes, ages, rates) equal at every step, losses within 1e-5
+   relative, B2 2 and B1 1 a step in the stack's mode (0 unfused); (b)
+   the drift stack's draw and one fail on a stored state, card against
+   CPU, bit for bit; (c) phase 7's sweep at C = 512 under read_disturb,
+   permanent_fault_map and the drift stack (RRAM_POOL_BWD=cuda): a warm
+   step in lockstep with the plain engine (fusing stacks), then 5 timed
+   steps, configs x steps per second and the step median beside phase
+   7's, B2 2, B1 1 in the stack's mode (0 unfused) and B4 1 a step, the
+   drift pass's device time and its share of the step; then B1 in modes
+   "always" and "never" on those steps' own fused tails against its
+   plain version, timed (the kernels line's new rows); (d) the port's
+   run_1000_sweep --process read_disturb (one group of 64, 10
+   iterations: exit 0, the manifest pins the canonical spec, B1 "always"
+   once a step) and run_codesign over 2 processes x 2 adc_bits x 2
+   lanes (exit 0 or 65, the report written, its front printed).
 
 Then a JSON line of the step's numbers, a JSON line of the sweep's, one
 JSON line of per-kernel numbers (per training step, summed over the
@@ -369,8 +393,8 @@ a JSON line "solver_rest" of phase 15's (printed when it ends), a JSON
 line "vgg11" of phase 16's (printed when it ends, and again), a JSON
 line "telemetry" of phase 17's, a JSON line "blocks" of phase 18's, a
 JSON line "healing" of phase 19's, a JSON line "virtual_time" of phase
-20's, a JSON line "driver" of phase 21's, the card's name and power
-limit,
+20's, a JSON line "driver" of phase 21's, a JSON line "processes" of
+phase 22's, the card's name and power limit,
 and last {"ok": true, "device":
 {...}}.
 B2t has a row at each path's shapes: C = 1 (the tiled slice) and C
@@ -1164,12 +1188,13 @@ def b2t_path_numbers(device, C=1, own_kernels_only=True):
 
 def slice_solver(mean, std, sigma=0.0, hw_engine="cuda", seed=1,
                  tiled=False, conv_im2col="implicit", strategies=(),
-                 device="cuda", fields=None):
+                 device="cuda", fields=None, fault_process=None):
     """The slice's solver; `tiled` adds conv_also and rram_forward {
     adc_bits: 8 tiles: "cells=128x128" } with the conv operand mode;
     `strategies` are failure_strategy entries as dicts of their
     fields; `fields` other SolverParameter fields (type, iter_size,
-    clip_gradients, ...)."""
+    clip_gradients, ...); `fault_process` a fault-process spec (the
+    fused epilogue then engages where the stack fuses)."""
     from rram_caffe_simulation_tpu_torch import proto
     from rram_caffe_simulation_tpu_torch.solver import Solver
     from rram_caffe_simulation_tpu_torch.utils.io import read_solver_param
@@ -1195,9 +1220,12 @@ def slice_solver(mean, std, sigma=0.0, hw_engine="cuda", seed=1,
         sp.rram_forward.adc_bits = 8
         sp.rram_forward.tiles = TILES
         kw["conv_im2col"] = conv_im2col
+    if fault_process is not None:
+        kw["fault_process"] = fault_process
     return Solver(sp, device=device, hw_engine=hw_engine,
                   dtype_policy="ternary", fault_format="packed",
-                  fused_epilogue=True, **kw)
+                  fused_epilogue=True if fault_process is None else None,
+                  **kw)
 
 
 def phase_slice(steps, gpu):
@@ -5036,7 +5064,8 @@ def phase_vgg(device, gpu):
 # phase 17: the sweep's pipeline and the telemetry plane
 
 TELEMETRY_CHUNK = 10             # bench.py's chunk
-TELEMETRY_CHUNKS = 3             # chunks of each depth's run
+TELEMETRY_CHUNKS = 3             # chunks of (c)'s census run
+TELEMETRY_DEPTH_CHUNKS = 2       # chunks of each depth's run in (a)
 TELEMETRY_SEED = 17
 SOLVER_METRIC_STEPS = 50         # (b)'s lockstep steps, display 10
 SOLVER_TIMED_STEPS = 20          # (b)'s timed steps each way, in turns
@@ -5195,7 +5224,7 @@ def telemetry_depths(tmp, gpu):
     from rram_caffe_simulation_tpu_torch import kernels
     from rram_caffe_simulation_tpu_torch.observe import sink as obs_sink
     from rram_caffe_simulation_tpu_torch.observe import spans as obs_spans
-    steps = TELEMETRY_CHUNK * TELEMETRY_CHUNKS
+    steps = TELEMETRY_CHUNK * TELEMETRY_DEPTH_CHUNKS
     C = SWEEP_CONFIGS
     runs, out, files = {}, {}, []
     for depth in (None, 0, 2):
@@ -5284,7 +5313,7 @@ def telemetry_depths(tmp, gpu):
         check(not differ, f"(a) depth {depth}: state differs from depth 0 "
               f"in {differ[:5]}")
     check(_timing_off(runs[2]["records"]) == _timing_off(base["records"])
-          and len(_timing_off(base["records"])) == TELEMETRY_CHUNKS,
+          and len(_timing_off(base["records"])) == TELEMETRY_DEPTH_CHUNKS,
           "(a) depth 2's records differ from depth 0's (timing aside)")
     check(_timing_off(runs[None]["records"]) == [],
           "(a) depth None fed the sinks")
@@ -5641,7 +5670,7 @@ def phase_telemetry(gpu):
 # phase 18: config_block, evaluate, debug_info and the watchdog
 
 BLOCK_STEPS = 3                  # (a)'s steps of each runner
-BLOCK_TIMED = 5                  # (b)'s timed steps, after one warm step
+BLOCK_TIMED = 3                  # (b)'s timed steps, after one warm step
 BLOCK_CONFIGS = 512              # (b)'s tiled sweep and (d)'s evaluate
 BLOCK = 64                       # (b)'s and (c)'s lanes a block
 VGG_BLOCK_CONFIGS = (512, 256)   # (c): the largest that fits is taken
@@ -6762,7 +6791,7 @@ def phase_virtual_time(gpu, tiled_checks=None):
 
 DRIVER_CONFIGS = 1024           # phase 21: two resident groups
 DRIVER_GROUP = 512              # phase 7's sweep width
-DRIVER_ITERS = 20
+DRIVER_ITERS = 15               # 20 before phase 22 (its time)
 DRIVER_CHUNK = 5
 DRIVER_CKPT_EVERY = 10          # (c): group 1 is preempted at iteration 10
 DRIVER_DEVICE = "cuda"
@@ -7053,6 +7082,410 @@ def phase_driver(gpu):
 
 
 
+# ---------------------------------------------------------------------------
+# phase 22: fault processes and co-design
+
+PROCESS_STACKS = ("read_disturb", "read_disturb:reads_per_step=400",
+                  "permanent_fault_map:fraction=0.05",
+                  "endurance_stuck_at+conductance_drift:nu=0.2,sigma=0.1")
+PROCESS_DRIFT = PROCESS_STACKS[-1]
+PROCESS_STEPS = 4              # (a)'s lockstep steps of each stack
+PROCESS_SWEEP_STACKS = (PROCESS_STACKS[0], PROCESS_STACKS[2], PROCESS_DRIFT)
+PROCESS_SWEEP_TIMED = 5        # (c)'s timed steps of each stack
+PROCESS_DRIVER_CONFIGS = 64    # (d): run_1000_sweep's one group
+PROCESS_DRIVER_ITERS = 10
+CODESIGN_ITERS = 10            # (d): run_codesign's iterations a bucket
+
+
+@contextlib.contextmanager
+def tail_args():
+    """A list that takes the arguments of each fused tail
+    (`solver.fused_tail`: the group function with its mode bound, the
+    keys, pre-update data, updates, state) run while the context is
+    open."""
+    from rram_caffe_simulation_tpu_torch.solver import solver as solver_mod
+    seen, tail = [], solver_mod.fused_tail
+
+    def spy(*args):
+        seen.append(args)
+        return tail(*args)
+    solver_mod.fused_tail = spy
+    try:
+        yield seen
+    finally:
+        solver_mod.fused_tail = tail
+
+
+def b1_mode_numbers(args, iters):
+    """Kernel B1 on a step's own fused tail (`args` of `fused_tail`, its
+    group function bound to the stack's mode): its device time a call,
+    the plain version's (the same mode) and the bound; the kernel must
+    equal the plain version bit for bit."""
+    import functools
+    import torch
+    from rram_caffe_simulation_tpu_torch.fault import fused
+    from rram_caffe_simulation_tpu_torch.solver import solver as solver_mod
+    fn, keys, data, upd, state = args
+    mode = fn.keywords["mode"]
+    plain_fn = functools.partial(fused.fused_update_fail_leaves_plain,
+                                 mode=mode)
+    kd, ks = solver_mod.fused_tail(fn, keys, data, upd, state)
+    pd, ps = solver_mod.fused_tail(plain_fn, keys, data, upd, state)
+    for k in keys:
+        check(torch.equal(kd[k].view(torch.int32), pd[k].view(torch.int32))
+              and torch.equal(ks["life_q"][k], ps["life_q"][k]),
+              f"B1 in mode {mode!r} differs from its plain version on {k}")
+    err = max(float((kd[k] - pd[k]).abs().max()) for k in keys)
+    del kd, ks, pd, ps
+    kernel = lambda: solver_mod.fused_tail(fn, keys, data, upd, state)
+    by_name = device_ms_by_name(kernel, iters)
+    ms = sum(v for nm, (v, _) in by_name.items()
+             if any(own in nm for own in B1_KERNELS))
+    check(ms > 0, f"the profiler did not see B1 among {sorted(by_name)}")
+    p, _ = timed(lambda: solver_mod.fused_tail(plain_fn, keys, data, upd,
+                                               state), max(2, iters // 5))
+    groups = ([data[k] for k in keys], [upd[k] for k in keys],
+              [state["life_q"][k] for k in keys],
+              [state["stuck_bits"][k] for k in keys])
+    nbytes = sum(t.numel() * t.element_size() for g in groups for t in g) \
+        + sum(t.numel() * t.element_size() for g in (groups[0], groups[2])
+              for t in g)
+    return {"mode": mode, "ms": ms, "plain_ms": p,
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "library_ms": None, "max_abs_err": err}
+
+
+def process_lockstep(spec, steps):
+    """(a): one stack's Solver, kernel path against plain path in
+    lockstep (phase 5's checks): every bank of the state (counters, stuck
+    codes, ages, rates) equal at every step, losses within 1e-5
+    relative; B2 twice and B1 once a step in the stack's mode (none
+    under a stack that cannot fuse)."""
+    import torch
+    from rram_caffe_simulation_tpu_torch import kernels
+    from rram_caffe_simulation_tpu_torch.core import prng
+    from rram_caffe_simulation_tpu_torch.fault import fused
+    s = slice_solver(1e8, 3e7, seed=5, fault_process=spec)
+    check(s.pack_spec["life_dtype"] == "int32", "1e8 banks must be int32")
+    opts = dict(dtype_policy="ternary", fault_format="packed",
+                pack_spec=s.pack_spec)
+    kstep = s.make_train_step(hw_engine="cuda", **opts)
+    pstep = s.make_train_step(hw_engine="torch", **opts)
+    mode = kstep.fused_mode
+    check(kstep.fused_epilogue_resolved == (mode is not None)
+          == s.fault_process.supports_fused_epilogue,
+          f"{spec}: the fused epilogue did not resolve as the stack says")
+    state = (s.params, s.history, s.fault_state)
+    worst, b1, tagged, last_tail = 0.0, 0, {}, None
+    for i in range(steps):
+        batch = {k: torch.as_tensor(v).to(s.device)
+                 for k, v in s.train_feed().items()}
+        rng = prng.fold_in(s._key, i)
+        kernels.reset_launches()
+        _, _, pf, pl, _ = pstep(*state, batch, i, rng)
+        check(_launches() == _untiled(B2=0, B1=0, B4=0),
+              f"{spec}: the torch engine launched a kernel")
+        with tail_args() as seen:
+            kp, kh, kf, kl, _ = kstep(*state, batch, i, rng)
+        la = _launches()
+        check(la["B2"] == 2 and la["B1"] == (1 if mode else 0),
+              f"{spec}: step {i} launched {la}")
+        check(fused.FUSED_LIB.tagged == ({mode: 1} if mode else {}),
+              f"{spec}: B1's modes {fused.FUSED_LIB.tagged}, expected "
+              f"{mode!r} once")
+        b1 += la["B1"]
+        for m, n in fused.FUSED_LIB.tagged.items():
+            tagged[m] = tagged.get(m, 0) + n
+        if seen:
+            last_tail = seen[-1]
+        kl, pl = float(kl), float(pl)
+        rel = abs(kl - pl) / max(1.0, abs(pl))
+        worst = max(worst, rel)
+        check(math.isfinite(kl) and rel <= 1e-5,
+              f"{spec}: step {i}: lockstep losses {kl} vs {pl}")
+        check(sorted(kf) == sorted(pf), f"{spec}: state groups differ")
+        for g in kf:
+            for k in kf[g]:
+                check(torch.equal(kf[g][k], pf[g][k]),
+                      f"{spec}: step {i}: {g}/{k} differs between the "
+                      "kernel and the plain path")
+        state = (kp, kh, kf)
+    out = {"spec": s.fault_spec.canonical(), "steps": steps,
+           "b1_mode": mode, "b1_launches_a_step": b1 / steps,
+           "b1_launches": tagged, "b2_launches_a_step": 2,
+           "loss_rel_max": worst,
+           "fused_epilogue_reason": kstep.fused_epilogue_reason,
+           "quantum": s.pack_spec["decrement"],
+           "broken_fraction": s.broken_fraction()}
+    if "drift_age" in state[2]:
+        ages = state[2]["drift_age"]
+        out["drifted_cells"] = int(sum(int((a > 0).sum())
+                                       for a in ages.values()))
+    return out, last_tail
+
+
+def drift_card_vs_cpu():
+    """(b): the drift stack's draw and one fail on a stored state, on the
+    card and on the CPU, bit for bit (XLA's exp and log1p in tensor ops,
+    the final fma from float64 steps)."""
+    import torch
+    from rram_caffe_simulation_tpu_torch import proto
+    from rram_caffe_simulation_tpu_torch.core import prng
+    from rram_caffe_simulation_tpu_torch.fault.processes import FaultSpec
+    pattern = proto.parse('type: "gaussian" mean: 300 std: 60',
+                          "FailurePatternParameter")
+    stack = FaultSpec.parse(PROCESS_DRIFT).build()
+    key = prng.PRNGKey(22)
+    cpu = stack.init_state(key, SLICE_LEAVES, pattern, device="cpu")
+    card = stack.init_state(key, SLICE_LEAVES, pattern, device="cuda")
+    for g in cpu:
+        for k in cpu[g]:
+            check(torch.equal(card[g][k].cpu().view(torch.int32),
+                              cpu[g][k].view(torch.int32)),
+                  f"(b) the card's draw of {g}/{k} differs from the CPU's")
+    rng = np.random.RandomState(22)
+    cpu["drift_age"] = {k: torch.from_numpy(rng.randint(
+        0, 2000, v.shape).astype(np.float32))
+        for k, v in cpu["drift_age"].items()}
+    w = {k: torch.from_numpy((rng.randn(*s) * 0.1).astype(np.float32))
+         for k, s in SLICE_LEAVES.items()}
+    d = {}
+    for k, s in SLICE_LEAVES.items():
+        v = (rng.randn(*s) * 1e-3).astype(np.float32)
+        v[rng.rand(*s) < 0.5] = 0.0
+        d[k] = torch.from_numpy(v)
+    to = lambda tree: {k: v.cuda() for k, v in tree.items()}
+    wc, sc = stack.fail(w, cpu, d, 100.0)
+    wg, sg = stack.fail(to(w), {g: to(t) for g, t in cpu.items()}, to(d),
+                        100.0)
+    cells = 0
+    for k in w:
+        check(torch.equal(wg[k].cpu().view(torch.int32),
+                          wc[k].view(torch.int32)),
+              f"(b) drifted weights of {k}: card and CPU differ")
+        cells += w[k].numel()
+    for g in sc:
+        for k in sc[g]:
+            check(torch.equal(sg[g][k].cpu(), sc[g][k]),
+                  f"(b) {g}/{k} after the fail: card and CPU differ")
+    moved = sum(int((wc[k] != w[k]).sum()) for k in w)
+    return {"cells": cells, "moved_cells": moved,
+            "rate_mean": float(sum(float(v.sum()) for v in
+                                   cpu["drift_rate"].values()) / cells)}
+
+
+def process_sweep(spec, C, steps):
+    """(c): phase 7's sweep (C lanes, N(1e8, 3e7), ternary, packed banks,
+    RRAM_POOL_BWD=cuda) under one stack: a warm step in lockstep with
+    the plain engine (fusing stacks), then `steps` timed steps. B2 2, B1
+    1 in the stack's mode (none unfused) and B4 1 a step."""
+    import torch
+    from rram_caffe_simulation_tpu_torch import kernels
+    from rram_caffe_simulation_tpu_torch.fault import fused
+    from rram_caffe_simulation_tpu_torch.fault.processes import drift
+    from rram_caffe_simulation_tpu_torch.parallel import SweepRunner
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    s = slice_solver(1e8, 3e7, fault_process=spec)
+    r = SweepRunner(s, n_configs=C, engine="cuda", packed_state=True,
+                    dtype_policy="ternary")
+    setup_s = time.perf_counter() - t0
+    mode = r._step.fused_mode
+    check(r.engine_resolved == "cuda"
+          and r.fused_epilogue_resolved == (mode is not None),
+          f"{spec}: the sweep resolved engine {r.engine_resolved}, fused "
+          f"{r.fused_epilogue_resolved}")
+    out = {"spec": s.fault_spec.canonical(), "configs": C, "b1_mode": mode,
+           "setup_s": setup_s}
+    drift_args, real_fail = [], drift.ConductanceDrift.fail
+
+    def spy(self, *a):
+        drift_args.append((self,) + a)
+        return real_fail(self, *a)
+    if mode is not None:
+        with tail_args() as seen:
+            _, out["warm_lockstep_rel"] = warm_lockstep(r, 1)
+        tail = seen[-1]
+    else:
+        drift.ConductanceDrift.fail = spy
+        try:
+            r.step(1, chunk=1)
+        finally:
+            drift.ConductanceDrift.fail = real_fail
+        tail = None
+    events = []
+    inner, stepper = _event_stepper(r, events)
+    r._step = stepper
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    kernels.reset_launches()
+    start.record()
+    t0 = time.perf_counter()
+    losses = r.step(steps, chunk=steps)[0]
+    wall = time.perf_counter() - t0
+    launches, tagged = _launches(), dict(fused.FUSED_LIB.tagged)
+    r._step = inner
+    step_ms = [a.elapsed_time(b) for a, b in zip([start] + events[:-1],
+                                                 events)]
+    check(losses.shape == (C,) and bool(np.isfinite(losses).all()),
+          f"{spec}: non-finite or misshapen sweep losses")
+    n = steps if mode else 0
+    check(launches == _untiled(B2=2 * steps, B1=n, B4=steps)
+          and tagged == ({mode: steps} if mode else {}),
+          f"{spec}: launches {launches} {tagged} in {steps} steps")
+    out.update({"timed_steps": steps, "wall_s": wall,
+                "configs_steps_per_s": C * steps / wall,
+                "step_ms_median": float(np.median(step_ms)),
+                "launches": launches, "b1_launches": tagged,
+                "peak_mem_bytes": int(torch.cuda.max_memory_allocated())})
+    if drift_args:
+        args = drift_args[-1]
+        dms = device_ms(lambda: real_fail(*args), iters=10)
+        out["drift_pass_ms"] = dms
+        out["drift_share_of_step"] = dms / out["step_ms_median"]
+    del r, s
+    torch.cuda.empty_cache()
+    return out, tail
+
+
+def phase_processes(gpu, sweep7=None):
+    """Phase 22: the fault processes on the card. (a) each stack's Solver
+    in lockstep, kernel path against plain; (b) the drift arithmetic on
+    the card against the CPU; (c) the C = 512 sweep under read_disturb,
+    permanent_fault_map and the drift stack, timed; (d) the drivers:
+    run_1000_sweep --process read_disturb and run_codesign."""
+    t0 = time.perf_counter()
+    out = {"gpu": gpu, "lockstep": {}, "sweep": {}}
+    tails = {}
+    for spec in PROCESS_STACKS:
+        res, tail = process_lockstep(spec, PROCESS_STEPS)
+        out["lockstep"][res["spec"]] = res
+        if tail is not None and res["b1_mode"] not in tails:
+            tails[res["b1_mode"]] = (tail, res["b1_launches"])
+        print(f"phase 22: (a) {res['spec']}: {PROCESS_STEPS} steps, kernel "
+              f"vs plain in lockstep, every bank equal; loss rel max "
+              f"{res['loss_rel_max']:.2e} (limit 1e-5); B1a mode "
+              f"{res['b1_mode']}, {res['b1_launches_a_step']:g} launch(es) "
+              f"a step, B2a 2; "
+              + (f"fused_epilogue_reason: {res['fused_epilogue_reason']}"
+                 if res["b1_mode"] is None else
+                 f"quantum {res['quantum']:g}"), flush=True)
+    out["card_vs_cpu"] = drift_card_vs_cpu()
+    print(f"phase 22: (b) {PROCESS_DRIFT}: draw and one fail on the card "
+          f"equal to the CPU's bit for bit "
+          f"({json.dumps(out['card_vs_cpu'])})", flush=True)
+    # the sweeps and the drivers run B4 (RRAM_POOL_BWD=cuda), as phases 7
+    # and 21 do
+    saved = os.environ.get("RRAM_POOL_BWD")
+    os.environ["RRAM_POOL_BWD"] = "cuda"
+    try:
+        processes_on_the_sweep(out, gpu, sweep7, tails)
+    finally:
+        if saved is None:
+            os.environ.pop("RRAM_POOL_BWD", None)
+        else:
+            os.environ["RRAM_POOL_BWD"] = saved
+    out["phase_s"] = time.perf_counter() - t0
+    return out
+
+
+def processes_on_the_sweep(out, gpu, sweep7, tails):
+    """Phase 22's (c), the B1 rows (on (a)'s `tails` and (c)'s) and (d),
+    into `out`."""
+    import tempfile
+    import torch
+    from rram_caffe_simulation_tpu_torch import kernels
+    from rram_caffe_simulation_tpu_torch.fault import fused
+    C = sweep7["configs"] if sweep7 else SWEEP_CONFIGS
+    sweep_tails = {}
+    for spec in PROCESS_SWEEP_STACKS:
+        res, tail = process_sweep(spec, C, PROCESS_SWEEP_TIMED)
+        out["sweep"][res["spec"]] = res
+        if tail is not None:
+            sweep_tails[res["b1_mode"]] = (tail, res["b1_launches"])
+        print(f"phase 22: (c) {res['spec']}, C = {C}: "
+              f"{res['configs_steps_per_s']:.1f} configs*steps/s over "
+              f"{PROCESS_SWEEP_TIMED} steps, step median "
+              f"{res['step_ms_median']:.3f} ms; launches "
+              f"{res['launches']}, B1b modes {res['b1_launches']}"
+              + (f"; the drift pass {res['drift_pass_ms']:.3f} ms a "
+                 f"step on the card, {res['drift_share_of_step']:.2%} "
+                 "of the step" if "drift_pass_ms" in res else "")
+              + (f"; phase 7 (endurance, same run): "
+                 f"{sweep7['configs_steps_per_s']:.1f} configs*steps/s,"
+                 f" step median {sweep7['step_ms_median']:.3f} ms"
+                 if sweep7 else "") + f"; {gpu}", flush=True)
+    # the B1 rows: each mode on a step's own tail, one config and C lanes
+    out["b1_rows"] = {}
+    for name, src, iters in (("B1a", tails, 100), ("B1b", sweep_tails, 20)):
+        for mode, (tail, launches) in sorted(src.items()):
+            row = b1_mode_numbers(tail, iters)
+            row["launches"] = launches.get(mode, 0)
+            out["b1_rows"][f"{name} {mode}"] = row
+    del tails, sweep_tails
+    torch.cuda.empty_cache()
+    print(f"phase 22: B1 in its new modes on the steps' own inputs: "
+          f"{json.dumps(out['b1_rows'])}", flush=True)
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        d = Path(tmp) / "rd"
+        kernels.reset_launches()
+        t1 = time.perf_counter()
+        rec = run_driver([
+            "--solver", SOLVER, "--configs", str(PROCESS_DRIVER_CONFIGS),
+            "--group", str(PROCESS_DRIVER_CONFIGS), "--iters",
+            str(PROCESS_DRIVER_ITERS), "--chunk", "5", "--mean", "1e8",
+            "--std", "3e7", "--block", "0", "--run-dir", str(d),
+            "--process", "read_disturb", *driver_flags()])
+        wall = time.perf_counter() - t1
+        with open(d / "manifest.json") as f:
+            pin = json.load(f)["process"]
+        n = PROCESS_DRIVER_ITERS
+        check(rec["status"] == "clean" and rec["process"] == "read_disturb"
+              and pin == "read_disturb",
+              f"(d) run_1000_sweep --process read_disturb: {rec}, pin {pin}")
+        check(_launches() == _untiled(B2=2 * n, B1=n, B4=n)
+              and fused.FUSED_LIB.tagged == {"always": n},
+              f"(d) the driver's launches {_launches()} "
+              f"{fused.FUSED_LIB.tagged} in {n} steps")
+        out["run_1000_sweep"] = {"configs": PROCESS_DRIVER_CONFIGS,
+                                 "iters": n, "wall_s": wall,
+                                 "manifest_process": pin,
+                                 "b1_launches": dict(fused.FUSED_LIB.tagged)}
+        print(f"phase 22: (d) run_1000_sweep --process read_disturb, one "
+              f"group of {PROCESS_DRIVER_CONFIGS}, {n} iterations: exit 0 "
+              f"in {wall:.1f} s, manifest pin {pin!r}, B1b "
+              f"{fused.FUSED_LIB.tagged}", flush=True)
+        from rram_caffe_simulation_tpu_torch.examples.gaussian_failure \
+            import run_codesign
+        t1 = time.perf_counter()
+        code = 0
+        try:
+            run_codesign.main([
+                "--solver", SOLVER, "--processes",
+                "endurance_stuck_at,read_disturb", "--adc-bits", "0,4",
+                "--means", "1000,3000", "--stds", "300", "--iters",
+                str(CODESIGN_ITERS), "--chunk", "5", "--out",
+                str(Path(tmp) / "codesign"), "--device", "cuda"])
+        except SystemExit as e:
+            code = e.code
+        wall = time.perf_counter() - t1
+        check(code in (0, run_codesign.DEGENERATE_EXIT),
+              f"(d) run_codesign exited {code}")
+        with open(Path(tmp) / "codesign" / "pareto_report.json") as f:
+            report = json.load(f)
+        check(report["evaluated"] == 8, f"(d) run_codesign: {report}")
+        front = [{k: r[k] for k in ("process", "adc_bits", "mean", "loss",
+                                    "broken", "adc_cost_bits")}
+                 for r in report["front"]]
+        out["run_codesign"] = {"exit": code, "wall_s": wall,
+                               "front": front,
+                               "degenerate": report["degenerate"]}
+        print(f"phase 22: (d) run_codesign, 2 processes x 2 adc_bits x 2 "
+              f"lanes, {CODESIGN_ITERS} iterations: exit {code} in "
+              f"{wall:.1f} s; front {json.dumps(front)}", flush=True)
+
+
 COLD_RUNS = ("precompile", "serial", "serial", "precompile")
 
 
@@ -7186,7 +7619,7 @@ def main(argv=None) -> int:
                    help="training steps of the slice phase (default 50)")
     p.add_argument("--transition-steps", type=int, default=6)
     p.add_argument("--phases", default="all",
-                   help="comma-separated phases 2-21 to run after the "
+                   help="comma-separated phases 2-22 to run after the "
                         "build (default all; only a full run prints the "
                         "per-kernel line and the ok line)")
     p.add_argument("--b2-path", action="store_true",
@@ -7230,7 +7663,7 @@ def main(argv=None) -> int:
                         "print their seconds as JSON")
     args = p.parse_args(argv)
     t_main = time.perf_counter()
-    every = set(range(2, 22))
+    every = set(range(2, 23))
     want = every if args.phases == "all" else {
         int(v) for v in args.phases.split(",")}
 
@@ -7384,6 +7817,9 @@ def main(argv=None) -> int:
         virtual = timed(20, phase_virtual_time, gpu, tightened)
     if 21 in want:
         driver = timed(21, phase_driver, gpu)
+    if 22 in want:
+        processes = timed(22, phase_processes, gpu,
+                          sweep if 7 in want else None)
     if want != every:
         print(f"phases {sorted(want)} passed; no ok line for a partial run",
               flush=True)
@@ -7523,6 +7959,19 @@ def main(argv=None) -> int:
          "launches": vt["B3"], "max_abs_err": max(vr["B3a"], err_vb3a),
          **vb3a},
     ]
+    # phase 22's path: B1 in the modes of read_disturb ("always") and
+    # permanent_fault_map ("never"), on the steps' own tails
+    for key, row in sorted(processes["b1_rows"].items()):
+        name, mode = key.split()
+        lanes = name == "B1b"
+        rows.append({
+            "name": f"fused_update_fail{' over C lanes' if lanes else ''} "
+                    f"({name}), mode {mode!r} "
+                    f"({'read_disturb' if mode == 'always' else 'permanent_fault_map'})",
+            "route": "cuda", "source": f"{PKG}/csrc/fused_epilogue.cu",
+            "replaces": "rram_caffe_simulation_tpu/fault/fused.py:"
+                        + ("118" if lanes else "99"),
+            **{k: v for k, v in row.items() if k != "mode"}})
     print(json.dumps({"step": {"median_ms": step_s * 1e3,
                                "feed_ms": breakdown["feed_ms"],
                                "device_busy_ms":
@@ -7542,6 +7991,7 @@ def main(argv=None) -> int:
     print(json.dumps({"healing": healing}))
     print(json.dumps({"virtual_time": virtual}))
     print(json.dumps({"driver": driver}))
+    print(json.dumps({"processes": processes}))
     print(json.dumps({"phase_s": {**{str(n): v for n, v in phase_s.items()},
                                   "kernels_line": time.perf_counter() - t_rows,
                                   "script": time.perf_counter() - t_main}}))

@@ -26,7 +26,8 @@ and is used exactly where the reference's code is fused. `normal` is
 sqrt(2) * erf_inv(u), u uniform on (-1, 1): erf_inv is Giles'
 single-precision polynomial (XLA's ErfInv for f32) and its log1p is
 XLA's CPU log1p (Cephes' rational below sqrt(2) - 1, else Eigen's plog
-of 1 + x).
+of 1 + x). `exp` and `log1p` are XLA's CPU float32 exp and log1p, for
+the fault processes that compute with them (fault/processes/drift.py).
 """
 from __future__ import annotations
 
@@ -356,6 +357,39 @@ def _log1p(x: torch.Tensor) -> torch.Tensor:
     - 1, else log(1 + x)."""
     return torch.where(x.abs() < _f32(_LOG1P_SMALL), _log1p_small(x),
                        _log_plog(x + 1.0))
+
+
+def log1p(x: torch.Tensor) -> torch.Tensor:
+    """XLA's CPU log1p of a float32 tensor (`_log1p`)."""
+    return _log1p(x)
+
+
+# XLA's CPU f32 exp (its polynomial_approximations: Cephes' expf)
+_EXP_LO, _EXP_HI = _f32(-87.8), _f32(88.8)
+_LOG2E = _f32(1.44269504088896341)
+_EXP_C1, _EXP_C2 = _f32(0.693359375), _f32(-2.12194440e-4)
+_EXP_P = (1.9875691500e-4, 1.3981999507e-3, 8.3334519073e-3,
+          4.1665795894e-2, 1.6666665459e-1, 5.0000001201e-1)
+
+
+def exp(x: torch.Tensor) -> torch.Tensor:
+    """XLA's CPU exp of a float32 tensor, bit for bit: x clamped to
+    [-87.8, 88.8], n = floor(x log2(e) + 1/2) clamped to [-127, 127],
+    a = x - n ln 2 in two fused steps, Cephes' degree-6 polynomial for
+    e^a with XLA's fused steps, times 2^n built from the exponent bits;
+    a subnormal result flushes to 0 (XLA's CPU code runs with denormals
+    off)."""
+    xc = torch.clamp(x, _EXP_LO, _EXP_HI)
+    n = torch.clamp(torch.floor(fma(xc, _LOG2E, 0.5)), -127.0, 127.0)
+    a = fma(n, -_EXP_C1, xc)
+    a = fma(n, -_EXP_C2, a)
+    p = fma(a, _f32(_EXP_P[0]), _f32(_EXP_P[1]))
+    for c in _EXP_P[2:]:
+        p = fma(p, a, _f32(c))
+    z = fma(p, a * a, a) + 1.0
+    pow2 = ((n.to(torch.int32) + 127) << 23).view(torch.float32)
+    y = z * pow2
+    return torch.where(y.abs() < _MIN_NORMAL, 0.0, y)
 
 
 def _giles(coefs, shift):

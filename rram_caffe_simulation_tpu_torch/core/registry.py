@@ -129,3 +129,32 @@ class Layer:
 
     def __repr__(self):
         return f"<{type(self).__name__} {self.name!r}>"
+
+
+# ---------------------------------------------------------------------------
+# the fault-process registry (fault/processes/): the string -> class seam
+# the layer registry gives the net, for fault physics; a new
+# fault model is a registration, not a solver edit (the reference's
+# core/registry.py:47-68)
+
+FAULT_PROCESS_REGISTRY: dict = {}
+
+
+def register_fault_process(name: str) -> Callable[[type], type]:
+    def wrap(cls: type) -> type:
+        if name in FAULT_PROCESS_REGISTRY:
+            raise KeyError(f"Fault process {name!r} registered twice")
+        FAULT_PROCESS_REGISTRY[name] = cls
+        cls.process_name = name
+        return cls
+    return wrap
+
+
+def create_fault_process(name: str, params: Optional[dict] = None):
+    """The process registered as `name`, built from its spec parameters
+    (a FaultSpec entry's `k=v` dict)."""
+    if name not in FAULT_PROCESS_REGISTRY:
+        raise KeyError(
+            f"Unknown fault process {name!r}; registered: "
+            f"{sorted(FAULT_PROCESS_REGISTRY)}")
+    return FAULT_PROCESS_REGISTRY[name](params or {})

@@ -32,10 +32,11 @@ Where the port differs from the reference's driver, each loudly:
 `--device` (default cuda; raises without a card, cpu by name);
 `--engine` takes the port's engines (auto, cuda, torch); one process
 only (`--multihost`, `--coordinator`, `--num-processes`, `--process-id`
-raise, ROADMAP A14); `--process` takes the legacy endurance process
-alone (ROADMAP A10); compute runs in float32 (the reference's driver
+raise, ROADMAP A14); compute runs in float32 (the reference's driver
 trains in bfloat16; the port's `compute_dtype` is ROADMAP A4/A12b);
-the record has no TPU-pod projection. Relative paths (the solver, its
+the record has no TPU-pod projection. `--process` takes any spec of
+the fault-process registry (fault/processes/), as the reference's does.
+Relative paths (the solver, its
 net, its Data sources, its snapshot prefix) resolve from the working
 directory when they exist there, else from the checkout's root.
 """
@@ -176,7 +177,8 @@ def _solver_param(path: str):
 
 
 def main(argv=None):
-    from ...parallel.sweep import LEGACY_PROCESS, SWEEP_ENGINES
+    from ...fault.processes import FaultSpec
+    from ...parallel.sweep import SWEEP_ENGINES
     p = argparse.ArgumentParser()
     p.add_argument("--configs", type=int, default=1000)
     p.add_argument("--group", type=int, default=1000,
@@ -195,9 +197,11 @@ def main(argv=None):
         help="solver prototxt the per-group Solver is built from "
              "(failure pattern / seed / display are overridden here)")
     p.add_argument("--process", default=None,
-                   help=f"fault process; the port has {LEGACY_PROCESS!r} "
-                        "alone (ROADMAP A10). Pinned in the run-dir "
-                        "manifest: --resume refuses another")
+                   help="fault-process stack spec (fault/processes/ "
+                        "registry; default endurance_stuck_at, the "
+                        "fork's model). Pinned in the run-dir manifest: "
+                        "--resume refuses a spec whose canonical form "
+                        "differs")
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda, which raises "
                         "without a card; cpu by name)")
@@ -296,10 +300,20 @@ def main(argv=None):
         with open(manifest_path) as f:
             manifest = json.load(f)
         # the fault-process pin: a resume under another process is
-        # refused rather than replaying the wrong physics
+        # refused rather than replaying the wrong physics. Specs compare
+        # canonical (stack order and number formatting normalized), so
+        # an equal spec written another way resumes; an unparseable one
+        # compares as text and the Solver raises its parse error
         pinned = manifest.get("process") or DEFAULT_PROCESS
+
+        def _canon(spec):
+            try:
+                return FaultSpec.parse(spec).canonical()
+            except Exception:
+                return str(spec).strip()
+
         if args.process is not None \
-                and str(args.process).strip() != str(pinned).strip():
+                and _canon(args.process) != _canon(pinned):
             p.error(
                 f"--resume {run_dir} was trained under fault process "
                 f"{pinned!r} (manifest pin) but --process requests "
@@ -313,11 +327,9 @@ def main(argv=None):
               f"{args.process or DEFAULT_PROCESS})", flush=True)
     if args.process is None:
         args.process = DEFAULT_PROCESS
-    if str(args.process).strip() != LEGACY_PROCESS:
-        raise NotImplementedError(
-            f"--process {args.process!r}: the port has the fault process "
-            f"{LEGACY_PROCESS!r} alone; the reference's process registry "
-            "is not ported (ROADMAP A10)")
+    # the manifest and the record carry the canonical spec (an unknown
+    # process or a bad parameter raises here, by name)
+    args.process = FaultSpec.parse(args.process).canonical()
 
     from ...async_exec import StallError
     from ...observe.sink import JsonlSink
@@ -370,7 +382,7 @@ def main(argv=None):
         param.random_seed = 7 + gi
         param.display = 0
         param.ClearField("test_interval")
-        solver = Solver(param, device=device)
+        solver = Solver(param, device=device, fault_process=args.process)
         if run_dir:
             # the in-flight group appends to its records only when its
             # checkpoint landed (no checkpoint: the group restarts, and

@@ -35,7 +35,6 @@ EPSILON = 1e-20  # failure_maker.cpp:56 / failure_maker.cu:25
 # the same threshold as the float32 the reference compares in; both are
 # exact float32 values, so the comparison agrees in either precision
 EPSILON32 = float(np.float32(EPSILON))
-PROCESS = "endurance_stuck_at"   # the port's one fault process
 
 
 def param_key(layer_name: str, slot: int) -> str:
@@ -117,12 +116,15 @@ def draw_rescaled_state(key, param_shapes: Dict[str, tuple], pattern,
 
 
 def draw_state_rows(key, param_shapes: Dict[str, tuple], pattern,
-                    n_configs: int, means, stds, rows=None, tiles=None,
-                    device="cpu") -> FaultState:
+                    n_configs: int, means, stds, rows=None, process=None,
+                    tiles=None, device="cpu") -> FaultState:
     """Rows [lo, hi) of the n_configs-stacked draw, exactly as the full
     stack holds them: the per-config keys are split from `key` over the
     full count and then sliced (the reference's draw_state_rows), and
-    the rows drawn as one batch (vectorised over configs)."""
+    the rows drawn as one batch (vectorised over configs). `process` (a
+    fault/processes ProcessStack) draws each config through the stack,
+    which carries its own tile spec; None is the endurance draw under
+    `tiles`, which the default stack draws byte for byte."""
     lo, hi = (0, n_configs) if rows is None else (int(rows[0]),
                                                   int(rows[1]))
     if not (0 <= lo <= hi <= n_configs):
@@ -131,23 +133,29 @@ def draw_state_rows(key, param_shapes: Dict[str, tuple], pattern,
     keys = prng.split(key, n_configs)[lo:hi]
     means = np.asarray(means, np.float32)[lo:hi]
     stds = np.asarray(stds, np.float32)[lo:hi]
+    if process is not None:
+        return process.draw_rescaled(keys, param_shapes, pattern, means,
+                                     stds, device=device)
     return draw_rescaled_state(keys, param_shapes, pattern, means, stds,
                                tiles, device)
 
 
 def stack_fault_states(key, param_shapes: Dict[str, tuple], pattern,
                        n_configs: int, means=None, stds=None, rows=None,
-                       tiles=None, device="cpu") -> FaultState:
+                       process=None, tiles=None,
+                       device="cpu") -> FaultState:
     """n_configs independent draws stacked on a leading config axis (the
     reference's parallel/sweep.py stack_fault_states): lane c's
     lifetimes re-anchored to its own (mean, std), default the
-    pattern's; `rows=(lo, hi)` draws that block of lanes alone."""
+    pattern's; `rows=(lo, hi)` draws that block of lanes alone;
+    `process` the ProcessStack that draws (`draw_state_rows`)."""
     means = (np.asarray(means, np.float32) if means is not None
              else np.full((n_configs,), float(pattern.mean), np.float32))
     stds = (np.asarray(stds, np.float32) if stds is not None
             else np.full((n_configs,), float(pattern.std), np.float32))
     return draw_state_rows(key, param_shapes, pattern, n_configs, means,
-                           stds, rows=rows, tiles=tiles, device=device)
+                           stds, rows=rows, process=process, tiles=tiles,
+                           device=device)
 
 
 def fail(fault_params: Dict[str, torch.Tensor], state: FaultState,

@@ -15,7 +15,10 @@ consecutive cells of one leaf each) leaf after leaf, at most
 `B1_LEAVES` leaves a launch. The reference launches its Pallas kernel
 once per leaf (fault/processes/base.py:122-129); the function of each
 leaf is the same. `fused_update_fail` is the one-leaf group, the
-counterpart of the reference's per-leaf function.
+counterpart of the reference's per-leaf function; `fused_tail` is a
+step's call on its fault leaves. The mode is the fault-process stack's
+("write" endurance, "always" read disturb, "never" a static defect map);
+`FUSED_LIB.tagged` counts the launches by mode.
 
 What bounds B1 on an H100 is bytes (each operand read once, each output
 written once); the kernel moves them in 16-byte streaming loads and
@@ -162,8 +165,23 @@ def fused_update_fail_leaves(datas, upds, life_qs, banks,
                                           leaf.first_tile)])
         FUSED_LIB.call("rram_fused_update_fail_leaves",
                        _LQ_BYTES[life_qs[0].dtype], len(table), ptrs, plan,
-                       tiles, FUSED_MODES.index(mode), stream)
+                       tiles, FUSED_MODES.index(mode), stream, tag=mode)
     return out_d, out_q
+
+
+def fused_tail(fused_fn, keys, data, upd, fault_state):
+    """A step's fused ApplyUpdate+Fail: `fused_fn` (the group wrapper of
+    kernel B1, or its plain version, with the process stack's
+    `fused_mode` bound) called once on the fault leaves `keys` of `data`
+    (pre-update values), `upd` and the packed banks. Returns (data with
+    those leaves replaced, fault_state with the new counters); the dicts
+    passed in are not changed."""
+    new_d, new_q = fused_fn([data[k] for k in keys], [upd[k] for k in keys],
+                            [fault_state["life_q"][k] for k in keys],
+                            [fault_state["stuck_bits"][k] for k in keys])
+    return ({**data, **dict(zip(keys, new_d))},
+            {**fault_state,
+             "life_q": {**fault_state["life_q"], **dict(zip(keys, new_q))}})
 
 
 def fused_update_fail(data, upd, life_q, stuck_bits, mode: str = "write"):

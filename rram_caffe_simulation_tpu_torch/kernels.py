@@ -85,6 +85,8 @@ class CudaLibrary:
         self.functions = dict(functions)
         self.flags = ARCH_FLAGS + BASE_FLAGS
         self.counts = dict.fromkeys(self.functions, 0)
+        # launches by the tag a wrapper passes (kernel B1: its mode)
+        self.tagged: Dict[str, int] = {}
         self.build_seconds: Optional[float] = None
         self.load_seconds: Optional[float] = None   # CDLL + module load
         self.ptxas_log = ""
@@ -99,6 +101,7 @@ class CudaLibrary:
 
     def reset(self):
         self.counts = dict.fromkeys(self.functions, 0)
+        self.tagged = {}
 
     @property
     def so_path(self) -> Path:
@@ -162,15 +165,18 @@ class CudaLibrary:
                 _BUILDS["loaded"] += 1
         return self._lib
 
-    def call(self, name: str, *args):
+    def call(self, name: str, *args, tag: Optional[str] = None):
         """Call C function `name` (it launches the kernel on the stream
-        passed among `args`), raise if the launch failed, count it."""
+        passed among `args`), raise if the launch failed, count it (and
+        under `tag` in `tagged`)."""
         rc = getattr(self.lib(), name)(*args)
         if rc != 0:
             raise RuntimeError(f"{name} ({self.source.name}) launch "
                                f"failed: cudaError {rc}")
         with _LOCK:
             self.counts[name] += 1
+            if tag is not None:
+                self.tagged[tag] = self.tagged.get(tag, 0) + 1
 
 
 def stream_ptr(device: torch.device) -> ctypes.c_void_p:

@@ -7,10 +7,10 @@
    (arming it changes no result): per-(param, tile) remaining-lifetime
    histograms over fixed log-spaced bins, broken fraction, mean
    lifetime and the stuck values of the broken cells
-   (`fault/mapping.py per_tile_health`), the clamp family's census, the
-   one definition the port's fault process (endurance_stuck_at) uses.
-   Under the sweep's stacked state every stat carries a leading
-   per-lane axis. Its result is the `params` payload of a `health`
+   (`fault/mapping.py per_tile_health`), and the drift-age distribution
+   (`per_tile_ages`), each process of the stack contributing its own
+   (its `health` hook). Under the sweep's stacked state every stat
+   carries a leading per-lane axis. Its result is the `params` payload of a `health`
    record (sink.make_health_record), fetched in one transfer.
 
 2. `HealthLedger`: plain Python over `health` records: per-(config,
@@ -39,40 +39,48 @@ LEDGER_HISTORY = 64
 
 
 class CensusProgram:
-    """The wear census over one fault-state structure: `tiles` is the
-    solver's TileSpec, `stacked` whether the leaves carry a leading
-    config axis, `pack_spec` the packed banks' spec (None for f32).
-    Calling it returns the host-side `params` payload: {param: {"grid":
-    [gr, gc], "cells": [...], stat: nested lists}}."""
+    """The wear census over one fault-state structure: `stack` is the
+    fault-process stack (fault/processes/ ProcessStack, which carries
+    the tile spec), `stacked` whether the leaves carry a leading config
+    axis, `pack_spec` the packed banks' spec (None for f32). Calling it
+    returns the host-side `params` payload: {param: {"grid": [gr, gc],
+    "cells": [...], stat: nested lists}}."""
 
-    def __init__(self, tiles, stacked: bool = False, pack_spec=None):
-        self.tiles = tiles
+    def __init__(self, stack, stacked: bool = False, pack_spec=None):
+        self.stack = stack
         self.stacked = bool(stacked)
         self.pack_spec = pack_spec
 
     def stats(self, state) -> dict:
         """{param: {stat: tensor}} on the state's device."""
-        from ..fault import mapping as fault_mapping
         from ..fault import packed as fault_packed
         if "life_q" in state:
             state = fault_packed.unpacked_view(state, self.pack_spec)
         lead = 1 if self.stacked else 0
-        life, stuck = state["lifetimes"], state["stuck"]
-        return {name: fault_mapping.per_tile_health(
-                    life[name], stuck[name], self.tiles, LIFE_EDGES,
-                    life[name].dim() - lead)
-                for name in sorted(life)}
+        ndims = {}
+        for group in state.values():
+            for k, v in group.items():
+                ndims.setdefault(k, v.dim() - lead)
+        return self.stack.health(state, state.get("lifetimes", {}),
+                                 state.get("stuck", {}),
+                                 {"life": LIFE_EDGES, "age": AGE_EDGES},
+                                 ndims)
 
     def __call__(self, state) -> dict:
         from ..fault import mapping as fault_mapping
         from . import counters
         stats = counters.to_host(self.stats(state))
         lead = 1 if self.stacked else 0
-        groups = state.get("life_q", state.get("lifetimes", {}))
+        shapes = {}
+        for group, leaves in state.items():
+            if group == "stuck_bits":
+                continue        # four cells a byte; life_q covers them
+            for k, v in leaves.items():
+                shapes.setdefault(k, tuple(v.shape[lead:]))
         out = {}
         for name, st in stats.items():
-            shape = tuple(groups[name].shape[lead:])
-            grid, _, cells = fault_mapping.health_tiles(shape, self.tiles)
+            grid, _, cells = fault_mapping.health_tiles(shapes[name],
+                                                        self.stack.tiles)
             entry = {"grid": [int(grid[0]), int(grid[1])],
                      "cells": [int(c) for c in cells]}
             entry.update(st)

@@ -27,6 +27,10 @@ whole LMDB lives on the device and step t gathers records
 (t*B + arange(B)) % N there, the host cursor's order; losses stay on
 the device until a chunk of `chunk` iterations ends.
 
+The solver's fault-process stack carries over: every lane draws its
+state through it (process 0 on the config's key, process i on the key
+folded with i), and the checkpoint pins its canonical spec (v5).
+
 The solver's tile spec carries over: every lane draws each crossbar
 tile on its own, and a tiled layer's read is one launch of kernel B2t
 (InnerProduct, premat conv) or B3 (`conv_im2col="implicit"`) over all
@@ -187,6 +191,7 @@ from ..fault import fused as fault_fused
 from ..fault import genetic_state
 from ..fault import hw_aware
 from ..fault import packed as fault_packed
+from ..fault.processes import DEFAULT_PROCESS
 from ..observe import counters as obs_counters
 from ..ops import pool_backward
 from ..solver import solver as solver_mod
@@ -194,7 +199,6 @@ from ..solver.solver import stack_batches
 
 SWEEP_ENGINES = ("auto", "cuda", "torch")
 CHECKPOINT_VERSION = 6  # the reference's; v1-v5 restore as it upgrades them
-LEGACY_PROCESS = "endurance_stuck_at"   # the port's only fault process
 LEGACY_TILES = "1x1"    # the mapping of a checkpoint older than v6
 SWEEP_FOLD = 0xFA117    # the reference's fold of the solver key for the draw
 # constructor options of the reference runner this slice does not port,
@@ -456,9 +460,12 @@ class SweepRunner:
         shapes = {k: tuple(flat[k].shape) for k in solver._fault_keys}
         # the reference's sweep draw: the solver key folded with 0xFA117,
         # split over the C configs
+        # through the solver's fault-process stack, whose tile spec each
+        # draw follows
+        stack = solver.fault_process
         state = fault_engine.stack_fault_states(
             prng.fold_in(solver._key, SWEEP_FOLD), shapes, pattern, self.n,
-            means=means, stds=stds, tiles=solver.tile_spec,
+            means=means, stds=stds, process=stack, tiles=solver.tile_spec,
             device=self.device)
         if "remap_slots" in solver.fault_state:
             # tracked remapping: every lane starts at the solver's map
@@ -467,9 +474,16 @@ class SweepRunner:
                 for g, v in solver.fault_state["remap_slots"].items()}
         self._pack_spec = None
         if packed_state:
-            # counter dtype sized from every configured (mean, std)
+            if not stack.supports_packed:
+                raise ValueError(
+                    "packed_state=True is not supported by fault "
+                    f"process(es) {stack.unpackable()} of the configured "
+                    f"stack {stack.canonical()!r} (no lifetime counters "
+                    "to bank); build with packed_state=False")
+            # counter dtype sized from every configured (mean, std); the
+            # quantum is the stack's (read_disturb: its reads a step)
             self._pack_spec = fault_packed.make_pack_spec(
-                state, solver.fail_decrement,
+                state, stack.write_quantum(solver.fail_decrement),
                 means=[float(pattern.mean)] if means is None else means,
                 stds=[float(pattern.std)] if stds is None else stds)
             state = fault_packed.pack_state(state, self._pack_spec,
@@ -1122,13 +1136,14 @@ class SweepRunner:
         from ..observe import health as obs_health
         from ..observe import sink as obs_sink
         solver = self.solver
+        stack = solver.fault_process
         if self._health_census is None:
             self._health_census = obs_health.CensusProgram(
-                solver.tile_spec, stacked=True, pack_spec=self._pack_spec)
+                stack, stacked=True, pack_spec=self._pack_spec)
         rec = obs_sink.make_health_record(
             self.iter, self._health_census(self.fault_states),
-            process=fault_engine.PROCESS, every=every,
-            decrement=solver.fail_decrement,
+            process=stack.canonical(), every=every,
+            decrement=stack.write_quantum(solver.fail_decrement),
             life_edges=obs_health.LIFE_EDGES,
             age_edges=obs_health.AGE_EDGES,
             tiles=(None if solver.tile_spec.is_default
@@ -1164,7 +1179,7 @@ class SweepRunner:
         st = self.setup
         st.bytes_per_step = self.bytes_per_step_est()
         st.fault_format = "packed" if self._pack_spec is not None else "f32"
-        st.fault_model = {"spec": fault_engine.PROCESS}
+        st.fault_model = self.solver.fault_spec.to_model()
         st.engine = self.engine
         st.conv_im2col = self.conv_im2col_resolved
         st.conv_im2col_reason = self.conv_im2col_reason
@@ -1326,6 +1341,9 @@ class SweepRunner:
         product with the reciprocal)."""
         lives = self.fault_states.get("life_q",
                                       self.fault_states.get("lifetimes"))
+        if not lives:
+            # a decay-only stack has no broken cells
+            return np.zeros(self.n, np.float64)
         broken = sum((v <= 0).reshape(self.n, -1).sum(1)
                      for v in lives.values())
         total = sum(v[0].numel() for v in lives.values())
@@ -1570,9 +1588,10 @@ class SweepRunner:
         mean, std = self._cfg_mean_std(cfg)
         key = prng.fold_in(prng.fold_in(prng.fold_in(s._key, SWEEP_FOLD),
                                         cfg), attempt)
-        st = fault_engine.draw_rescaled_state(
+        # through the stack (its tile spec pinned at build)
+        st = s.fault_process.draw_rescaled(
             key, shapes, s.param.failure_pattern, mean, std,
-            tiles=s.tile_spec, device=self.device)
+            device=self.device)
         if "remap_slots" in s.fault_state:
             # tracked remapping restarts at the identity map
             st["remap_slots"] = s.fault_state["remap_slots"]
@@ -1931,9 +1950,9 @@ class SweepRunner:
         self.quarantine = arrays["quarantine"]
 
     def _process_canonical(self) -> str:
-        """The fault process the runner trains under (the v5 pin): the
-        port has the reference's endurance process alone."""
-        return LEGACY_PROCESS
+        """The canonical fault-process spec the runner trains under (the
+        v5 pin `restore` compares)."""
+        return self.solver.fault_spec.canonical()
 
     def _tile_canonical(self) -> str:
         """The tile mapping the runner trains under (the v6 pin)."""
@@ -2095,12 +2114,16 @@ class SweepRunner:
             raise ValueError(
                 f"checkpoint {path} holds {meta['n_configs']} configs but "
                 f"this runner was built with {self.n}")
-        ck_proc = meta.get("fault_process", LEGACY_PROCESS)
-        if str(ck_proc) != self._process_canonical():
+        # the v5 pin: a checkpoint without one (v4 and older) is the
+        # endurance default's and restores into an endurance runner alone
+        ck_proc = meta.get("fault_process", DEFAULT_PROCESS)
+        my_proc = self._process_canonical()
+        if str(ck_proc) != my_proc:
             raise ValueError(
                 f"checkpoint {path} was trained under fault process "
-                f"{ck_proc!r} but this runner runs "
-                f"{self._process_canonical()!r}; resume with the same "
+                f"{ck_proc!r} but this runner runs {my_proc!r}; "
+                "restoring across fault physics would replay the wrong "
+                "transition timeline — resume with the same "
                 "fault_process spec the checkpoint was written under")
         ck_tiles, my_tiles = meta.get("tile_spec", LEGACY_TILES), \
             self._tile_canonical()

@@ -19,6 +19,13 @@ through `quantize_ste`/`perturb_weight`; with packed banks and the
 fused epilogue, ApplyUpdate+Fail of every fault leaf is kernel B1, one
 launch a step for all of them (`fused_tail`).
 
+The Fail phase runs the solver's fault-process stack
+(`Solver(fault_process=spec)`, fault/processes/; default
+endurance_stuck_at): each process in its order, or with the fused
+epilogue kernel B1 in the stack's mode where one process fuses
+("write", "always" or "never"); a stack that cannot fuse runs unfused
+and `step.fused_epilogue_reason` says why.
+
 `failure_pattern.conv_also` makes Convolution params fault targets too.
 A tile spec (`Solver(tile_spec=)`, else `rram_forward.tiles`; see
 fault/mapping.py) draws every crossbar tile's faults on its own and
@@ -90,6 +97,7 @@ dtype.
 """
 from __future__ import annotations
 
+import functools
 import os
 import sys
 import time
@@ -105,11 +113,12 @@ from ..device import resolve_device
 from ..fault import engine as fault_engine
 from ..fault import packed as fault_packed
 from ..fault import strategies as fault_strategies
-from ..fault.fused import (fused_update_fail_leaves,
+from ..fault.fused import (fused_tail, fused_update_fail_leaves,
                            fused_update_fail_leaves_plain)
 from ..fault.hw_aware import CONV_OPERANDS, perturb_weight, quantize_ste
 from ..fault import mapping as fault_mapping
 from ..fault.mapping import TileSpec, conv_geom
+from ..fault.processes import DEFAULT_PROCESS, FaultSpec
 from ..net.builder import Net
 from ..observe import counters as obs_counters
 from ..utils.io import (array_to_blob, blob_to_array, read_net_param,
@@ -150,20 +159,6 @@ class _IntervalClock:
 
     def elapsed(self, now: float) -> float:
         return now - self.t0 - self.excl
-
-
-def fused_tail(fused_fn, keys, data, upd, fault_state):
-    """The step's fused ApplyUpdate+Fail: `fused_fn` (the group wrapper
-    of kernel B1, or its plain version) called once on the fault leaves
-    `keys` of `data` (pre-update values), `upd` and the packed banks.
-    Returns (data with those leaves replaced, fault_state with the new
-    counters); the dicts passed in are not changed."""
-    new_d, new_q = fused_fn([data[k] for k in keys], [upd[k] for k in keys],
-                            [fault_state["life_q"][k] for k in keys],
-                            [fault_state["stuck_bits"][k] for k in keys])
-    return ({**data, **dict(zip(keys, new_d))},
-            {**fault_state,
-             "life_q": {**fault_state["life_q"], **dict(zip(keys, new_q))}})
 
 
 def clip_gradients(grads: Dict[str, torch.Tensor], clip: float,
@@ -355,7 +350,7 @@ class Solver:
                  fail_decrement: Optional[float] = None,
                  hw_engine: str = "auto", dtype_policy=None,
                  fault_format: str = "f32", fused_epilogue=None,
-                 tile_spec=None, conv_im2col=None):
+                 tile_spec=None, conv_im2col=None, fault_process=None):
         if isinstance(param, str):
             param = read_solver_param(param)
         self.param = param
@@ -426,14 +421,28 @@ class Solver:
             fault_engine.param_key(refs[i].layer_name, refs[i].slot)
             for i in self.net.fc_params_ids}
         self.fault_state = None
+        # the fault-process stack (fault/processes/): a spec string
+        # ("endurance_stuck_at", the default, or e.g.
+        # "endurance_stuck_at+conductance_drift:nu=0.2") or a FaultSpec;
+        # the stack owns the fault state's groups and the Fail transform
+        self.fault_spec = FaultSpec.parse(fault_process)
+        self.fault_process = None
         if (param.HasField("failure_pattern") and self._fault_keys
                 and pattern.type == "gaussian"):
+            self.fault_process = self.fault_spec.build(tiles=self.tile_spec)
             self._key, k_fault = prng.split(self._key)
             flat = self._flat(self.params)
             shapes = {k: tuple(flat[k].shape) for k in self._fault_keys}
-            self.fault_state = fault_engine.init_fault_state(
-                k_fault, shapes, pattern, tiles=self.tile_spec,
-                device=self.device)
+            self.fault_state = self.fault_process.init_state(
+                k_fault, shapes, pattern, device=self.device)
+        elif self.fault_spec.canonical() != DEFAULT_PROCESS:
+            # fault-free training under a process the caller asked for
+            # would report physics that did not run
+            raise ValueError(
+                f"fault_process {self.fault_spec.canonical()!r} is "
+                "configured but no fault engine is active — it needs "
+                "failure_pattern { type: 'gaussian' } and at least one "
+                "fault-target layer")
         self._check_tile_coverage()
         self.fc_pairs = self._fc_pairs()
         flat0 = self._flat(self.params)
@@ -441,6 +450,17 @@ class Solver:
         self.strategies = fault_strategies.build_strategies(
             param, self.fc_pairs, prune_net_loader=self._load_prune_net,
             hidden_sizes=hidden_sizes)
+        if (self.fault_process is not None
+                and not self.fault_process.has_lifetimes
+                and (self.strategies.prune_orders is not None
+                     or self.strategies.genetic is not None)):
+            # the remapping and genetic strategies read the lifetimes and
+            # stuck values (strategy.cpp:36-45)
+            raise ValueError(
+                "the remap/genetic failure strategies read the "
+                "lifetimes/stuck state of a clamp-family fault "
+                "process, but the configured stack "
+                f"{self.fault_spec.canonical()!r} has none")
         for on, what in ((self.strategies.remap_tracked,
                           "remapping with track_identity"),
                          (self.strategies.genetic, "the genetic strategy")):
@@ -465,6 +485,15 @@ class Solver:
                 param.rram_forward.adc_bits == 1:
             raise ValueError("rram_forward.adc_bits = 1 gives a symmetric "
                              "quantizer zero levels; use adc_bits >= 2")
+        if (param.HasField("rram_forward")
+                and (param.rram_forward.sigma or param.rram_forward.adc_bits)
+                and self.fault_process is not None
+                and not self.fault_process.has_lifetimes):
+            raise ValueError(
+                "rram_forward reads the broken/stuck masks of a "
+                "clamp-family fault process (endurance_stuck_at, "
+                "read_disturb, permanent_fault_map), but the configured "
+                f"stack {self.fault_spec.canonical()!r} has none")
 
         self.custom_train_feed = train_feed is not None
         self.train_feed = train_feed or build_feed(self.net)
@@ -473,8 +502,18 @@ class Solver:
         self._lr_fn = learning_rate_fn(param)
         self.pack_spec = None
         if fault_format == "packed" and self.fault_state is not None:
+            stack = self.fault_process
+            if not stack.supports_packed:
+                raise ValueError(
+                    "fault_format='packed' is not supported by fault "
+                    f"process(es) {stack.unpackable()} of the configured "
+                    f"stack {stack.canonical()!r} (no lifetime counters "
+                    "to bank); build with fault_format='f32'")
+            # the counters' quantum is the stack's (read_disturb: its
+            # reads a step)
             self.pack_spec = fault_packed.make_pack_spec(
-                self.fault_state, self.fail_decrement, pattern=pattern)
+                self.fault_state, stack.write_quantum(self.fail_decrement),
+                pattern=pattern)
             self.fault_state = fault_packed.pack_state(self.fault_state,
                                                        self.pack_spec)
         # telemetry (enable_metrics / enable_health)
@@ -678,6 +717,11 @@ class Solver:
         engine = hw_engine if hw_engine != "auto" else (
             "cuda" if self.device.type == "cuda" else "torch")
         has_fault = self.fault_state is not None
+        # the fault-process stack runs Fail; a fault state installed
+        # without one steps under the solver's spec (the reference's rule)
+        process = self.fault_process
+        if process is None and has_fault:
+            process = self.fault_spec.build(tiles=self.tile_spec)
         q_bits = DTYPE_POLICY_BITS[dtype_policy]
         if q_bits and not has_fault:
             raise ValueError("dtype_policy quantizes the fault-target "
@@ -713,13 +757,19 @@ class Solver:
         elif not packed_on:
             fused_on, fused_reason = False, (
                 "needs the packed fault banks (fault_format='packed')")
+        elif not process.supports_fused_epilogue:
+            fused_on, fused_reason = False, \
+                process.fused_unsupported_reason()
         else:
             fused_on = True
         if fused_epilogue and not fused_on:
             raise ValueError(f"fused_epilogue=True cannot engage: "
                              f"{fused_reason}")
-        fused_fn = (fused_update_fail_leaves if use_kernel
-                    else fused_update_fail_leaves_plain)
+        # kernel B1 (or its plain version) in the stack's mode
+        fused_fn = functools.partial(
+            fused_update_fail_leaves if use_kernel
+            else fused_update_fail_leaves_plain,
+            mode=process.fused_mode if fused_on else "write")
         metrics_on = (self._metrics_enabled if with_metrics is None
                       else bool(with_metrics))
         debug_on = (bool(param.debug_info) or self._watchdog is not None
@@ -772,7 +822,8 @@ class Solver:
                 return {k: fault_packed.unpack_lifetimes(
                             q, pack_spec["decrement"])
                         for k, q in fault_state["life_q"].items()}
-            return fault_state["lifetimes"]
+            # a decay-only stack carries no lifetimes: {} (no census)
+            return fault_state.get("lifetimes", {})
 
         def apply_strategy(data, upd, fault_state, it, do_remap, rate,
                            remap_mask=None):
@@ -791,8 +842,8 @@ class Solver:
                 if metrics_on:
                     saved = obs_counters.write_traffic_saved(
                         before, after, fault_engine.EPSILON32,
-                        lifetimes=life_view(fault_state) if has_fault
-                        else None, lanes=lanes)
+                        lifetimes=(life_view(fault_state) or None)
+                        if has_fault else None, lanes=lanes)
                 upd = {**upd, **after}
             if remap_on and bool(np.any(self._remap_due_at(it)
                                         if do_remap is None else do_remap)):
@@ -843,13 +894,26 @@ class Solver:
             if not has_fault:
                 return metrics
             lv = life_view(fault_state)
-            totals, per = fault_engine.fault_counters(prev_life, lv, lanes)
+            if lv:
+                totals, per = fault_engine.fault_counters(prev_life, lv,
+                                                          lanes)
+            else:
+                # no lifetimes (a decay-only stack): the census of none
+                zero = torch.zeros(shape, dtype=torch.int64, device=dev)
+                totals, per = {
+                    "broken_total": zero, "newly_expired": zero,
+                    "life_min": torch.full(shape, float("inf"),
+                                           device=dev),
+                    "life_mean": torch.zeros(shape, device=dev)}, {}
             totals["writes_saved"] = (
                 saved if saved is not None
                 else torch.zeros(shape, dtype=torch.int64, device=dev))
-            metrics["fault"] = {**totals, "per_param": per,
-                                "per_process": {fault_engine.PROCESS: {
-                                    "broken": totals["broken_total"]}}}
+            metrics["fault"] = {**totals, "per_param": per}
+            # each process's census columns (broken, drifted) under its
+            # name
+            pp = process.counters(fault_state, lv, lanes)
+            if pp:
+                metrics["fault"]["per_process"] = pp
             if not tspec.is_default:
                 pt = {}
                 for k in fault_keys:
@@ -1065,11 +1129,12 @@ class Solver:
                 else:
                     fp = {k: data[k] for k in fault_keys}
                     fd = {k: upd[k] for k in fault_keys}
+                    # the stack's processes in order (decay, then clamp)
                     if packed_on:
-                        fp, fault_state = fault_packed.fail_packed(
+                        fp, fault_state = process.fail_packed(
                             fp, fault_state, fd, pack_spec)
                     else:
-                        fp, fault_state = fault_engine.fail(
+                        fp, fault_state = process.fail(
                             fp, fault_state, fd, decrement)
                     data.update(fp)
             out = (self._unflat(data, params), new_hist, fault_state, loss,
@@ -1106,6 +1171,7 @@ class Solver:
         step.hw_engine_resolved = engine if crossbar_on else None
         step.fused_epilogue_resolved = fused_on
         step.fused_epilogue_reason = None if fused_on else fused_reason
+        step.fused_mode = process.fused_mode if fused_on else None
         step.conv_im2col_requested = conv_mode
         step.conv_im2col_resolved = conv_resolved
         step.conv_im2col_reason = conv_reason
@@ -1368,13 +1434,14 @@ class Solver:
         self._last_health_tick = tick
         from ..observe import health as obs_health
         from ..observe import sink as obs_sink
+        stack = self.fault_process
         if self._health_census is None:
             self._health_census = obs_health.CensusProgram(
-                self.tile_spec, stacked=False, pack_spec=self.pack_spec)
+                stack, stacked=False, pack_spec=self.pack_spec)
         params = self._health_census(self.fault_state)
         rec = obs_sink.make_health_record(
-            self.iter, params, process=fault_engine.PROCESS, every=every,
-            decrement=self.fail_decrement,
+            self.iter, params, process=stack.canonical(), every=every,
+            decrement=stack.write_quantum(self.fail_decrement),
             life_edges=obs_health.LIFE_EDGES,
             age_edges=obs_health.AGE_EDGES,
             tiles=(None if self.tile_spec.is_default
@@ -1669,7 +1736,7 @@ class Solver:
                 self.iter, fault_file,
                 "snapshot predates fault-state capture; fault state "
                 "re-drawn from the failure_pattern (active fault "
-                f"process: {fault_engine.PROCESS})",
+                f"process: {self.fault_spec.canonical()})",
                 tiles=(None if self.tile_spec.is_default
                        else self.tile_spec.canonical()))
             print("WARNING: " + obs_sink.fault_redraw_line(rec),
@@ -1689,15 +1756,17 @@ class Solver:
             raise ValueError(
                 f"fault state in {fault_file} carries state groups "
                 f"{sorted(saved_groups)} but this solver's fault process "
-                f"'endurance_stuck_at' expects {sorted(live_groups)}; "
-                "resume with the same fault_process the snapshot was "
-                "taken under")
+                f"{self.fault_spec.canonical()!r} expects "
+                f"{sorted(live_groups)}; resume with the same "
+                "fault_process the snapshot was taken under")
         saved = set(restored.get("lifetimes", {}))
-        if saved != set(self._fault_keys):
+        live_keys = (set(self._fault_keys) if "lifetimes" in live_groups
+                     else set())
+        if saved != live_keys:
             raise ValueError(
                 f"fault state in {fault_file} covers params "
                 f"{sorted(saved)} but this solver's fault targets are "
-                f"{sorted(self._fault_keys)}; resume with the same "
+                f"{sorted(live_keys)}; resume with the same "
                 "failure_pattern (including conv_also) the snapshot was "
                 "taken under")
         if self.strategies.remap_tracked and "remap_slots" not in restored:

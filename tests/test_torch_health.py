@@ -25,6 +25,8 @@ from rram_caffe_simulation_tpu.fault.processes import FaultSpec
 from rram_caffe_simulation_tpu.observe import health as jhealth
 from rram_caffe_simulation_tpu_torch.fault import mapping as tmapping
 from rram_caffe_simulation_tpu_torch.fault import packed as tpacked
+from rram_caffe_simulation_tpu_torch.fault.processes import \
+    FaultSpec as TFaultSpec
 from rram_caffe_simulation_tpu_torch.observe import counters as tcounters
 from rram_caffe_simulation_tpu_torch.observe import health as thealth
 
@@ -144,7 +146,9 @@ def _census_pair(tiles, packed, stacked):
         state = jax.tree.map(torch.from_numpy, state)
     want = jhealth.CensusProgram(stack, stacked=stacked, pack_spec=spec)(
         jstate)
-    got = thealth.CensusProgram(tt, stacked=stacked, pack_spec=spec)(state)
+    got = thealth.CensusProgram(
+        TFaultSpec.parse("endurance_stuck_at").build(tiles=tt),
+        stacked=stacked, pack_spec=spec)(state)
     return got, want
 
 

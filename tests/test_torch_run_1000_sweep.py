@@ -29,8 +29,10 @@ step() calls a group).
   config 1 failed and diagnosed (scripts/check_lane_reclamation.py's
   contract), the healthy configs' losses and fault rows those of the
   clean run.
-- Refusals by name: the multi-process flags, a non-legacy `--process`, a
-  conflicting manifest pin on `--resume`; `--device cuda` without a card.
+- Another fault process: `--process read_disturb` runs, pins the spec,
+  and its group equals the reference runner under the same stack.
+- Refusals by name: the multi-process flags, a conflicting manifest pin
+  on `--resume`; `--device cuda` without a card.
 """
 import contextlib
 import importlib.util
@@ -162,10 +164,10 @@ def reference(inputs):
     return {"dir": str(d), "code": code, "rec": rec}
 
 
-def ref_group(text, gi, n_cfg, path):
+def ref_group(text, gi, n_cfg, path, process=None):
     """Group gi as the reference driver's build_runner builds it, at
-    float32; its report after the driver's step loop, its fault states
-    saved to `path`."""
+    float32, under the fault-process spec `process`; its report after
+    the driver's step loop, its fault states saved to `path`."""
     sp = pb.SolverParameter()
     text_format.Parse(text, sp)
     sp.failure_pattern.type = "gaussian"
@@ -174,7 +176,8 @@ def ref_group(text, gi, n_cfg, path):
     sp.random_seed = 7 + gi
     sp.display = 0
     sp.ClearField("test_interval")
-    r = JSweep(JSolver(sp), n_configs=n_cfg, config_block=0,
+    r = JSweep(JSolver(sp, fault_process=process), n_configs=n_cfg,
+               config_block=0,
                precompile_chunk=CHUNK, pipeline_depth=2, engine="jax")
     r.enable_self_healing(budget=ITERS, max_retries=1, backoff_iters=0)
     while not r.healing_complete():
@@ -353,9 +356,31 @@ def test_multiprocess_flags_raise_by_name(inputs, tmp_path, flag):
 
 
 def test_other_process_raises_by_name(inputs, tmp_path):
-    with pytest.raises(NotImplementedError, match="read_disturb.*A10"):
-        run_port(point(inputs["solver"], tmp_path / "r", 4,
-                       "--process", "read_disturb"))
+    """Refused by name before the fault-process registry was ported; now
+    `--process read_disturb` runs: exit 0, the spec pinned in the
+    manifest and the record, group 0's journal loss and fault npz those
+    of the reference runner under the same stack."""
+    d = tmp_path / "r"
+    code, rec, _ = run_port(point(inputs["solver"], d, 4,
+                                  "--process", "read_disturb"))
+    assert code == 0 and rec["process"] == "read_disturb"
+    with open(os.path.join(d, "manifest.json")) as f:
+        assert json.load(f)["process"] == "read_disturb"
+    recs = [r for r in read_jsonl(os.path.join(d, "journal.jsonl"))
+            if r["event"] == "group"]
+    path = tmp_path / "ref_0.npz"
+    with jax.enable_x64(False):
+        rep = ref_group(inputs["text"], 0, 4, path, process="read_disturb")
+    np.testing.assert_allclose(
+        recs[0]["loss"], [rep["completed"][c]["loss"] for c in range(4)],
+        rtol=REL)
+    with np.load(path) as zr, np.load(os.path.join(
+            d, "group_0_faults.npz")) as zp:
+        assert sorted(zr.files) == sorted(zp.files)
+        for k in zr.files:
+            assert zp[k].tobytes() == zr[k].tobytes(), k
+    # cells broke under the read stress
+    assert recs[0]["broken_mean"] > 0
 
 
 def test_resume_refuses_another_process_pin(inputs, clean, capsys):

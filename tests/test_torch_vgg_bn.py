@@ -214,8 +214,9 @@ def lockstep(monkeypatch, text, steps):
     updates = []
     orig = tsolver.fused_update_fail_leaves
     monkeypatch.setattr(tsolver, "fused_update_fail_leaves",
-                        lambda d, u, q, st: (updates.append(u),
-                                             orig(d, u, q, st))[1])
+                        lambda d, u, q, st, **kw: (updates.append(u),
+                                                   orig(d, u, q, st,
+                                                        **kw))[1])
     ts = TSolver(tproto.parse(text, "SolverParameter"), device="cpu",
                  hw_engine="cuda", dtype_policy="ternary",
                  fault_format="packed", fused_epilogue=True)
