@@ -232,7 +232,8 @@ prints no "ok" line):
    plain path's noise being B2's Philox twin; scale_factor bit for bit;
    life_q identical except on cells of a bias that feeds a BatchNorm
    whose write rests on rounding, each checked and counted), B2 3 and B1
-   1 a step; the step time in turns with the plain path, the device's
+   1 a step; the step time in turns with the plain path (10 steps each),
+   the device's
    busy time and top kernels, the BatchNorm and Scale layers' share,
    peak memory, test_all over 5 test batches (global statistics; no
    param moves) and two runs from one seed bit-identical; (c)
@@ -250,7 +251,7 @@ prints no "ok" line):
    ADC: every read's input and output equal, losses equal, banks bit
    for bit;
 17. the sweep's pipeline and the telemetry plane: (a) phase 7's sweep
-   (C = 512, chunk 10, metrics to a JsonlSink, tracing on) at
+   (C = 512, chunk 5, metrics to a JsonlSink, tracing on) at
    pipeline_depth None, 0 and 2 from one seed, 2 chunks each: losses,
    outputs, params, history, banks and records (timing aside) identical
    at every depth, configs x steps per second and host_blocked_seconds
@@ -342,14 +343,14 @@ prints no "ok" line):
    examples/gaussian_failure/run_1000_sweep.py, in this process, over
    CIFAR-10-quick at full width from the in-repo LMDB, 1024 configs in
    two groups of 512, N(1e8, 3e7), ternary, packed banks, engine "cuda",
-   depth 2, no block, RRAM_POOL_BWD=cuda, 15 iterations in chunks of 5,
+   depth 2, no block, RRAM_POOL_BWD=cuda, 10 iterations in chunks of 5,
    a run directory: (a) group 1 built by the GroupPrefetcher while group
    0 runs (each group's runner construction, build and wait seconds,
    setup_overlap_seconds, host_blocked_seconds, decode and compile
    seconds, configs x steps per second and the device step times, those
    enqueued while the build ran apart; peak memory, wall time, B2 2, B1
    1, B4 1 a step); (b) the same with --no-overlap; (c) the same with
-   --checkpoint-every 10 and SIGTERM once group 1 has stepped: exit 75
+   --checkpoint-every 5 and SIGTERM once group 1 has stepped: exit 75
    with group 1's checkpoint journaled, then --resume to exit 0. The
    journals' group records, every metrics stream, sweep_report.json and
    every group_*_faults.npz array of (b) and of the resumed (c) equal
@@ -366,7 +367,7 @@ prints no "ok" line):
    the drift stack's draw and one fail on a stored state, card against
    CPU, bit for bit; (c) phase 7's sweep at C = 512 under read_disturb,
    permanent_fault_map and the drift stack (RRAM_POOL_BWD=cuda): a warm
-   step in lockstep with the plain engine (fusing stacks), then 5 timed
+   step in lockstep with the plain engine (fusing stacks), then 3 timed
    steps, configs x steps per second and the step median beside phase
    7's, B2 2, B1 1 in the stack's mode (0 unfused) and B4 1 a step, the
    drift pass's device time and its share of the step; then B1 in modes
@@ -375,7 +376,25 @@ prints no "ok" line):
    run_1000_sweep --process read_disturb (one group of 64, 10
    iterations: exit 0, the manifest pins the canonical spec, B1 "always"
    once a step) and run_codesign over 2 processes x 2 adc_bits x 2
-   lanes (exit 0 or 65, the report written, its front printed).
+   lanes (exit 0 or 65, the report written, its front printed);
+23. the experiment harness (the port's examples/gaussian_failure/
+   run_gaussian_exp.py, run_sweeps.py and prune_order.py), in this
+   process from a temporary working directory, through the VGG11-BN
+   template with absolute paths and snapshot_format BINARYPROTO, at
+   phase 16's N(4000, 1200), batch 100: (a) one config with -t 0.01 and
+   --hw-sigma 0.05 for 20 iterations (exit 0, the log opening with the
+   solver's text and holding Iteration lines, the last iteration's
+   .caffemodel, .solverstate and .faultstate, B2a 3 a step and no B1
+   (f32 banks), the step time); (b) --sweep-means 4000,8000,1e8 at sigma
+   0.05 with RRAM_POOL_BWD=cuda (one line a config, the broken share not
+   rising with the mean, above 0 at 4000 and 0 at 1e8, B2b 3 and B4 5 a
+   step); (c) run_sweeps over prob 5,20 and threshold 0.01,1e9, 10
+   iterations a config (the table; broken > 0 on the prob rows, 0 at
+   threshold 1e9); (d) prune_order on (a)'s model at 0.6 (two rows of
+   1024), then the runner with -r <order>,5,5 for 10 iterations (the
+   remapping applied); (e) whether h5py imports: if not, the template as
+   it is (HDF5) refused by name in a process of its own, non-zero exit,
+   no Iteration line; if so, its HDF5 snapshot written and restored.
 
 Then a JSON line of the step's numbers, a JSON line of the sweep's, one
 JSON line of per-kernel numbers (per training step, summed over the
@@ -394,7 +413,8 @@ line "vgg11" of phase 16's (printed when it ends, and again), a JSON
 line "telemetry" of phase 17's, a JSON line "blocks" of phase 18's, a
 JSON line "healing" of phase 19's, a JSON line "virtual_time" of phase
 20's, a JSON line "driver" of phase 21's, a JSON line "processes" of
-phase 22's, the card's name and power limit,
+phase 22's, a JSON line "harness" of phase 23's, the card's name and
+power limit,
 and last {"ok": true, "device":
 {...}}.
 B2t has a row at each path's shapes: C = 1 (the tiled slice) and C
@@ -405,6 +425,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import io
 import json
 import math
 import os
@@ -4161,7 +4182,8 @@ VGG_TEMPLATE = "models/cifar10_vgg11/cifar10_vgg11_template.prototxt"
 # breaks none
 VGG_LIFE = (4000.0, 1200.0)
 VGG_SIGMA = 0.05                 # rram_forward.sigma, as --hw-sigma arms it
-VGG_STEPS = 20                   # (b)'s lockstep steps, and its timed ones
+VGG_STEPS = 20                   # (b)'s lockstep steps
+VGG_TIMED_STEPS = 10             # (b)'s timed ones (20 before phase 23)
 VGG_STRATEGY_STEPS = 4           # each strategy's lockstep steps in (c)
 VGG_SWEEP_CONFIGS = (64, 32, 16)     # the largest that fits is taken
 VGG_SWEEP_STEPS = 5
@@ -4676,7 +4698,7 @@ def vgg_solver_part(device, gpu, tmp):
     ms = {"a": [], "p": []}
     launches = _untiled(B2=0, B1=0, B4=0)
     torch.cuda.reset_peak_memory_stats()
-    for _ in range(VGG_STEPS):
+    for _ in range(VGG_TIMED_STEPS):
         for key, x in (("a", a), ("p", p)):
             kernels.reset_launches()
             torch.cuda.synchronize()
@@ -4687,7 +4709,8 @@ def vgg_solver_part(device, gpu, tmp):
                 launches = {k: launches[k] + v
                             for k, v in _launches().items()}
     peak = torch.cuda.max_memory_allocated()
-    check(launches == _untiled(B2=3 * VGG_STEPS, B1=VGG_STEPS, B4=0),
+    check(launches == _untiled(B2=3 * VGG_TIMED_STEPS, B1=VGG_TIMED_STEPS,
+                               B4=0),
           f"the VGG11 Solver's steps launched {launches}")
     after = ({ln: [t.clone() for t in v] for ln, v in a.params.items()},
              {g: {k: v.clone() for k, v in tree.items()}
@@ -4701,7 +4724,7 @@ def vgg_solver_part(device, gpu, tmp):
     out["main_path_launches"] = launches
     out["timed"] = {
         "step_ms_quartiles": q["a"], "plain_step_ms_quartiles": q["p"],
-        "paired_diff_ms_median": paired, "n": VGG_STEPS - warm,
+        "paired_diff_ms_median": paired, "n": VGG_TIMED_STEPS - warm,
         "device_busy_ms": breakdown["device_busy_ms"],
         "feed_ms": breakdown["feed_ms"], "top": breakdown["top"],
         "bn_scale_ms": bn_ms,
@@ -4732,7 +4755,7 @@ def vgg_solver_part(device, gpu, tmp):
     out["test"] = {**scores, "test_iter": VGG_TEST_ITER, "ms": test_ms}
     # two runs from one seed: bit-identical after the timed steps
     b = vgg_solver(seed=2)
-    b.step(VGG_STEPS)
+    b.step(VGG_TIMED_STEPS)
     same = all(_same_bits(t, b.params[ln][i]) for ln, v in after[0].items()
                for i, t in enumerate(v)) and all(
         _same_bits(v, b.fault_state[g][k])
@@ -5066,6 +5089,7 @@ def phase_vgg(device, gpu):
 TELEMETRY_CHUNK = 10             # bench.py's chunk
 TELEMETRY_CHUNKS = 3             # chunks of (c)'s census run
 TELEMETRY_DEPTH_CHUNKS = 2       # chunks of each depth's run in (a)
+TELEMETRY_DEPTH_CHUNK = 5        # (a)'s chunk (bench.py's 10 before phase 23)
 TELEMETRY_SEED = 17
 SOLVER_METRIC_STEPS = 50         # (b)'s lockstep steps, display 10
 SOLVER_TIMED_STEPS = 20          # (b)'s timed steps each way, in turns
@@ -5224,7 +5248,7 @@ def telemetry_depths(tmp, gpu):
     from rram_caffe_simulation_tpu_torch import kernels
     from rram_caffe_simulation_tpu_torch.observe import sink as obs_sink
     from rram_caffe_simulation_tpu_torch.observe import spans as obs_spans
-    steps = TELEMETRY_CHUNK * TELEMETRY_DEPTH_CHUNKS
+    steps = TELEMETRY_DEPTH_CHUNK * TELEMETRY_DEPTH_CHUNKS
     C = SWEEP_CONFIGS
     runs, out, files = {}, {}, []
     for depth in (None, 0, 2):
@@ -5262,7 +5286,7 @@ def telemetry_depths(tmp, gpu):
         kernels.reset_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        losses, outputs = r.step(steps, chunk=TELEMETRY_CHUNK)
+        losses, outputs = r.step(steps, chunk=TELEMETRY_DEPTH_CHUNK)
         wall = time.perf_counter() - t0
         launches = _launches()
         check(launches == _untiled(B2=2 * steps, B1=steps, B4=steps),
@@ -5293,7 +5317,7 @@ def telemetry_depths(tmp, gpu):
         print(f"phase 17: (a) depth {depth}: "
               f"{out[str(depth)]['configs_steps_per_s']:.1f} configs*steps/s "
               f"({wall:.3f} s for {steps} steps at C = {C}, chunk "
-              f"{TELEMETRY_CHUNK}); host blocked "
+              f"{TELEMETRY_DEPTH_CHUNK}); host blocked "
               f"{r.pipeline.host_blocked_s:.6f} s, drain "
               f"{r.pipeline.drain_s:.6f} s; {gpu}", flush=True)
         del r
@@ -6791,9 +6815,9 @@ def phase_virtual_time(gpu, tiled_checks=None):
 
 DRIVER_CONFIGS = 1024           # phase 21: two resident groups
 DRIVER_GROUP = 512              # phase 7's sweep width
-DRIVER_ITERS = 15               # 20 before phase 22 (its time)
+DRIVER_ITERS = 10               # 20 before phase 22, 15 before phase 23
 DRIVER_CHUNK = 5
-DRIVER_CKPT_EVERY = 10          # (c): group 1 is preempted at iteration 10
+DRIVER_CKPT_EVERY = 5           # (c): group 1 is preempted at iteration 5
 DRIVER_DEVICE = "cuda"
 # the resume guard's (scripts/check_resume_equivalence.py) timing fields
 DRIVER_TIMING = ("wall_time", "step_latency_s", "iters_per_s",
@@ -7091,7 +7115,8 @@ PROCESS_STACKS = ("read_disturb", "read_disturb:reads_per_step=400",
 PROCESS_DRIFT = PROCESS_STACKS[-1]
 PROCESS_STEPS = 4              # (a)'s lockstep steps of each stack
 PROCESS_SWEEP_STACKS = (PROCESS_STACKS[0], PROCESS_STACKS[2], PROCESS_DRIFT)
-PROCESS_SWEEP_TIMED = 5        # (c)'s timed steps of each stack
+PROCESS_SWEEP_TIMED = 3        # (c)'s timed steps of each stack (5
+                               # before phase 23)
 PROCESS_DRIVER_CONFIGS = 64    # (d): run_1000_sweep's one group
 PROCESS_DRIVER_ITERS = 10
 CODESIGN_ITERS = 10            # (d): run_codesign's iterations a bucket
@@ -7486,6 +7511,370 @@ def processes_on_the_sweep(out, gpu, sweep7, tails):
               f"{wall:.1f} s; front {json.dumps(front)}", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 23: the experiment harness
+
+VGG_NET = "models/cifar10_vgg11/cifar10_vgg11_fc1024_bn_scale_msra_fc_also.prototxt"
+HARNESS_ITERS = 20                   # (a)'s and (b)'s iterations
+HARNESS_MEANS = (4000.0, 8000.0, 1e8)     # (b)'s --sweep-means
+HARNESS_PROBS = (5, 20)              # (c)'s prob grid
+HARNESS_THRESHOLDS = (0.01, 1e9)     # (c)'s threshold grid
+# (c)'s lifetimes: at N(4000, 1200) 0.04% of the cells are drawn at or
+# below 0, broken before any write, so no threshold could keep the
+# broken share at 0; at N(3000, 500) none is (6 sigma), and 15 writes
+# break 0.13% (lifetimes below 1500)
+HARNESS_GRID_LIFE = (3000.0, 500.0)
+HARNESS_GRID_ITERS = 15              # (c)'s iterations a config
+HARNESS_REMAP_ITERS = 10             # (d): remapping start 5, period 5
+HARNESS_PRUNE_RATIO = 0.6
+HARNESS_MODULE = f"{PKG}.examples.gaussian_failure.run_gaussian_exp"
+
+
+def harness_templates(tmp: Path) -> dict:
+    """The experiment template with absolute paths (its net, the net's
+    Data sources): as it is ("hdf5", its snapshot_format HDF5) and with
+    snapshot_format BINARYPROTO ("binary")."""
+    net = (REPO / VGG_NET).read_text().replace('"examples/',
+                                               f'"{REPO}/examples/')
+    (tmp / "vgg11.prototxt").write_text(net)
+    text = (REPO / VGG_TEMPLATE).read_text()
+    check(f'net: "{VGG_NET}"' in text and "snapshot_format: HDF5" in text,
+          "the experiment template changed: phase 23 rewrites its net "
+          "path and snapshot format")
+    text = text.replace(VGG_NET, str(tmp / "vgg11.prototxt"))
+    out = {"net": str(tmp / "vgg11.prototxt")}
+    for name, body in (("hdf5", text), ("binary", text.replace(
+            "snapshot_format: HDF5", "snapshot_format: BINARYPROTO"))):
+        (tmp / f"template_{name}.prototxt").write_text(body)
+        out[name] = str(tmp / f"template_{name}.prototxt")
+    return out
+
+
+@contextlib.contextmanager
+def harness_dir(path: Path):
+    """Run a driver from `path`, its solvers/ there too (the runner's
+    HERE); the working directory and HERE restored after."""
+    from rram_caffe_simulation_tpu_torch.examples.gaussian_failure import \
+        run_gaussian_exp
+    path.mkdir(parents=True, exist_ok=True)
+    cwd, here = os.getcwd(), run_gaussian_exp.HERE
+    os.chdir(path)
+    run_gaussian_exp.HERE = str(path)
+    try:
+        yield path
+    finally:
+        run_gaussian_exp.HERE = here
+        os.chdir(cwd)
+
+
+@contextlib.contextmanager
+def step_stamps(stamps: list):
+    """Record the host clock (after a device synchronize) at the start
+    of every Solver iteration (its batch fetch): the gaps are the steps'
+    wall times, the test before iteration 0 and the last snapshot
+    outside them."""
+    import torch
+    from rram_caffe_simulation_tpu_torch.solver import solver as solver_mod
+    real = solver_mod.Solver._next_batch
+
+    def spy(self):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        return real(self)
+    solver_mod.Solver._next_batch = spy
+    try:
+        yield
+    finally:
+        solver_mod.Solver._next_batch = real
+
+
+def run_harness(main, argv):
+    """(return value, stdout) of a driver's main(argv), its output
+    echoed."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        code = main(argv)
+    sys.stdout.write(buf.getvalue())
+    return code, buf.getvalue()
+
+
+def harness_one(tmp, templates, out):
+    """(a) one config with -t and --hw-sigma: the solver text and the
+    Iteration lines in the log, the last iteration's three snapshot
+    files, B2a 3 and B1 0 a step (f32 banks), the step time."""
+    from rram_caffe_simulation_tpu_torch import kernels
+    from rram_caffe_simulation_tpu_torch.examples.gaussian_failure import \
+        run_gaussian_exp
+    mean, std = VGG_LIFE
+    stamps = []
+    with harness_dir(tmp / "a") as d:
+        kernels.reset_launches()
+        with step_stamps(stamps):
+            code = run_gaussian_exp.main([
+                str(mean), str(std), "0", "-y", "--template",
+                templates["binary"], "--hw-sigma", str(VGG_SIGMA), "-t",
+                "0.01", "--max-iter", str(HARNESS_ITERS)])
+        launches = _launches()
+        snap = d / f"snapshot_{mean}_{std}_threshold_0.01"
+        log = (snap / "log").read_text()
+        solver_file = (d / "solvers" / f"solver_{mean}_{std}_threshold_0.01"
+                       ".prototxt")
+    check(code == 0, f"(a) run_gaussian_exp returned {code}")
+    check(log.startswith(solver_file.read_text())
+          and "test_interval: 500" in log,
+          "(a) the log does not open with the solver's text")
+    iteration_lines = [ln for ln in log.splitlines()
+                       if ln.startswith("Iteration ")]
+    check(any(", loss = " in ln for ln in iteration_lines),
+          f"(a) no Iteration loss line in the log: {iteration_lines}")
+    files = sorted(p.name for p in snap.iterdir())
+    last = [f"_iter_{HARNESS_ITERS}{ext}" for ext in
+            (".caffemodel", ".faultstate", ".solverstate")]
+    check(set(last) <= set(files), f"(a) snapshot files {files}")
+    check(launches == _untiled(B2=3 * HARNESS_ITERS, B1=0, B4=0),
+          f"(a) launches {launches} in {HARNESS_ITERS} steps, expected "
+          "B2a 3 a step (fc1-3) and no B1 (f32 banks)")
+    gaps = np.diff(stamps) * 1e3
+    check(len(stamps) == HARNESS_ITERS, f"(a) {len(stamps)} steps stamped")
+    q = [float(v) for v in np.percentile(gaps[2:], [25, 50, 75])]
+    out["a"] = {"iterations": HARNESS_ITERS, "launches": launches,
+                "b2_per_step": launches["B2"] / HARNESS_ITERS,
+                "step_ms_quartiles": q, "snapshot_files": files,
+                "iteration_lines": len(iteration_lines)}
+    print(f"phase 23: (a) run_gaussian_exp {mean} {std} 0 -t 0.01 "
+          f"--hw-sigma {VGG_SIGMA} --max-iter {HARNESS_ITERS}: exit 0, log "
+          f"with the solver text and {len(iteration_lines)} Iteration "
+          f"lines, {last} written; B2a {launches['B2'] / HARNESS_ITERS:g} "
+          f"a step, B1 0 (f32 banks); step median {q[1]:.3f} ms "
+          f"(quartiles {q[0]:.3f} / {q[2]:.3f}, host clock, synchronized)",
+          flush=True)
+    return snap / last[0]
+
+
+def harness_sweep(tmp, templates, out):
+    """(b) --sweep-means over HARNESS_MEANS (RRAM_POOL_BWD=cuda): one
+    line a config, the broken share not rising with the mean, above 0 at
+    the shortest, 0 at 1e8; B2b and B4 launches."""
+    import re
+    from rram_caffe_simulation_tpu_torch import kernels
+    from rram_caffe_simulation_tpu_torch.examples.gaussian_failure import \
+        run_gaussian_exp
+    mean, std = VGG_LIFE
+    means = ",".join(str(m) for m in HARNESS_MEANS)
+    with harness_dir(tmp / "b") as d:
+        kernels.reset_launches()
+        code = run_gaussian_exp.main([
+            str(mean), str(std), "0", "-y", "--template", templates["binary"],
+            "--hw-sigma", str(VGG_SIGMA), "--max-iter", str(HARNESS_ITERS),
+            "--sweep-means", means])
+        launches = _launches()
+        log = (d / f"snapshot_{mean}_{std}" / "log").read_text()
+    check(code == 0, f"(b) run_gaussian_exp --sweep-means returned {code}")
+    rows = re.findall(r"^config (\d+) \(mean=(\S+)\): Iteration (\d+), "
+                      r"loss = (\S+), broken = (\S+)$", log, re.M)
+    check([int(r[0]) for r in rows] == list(range(len(HARNESS_MEANS)))
+          and all(int(r[2]) == HARNESS_ITERS for r in rows),
+          f"(b) config lines {rows}")
+    broken = [float(r[4]) for r in rows]
+    check(all(a >= b for a, b in zip(broken, broken[1:]))
+          and broken[0] > 0 and broken[-1] == 0.0,
+          f"(b) broken shares {broken} over means {HARNESS_MEANS}")
+    check(all(math.isfinite(float(r[3])) for r in rows), f"(b) {rows}")
+    n = HARNESS_ITERS
+    check(launches == _untiled(B2=3 * n, B1=0, B4=5 * n),
+          f"(b) launches {launches} in {n} steps, expected B2b 3 (fc1-3) "
+          "and B4 5 (the five pools) a step")
+    out["b"] = {"means": list(HARNESS_MEANS), "broken": broken,
+                "losses": [float(r[3]) for r in rows], "launches": launches}
+    print(f"phase 23: (b) --sweep-means {means}, {n} iterations: exit 0; "
+          f"broken {broken}, losses {[float(r[3]) for r in rows]}; B2b "
+          f"{launches['B2'] / n:g} and B4 {launches['B4'] / n:g} a step",
+          flush=True)
+
+
+def harness_grids(tmp, templates, out):
+    """(c) run_sweeps over a prob grid and a threshold grid: the table,
+    broken > 0 on the prob rows, exactly 0 at threshold 1e9."""
+    from rram_caffe_simulation_tpu_torch.examples.gaussian_failure import \
+        run_sweeps
+    mean, std = HARNESS_GRID_LIFE
+    out["c"] = {}
+    for kind, values in (("prob", HARNESS_PROBS),
+                         ("threshold", HARNESS_THRESHOLDS)):
+        with harness_dir(tmp / "c"):
+            code, text = run_harness(run_sweeps.main, [
+                kind, str(mean), str(std), "--values",
+                ",".join(str(v) for v in values), "--max-iter",
+                str(HARNESS_GRID_ITERS), "--template", templates["binary"]])
+        check(code == 0, f"(c) run_sweeps {kind} returned {code}")
+        lines = text.splitlines()
+        head = next((i for i, ln in enumerate(lines)
+                     if ln.split()[:2] == [kind, "loss"]), None)
+        check(head is not None, f"(c) run_sweeps {kind}: no table")
+        table = [ln.split() for ln in lines[head + 1:head + 1 + len(values)]]
+        check(len(table) == len(values)
+              and all(math.isfinite(float(r[1])) for r in table),
+              f"(c) run_sweeps {kind} table {table}")
+        broken = [float(r[2]) for r in table]
+        if kind == "prob":
+            check(all(b > 0 for b in broken), f"(c) prob rows {table}")
+        else:
+            check(broken[values.index(1e9)] == 0.0,
+                  f"(c) threshold 1e9 row {table}")
+        out["c"][kind] = [{"value": r[0], "loss": float(r[1]),
+                           "broken": float(r[2])} for r in table]
+        print(f"phase 23: (c) run_sweeps {kind} {mean} {std} {values}, "
+              f"{HARNESS_GRID_ITERS} iterations a config: "
+              + "; ".join(" ".join(r) for r in table), flush=True)
+
+
+def harness_remap(tmp, templates, out, model):
+    """(d) prune_order on (a)'s model, then the runner with -r over it:
+    the file's two rows permutations of fc1's and fc2's 1024 outputs, the
+    remapping applied."""
+    from rram_caffe_simulation_tpu_torch.examples.gaussian_failure import (
+        prune_order, run_gaussian_exp)
+    from rram_caffe_simulation_tpu_torch.fault import strategies
+    order = tmp / "d" / "prune_order.txt"
+    order.parent.mkdir(parents=True, exist_ok=True)
+    code, _ = run_harness(prune_order.main, [
+        templates["net"], str(model), str(HARNESS_PRUNE_RATIO), str(order)])
+    check(code == 0, f"(d) prune_order returned {code}")
+    rows = [[int(x) for x in ln.split()]
+            for ln in order.read_text().splitlines()]
+    check(len(rows) == 2 and all(sorted(r) == list(range(1024))
+                                 for r in rows),
+          f"(d) prune order rows of {[len(r) for r in rows]}")
+    calls = []
+    real = strategies.remap_fc_neurons
+
+    def spy(*a, **kw):
+        calls.append(1)
+        return real(*a, **kw)
+    mean, std = VGG_LIFE
+    strategies.remap_fc_neurons = spy
+    try:
+        with harness_dir(tmp / "d"):
+            code = run_gaussian_exp.main([
+                str(mean), str(std), "0", "-y", "--template",
+                templates["binary"], "--hw-sigma", str(VGG_SIGMA), "-r",
+                f"{order},5,5", "--max-iter", str(HARNESS_REMAP_ITERS)])
+    finally:
+        strategies.remap_fc_neurons = real
+    check(code == 0, f"(d) run_gaussian_exp -r returned {code}")
+    check(len(calls) >= 1, "(d) the remapping never ran")
+    out["d"] = {"prune_ratio": HARNESS_PRUNE_RATIO,
+                "rows": [len(r) for r in rows], "remaps": len(calls)}
+    print(f"phase 23: (d) prune_order at {HARNESS_PRUNE_RATIO} on (a)'s "
+          f"model: 2 rows of 1024; run_gaussian_exp -r <order>,5,5 "
+          f"--max-iter {HARNESS_REMAP_ITERS}: exit 0, {len(calls)} "
+          "remapping(s) applied", flush=True)
+
+
+def harness_hdf5_start(tmp, templates):
+    """(e) without h5py: the runner on the template as it is (HDF5), in
+    a process of its own (started here, read by harness_hdf5_end)."""
+    d = tmp / "e"
+    d.mkdir(parents=True, exist_ok=True)
+    mean, std = VGG_LIFE
+    argv = [str(mean), str(std), "0", "-y", "--template", templates["hdf5"],
+            "--max-iter", "2"]
+    code = (f"import sys, {HARNESS_MODULE} as r; r.HERE = {str(d)!r}; "
+            f"sys.exit(r.main({argv!r}))")
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    return subprocess.Popen([sys.executable, "-c", code], cwd=d, env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+
+
+def harness_hdf5_end(tmp, templates, out, proc):
+    """(e) h5py missing: the process exited non-zero, naming h5py, with
+    no Iteration line; h5py present: the template's HDF5 snapshot written
+    and restored in this process."""
+    import importlib.util
+    have = importlib.util.find_spec("h5py") is not None
+    mean, std = VGG_LIFE
+    if not have:
+        stdout, stderr = proc.communicate(timeout=300)
+        check(proc.returncode != 0 and "h5py" in stderr
+              and "NotImplementedError" in stderr,
+              f"(e) without h5py the runner exited {proc.returncode}: "
+              f"{stderr[-2000:]}")
+        check("Iteration" not in stdout, "(e) it trained before refusing")
+        out["e"] = {"h5py": False, "exit": proc.returncode,
+                    "refusal": stderr.strip().splitlines()[-1]}
+        print(f"phase 23: (e) h5py cannot be imported: the template "
+              f"(snapshot_format HDF5) refused before training, exit "
+              f"{proc.returncode}: {out['e']['refusal']}", flush=True)
+        return
+    proc.kill()
+    proc.communicate()
+    from rram_caffe_simulation_tpu_torch.examples.gaussian_failure import \
+        run_gaussian_exp
+    from rram_caffe_simulation_tpu_torch.solver import Solver
+    from rram_caffe_simulation_tpu_torch.utils.io import read_solver_param
+    with harness_dir(tmp / "e" / "in_process") as d:
+        code = run_gaussian_exp.main([str(mean), str(std), "0", "-y",
+                                      "--template", templates["hdf5"],
+                                      "--max-iter", "2"])
+        snap = d / f"snapshot_{mean}_{std}"
+        files = sorted(p.name for p in snap.iterdir())
+        check(code == 0 and {"_iter_2.caffemodel.h5", "_iter_2.faultstate",
+                             "_iter_2.solverstate.h5"} <= set(files),
+              f"(e) HDF5 snapshot files {files}")
+        s = Solver(read_solver_param(templates["hdf5"]))
+        s.restore(str(snap / "_iter_2.solverstate.h5"))
+    check(s.iter == 2, f"(e) restored at iteration {s.iter}")
+    out["e"] = {"h5py": True, "files": files}
+    print(f"phase 23: (e) h5py imports: the template's HDF5 snapshot "
+          f"written ({files}) and restored at iteration 2", flush=True)
+
+
+def phase_harness(gpu):
+    """Phase 23: the fork's experiment harness on the card, from a
+    temporary working directory, through the template with absolute
+    paths at phase 16's operating point: (a) run_gaussian_exp, (b)
+    --sweep-means, (c) run_sweeps, (d) prune_order and -r, (e) HDF5."""
+    import tempfile
+    t0 = time.perf_counter()
+    out = {"gpu": gpu, "part_s": {}}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_harness_") as tmp:
+        tmp = Path(tmp)
+        templates = harness_templates(tmp)
+        saved = os.environ.get("RRAM_POOL_BWD")
+        try:
+            t = time.perf_counter()
+            model = harness_one(tmp, templates, out)
+            out["part_s"]["a"] = time.perf_counter() - t
+            t = time.perf_counter()
+            os.environ["RRAM_POOL_BWD"] = "cuda"
+            harness_sweep(tmp, templates, out)
+            out["part_s"]["b"] = time.perf_counter() - t
+        finally:
+            if saved is None:
+                os.environ.pop("RRAM_POOL_BWD", None)
+            else:
+                os.environ["RRAM_POOL_BWD"] = saved
+        proc = harness_hdf5_start(tmp, templates)
+        try:
+            t = time.perf_counter()
+            harness_grids(tmp, templates, out)
+            out["part_s"]["c"] = time.perf_counter() - t
+            t = time.perf_counter()
+            harness_remap(tmp, templates, out, model)
+            out["part_s"]["d"] = time.perf_counter() - t
+            t = time.perf_counter()
+            harness_hdf5_end(tmp, templates, out, proc)
+            out["part_s"]["e_wait"] = time.perf_counter() - t
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"phase 23: parts {json.dumps(out['part_s'])}", flush=True)
+    return out
+
+
 COLD_RUNS = ("precompile", "serial", "serial", "precompile")
 
 
@@ -7619,7 +8008,7 @@ def main(argv=None) -> int:
                    help="training steps of the slice phase (default 50)")
     p.add_argument("--transition-steps", type=int, default=6)
     p.add_argument("--phases", default="all",
-                   help="comma-separated phases 2-22 to run after the "
+                   help="comma-separated phases 2-23 to run after the "
                         "build (default all; only a full run prints the "
                         "per-kernel line and the ok line)")
     p.add_argument("--b2-path", action="store_true",
@@ -7663,7 +8052,7 @@ def main(argv=None) -> int:
                         "print their seconds as JSON")
     args = p.parse_args(argv)
     t_main = time.perf_counter()
-    every = set(range(2, 23))
+    every = set(range(2, 24))
     want = every if args.phases == "all" else {
         int(v) for v in args.phases.split(",")}
 
@@ -7820,6 +8209,8 @@ def main(argv=None) -> int:
     if 22 in want:
         processes = timed(22, phase_processes, gpu,
                           sweep if 7 in want else None)
+    if 23 in want:
+        harness = timed(23, phase_harness, gpu)
     if want != every:
         print(f"phases {sorted(want)} passed; no ok line for a partial run",
               flush=True)
@@ -7992,6 +8383,7 @@ def main(argv=None) -> int:
     print(json.dumps({"virtual_time": virtual}))
     print(json.dumps({"driver": driver}))
     print(json.dumps({"processes": processes}))
+    print(json.dumps({"harness": harness}))
     print(json.dumps({"phase_s": {**{str(n): v for n, v in phase_s.items()},
                                   "kernels_line": time.perf_counter() - t_rows,
                                   "script": time.perf_counter() - t_main}}))

@@ -1,3 +1,3 @@
-from .sweep import GroupPrefetcher, SweepRunner
+from .sweep import GroupPrefetcher, SweepRunner, sequential_sweep
 
-__all__ = ["GroupPrefetcher", "SweepRunner"]
+__all__ = ["GroupPrefetcher", "SweepRunner", "sequential_sweep"]

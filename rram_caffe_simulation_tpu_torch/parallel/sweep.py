@@ -2382,3 +2382,57 @@ class GroupPrefetcher:
                 runner.close()
             except Exception:
                 pass
+
+
+def sequential_sweep(solver_param, configs, iters, eval_iters: int = 0,
+                     device=None):
+    """One full Solver per fault config, run one after another (the
+    reference's sequential_sweep, parallel/sweep.py:3487): the cross-check
+    that uses no config axis, and the driver for grids whose configs
+    differ in structure (the stuck-value draw, a strategy). Each config
+    is one `caffe train` process of the fork's per-grid scripts, minus
+    the process boundary.
+
+    `configs` is a list of dicts applied onto a copy of `solver_param`
+    (through `proto.encode`/`decode`) before each run: "mean"/"std"
+    override failure_pattern, "seed" sets random_seed, "prob" p sets
+    failure_prob to neg = pos = p and zero = 100 - 2p, "threshold" adds
+    a threshold strategy; any other key is set as a SolverParameter
+    field. Runs on the card unless `device="cpu"`.
+
+    Returns a list of per-config records: {"config", "loss" (the final
+    smoothed loss), "broken" (with a fault engine), "scores" (test net
+    0's outputs, when `eval_iters` and a test net)}.
+    """
+    device = resolve_device(device)
+    results = []
+    for cfg in configs:
+        param = proto.decode(proto.encode(solver_param), "SolverParameter")
+        for k, v in cfg.items():
+            if k == "mean":
+                param.failure_pattern.mean = float(v)
+            elif k == "std":
+                param.failure_pattern.std = float(v)
+            elif k == "seed":
+                param.random_seed = int(v)
+            elif k == "prob":
+                fp = param.failure_pattern.failure_prob
+                fp.neg = fp.pos = int(v)
+                fp.zero = 100 - 2 * int(v)
+            elif k == "threshold":
+                sp = proto.Message("FailureStrategyParameter")
+                sp.type = "threshold"
+                sp.threshold = float(v)
+                param.failure_strategy.append(sp)
+            else:
+                setattr(param, k, v)
+        solver = solver_mod.Solver(param, device=device)
+        solver.step(iters)
+        rec = {"config": dict(cfg),
+               "loss": solver._materialize_smoothed_loss()}
+        if solver.fault_state is not None:
+            rec["broken"] = float(solver.broken_fraction())
+        if eval_iters and solver.test_nets:
+            rec["scores"] = solver.test(0)
+        results.append(rec)
+    return results

@@ -53,11 +53,14 @@ class Message:
         return self._type.fields.get(name) if self._type else None
 
     def _mark_set(self):
-        p = self._parent
+        """Attach this message, and each unset parent it was read
+        through, at its own level (`sp.a.b.x = 1` sets `b` in `a` and
+        `a` in `sp`)."""
+        child, p = self, self._parent
         while p is not None:
             parent, name = p
-            parent._values.setdefault(name, self)
-            p = parent._parent
+            parent._values.setdefault(name, child)
+            child, p = parent, parent._parent
 
     def __getattr__(self, name: str):
         if name.startswith("__"):

@@ -140,6 +140,7 @@ message SolverParameter {
   optional bool snapshot_diff = 16 [default = false];
   enum SnapshotFormat { HDF5 = 0; BINARYPROTO = 1; }
   optional SnapshotFormat snapshot_format = 37 [default = BINARYPROTO];
+  optional int32 device_id = 18 [default = 0];
   optional int64 random_seed = 20 [default = -1];
   optional string type = 40 [default = "SGD"];
   enum SolverType { SGD = 0; NESTEROV = 1; ADAGRAD = 2; RMSPROP = 3; ADADELTA = 4; ADAM = 5; }

@@ -1,16 +1,28 @@
-"""A reader for protobuf's text format (`.prototxt`), without protobuf.
+"""A reader and a writer for protobuf's text format (`.prototxt`),
+without protobuf.
 
-It accepts what Caffe's prototxts use: `name: value` and `name { ... }`
-(or `name: { ... }`, `< ... >`), `[a, b]` lists, `#` comments, quoted
-strings with C escapes, adjacent string concatenation, enum labels,
-`inf`/`nan`, and optional `,`/`;` separators. Fields the schema
-(schema.py) declares are typed and defaulted; others are kept raw so a
-prototxt with fields this package never reads still loads.
+The reader accepts what Caffe's prototxts use: `name: value` and
+`name { ... }` (or `name: { ... }`, `< ... >`), `[a, b]` lists, `#`
+comments, quoted strings with C escapes, adjacent string concatenation,
+enum labels, `inf`/`nan`, and optional `,`/`;` separators. Fields the
+schema (schema.py) declares are typed and defaulted; others are kept raw
+so a prototxt with fields this package never reads still loads.
+
+The writer, `to_text`, is the counterpart of protobuf's
+`text_format.MessageToString` with its defaults: the set fields in
+field-number order, one `name: value` line each (a repeated field one
+line an element), nested messages as `name {` ... `}` indented by two
+spaces, enum labels, strings C-escaped (non-ASCII characters kept, as
+protobuf's `as_utf8` default keeps them; `bytes` escaped byte by byte),
+`float` fields in the shortest form that reads back to the same float32
+and `double` fields as Python's `str`.
 """
 from __future__ import annotations
 
 import codecs
+import math
 import re
+import struct
 from typing import List
 
 from .message import Message, coerce
@@ -174,3 +186,83 @@ def parse(text: str, type_name: str) -> Message:
     msg = Message(type_name)
     _Parser(text).message_body(msg)
     return msg
+
+
+# ---------------------------------------------------------------------------
+# the writer
+
+# protobuf's text_encoding.CEscape: a `string` field's characters below
+# 128 (MessageToString's as_utf8 default keeps the others), a `bytes`
+# field's every byte
+_STR_ESCAPES = {i: "\\%03o" % i for i in range(128) if not 32 <= i < 127}
+_STR_ESCAPES.update({9: r"\t", 10: r"\n", 13: r"\r", 34: r'\"', 39: r"\'",
+                     92: r"\\"})
+_BYTE_ESCAPES = {i: _STR_ESCAPES.get(i, chr(i)) if i < 128 else "\\%03o" % i
+                 for i in range(256)}
+
+
+def _f32(v: float) -> float:
+    return struct.unpack("<f", struct.pack("<f", v))[0]
+
+
+def shortest_float(v: float) -> str:
+    """A float32 value as protobuf prints it (type_checkers
+    .ToShortestFloat): the fewest significant digits, from 6 up, whose
+    value rounds back to the same float32, then Python's `str`."""
+    if math.isnan(v):
+        return str(v)
+    precision = 6
+    rounded = float(f"{v:.{precision}g}")
+    while _f32(rounded) != v:
+        precision += 1
+        rounded = float(f"{v:.{precision}g}")
+    return str(rounded)
+
+
+def _scalar_text(msg: Message, f, v) -> str:
+    if f.kind == "enum":
+        table = enum_table(msg.type_name, f.type_name) or {}
+        names = {num: label for label, num in table.items()}
+        return names.get(int(v), str(int(v)))
+    if f.kind == "string":
+        return '"' + v.translate(_STR_ESCAPES) + '"'
+    if f.kind == "bytes":
+        return '"' + "".join(_BYTE_ESCAPES[c] for c in bytes(v)) + '"'
+    v = coerce(f.kind, v)
+    if f.kind == "bool":
+        return "true" if v else "false"
+    if f.kind == "float":
+        return shortest_float(v)
+    return str(v)
+
+
+def _write(msg: Message, indent: int, out: list) -> None:
+    mtype = msg._type
+    if mtype is None:
+        raise ValueError("a message of no schema type cannot be written")
+    values = msg.set_fields()
+    unknown = [k for k in values if k not in mtype.fields]
+    if unknown:
+        raise ValueError(f"{mtype.name}: fields {unknown} are not in the "
+                         "port's schema and cannot be written")
+    pad = " " * indent
+    for f in sorted((mtype.fields[k] for k in values),
+                    key=lambda f: f.number):
+        v = values[f.name]
+        for item in (v if f.repeated else [v]):
+            if f.kind == "message":
+                out.append(f"{pad}{f.name} {{\n")
+                _write(item, indent + 2, out)
+                out.append(f"{pad}}}\n")
+            else:
+                out.append(f"{pad}{f.name}: {_scalar_text(msg, f, item)}\n")
+
+
+def to_text(msg: Message) -> str:
+    """`msg` in text format, line for line what protobuf's
+    `text_format.MessageToString` gives for the same message. A field
+    the schema does not declare (kept raw by the reader) cannot be
+    written and raises."""
+    out: list = []
+    _write(msg, 0, out)
+    return "".join(out)

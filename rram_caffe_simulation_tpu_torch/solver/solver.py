@@ -54,10 +54,12 @@ same state: `<prefix>_iter_N.caffemodel` (the net with its params),
 `.solverstate` (iter, the model's name, current_step, the SGD history)
 and `.faultstate` (the fault state, f32: under packed banks their
 mid-bin view, re-packed on restore). So a snapshot of either package
-resumes in the other. `snapshot_format: HDF5` raises (the port reads and
-writes no HDF5), in `solve()` before it trains when a snapshot will be
-due. `enable_background_snapshots()` moves the writes to a
-thread.
+resumes in the other. Under `snapshot_format: HDF5` the model and the
+state are the reference's `.caffemodel.h5` and `.solverstate.h5`
+(utils/io.py, through `h5py`), the `.faultstate` beside them as ever;
+where `h5py` cannot be imported HDF5 raises by name, in `solve()` before
+it trains when a snapshot will be due. `enable_background_snapshots()`
+moves the writes to a thread.
 
 ComputeUpdate (sgd_solver.cpp:102-117) runs the reference's six rules
 (solver/updates.py), chosen by `type` or the legacy `solver_type` enum:
@@ -123,7 +125,9 @@ from ..net.builder import Net
 from ..observe import counters as obs_counters
 from ..utils.io import (array_to_blob, blob_to_array, read_net_param,
                         read_proto_binary, read_solver_param,
-                        write_proto_binary)
+                        read_solver_state_hdf5, require_h5py,
+                        write_net_hdf5, write_proto_binary,
+                        write_solver_state_hdf5)
 from . import updates as U
 from .lr_policies import current_step_fn, learning_rate_fn
 
@@ -1666,32 +1670,47 @@ class Solver:
             self._snapshot_writer.wait()
 
     def _put_snapshot_file(self, path: str, message):
-        async_exec.write(path,
-                         lambda tmp, m=message: write_proto_binary(tmp, m),
-                         self._snapshot_writer)
+        self._put_snapshot_write(
+            path, lambda tmp, m=message: write_proto_binary(tmp, m))
+
+    def _put_snapshot_write(self, path: str, write_fn):
+        async_exec.write(path, write_fn, self._snapshot_writer)
 
     def _refuse_hdf5(self, what: str):
         if self.param.snapshot_format == proto.HDF5:
-            raise NotImplementedError(
-                f"{what}: snapshot_format HDF5 is not ported (the port "
-                "reads and writes no HDF5); set snapshot_format: "
-                "BINARYPROTO")
+            require_h5py(what)
 
     def snapshot(self) -> str:
-        """Write `<prefix>_iter_N.caffemodel`, `.solverstate` and, with a
-        fault engine, `.faultstate` (BINARYPROTO); returns the model's
-        name. The payloads are host messages built here."""
+        """Write `<prefix>_iter_N.caffemodel`, `.solverstate` (or under
+        HDF5 `.caffemodel.h5` and `.solverstate.h5`) and, with a fault
+        engine, `.faultstate`; returns the model's name. The payloads
+        are host messages and arrays built here."""
         self._refuse_hdf5(f"snapshot at iteration {self.iter}")
         os.makedirs(os.path.dirname(self.param.snapshot_prefix) or ".",
                     exist_ok=True)
-        model_name = self.snapshot_filename(".caffemodel")
-        self._put_snapshot_file(model_name, self.net.to_proto(self.params))
-        state = proto.Message("SolverState")
-        state.iter = self.iter
-        state.learned_net = model_name
-        state.current_step = current_step_fn(self.param)(self.iter)
-        state.history = [array_to_blob(a) for a in self._history_blob_list()]
-        self._put_snapshot_file(self.snapshot_filename(".solverstate"), state)
+        hdf5 = self.param.snapshot_format == proto.HDF5
+        model_name = self.snapshot_filename(".caffemodel.h5" if hdf5
+                                            else ".caffemodel")
+        model = self.net.to_proto(self.params)
+        it = self.iter
+        cur = current_step_fn(self.param)(it)
+        history = self._history_blob_list()
+        if hdf5:
+            self._put_snapshot_write(
+                model_name, lambda tmp: write_net_hdf5(model, tmp))
+            self._put_snapshot_write(
+                self.snapshot_filename(".solverstate.h5"),
+                lambda tmp: write_solver_state_hdf5(tmp, it, model_name, cur,
+                                                    history))
+        else:
+            self._put_snapshot_file(model_name, model)
+            state = proto.Message("SolverState")
+            state.iter = it
+            state.learned_net = model_name
+            state.current_step = cur
+            state.history = [array_to_blob(a) for a in history]
+            self._put_snapshot_file(self.snapshot_filename(".solverstate"),
+                                    state)
         fault = self.fault_state
         if fault is not None:
             # f32, as the reference's Solver holds it: packed banks as
@@ -1704,28 +1723,30 @@ class Solver:
         return model_name
 
     def restore(self, state_file: str):
-        """Resume from a `.solverstate` (either package's): the
-        iteration, the params from its `learned_net`, the history, and
-        the fault state from the `.faultstate` beside it (re-packed with
-        this solver's pack_spec under packed banks). Without that file
-        the fault state stays this solver's fresh draw, with a warning
-        on stderr."""
+        """Resume from a `.solverstate` or `.solverstate.h5` (either
+        package's): the iteration, the params from its `learned_net`,
+        the history, and the fault state from the `.faultstate` beside
+        it (`.h5`, then `.solverstate` stripped; re-packed with this
+        solver's pack_spec under packed banks). Without that file the
+        fault state stays this solver's fresh draw, with a warning on
+        stderr."""
         self.wait_for_snapshots()
         if state_file.endswith(".h5"):
-            raise NotImplementedError(
-                f"restore({state_file!r}): HDF5 solver states are not "
-                "ported (the port reads and writes no HDF5); resume from a "
-                "BINARYPROTO .solverstate")
-        state = read_proto_binary(state_file, "SolverState")
-        self.iter = int(state.iter)
-        if state.learned_net:
+            it, learned_net, _, history = read_solver_state_hdf5(state_file)
+        else:
+            state = read_proto_binary(state_file, "SolverState")
+            it, learned_net = state.iter, state.learned_net
+            history = [blob_to_array(b) for b in state.history]
+        self.iter = int(it)
+        if learned_net:
             self.params = self.net.copy_trained_from(self.params,
-                                                     state.learned_net)
-        self._set_history_from_list([blob_to_array(b)
-                                     for b in state.history])
+                                                     learned_net)
+        self._set_history_from_list(history)
         if self.fault_state is None:
             return
         fault_file = state_file
+        if fault_file.endswith(".h5"):
+            fault_file = fault_file[:-len(".h5")]
         if fault_file.endswith(".solverstate"):
             fault_file = fault_file[:-len(".solverstate")] + ".faultstate"
         if not os.path.exists(fault_file):

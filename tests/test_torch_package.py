@@ -50,7 +50,8 @@ def test_port_imports_no_jax_and_no_reference_package():
                      or n.startswith("google.protobuf")
                      or n == "rram_caffe_simulation_tpu"
                      or n.startswith("rram_caffe_simulation_tpu."))
-        # the modules of every slice, the tiled path's included
+        # the modules of every slice, the tiled path's and the
+        # experiment harness's included
         need = {p.__name__ + "." + m for m in (
             "fault.mapping", "fault.hw_aware", "fault.engine",
             "fault.fused", "fault.strategies", "ops.vision", "ops.common",
@@ -58,7 +59,11 @@ def test_port_imports_no_jax_and_no_reference_package():
             "proto.wire", "utils.io", "kernels", "convert", "core.prng",
             "core.fillers", "async_exec", "cache", "observe.schema",
             "observe.counters", "observe.sink", "observe.spans",
-            "observe.trace", "observe.health")}
+            "observe.trace", "observe.health", "proto.text_format",
+            "examples.gaussian_failure.run_gaussian_exp",
+            "examples.gaussian_failure.run_different_mean",
+            "examples.gaussian_failure.run_sweeps",
+            "examples.gaussian_failure.prune_order")}
         print(len(names), bad, sorted(need - set(names)))
         sys.exit(1 if bad or len(names) < 20 or need - set(names) else 0)
     """)

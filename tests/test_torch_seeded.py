@@ -20,6 +20,7 @@ relative: the two packages sum the product in other orders).
 """
 import os
 import re
+import sys
 
 import numpy as np
 import pytest
@@ -280,10 +281,11 @@ def tiny_batch():
             "label": rng.randint(0, 3, 8).astype(np.float32)}
 
 
-def test_snapshot_raises_at_the_snapshot_iteration(tmp_path):
+def test_snapshot_raises_at_the_snapshot_iteration(tmp_path, monkeypatch):
     """`snapshot: 2` writes the three snapshot files at iteration 2 and
-    not before; under snapshot_format HDF5 (which the port does not
-    write) it raises there instead, naming HDF5."""
+    not before; under snapshot_format HDF5 without h5py (an import that
+    fails) it raises there instead, naming HDF5 and h5py."""
+    monkeypatch.setitem(sys.modules, "h5py", None)
     batch = tiny_batch()
     fault = 'failure_pattern { type: "gaussian" mean: 300 std: 50 }'
     prefix = tmp_path / "snap"
@@ -302,7 +304,7 @@ def test_snapshot_raises_at_the_snapshot_iteration(tmp_path):
         "SolverParameter"), device="cpu", train_feed=lambda: batch)
     h5.step(1)
     with pytest.raises(NotImplementedError,
-                       match=r"snapshot at iteration 2.*HDF5"):
+                       match=r"snapshot at iteration 2.*HDF5.*h5py"):
         h5.step(1)
     assert h5.iter == 2 and len(os.listdir(tmp_path)) == 3
     # snapshot: 0 trains on

@@ -14,6 +14,7 @@ bit for bit, f32 and packed banks alike.
 """
 import os
 import re
+import sys
 
 import numpy as np
 import pytest
@@ -327,15 +328,19 @@ def test_solve_refuses_fused_chunk(tmp_path):
 # ---------------------------------------------------------------------------
 # refusals and the warning
 
-def test_hdf5_raises_by_name(tmp_path):
+def test_hdf5_raises_by_name(tmp_path, monkeypatch):
+    """Without h5py (an import that fails), HDF5 snapshots, restores and
+    solves raise by name (tests/test_torch_hdf5.py covers them with
+    h5py)."""
+    monkeypatch.setitem(sys.modules, "h5py", None)
     s = port_solver(str(tmp_path / "s"), "snapshot: 2 snapshot_format: HDF5")
     s.step(1)
-    with pytest.raises(NotImplementedError, match="HDF5"):
+    with pytest.raises(NotImplementedError, match="HDF5.*h5py"):
         s.step(1)
     assert s.iter == 2 and not os.path.exists(tmp_path / "s_iter_2.caffemodel")
-    with pytest.raises(NotImplementedError, match="HDF5"):
+    with pytest.raises(NotImplementedError, match="HDF5.*h5py"):
         s.restore(str(tmp_path / "s_iter_2.solverstate.h5"))
-    with pytest.raises(NotImplementedError, match="HDF5"):
+    with pytest.raises(NotImplementedError, match="HDF5.*h5py"):
         s.solve()
 
 
@@ -344,11 +349,12 @@ def test_hdf5_raises_by_name(tmp_path):
     ("snapshot: 2 snapshot_after_train: false", True),
     ("snapshot_after_train: false", False),       # no snapshot is due
 ])
-def test_hdf5_solve_refuses_before_training(tmp_path, capsys, extra,
-                                            refused):
+def test_hdf5_solve_refuses_before_training(tmp_path, capsys, monkeypatch,
+                                            extra, refused):
+    monkeypatch.setitem(sys.modules, "h5py", None)
     s = port_solver(str(tmp_path / "s"), f"snapshot_format: HDF5 {extra}")
     if refused:
-        with pytest.raises(NotImplementedError, match="solve.*HDF5"):
+        with pytest.raises(NotImplementedError, match="solve.*HDF5.*h5py"):
             s.solve()
         assert s.iter == 0 and "Solving" not in capsys.readouterr().out
     else:
