@@ -24,6 +24,9 @@
                                           # driver (run_1000_sweep.py)
     python3 chip_smoke.py --phases 22     # the fault processes and the
                                           # co-design driver
+    python3 chip_smoke.py --phases 23     # the experiment harness
+    python3 chip_smoke.py --phases 24     # the in-repo CIFAR-10 "full"
+                                          # nets and the siamese net
     python3 chip_smoke.py --b2-path       # only time B2 through its wrapper
     python3 chip_smoke.py --b2t-path      # only time B2t (wrapper, kernel,
                                           # tile rows)
@@ -394,7 +397,47 @@ prints no "ok" line):
    1024), then the runner with -r <order>,5,5 for 10 iterations (the
    remapping applied); (e) whether h5py imports: if not, the template as
    it is (HDF5) refused by name in a process of its own, non-zero exit,
-   no Iteration line; if so, its HDF5 snapshot written and restored.
+   no Iteration line; if so, its HDF5 snapshot written and restored;
+24. the in-repo nets (examples/cifar10/cifar10_full_train_test.prototxt,
+   cifar10_full_sigmoid_train_test.prototxt and its BatchNorm form; the
+   siamese net), from a temporary working directory for snapshots, the
+   LMDB sources read from the checkout, batch 100: (a) each CIFAR-10
+   "full" net from its own solver file (cifar10_full_solver.prototxt,
+   the sigmoid solver, the BN-sigmoid solver) with only a gaussian
+   failure_pattern on ip1 at N(300, 50) (int16 banks; cells die within
+   3-8 writes), a seed and BINARYPROTO snapshots set, packed banks, the
+   ternary read, the fused epilogue, engine "cuda": the card's and the
+   CPU's Solver from one seed equal at init, 5 steps in lockstep (each
+   CPU step from the card's state, batch and key): losses within 1e-4
+   relative, banks equal but for cells whose write rests on an exact-0
+   update in one package (each checked, counted), B2a 1 and B1a 1 a
+   step; then 10 timed steps (their median, after the lockstep's 5)
+   and the LRN or Sigmoid layers' device time a step; (a') cifar10_full_solver.prototxt
+   as it is (snapshot_format HDF5) in a process of its own: without
+   h5py refused by name, non-zero exit, no Iteration line; with it, its
+   HDF5 snapshot written; (b) cifar10_full and the BN-sigmoid net at
+   C = 8 (RRAM_POOL_BWD=cuda), 3 steps: each lane against a
+   single-config Solver from its state (loss within 1e-5 relative,
+   banks identical), B2b 1 and B1b 1 a step, then blocks of 2 against
+   the unblocked runner: banks bit for bit, losses within 1e-5 (the
+   conv leaves part there through cuDNN's algorithm at small group
+   counts: reported); cifar10_full at C = 512 (halved until it fits),
+   N(1e8, 3e7), a warm and 3 timed steps: configs x steps per second,
+   step times (CUDA events), peak memory, B2b 1, B1b 1, B4 1 a step,
+   the LRN layers' device time, then the same steps in blocks of C / 4,
+   every state leaf bit for bit; (c) a synthetic net at C = 8 (Input,
+   conv, LRN across channels, Slice and Concat on axis 1, Eltwise SUM
+   with coefficients and PROD, Softmax, Flatten, InnerProduct,
+   EuclideanLoss): as (b)'s C = 8 checks; then the new layers alone (no
+   conv, no GEMM) forward and backward over 8 lanes of laned data
+   against blocks of 2, losses and the data gradient bit for bit; (d) the siamese TRAIN net at batch 64 (its Data layers fed as
+   one Input layer of pair_data 2x28x28 and sim; its LMDB is not in the
+   repository), the crossbar read armed on its six InnerProduct reads of
+   three shared weights: B2a 6 a forward, loss within 1e-5 relative of
+   the CPU's, gradients within 1e-4 of their largest value; (e)
+   cifar10_full with conv_also on 128x128 tiles, 8-bit ADCs, implicit
+   operands, 3 steps: B3 2 (conv2, conv3), B2t 1 (ip1), B1 1, no B2a or
+   B4 a step, finite losses.
 
 Then a JSON line of the step's numbers, a JSON line of the sweep's, one
 JSON line of per-kernel numbers (per training step, summed over the
@@ -413,8 +456,8 @@ line "vgg11" of phase 16's (printed when it ends, and again), a JSON
 line "telemetry" of phase 17's, a JSON line "blocks" of phase 18's, a
 JSON line "healing" of phase 19's, a JSON line "virtual_time" of phase
 20's, a JSON line "driver" of phase 21's, a JSON line "processes" of
-phase 22's, a JSON line "harness" of phase 23's, the card's name and
-power limit,
+phase 22's, a JSON line "harness" of phase 23's, a JSON line "nets" of
+phase 24's, the card's name and power limit,
 and last {"ok": true, "device":
 {...}}.
 B2t has a row at each path's shapes: C = 1 (the tiled slice) and C
@@ -4457,25 +4500,35 @@ def vgg_bn_scale_ms(s):
     """Device time a step of the net's BatchNorm and Scale layers alone,
     forward and backward, each at the shape it meets on the path (random
     inputs): their share of the step."""
+    return layer_ms(s.net, ("BatchNorm", "Scale"), s.params, s.device)
+
+
+def layer_ms(net, types, params=None, device="cuda", lanes=0):
+    """Device time a step of the net's layers of `types` alone, forward
+    and backward (through the learned Scale's operand too), each at the
+    shape it meets on the path, laned over `lanes` lanes (random inputs):
+    (total ms, the four largest kernels)."""
     import torch
     from rram_caffe_simulation_tpu_torch.core.registry import LayerContext
-    ctx = LayerContext(phase=s.net.phase, updates={})
+    ctx = LayerContext(phase=net.phase, updates={}, lanes=lanes,
+                       laned=(bool(lanes),))
     pairs = []
-    for ly in s.net.layers:
-        if ly.type_name in ("BatchNorm", "Scale"):
-            shape = s.net.blob_shapes[ly.lp.bottom[0]]
-            pairs.append((ly, torch.randn(shape, device=s.device)
+    for ly in net.layers:
+        if ly.type_name in types:
+            shape = list(net.blob_shapes[ly.lp.bottom[0]])
+            if lanes:
+                shape[1] *= lanes
+            ps = [p.detach().requires_grad_(ly.type_name == "Scale")
+                  for p in (params or {}).get(ly.name, [])]
+            pairs.append((ly, ps, torch.randn(shape, device=device)
                           .requires_grad_()))
-    params = {ly.name: [p.detach().requires_grad_(ly.type_name == "Scale")
-                        for p in s.params[ly.name]] for ly, _ in pairs}
 
     def fwd_bwd():
-        for ly, x in pairs:
-            (y,) = ly.apply(params[ly.name], [x], ctx)
-            torch.autograd.grad(y, [x] + [p for p in params[ly.name]
-                                          if p.requires_grad],
+        for ly, ps, x in pairs:
+            (y,) = ly.apply(ps, [x], ctx)
+            torch.autograd.grad(y, [x] + [p for p in ps if p.requires_grad],
                                 torch.ones_like(y))
-    by_name = device_ms_by_name(fwd_bwd, iters=10)
+    by_name = device_ms_by_name(fwd_bwd, iters=10 if not lanes else 5)
     return sum(v for v, _ in by_name.values()), sorted(
         by_name.items(), key=lambda kv: -kv[1][0])[:4]
 
@@ -7875,6 +7928,739 @@ def phase_harness(gpu):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 24: the in-repo nets (CIFAR-10 "full", its sigmoid nets, siamese)
+
+NETS_SOLVERS = {
+    "full": "examples/cifar10/cifar10_full_solver.prototxt",
+    "sigmoid": "examples/cifar10/cifar10_full_sigmoid_solver.prototxt",
+    "sigmoid_bn": "examples/cifar10/cifar10_full_sigmoid_solver_bn.prototxt"}
+NETS_LIFE = (300.0, 50.0)        # int16 banks; ip1's cells die in 3-8 writes
+NETS_LOCKSTEP = 5                # (a): card against CPU
+NETS_TIMED = 10                  # (a): timed Solver steps
+NETS_REL = 1e-4                  # (a): losses, card against CPU
+NETS_LANES = 8                   # (b), (c): lanes against Solvers, blocks
+NETS_LANE_STEPS = 3
+NETS_SWEEP_TIMED = 3             # (b): cifar10_full at C = 512
+NETS_TILED_STEPS = 3             # (e)
+# (e): conv2 (800 x 32) and conv3 (800 x 64) on B3, ip1 (1024 x 10, eight
+# K-tiles) on B2t, conv1 (75 x 32) inside one tile (no read kernel), one
+# B1 for the eight fault leaves, no B4 in the Solver
+NETS_TILED_PER_STEP = {"B2": 0, "B2t": 1, "B3": 2, "B1": 1, "B4": 0}
+NETS_TILED_LAYERS = ("conv2", "conv3", "ip1")
+NETS_LEAVES = {"ip1/0": (10, 1024), "ip1/1": (10,)}
+NETS_B2_SHAPES = {"ip1": (100, 1024, 10)}
+SIAMESE_NET = "examples/siamese/mnist_siamese_train_test.prototxt"
+SIAMESE_BATCH = 64
+NETS_SYNTH = """name: "channel_lanes"
+layer { name: "in" type: "Input" top: "data" top: "target"
+  input_param { shape { dim: 100 dim: 3 dim: 16 dim: 16 }
+                shape { dim: 100 dim: 10 } } }
+layer { name: "conv" type: "Convolution" bottom: "data" top: "conv"
+  convolution_param { num_output: 16 pad: 1 kernel_size: 3
+    weight_filler { type: "gaussian" std: 0.1 }
+    bias_filler { type: "constant" value: 0.1 } } }
+layer { name: "lrn" type: "LRN" bottom: "conv" top: "lrn"
+  lrn_param { local_size: 5 alpha: 0.0001 beta: 0.75 } }
+layer { name: "slice" type: "Slice" bottom: "lrn" top: "s0" top: "s1"
+  slice_param { slice_dim: 1 slice_point: 6 } }
+layer { name: "concat" type: "Concat" bottom: "s1" bottom: "s0" top: "cat" }
+layer { name: "sum" type: "Eltwise" bottom: "cat" bottom: "lrn" top: "sum"
+  eltwise_param { operation: SUM coeff: 0.5 coeff: -1.5 } }
+layer { name: "prod" type: "Eltwise" bottom: "sum" bottom: "conv"
+  top: "prod" eltwise_param { operation: PROD } }
+layer { name: "softmax" type: "Softmax" bottom: "prod" top: "softmax" }
+layer { name: "flat" type: "Flatten" bottom: "softmax" top: "flat" }
+layer { name: "ip1" type: "InnerProduct" bottom: "flat" top: "ip1"
+  inner_product_param { num_output: 10
+    weight_filler { type: "gaussian" std: 0.01 }
+    bias_filler { type: "constant" } } }
+layer { name: "loss" type: "EuclideanLoss" bottom: "ip1" bottom: "target"
+  top: "loss" }
+"""
+
+
+def nets_solver(name, device, tmp, life=NETS_LIFE, seed=5, tiled=False,
+                fields=None):
+    """`name`'s own solver file with the overrides phase 24 names: a
+    gaussian failure_pattern on ip1, BINARYPROTO snapshots under `tmp`,
+    a seed; packed banks, the ternary read, the fused epilogue, engine
+    "cuda". `tiled` adds conv_also on 128x128 tiles with 8-bit ADCs and
+    implicit operands; `fields` other SolverParameter fields."""
+    from rram_caffe_simulation_tpu_torch import proto
+    from rram_caffe_simulation_tpu_torch.solver import Solver
+    from rram_caffe_simulation_tpu_torch.utils.io import read_solver_param
+    sp = read_solver_param(NETS_SOLVERS[name])
+    check(sp.snapshot_format == proto.HDF5,
+          f"{NETS_SOLVERS[name]} no longer asks for HDF5 snapshots")
+    sp.random_seed = seed
+    sp.failure_pattern.type = "gaussian"
+    sp.failure_pattern.mean, sp.failure_pattern.std = life
+    sp.snapshot_format = proto.BINARYPROTO
+    sp.snapshot_prefix = str(tmp / name)
+    for key, value in (fields or {}).items():
+        setattr(sp, key, value)
+    kw = {}
+    if tiled:
+        sp.failure_pattern.conv_also = True
+        sp.rram_forward.adc_bits = 8
+        sp.rram_forward.tiles = TILES
+        kw["conv_im2col"] = "implicit"
+    return Solver(sp, device=device, hw_engine="cuda",
+                  dtype_policy="ternary", fault_format="packed",
+                  fused_epilogue=True, **kw)
+
+
+def tree_to(tree, device):
+    """A params/history/fault-state tree with every tensor on `device`."""
+    import torch
+    if isinstance(tree, dict):
+        return {k: tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_to(v, device) for v in tree)
+    return tree.to(device) if isinstance(tree, torch.Tensor) else tree
+
+
+@contextlib.contextmanager
+def update_spy(rec):
+    """While rec["on"], record each fused tail's update tensors
+    (references, no copy) in rec["u"]; the Solvers built inside the
+    block take the spy (a step resolves its tail when it is made)."""
+    from rram_caffe_simulation_tpu_torch.solver import solver as solver_mod
+    real = solver_mod.fused_update_fail_leaves
+
+    def spy(d, u, q, st, **kw):
+        if rec["on"]:
+            rec["u"].append(list(u))
+        return real(d, u, q, st, **kw)
+    solver_mod.fused_update_fail_leaves = spy
+    try:
+        yield
+    finally:
+        solver_mod.fused_update_fail_leaves = real
+
+
+def nets_card_vs_cpu(name, tmp):
+    """(a) one net: its Solver on the card and on the CPU from one seed
+    (params and banks equal), NETS_LOCKSTEP steps in lockstep (each CPU
+    step from the card's state, batch and key), then NETS_TIMED timed
+    card steps. Returns the part's numbers."""
+    import torch
+    from rram_caffe_simulation_tpu_torch import kernels
+    from rram_caffe_simulation_tpu_torch.core import prng
+    t_net = time.perf_counter()
+    rec = {"on": True, "u": []}
+    with update_spy(rec):
+        s = nets_solver(name, "cuda", tmp / "card")
+        c = nets_solver(name, "cpu", tmp / "cpu")
+    check(s.pack_spec["life_dtype"] == "int16" and s.pack_spec == c.pack_spec,
+          f"(a) {name}: pack specs {s.pack_spec} / {c.pack_spec}")
+    check(s._fault_keys == ["ip1/0", "ip1/1"]
+          and s._step_fn.fused_epilogue_resolved,
+          f"(a) {name}: fault keys {s._fault_keys}")
+    for ln, vals in s.params.items():
+        for a, b in zip(vals, c.params[ln]):
+            check(a is None or torch.equal(a.cpu(), b),
+                  f"(a) {name}: {ln}'s init differs between card and CPU")
+    for k, q in s.fault_state["life_q"].items():
+        check(torch.equal(q.cpu(), c.fault_state["life_q"][k]),
+              f"(a) {name}: {k}'s banks differ between card and CPU at init")
+    rate = float(s.param.base_lr)
+    worst, apart, launches, cpu_s = 0.0, 0, [], 0.0
+    build_s = time.perf_counter() - t_net
+    for it in range(NETS_LOCKSTEP):
+        batch = s.train_feed()
+        key = prng.fold_in(s._key, it)
+        state = (s.params, s.history, s.fault_state)
+        cstate = tree_to(state, "cpu")
+        del rec["u"][:]
+        kernels.reset_launches()
+        kp, kh, kf, kl, _ = s._step_fn(*state, {
+            k: torch.as_tensor(v).to(s.device) for k, v in batch.items()},
+            it, key)
+        torch.cuda.synchronize()
+        launches.append(_launches())
+        t_cpu = time.perf_counter()
+        pp, ph, pf, pl, _ = c._step_fn(*cstate, {
+            k: torch.as_tensor(v) for k, v in batch.items()}, it, key)
+        cpu_s += time.perf_counter() - t_cpu
+        kl, pl = float(kl), float(pl)
+        rel = abs(kl - pl) / max(1.0, abs(pl))
+        worst = max(worst, rel)
+        check(math.isfinite(kl) and rel <= NETS_REL,
+              f"(a) {name} step {it}: card loss {kl} vs CPU {pl}")
+        upd = [dict(zip(s._fault_keys, u)) for u in rec["u"]]
+        check(len(upd) == 2, f"(a) {name}: {len(upd)} fused tails a step")
+        for k in kf["life_q"]:
+            got, want = kf["life_q"][k].cpu(), pf["life_q"][k]
+            differ = got != want
+            if differ.any():
+                # each cell apart took its decrement in one package only,
+                # on an exact-0 (or rounding-sized) update in the other
+                ku, cu = upd[0][k].cpu(), upd[1][k]
+                small = torch.minimum(ku.abs(), cu.abs())
+                check(bool((small[differ] <= 1e-6 * rate).all()),
+                      f"(a) {name} step {it}: {k}'s banks differ beyond "
+                      "exact-0 writes")
+                apart += int(differ.sum())
+        s.params, s.history, s.fault_state = kp, kh, kf
+    rec["on"] = False
+    del rec["u"][:]
+    s.iter = NETS_LOCKSTEP
+    per_step = {k: sum(ln[k] for ln in launches) / len(launches)
+                for k in launches[0]}
+    check(per_step == _untiled(B2=1, B1=1, B4=0),
+          f"(a) {name}: launches a step {per_step}, expected B2a 1, B1a 1")
+    kernels.reset_launches()
+    times = []
+    for _ in range(NETS_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s.step(1)                       # ends in a host read of the loss
+        times.append(time.perf_counter() - t0)
+    timed = _launches()
+    check(timed == _untiled(B2=NETS_TIMED, B1=NETS_TIMED, B4=0),
+          f"(a) {name}: timed launches {timed}")
+    check(math.isfinite(float(s.last_loss)), f"(a) {name}: loss")
+    q = [float(v) * 1e3 for v in np.percentile(times, [25, 50, 75])]
+    types = {"full": ("LRN",)}.get(name, ("Sigmoid",))
+    out = {"lockstep_steps": NETS_LOCKSTEP, "loss_rel_max": worst,
+           "cells_apart_exact0": apart, "launches_per_step": per_step,
+           "launches": {"B2": timed["B2"], "B1": timed["B1"]},
+           "step_ms_quartiles": q, "broken": s.broken_fraction(),
+           "layer_ms": layer_ms(s.net, types)[0], "layer_types": types,
+           "build_s": build_s, "cpu_steps_s": cpu_s,
+           "seconds": time.perf_counter() - t_net}
+    print(f"phase 24: (a) {name}: card against CPU, {NETS_LOCKSTEP} steps "
+          f"in lockstep: losses within {worst:.2e} relative (limit "
+          f"{NETS_REL:g}), banks equal but {apart} cells on exact-0 writes;"
+          f" B2a {per_step['B2']:g} and B1a {per_step['B1']:g} a step; "
+          f"step median {q[1]:.3f} ms (quartiles {q[0]:.3f} / {q[2]:.3f}, "
+          f"host clock, synchronized) over {NETS_TIMED} steps after the "
+          f"lockstep; broken {out['broken']:.4f}; {'+'.join(types)} "
+          f"{out['layer_ms']:.3f} ms a step; {out['seconds']:.1f} s (the two "
+          f"Solvers' build {build_s:.1f} s, the CPU's steps {cpu_s:.1f} s)",
+          flush=True)
+    return out
+
+
+def nets_hdf5_start(tmp):
+    """(a') cifar10_full_solver.prototxt as it is (HDF5) in a process of
+    its own, from the checkout's root; where h5py imports, two
+    iterations with the snapshot under `tmp`."""
+    code = (
+        "import importlib.util, sys; sys.path.insert(0, {repo!r}); "
+        "from rram_caffe_simulation_tpu_torch.solver import Solver; "
+        "from rram_caffe_simulation_tpu_torch.utils.io import "
+        "read_solver_param; sp = read_solver_param({solver!r}); "
+        "have = importlib.util.find_spec('h5py') is not None\n"
+        "if have:\n"
+        "    sp.max_iter = 2; sp.snapshot = 2; sp.test_interval = 0; "
+        "sp.snapshot_prefix = {prefix!r}\n"
+        "Solver(sp).solve()").format(repo=str(REPO),
+                                     solver=NETS_SOLVERS["full"],
+                                     prefix=str(tmp / "hdf5" / "full"))
+    (tmp / "hdf5").mkdir(parents=True, exist_ok=True)
+    return subprocess.Popen([sys.executable, "-c", code], cwd=REPO,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+
+
+def nets_hdf5_end(tmp, proc, out):
+    import importlib.util
+    stdout, stderr = proc.communicate(timeout=300)
+    if importlib.util.find_spec("h5py") is None:
+        check(proc.returncode != 0 and "h5py" in stderr
+              and "NotImplementedError" in stderr,
+              f"(a') without h5py the solver exited {proc.returncode}: "
+              f"{stderr[-2000:]}")
+        check("Iteration" not in stdout, "(a') it trained before refusing")
+        out["hdf5"] = {"h5py": False, "exit": proc.returncode,
+                       "refusal": stderr.strip().splitlines()[-1]}
+        print(f"phase 24: (a') h5py cannot be imported: "
+              f"{NETS_SOLVERS['full']} (snapshot_format HDF5) refused "
+              f"before any step, exit {proc.returncode}: "
+              f"{out['hdf5']['refusal']}", flush=True)
+        return
+    files = sorted(p.name for p in (tmp / "hdf5").iterdir())
+    check(proc.returncode == 0 and {"full_iter_2.caffemodel.h5",
+                                    "full_iter_2.solverstate.h5"}
+          <= set(files), f"(a') HDF5 run exited {proc.returncode}, files "
+          f"{files}: {stderr[-2000:]}")
+    out["hdf5"] = {"h5py": True, "files": files}
+    print(f"phase 24: (a') h5py imports: {NETS_SOLVERS['full']} wrote its "
+          f"HDF5 snapshot {files}", flush=True)
+
+
+def nets_lanes(solver, label, C=NETS_LANES, steps=NETS_LANE_STEPS,
+               rewind=None):
+    """(b), (c): C lanes, one step at a time, each lane against a
+    single-config Solver started from its state (loss within 1e-5
+    relative, banks identical); then a runner in blocks of 2 from the
+    same seed against the unblocked one, every state leaf bit for bit.
+    `rewind` restarts a host feed before each of the last two runners."""
+    import torch
+    from rram_caffe_simulation_tpu_torch import kernels
+    from rram_caffe_simulation_tpu_torch.parallel import SweepRunner
+    opts = dict(engine="cuda", packed_state=True, dtype_policy="ternary")
+    r = SweepRunner(solver, n_configs=C, **opts)
+    check(r.engine_resolved == "cuda" and r.fused_epilogue_resolved,
+          f"{label}: the runner did not resolve to engine cuda, fused")
+    check(r._pack_spec == solver.pack_spec,
+          f"{label}: the runner's pack spec differs from the Solver's")
+    worst = 0.0
+    losses = []
+    for it in range(steps):
+        batch = r._batch(r.iter)
+        keys = r.lane_keys(r.iter)
+        before = [r.lane_state(i) for i in range(C)]
+        state = (r.params, r.history, r.fault_states)
+        kernels.reset_launches()
+        kp, kh, kf, kl, _ = r._step(*state, batch, r.iter, keys)
+        got = _launches()
+        check(got["B2"] == 1 and got["B1"] == 1,
+              f"{label} step {it}: launches {got}, expected B2b 1, B1b 1")
+        for i in range(C):
+            _, _, sf, sl, _ = solver._step_fn(*before[i], batch, r.iter,
+                                              keys[i])
+            rel = abs(float(sl) - float(kl[i])) / max(1.0, abs(float(sl)))
+            worst = max(worst, rel)
+            check(rel <= 1e-5, f"{label} step {it} lane {i}: loss "
+                  f"{float(kl[i])} vs Solver {float(sl)}")
+            for k in sf["life_q"]:
+                check(torch.equal(sf["life_q"][k], kf["life_q"][k][i]),
+                      f"{label} step {it} lane {i}: banks differ from the "
+                      f"Solver's on {k}")
+        r._commit(kp, kh, kf, kl)
+        r.iter += 1
+        losses.append(kl.cpu().numpy())
+    broken = r.broken_fractions()
+    check(bool((broken > 0).all()), f"{label}: a lane had no broken cell")
+    # blocks of 2 against the unblocked runner, from the runner's seed
+    runs = []
+    for block in (0, 2):
+        if rewind is not None:
+            rewind()
+        rb = SweepRunner(solver, n_configs=C, config_block=block, **opts)
+        lo = [rb.step(1)[0].copy() for _ in range(2)]
+        runs.append((rb, lo))
+    (a, la), (b, lb) = runs
+    # small lane counts move cuDNN's algorithm for a grouped convolution
+    # (groups = lanes) and for its group-1 call over a shared bottom
+    # (filters = lanes x num_output): the banks must agree bit for bit
+    # and the losses within 1e-5; the params' and history's gap is
+    # reported (a bias before a BatchNorm has a true gradient of zero,
+    # so its own is rounding in either run); the large counts of
+    # nets_sweep_512 and phase 18, and the new layers alone
+    # (nets_chain_blocks), hold every leaf bit for bit
+    loss_gap = max(float(np.abs(x - y).max() / max(1.0, np.abs(y).max()))
+                   for x, y in zip(la, lb))
+    check(loss_gap <= 1e-5, f"{label}: blocked losses {lb} vs {la}")
+    gaps = state_gaps(a, b)
+    banks = [k for k in gaps["apart"] if k.startswith("fault/")]
+    check(not banks, f"{label}: blocks of 2 part from unblocked on banks "
+          f"{banks}")
+    for rr in (r, a, b):
+        rr.close()
+    return {"configs": C, "steps": steps, "lane_loss_rel_max": worst,
+            "broken": [float(v) for v in broken], "block": 2,
+            "block_loss_gap": loss_gap, "block_leaves": gaps["leaves"],
+            "block_leaves_apart": gaps["apart"],
+            "block_rel_max": gaps["rel_max"]}
+
+
+def state_gaps(a, b):
+    """Two runners' state leaves compared: how many, the ones not equal
+    bit for bit, and the largest gap relative to a leaf's largest
+    value."""
+    import torch
+    leaves, apart, rel = 0, [], 0.0
+    for grp, (ga, gb) in (("params", (a.params, b.params)),
+                          ("history", (a.history, b.history)),
+                          ("fault", (a.fault_states, b.fault_states))):
+        for k in ga:
+            va, vb = ga[k], gb[k]
+            pairs = (zip(va.items(), vb.values()) if isinstance(va, dict)
+                     else zip(enumerate(va), vb))
+            for (slot, x), y in pairs:
+                if x is None:
+                    continue
+                leaves += 1
+                if x.is_floating_point():
+                    if torch.equal(x.view(torch.int32), y.view(torch.int32)):
+                        continue
+                    scale = float(y.abs().max().clamp_min(1e-30))
+                    rel = max(rel, float((x - y).abs().max()) / scale)
+                elif torch.equal(x, y):
+                    continue
+                apart.append(f"{grp}/{k}/{slot}")
+    return {"leaves": leaves, "apart": apart, "rel_max": rel}
+
+
+NETS_CHAIN = """name: "new_lane_rules"
+layer { name: "in" type: "Input" top: "data" top: "target" top: "sim"
+  input_param { shape { dim: 100 dim: 16 dim: 8 dim: 8 }
+                shape { dim: 100 dim: 1024 } shape { dim: 100 } } }
+layer { name: "across" type: "LRN" bottom: "data" top: "across"
+  lrn_param { local_size: 5 alpha: 0.5 beta: 0.75 } }
+layer { name: "within" type: "LRN" bottom: "across" top: "within"
+  lrn_param { local_size: 3 alpha: 0.3 beta: 0.75
+              norm_region: WITHIN_CHANNEL } }
+layer { name: "slice" type: "Slice" bottom: "within" top: "s0" top: "s1"
+  slice_param { slice_point: 6 } }
+layer { name: "concat" type: "Concat" bottom: "s1" bottom: "s0" top: "cat" }
+layer { name: "sum" type: "Eltwise" bottom: "cat" bottom: "within" top: "sum"
+  eltwise_param { operation: SUM coeff: 0.5 coeff: -1.5 } }
+layer { name: "prod" type: "Eltwise" bottom: "sum" bottom: "data"
+  top: "prod" eltwise_param { operation: PROD } }
+layer { name: "max" type: "Eltwise" bottom: "prod" bottom: "across"
+  top: "max" eltwise_param { operation: MAX } }
+layer { name: "softmax" type: "Softmax" bottom: "max" top: "softmax" }
+layer { name: "split" type: "Split" bottom: "softmax" top: "sa" top: "sb" }
+layer { name: "sig" type: "Sigmoid" bottom: "sa" top: "sig" }
+layer { name: "tanh" type: "TanH" bottom: "sb" top: "tanh" }
+layer { name: "flat" type: "Flatten" bottom: "sig" top: "flat" }
+layer { name: "reshape" type: "Reshape" bottom: "tanh" top: "rs"
+  reshape_param { shape { dim: 0 dim: 32 dim: -1 } } }
+layer { name: "flat2" type: "Flatten" bottom: "rs" top: "flat2" }
+layer { name: "euclid" type: "EuclideanLoss" bottom: "flat" bottom: "target"
+  top: "euclid" }
+layer { name: "contrast" type: "ContrastiveLoss" bottom: "flat"
+  bottom: "flat2" bottom: "sim" top: "contrast" }
+"""
+
+
+def nets_chain_blocks(out, C=NETS_LANES, block=2):
+    """(c) the new layers alone under lanes (no convolution, no GEMM):
+    NETS_CHAIN's forward and backward over C lanes of laned data against
+    the same in blocks of `block` lanes, each lane's losses and data
+    gradient bit for bit."""
+    import torch
+    from rram_caffe_simulation_tpu_torch import proto
+    from rram_caffe_simulation_tpu_torch.net import Net
+    net = Net(proto.parse(NETS_CHAIN, "NetParameter"), proto.TRAIN,
+              device="cuda")
+    rng = np.random.RandomState(6)
+    feed = {"data": rng.randn(100, C * 16, 8, 8),
+            "target": rng.rand(100, C * 1024),
+            "sim": rng.randint(0, 2, (100, C))}
+    feed = {k: torch.as_tensor(v, dtype=torch.float32).to(net.device)
+            for k, v in feed.items()}
+
+    def run(batch, lanes):
+        x = batch["data"].clone().requires_grad_()
+        _, loss = net.apply({}, {**batch, "data": x}, lanes=lanes,
+                            laned_data=True)
+        (g,) = torch.autograd.grad(loss.sum(), [x])
+        return loss.detach(), g
+    loss, grad = run(feed, C)
+    widths = {"data": 16, "target": 1024, "sim": 1}
+    parts = [run({k: v[:, j * block * widths[k]:(j + 1) * block * widths[k]]
+                  for k, v in feed.items()}, block)
+             for j in range(C // block)]
+    bl = torch.cat([p[0] for p in parts])
+    bg = torch.cat([p[1] for p in parts], 1)
+    check(loss.shape == (C,) and bool(torch.isfinite(loss).all()),
+          f"(c) chain losses {loss}")
+    check(torch.equal(loss.view(torch.int32), bl.view(torch.int32))
+          and torch.equal(grad.view(torch.int32), bg.view(torch.int32)),
+          f"(c) the new layers over {C} lanes part from blocks of {block}: "
+          f"losses {loss.tolist()} vs {bl.tolist()}, gradient apart by "
+          f"{float((grad - bg).abs().max()):.3e}")
+    out["c_chain"] = {"configs": C, "block": block,
+                      "losses": loss.tolist()}
+    print(f"phase 24: (c) the new layers alone (LRN both regions, Slice, "
+          f"Concat, Eltwise SUM/PROD/MAX, Softmax, Split, Sigmoid, TanH, "
+          f"Flatten, Reshape, EuclideanLoss, ContrastiveLoss) over C = {C} "
+          f"lanes against blocks of {block}: losses and the data gradient "
+          "bit for bit", flush=True)
+
+
+def nets_sweep_512(tmp, gpu):
+    """(b) cifar10_full at C = 512 (halved until it fits), N(1e8, 3e7),
+    RRAM_POOL_BWD=cuda: one warm step, NETS_SWEEP_TIMED timed steps."""
+    import torch
+    from rram_caffe_simulation_tpu_torch import kernels
+    from rram_caffe_simulation_tpu_torch.parallel import SweepRunner
+    C = SWEEP_CONFIGS
+    while True:
+        try:
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            s = nets_solver("full", "cuda", tmp / "sweep", life=(1e8, 3e7),
+                            seed=1)
+            r = SweepRunner(s, n_configs=C, engine="cuda",
+                            packed_state=True, dtype_policy="ternary")
+            setup_s = time.perf_counter() - t0
+            r.step(1)
+            events = []
+            inner, stepper = _event_stepper(r, events)
+            r._step = stepper
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            kernels.reset_launches()
+            start.record()
+            t0 = time.perf_counter()
+            losses = r.step(NETS_SWEEP_TIMED, chunk=NETS_SWEEP_TIMED)[0]
+            wall = time.perf_counter() - t0
+            launches = _launches()
+            r._step = inner
+            break
+        except torch.cuda.OutOfMemoryError:
+            check(C > 8, "(b) cifar10_full does not fit the card at C = 8")
+            print(f"phase 24: (b) C = {C} does not fit (out of memory); "
+                  "halving", flush=True)
+            r = s = None
+            C //= 2
+            torch.cuda.empty_cache()
+    n = NETS_SWEEP_TIMED
+    check(r._dataset is not None, "(b) the dataset is not on the device")
+    check(losses.shape == (C,) and bool(np.isfinite(losses).all()),
+          "(b) non-finite sweep losses")
+    check(launches == _untiled(B2=n, B1=n, B4=n),
+          f"(b) launches {launches} in {n} steps, expected B2b 1, B1b 1, B4 "
+          "1 a step (ip1; ip1's two leaves; pool1)")
+    step_ms = [a.elapsed_time(b) for a, b in zip([start] + events[:-1],
+                                                 events)]
+    peak = torch.cuda.max_memory_allocated()
+    lrn_ms = layer_ms(s.net, ("LRN",), lanes=C)[0]
+    # the same steps in blocks of C / 4 lanes, from the same seed: every
+    # state leaf bit for bit
+    block = C // 4
+    rb = SweepRunner(s, n_configs=C, engine="cuda", packed_state=True,
+                     dtype_policy="ternary", config_block=block)
+    rb.step(1)
+    blosses = rb.step(n, chunk=n)[0]
+    gaps = state_gaps(r, rb)
+    check(blosses.tobytes() == losses.tobytes() and not gaps["apart"],
+          f"(b) C = {C} in blocks of {block} parts from unblocked on "
+          f"{gaps['apart']} ({gaps['rel_max']:.2e})")
+    rb.close()
+    del rb
+    out = {"configs": C, "timed_steps": n, "configs_steps_per_s": C * n / wall,
+           "step_ms": step_ms, "step_ms_median": float(np.median(step_ms)),
+           "peak_mem_bytes": int(peak), "setup_s": setup_s,
+           "launches": launches, "lrn_ms": lrn_ms, "block": block,
+           "block_leaves_equal": gaps["leaves"], "gpu": gpu}
+    r.close()
+    del r, s
+    torch.cuda.empty_cache()
+    print(f"phase 24: (b) cifar10_full sweep, C = {C}, N(1e8, 3e7), "
+          f"RRAM_POOL_BWD=cuda: {out['configs_steps_per_s']:.1f} "
+          f"configs*steps/s over {n} steps; step median "
+          f"{out['step_ms_median']:.3f} ms ({[round(v, 3) for v in step_ms]}"
+          f", CUDA events); peak memory {peak / 1e9:.2f} GB; LRN (norm1, "
+          f"norm2) {lrn_ms:.3f} ms a step alone; launches {launches}; "
+          f"setup {setup_s:.1f} s; in blocks of {block} every one of "
+          f"{gaps['leaves']} state leaves bit for bit; {gpu}", flush=True)
+    return out
+
+
+def nets_synthetic_solver():
+    """(c)'s Solver, NETS_SYNTH with a seeded host feed, and the feed's
+    rewind."""
+    from rram_caffe_simulation_tpu_torch import proto
+    from rram_caffe_simulation_tpu_torch.solver import Solver
+    rng = np.random.RandomState(4)
+    bs = [{"data": rng.randn(100, 3, 16, 16).astype(np.float32),
+           "target": rng.randn(100, 10).astype(np.float32)}
+          for _ in range(4)]
+    state = {"i": 0}
+
+    def feed():
+        state["i"] += 1
+        return bs[(state["i"] - 1) % len(bs)]
+    text = (f'net_param {{ {NETS_SYNTH} }} base_lr: 0.01 momentum: 0.9 '
+            'weight_decay: 0.004 lr_policy: "fixed" display: 0 '
+            'max_iter: 100 random_seed: 4 failure_pattern { '
+            f'type: "gaussian" mean: {NETS_LIFE[0]} std: {NETS_LIFE[1]} }}')
+    return Solver(proto.parse(text, "SolverParameter"), train_feed=feed,
+                  hw_engine="cuda", dtype_policy="ternary",
+                  fault_format="packed", fused_epilogue=True), \
+        lambda: state.update(i=0)
+
+
+def siamese_text(batch):
+    """The siamese net with its two Data layers (its LMDB is not in the
+    repository) as one Input layer of their tops' shapes."""
+    import re
+    text = (REPO / SIAMESE_NET).read_text()
+    blocks = re.split(r"(?m)^(?=layer \{)", text)
+    keep = [b for b in blocks if 'type: "Data"' not in b]
+    check(len(keep) == len(blocks) - 2, "the siamese net's Data layers")
+    feed = ('layer { name: "pair_data" type: "Input" top: "pair_data" '
+            f'top: "sim" input_param {{ shape {{ dim: {batch} dim: 2 '
+            f'dim: 28 dim: 28 }} shape {{ dim: {batch} }} }} }}\n')
+    return keep[0] + feed + "".join(keep[1:])
+
+
+def nets_siamese(out):
+    """(d) the siamese TRAIN net at its width, seeded pair_data/sim fed
+    as data tops, the crossbar read armed on its six InnerProduct reads
+    (three owners), forward and backward on the card against the CPU."""
+    import torch
+    from rram_caffe_simulation_tpu_torch import kernels, proto
+    from rram_caffe_simulation_tpu_torch.core import prng
+    from rram_caffe_simulation_tpu_torch.net import Net
+    text = siamese_text(SIAMESE_BATCH)
+    nets = {d: Net(proto.parse(text, "NetParameter"), proto.TRAIN, device=d)
+            for d in ("cuda", "cpu")}
+    owners = [r.key for r in nets["cpu"].failure_param_refs]
+    check(owners == [("ip1", 0), ("ip1", 1), ("ip2", 0), ("ip2", 1),
+                     ("feat", 0), ("feat", 1)], f"(d) fault targets {owners}")
+    reads = [ly.name for ly in nets["cpu"].layers
+             if ly.type_name == "InnerProduct"]
+    params = nets["cpu"].init(prng.PRNGKey(2))
+    rng = np.random.RandomState(0)
+    broken = {k: torch.from_numpy(rng.rand(*params[k][0].shape) < 0.1)
+              for k in ("ip1", "ip2", "feat")}
+    stuck = {k: torch.from_numpy(rng.choice(
+        [-1.0, 0.0, 1.0], size=tuple(params[k][0].shape)).astype(np.float32))
+        for k in broken}
+    batch = {"pair_data": torch.from_numpy(
+        rng.rand(SIAMESE_BATCH, 2, 28, 28).astype(np.float32)),
+        "sim": torch.from_numpy(rng.randint(0, 2, SIAMESE_BATCH)
+                                .astype(np.float32))}
+    res = {}
+    for d, net in nets.items():
+        leaves = {k: [t.to(d).requires_grad_() for t in v]
+                  for k, v in params.items()}
+        cb = {name: (broken[name.replace("_p", "")].to(d),
+                     stuck[name.replace("_p", "")].to(d), 11, 0.0, 2, True)
+              for name in reads}
+        kernels.reset_launches()
+        _, loss = net.apply(leaves, {k: v.to(d) for k, v in batch.items()},
+                            crossbar=cb)
+        fwd = _launches()["B2"]
+        flat = [t for v in leaves.values() for t in v]
+        grads = torch.autograd.grad(loss, flat)
+        res[d] = (float(loss.detach()), [g.cpu() for g in grads], fwd)
+    (kl, kg, kf), (pl, pg, _) = res["cuda"], res["cpu"]
+    check(kf == 6, f"(d) B2a launched {kf} times in a forward, expected 6")
+    rel = abs(kl - pl) / max(1.0, abs(pl))
+    check(math.isfinite(kl) and rel <= 1e-5,
+          f"(d) siamese loss card {kl} vs CPU {pl}")
+    worst = 0.0
+    names = [f"{k}/{i}" for k, v in params.items() for i in range(len(v))]
+    for name, a, b in zip(names, kg, pg):
+        scale = float(b.abs().max())
+        gap = float((a - b).abs().max()) / max(scale, 1e-30)
+        worst = max(worst, gap)
+        check(gap <= 1e-4, f"(d) siamese gradient {name}: {gap:.2e} of its "
+              "largest value apart")
+    out["d"] = {"batch": SIAMESE_BATCH, "loss": kl, "loss_rel": rel,
+                "grad_gap_max": worst, "b2_per_forward": kf,
+                "reads": reads}
+    print(f"phase 24: (d) siamese TRAIN net, batch {SIAMESE_BATCH}, pair_data "
+          f"2x28x28 fed: six crossbar reads of three shared weights (B2a "
+          f"{kf} a forward); loss {kl:.6f}, card against CPU {rel:.2e} "
+          f"relative (limit 1e-5), gradients within {worst:.2e} of their "
+          "largest (limit 1e-4)", flush=True)
+
+
+def nets_tiled(tmp, out):
+    """(e) cifar10_full with conv_also on 128x128 tiles, 8-bit ADCs,
+    implicit operands: NETS_TILED_STEPS steps, the launches a step
+    NETS_TILED_PER_STEP gives, finite losses."""
+    from rram_caffe_simulation_tpu_torch import kernels
+    s = nets_solver("full", "cuda", tmp / "tiled", life=(1e8, 3e7),
+                    tiled=True, fields={"test_interval": 0})
+    tiles = s._tiles_ctx()
+    check(sorted(tiles) == sorted(NETS_TILED_LAYERS), f"(e) tiles {tiles}")
+    check(s._step_fn.conv_im2col_resolved == "implicit",
+          "(e) the implicit operand did not engage")
+    check(len(s.fault_state["life_q"]) == 8, "(e) eight fault leaves")
+    kernels.reset_launches()
+    losses = []
+    for _ in range(NETS_TILED_STEPS):
+        s.step(1)
+        losses.append(float(s.last_loss))
+    got = _launches()
+    want = {k: v * NETS_TILED_STEPS for k, v in NETS_TILED_PER_STEP.items()}
+    check(got == want, f"(e) launches {got} in {NETS_TILED_STEPS} steps, "
+          f"expected {want}")
+    check(all(math.isfinite(v) for v in losses), f"(e) losses {losses}")
+    out["e"] = {"tiles": {k: list(v) for k, v in tiles.items()},
+                "losses": losses, "launches": got}
+    print(f"phase 24: (e) cifar10_full, conv_also on {TILES} tiles, 8-bit "
+          f"ADCs, implicit operands: {NETS_TILED_STEPS} steps, losses "
+          f"{[round(v, 5) for v in losses]}; launches {got} (B3 conv2, "
+          "conv3; B2t ip1; B1 the eight leaves)", flush=True)
+
+
+def phase_nets(gpu):
+    """Phase 24: the in-repo nets on the card, from a temporary working
+    directory for snapshots, the LMDB sources read from the checkout:
+    (a) each CIFAR-10 "full" net from its solver file, card against CPU;
+    (a') the HDF5 solver file as it is; (b) lanes and blocks at C = 8,
+    cifar10_full at C = 512; (c) channel-axis lanes; (d) siamese; (e)
+    tiles."""
+    import tempfile
+    import torch
+    t0 = time.perf_counter()
+    out = {"gpu": gpu, "part_s": {}, "a": {}}
+    saved = os.environ.get("RRAM_POOL_BWD")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_nets_") as tmp:
+        tmp = Path(tmp)
+        proc = nets_hdf5_start(tmp)
+        try:
+            t = time.perf_counter()
+            for name in NETS_SOLVERS:
+                out["a"][name] = nets_card_vs_cpu(name, tmp)
+            out["part_s"]["a"] = time.perf_counter() - t
+            t = time.perf_counter()
+            os.environ["RRAM_POOL_BWD"] = "cuda"
+            out["b"] = {name: nets_lanes(
+                nets_solver(name, "cuda", tmp / "lanes"), f"(b) {name}")
+                for name in ("full", "sigmoid_bn")}
+            out["b"]["sweep"] = nets_sweep_512(tmp, gpu)
+            out["part_s"]["b"] = time.perf_counter() - t
+            t = time.perf_counter()
+            synth, rewind = nets_synthetic_solver()
+            out["c"] = nets_lanes(synth, "(c)", rewind=rewind)
+            nets_chain_blocks(out)
+            out["part_s"]["c"] = time.perf_counter() - t
+            for part, label in (("b", "cifar10_full, BN-sigmoid"),
+                                ("c", "synthetic channel-axis net")):
+                rows = ([out["b"]["full"], out["b"]["sigmoid_bn"]]
+                        if part == "b" else [out["c"]])
+                print(f"phase 24: ({part}) {label} at C = {NETS_LANES}, "
+                      f"{NETS_LANE_STEPS} steps: each lane against a "
+                      "Solver from its state, losses within "
+                      f"{max(r['lane_loss_rel_max'] for r in rows):.2e} "
+                      "relative, banks identical; blocks of 2: banks bit "
+                      "for bit, losses within "
+                      f"{max(r['block_loss_gap'] for r in rows):.2e}, "
+                      f"{[len(r['block_leaves_apart']) for r in rows]} of "
+                      f"{[r['block_leaves'] for r in rows]} param and "
+                      "history leaves apart (cuDNN at small group counts), "
+                      f"by {[round(r['block_rel_max'], 6) for r in rows]} "
+                      "of their largest", flush=True)
+        finally:
+            if saved is None:
+                os.environ.pop("RRAM_POOL_BWD", None)
+            else:
+                os.environ["RRAM_POOL_BWD"] = saved
+        try:
+            t = time.perf_counter()
+            nets_siamese(out)
+            out["part_s"]["d"] = time.perf_counter() - t
+            t = time.perf_counter()
+            nets_tiled(tmp, out)
+            out["part_s"]["e"] = time.perf_counter() - t
+            t = time.perf_counter()
+            nets_hdf5_end(tmp, proc, out)
+            out["part_s"]["a_hdf5_wait"] = time.perf_counter() - t
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"phase 24: parts {json.dumps(out['part_s'])}", flush=True)
+    return out
+
+
 COLD_RUNS = ("precompile", "serial", "serial", "precompile")
 
 
@@ -8008,7 +8794,7 @@ def main(argv=None) -> int:
                    help="training steps of the slice phase (default 50)")
     p.add_argument("--transition-steps", type=int, default=6)
     p.add_argument("--phases", default="all",
-                   help="comma-separated phases 2-23 to run after the "
+                   help="comma-separated phases 2-24 to run after the "
                         "build (default all; only a full run prints the "
                         "per-kernel line and the ok line)")
     p.add_argument("--b2-path", action="store_true",
@@ -8052,7 +8838,7 @@ def main(argv=None) -> int:
                         "print their seconds as JSON")
     args = p.parse_args(argv)
     t_main = time.perf_counter()
-    every = set(range(2, 24))
+    every = set(range(2, 25))
     want = every if args.phases == "all" else {
         int(v) for v in args.phases.split(",")}
 
@@ -8211,6 +8997,8 @@ def main(argv=None) -> int:
                           sweep if 7 in want else None)
     if 23 in want:
         harness = timed(23, phase_harness, gpu)
+    if 24 in want:
+        nets = timed(24, phase_nets, gpu)
     if want != every:
         print(f"phases {sorted(want)} passed; no ok line for a partial run",
               flush=True)
@@ -8350,6 +9138,32 @@ def main(argv=None) -> int:
          "launches": vt["B3"], "max_abs_err": max(vr["B3a"], err_vb3a),
          **vb3a},
     ]
+    # phase 24's path: cifar10_full's ip1 (1024 -> 10) and its two fault
+    # leaves, one config (the Solver) and the sweep's C
+    Cn = nets["b"]["sweep"]["configs"]
+    na, nsl = nets["a"]["full"]["launches"], nets["b"]["sweep"]["launches"]
+    nb2, err_nb2 = b2_step_numbers(device, 1, NETS_B2_SHAPES)
+    nb2b, err_nb2b = b2_step_numbers(device, Cn, NETS_B2_SHAPES)
+    nb1, err_nb1 = b1_step_numbers(device, NETS_LEAVES)
+    nb1b, err_nb1b = b1_step_numbers(device, NETS_LEAVES, Cn)
+    rows += [
+        {"name": "crossbar_forward (B2a), cifar10_full ip1", "route": "cuda",
+         "source": f"{PKG}/csrc/crossbar.cu",
+         "replaces": "rram_caffe_simulation_tpu/fault/hw_aware.py:332",
+         "launches": na["B2"], "max_abs_err": err_nb2, **nb2},
+        {"name": "fused_update_fail (B1a), cifar10_full ip1", "route": "cuda",
+         "source": f"{PKG}/csrc/fused_epilogue.cu",
+         "replaces": "rram_caffe_simulation_tpu/fault/fused.py:99",
+         "launches": na["B1"], "max_abs_err": err_nb1, **nb1},
+        {"name": "crossbar_forward over C lanes (B2b), cifar10_full sweep",
+         "route": "cuda", "source": f"{PKG}/csrc/crossbar.cu",
+         "replaces": "rram_caffe_simulation_tpu/fault/hw_aware.py:477",
+         "launches": nsl["B2"], "max_abs_err": err_nb2b, **nb2b},
+        {"name": "fused_update_fail over C lanes (B1b), cifar10_full sweep",
+         "route": "cuda", "source": f"{PKG}/csrc/fused_epilogue.cu",
+         "replaces": "rram_caffe_simulation_tpu/fault/fused.py:118",
+         "launches": nsl["B1"], "max_abs_err": err_nb1b, **nb1b},
+    ]
     # phase 22's path: B1 in the modes of read_disturb ("always") and
     # permanent_fault_map ("never"), on the steps' own tails
     for key, row in sorted(processes["b1_rows"].items()):
@@ -8384,6 +9198,7 @@ def main(argv=None) -> int:
     print(json.dumps({"driver": driver}))
     print(json.dumps({"processes": processes}))
     print(json.dumps({"harness": harness}))
+    print(json.dumps({"nets": nets}))
     print(json.dumps({"phase_s": {**{str(n): v for n, v in phase_s.items()},
                                   "kernels_line": time.perf_counter() - t_rows,
                                   "script": time.perf_counter() - t_main}}))

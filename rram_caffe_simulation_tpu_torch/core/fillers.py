@@ -35,9 +35,9 @@ def _scale_n(filler, fan_in: float, fan_out: float) -> float:
 def make_filler(f):
     """fill(key, shape, device="cpu") -> float32 tensor for a
     FillerParameter, drawn as the reference draws it: gaussian splits
-    (kg, ks) and masks with bernoulli(ks) when sparse; uniform and
-    xavier are one uniform draw; msra is std * normal; constant draws
-    nothing."""
+    (kg, ks) and masks with bernoulli(ks) when sparse; uniform, xavier
+    and positive_unitball are one uniform draw; msra is std * normal;
+    constant and bilinear draw nothing."""
     ftype = f.type
     if ftype == "constant":
         def fill(key, shape, device="cpu"):
@@ -57,6 +57,13 @@ def make_filler(f):
                 p = min(1.0, f.sparse / max(fan_in, 1.0))
                 x = torch.where(prng.bernoulli(ks, p, shape, device), x, 0.0)
             return x
+    elif ftype == "positive_unitball":
+        def fill(key, shape, device="cpu"):
+            # one uniform draw, each row (the fan-in of an output)
+            # divided by its sum (filler.hpp:160-180)
+            x = prng.uniform(key, shape, 0.0, 1.0, device)
+            flat = x.reshape(shape[0], -1)
+            return (flat / flat.sum(1, keepdim=True)).reshape(shape)
     elif ftype == "xavier":
         def fill(key, shape, device="cpu"):
             scale = math.sqrt(3.0 / _scale_n(f, *_fans(shape)))
@@ -65,9 +72,21 @@ def make_filler(f):
         def fill(key, shape, device="cpu"):
             std = math.sqrt(2.0 / _scale_n(f, *_fans(shape)))
             return prng.normal(key, shape, device) * _f32(std)
+    elif ftype == "bilinear":
+        def fill(key, shape, device="cpu"):
+            # the deterministic upsampling kernel (filler.hpp:213-246) in
+            # float64, rounded once; a 4-D blob with square planes
+            if len(shape) != 4 or shape[2] != shape[3]:
+                raise ValueError("the bilinear filler needs a 4-D blob "
+                                 f"with square planes, got {tuple(shape)}")
+            k = shape[3]
+            fac = (k + 1) // 2
+            center = fac - 1.0 if k % 2 == 1 else fac - 0.5
+            w1d = 1.0 - np.abs(np.arange(k, dtype=np.float64) - center) / fac
+            w2d = torch.from_numpy(np.outer(w1d, w1d).astype(np.float32))
+            return w2d.to(device).expand(tuple(shape)).contiguous()
     else:
-        raise ValueError(f"filler {ftype!r} is not ported (constant, "
-                         "uniform, gaussian, xavier, msra are)")
+        raise ValueError(f"Unknown filler type: {ftype!r}")
     return fill
 
 

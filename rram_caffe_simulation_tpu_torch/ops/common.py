@@ -1,5 +1,6 @@
-"""InnerProduct, the RRAM fault target, and Scale and Bias (counterpart
-of the reference package's ops/common.py; reference
+"""InnerProduct, the RRAM fault target, Scale and Bias, Eltwise, and the
+structural layers Concat, Slice, Split, Flatten and Reshape
+(counterpart of the reference package's ops/common.py; reference
 inner_product_layer.cpp:84-139 and net.cpp:482-493, which makes
 InnerProduct params the failure-prone set; scale_layer.cpp,
 bias_layer.cpp). The weight keeps Caffe's stored shape (num_output, K).
@@ -25,8 +26,10 @@ lanes do not split) and a laned second bottom raise.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
+from .. import proto
 from ..core import prng
 from ..core.fillers import make_filler
 from ..core.registry import Layer, register_layer
@@ -263,3 +266,213 @@ class ScaleLayer(_AffineLayer):
             mul = (bottoms[1], False)
             add = (params[0], True) if self.bias_term else None
         return [self._combine(bottoms[0], mul, add, ctx)]
+
+
+# ---------------------------------------------------------------------------
+# structural layers and Eltwise (eltwise_layer.cpp, concat_layer.cpp,
+# slice_layer.cpp, split_layer.cpp, flatten_layer.cpp, reshape_layer.cpp)
+#
+# Under config lanes a laned blob (N, C*d1, ...) is read as (N, C, d1,
+# ...): a layer that cuts or joins axis 1 does so per lane, on axis 2 of
+# that view. A bottom every lane shares, beside a laned one, is spread to
+# every lane first (`_spread`).
+
+def _lane_view(x, C: int):
+    """(N, C*d1, ...) -> (N, C, d1, ...)."""
+    return x.reshape((x.shape[0], C, -1) + tuple(x.shape[2:]))
+
+
+def _fold(v):
+    """(N, C, d1, ...) -> (N, C*d1, ...)."""
+    return v.reshape((v.shape[0], -1) + tuple(v.shape[3:]))
+
+
+def _spread(bottoms, ctx):
+    """(C, bottoms) with every bottom laned, an unlaned one repeated for
+    each lane; C = 0 where no bottom is laned."""
+    C = ctx.lanes if ctx.lanes and any(ctx.laned) else 0
+    if not C:
+        return 0, list(bottoms)
+    out = []
+    for x, laned in zip(bottoms, ctx.laned):
+        if not laned:
+            x = _fold(x.unsqueeze(1).expand(
+                (x.shape[0], C) + tuple(x.shape[1:])))
+        out.append(x)
+    return C, out
+
+
+@register_layer("Eltwise")
+class EltwiseLayer(Layer):
+    """PROD, SUM with coefficients, or MAX over the bottoms
+    (eltwise_layer.cpp), as the reference writes them: SUM multiplies
+    every bottom by its coefficient (1 by default) and adds in bottom
+    order; MAX's gradient splits a tie evenly (jnp.maximum's rule)."""
+    lane_rule = "any"
+
+    def setup(self, bottom_shapes):
+        ep = self.lp.eltwise_param
+        self.op = ep.operation
+        self.coeffs = [float(c) for c in ep.coeff] or \
+            [1.0] * len(bottom_shapes)
+        if len(self.coeffs) != len(bottom_shapes):
+            raise ValueError(f"Eltwise layer {self.name!r}: one coeff a "
+                             "bottom")
+        self.top_shapes = [tuple(bottom_shapes[0])]
+        return self.top_shapes
+
+    def apply(self, params, bottoms, ctx):
+        _, bs = _spread(bottoms, ctx)
+        if self.op == proto.ELTWISE_PROD:
+            y = bs[0]
+            for b in bs[1:]:
+                y = y * b
+        elif self.op == proto.ELTWISE_SUM:
+            y = self.coeffs[0] * bs[0]
+            for c, b in zip(self.coeffs[1:], bs[1:]):
+                y = y + c * b
+        else:
+            y = bs[0]
+            for b in bs[1:]:
+                y = torch.maximum(y, b)
+        return [y]
+
+
+@register_layer("Concat")
+class ConcatLayer(Layer):
+    lane_rule = "own"
+
+    def setup(self, bottom_shapes):
+        cp = self.lp.concat_param
+        axis = (cp.axis if cp.HasField("axis")
+                or not cp.HasField("concat_dim") else cp.concat_dim)
+        self.axis = axis % len(bottom_shapes[0])
+        out = list(bottom_shapes[0])
+        out[self.axis] = sum(s[self.axis] for s in bottom_shapes)
+        self.top_shapes = [tuple(out)]
+        return self.top_shapes
+
+    def apply(self, params, bottoms, ctx):
+        C, bs = _spread(bottoms, ctx)
+        if C and self.axis == 1:
+            return [_fold(torch.cat([_lane_view(b, C) for b in bs], 2))]
+        return [torch.cat(bs, self.axis)]
+
+
+@register_layer("Slice")
+class SliceLayer(Layer):
+    lane_rule = "own"
+
+    def setup(self, bottom_shapes):
+        sp = self.lp.slice_param
+        axis = (sp.axis if sp.HasField("axis")
+                or not sp.HasField("slice_dim") else sp.slice_dim)
+        self.axis = axis % len(bottom_shapes[0])
+        total = bottom_shapes[0][self.axis]
+        n_top = len(self.lp.top)
+        points = [int(p) for p in sp.slice_point]
+        if points:
+            if len(points) != n_top - 1:
+                raise ValueError(f"Slice layer {self.name!r}: "
+                                 f"{len(points)} slice points for {n_top} "
+                                 "tops")
+            bounds = [0] + points + [total]
+        else:
+            if total % n_top:
+                raise ValueError(f"Slice layer {self.name!r}: {total} "
+                                 f"does not split into {n_top} equal "
+                                 "parts")
+            bounds = list(range(0, total + 1, total // n_top))
+        self.sizes = [b - a for a, b in zip(bounds, bounds[1:])]
+        self.top_shapes = []
+        for size in self.sizes:
+            s = list(bottom_shapes[0])
+            s[self.axis] = size
+            self.top_shapes.append(tuple(s))
+        return self.top_shapes
+
+    def apply(self, params, bottoms, ctx):
+        x = bottoms[0]
+        C = ctx.lanes if ctx.lanes and ctx.laned[0] else 0
+        if C and self.axis == 1:
+            return [_fold(p) for p in
+                    torch.split(_lane_view(x, C), self.sizes, 2)]
+        return list(torch.split(x, self.sizes, self.axis))
+
+
+@register_layer("Split")
+class SplitLayer(Layer):
+    """The bottom to every top; autograd sums the tops' gradients (the
+    reference's InsertSplits, insert_splits.cpp:12)."""
+    lane_rule = "any"
+
+    def setup(self, bottom_shapes):
+        self.top_shapes = [tuple(bottom_shapes[0])] * len(self.lp.top)
+        return self.top_shapes
+
+    def apply(self, params, bottoms, ctx):
+        return [bottoms[0]] * len(self.top_shapes)
+
+
+@register_layer("Flatten")
+class FlattenLayer(Layer):
+    """Axes axis..end_axis into one. A laned blob flattened from axis 1
+    is its lanes' flattened blobs lane-major, (N, C*K): the layout
+    InnerProduct's lane rule reads. Axis 0 would take the lanes into the
+    batch axis, and raises under lanes."""
+    lane_rule = "any"
+
+    def setup(self, bottom_shapes):
+        fp = self.lp.flatten_param
+        s = bottom_shapes[0]
+        self.start = fp.axis % len(s)
+        self.end = fp.end_axis % len(s)
+        mid = int(np.prod(s[self.start:self.end + 1]))
+        self.top_shapes = [tuple(s[:self.start]) + (mid,)
+                           + tuple(s[self.end + 1:])]
+        return self.top_shapes
+
+    def apply(self, params, bottoms, ctx):
+        if ctx.lanes and ctx.laned[0] and self.start == 0:
+            raise NotImplementedError(
+                f"Flatten layer {self.name!r}: axis 0 under config lanes "
+                "(it would fold the lanes into the batch axis)")
+        return [bottoms[0].flatten(self.start, self.end)]
+
+
+@register_layer("Reshape")
+class ReshapeLayer(Layer):
+    """reshape_layer.cpp: a dim of 0 copies the bottom's, one -1 is
+    inferred; axis and num_axes bound the replaced span. Under config
+    lanes each lane's blob is reshaped in place in the lane-major
+    layout, which needs the batch axis kept and a second axis; a reshape
+    that moves the lane-folded channel axis raises."""
+    lane_rule = "own"
+
+    def setup(self, bottom_shapes):
+        rp = self.lp.reshape_param
+        s = list(bottom_shapes[0])
+        a = rp.axis % (len(s) + 1) if rp.axis < 0 else rp.axis
+        n = len(s) - a if rp.num_axes == -1 else rp.num_axes
+        mid = [s[a + i] if d == 0 else int(d)
+               for i, d in enumerate(rp.shape.dim)]
+        total = int(np.prod(s[a:a + n])) if n > 0 else 1
+        if -1 in mid:
+            known = int(np.prod([d for d in mid if d != -1]))
+            mid[mid.index(-1)] = total // known
+        self.in_shape = tuple(s)
+        self.out_shape = tuple(s[:a]) + tuple(mid) + tuple(s[a + n:])
+        self.top_shapes = [self.out_shape]
+        return self.top_shapes
+
+    def apply(self, params, bottoms, ctx):
+        x = bottoms[0]
+        C = ctx.lanes if ctx.lanes and ctx.laned[0] else 0
+        if not C:
+            return [x.reshape(self.out_shape)]
+        o = self.out_shape
+        if len(o) < 2 or o[0] != self.in_shape[0]:
+            raise NotImplementedError(
+                f"Reshape layer {self.name!r}: {self.in_shape} -> {o} "
+                "moves the lane-folded channel axis under config lanes")
+        return [_fold(x.reshape((x.shape[0], C) + tuple(o[1:])))]

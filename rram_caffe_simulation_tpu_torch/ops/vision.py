@@ -1,7 +1,7 @@
-"""Convolution, Pooling and BatchNorm (counterpart of the reference
+"""Convolution, Pooling, LRN and BatchNorm (counterpart of the reference
 package's ops/vision.py; reference conv_layer.cpp, base_conv_layer.cpp,
-pooling_layer.cpp, batch_norm_layer.cpp). NCHW throughout, as Caffe
-stores blobs.
+pooling_layer.cpp, lrn_layer.cpp, batch_norm_layer.cpp). NCHW
+throughout, as Caffe stores blobs.
 
 Pooling keeps Caffe's CEIL output size: the input is padded explicitly
 (`pad` low, `ceil_pad_hi` high) and pooled without implicit padding, so
@@ -103,14 +103,26 @@ class _PerGroupConv2d(torch.autograd.Function):
 LANE_CHUNK = 16      # lanes a batched GEMM of a shared bottom's dw
 
 
+def _fixed_chunk_matmul(r, patches):
+    """A chunk of lanes' (k, o, N*L) cotangent rows against the shared
+    (N*L, K) patch rows, as one GEMM of LANE_CHUNK lanes' rows whatever
+    k is (a short chunk padded with zero rows): cuBLAS splits a GEMM's
+    sums by its shape, so a fixed shape keeps each lane's sums."""
+    k = r.shape[0]
+    if k < LANE_CHUNK:
+        pad = r.new_zeros((LANE_CHUNK - k,) + tuple(r.shape[1:]))
+        r = torch.cat([r, pad])
+    return torch.matmul(r, patches)[:k]
+
+
 class _SharedBottomConv2d(torch.autograd.Function):
     """F.conv2d of one bottom (N, ch, H, W) every lane reads with
     `lanes` lanes' filters (lanes*o, ch, kh, kw), on the card: the
     forward one group-1 call (cuDNN); the weight gradient the im2col
-    GEMM, LANE_CHUNK lanes a batched call, so a lane's sums are the
-    same in any run whose lane count is a multiple of LANE_CHUNK (cuDNN
-    splits a group-1 call's weight-gradient sums by its filter count,
-    cuBLAS a batched GEMM's by its batch count)."""
+    GEMM, LANE_CHUNK lanes a call (a shorter chunk padded), so a lane's
+    sums are the same whatever the lane count (cuDNN splits a group-1
+    call's weight-gradient sums by its filter count, cuBLAS a GEMM's by
+    its shape)."""
 
     @staticmethod
     def forward(ctx, x, w, stride, pad, dilation, lanes):
@@ -138,7 +150,7 @@ class _SharedBottomConv2d(torch.autograd.Function):
             patches = cols.transpose(1, 2).reshape(n * L, -1)
             rows = g.reshape(n, lanes, -1, L).permute(1, 2, 0, 3) \
                 .reshape(lanes, -1, n * L)
-            gw = torch.cat([torch.matmul(r, patches)
+            gw = torch.cat([_fixed_chunk_matmul(r, patches)
                             for r in rows.split(LANE_CHUNK)]).reshape(w.shape)
         return gx, gw, None, None, None, None
 
@@ -344,6 +356,76 @@ class PoolingLayer(Layer):
             self._div[key] = torch.as_tensor(self.divisors, dtype=x.dtype,
                                              device=x.device)
         return [s / self._div[key]]
+
+
+class _PowF64(torch.autograd.Function):
+    """x ** e of a float32 tensor x > 0 and a float exponent e: float64's
+    pow rounded once to float32, the correctly rounded value but for a
+    double rounding (1 ulp from XLA's CPU pow at 0.02% of LRN's scales);
+    the backward is JAX's rule, g * (e * x ** (e - 1)) in float32."""
+
+    @staticmethod
+    def forward(ctx, x, e):
+        ctx.save_for_backward(x)
+        ctx.e = e
+        return torch.pow(x.double(), e).float()
+
+    @staticmethod
+    def backward(ctx, g):
+        x, = ctx.saved_tensors
+        e = np.float32(ctx.e)
+        jac = torch.pow(x.double(), float(e - np.float32(1.0))).float() \
+            * float(e)
+        return g * jac, None
+
+
+@register_layer("LRN")
+class LRNLayer(Layer):
+    """Local response normalization (lrn_layer.cpp:118-164): x * scale **
+    -beta, scale = k + alpha / n * (the sum of x^2 over the window), n
+    the window's count. ACROSS_CHANNELS sums `local_size` neighbouring
+    channels of zero-padded channels, as the reference does, shifted
+    slice by shifted slice in its order; WITHIN_CHANNEL sums a
+    local_size x local_size box of zero-padded planes (in the row-major
+    order of XLA's reduce_window, as avg_pool2d sums). Under config
+    lanes a laned bottom's channels are (lane, channel) pairs: the
+    within-channel box is per channel (lane rule "any"), the
+    across-channels window pads each lane's channel edges, never
+    between lanes ("own")."""
+
+    def setup(self, bottom_shapes):
+        lp = self.lp.lrn_param
+        self.size = lp.local_size
+        if self.size % 2 != 1:
+            raise ValueError(f"LRN layer {self.name!r}: local_size must be "
+                             "odd")
+        self.alpha, self.beta, self.k = lp.alpha, lp.beta, lp.k
+        self.across = lp.norm_region == proto.ACROSS_CHANNELS
+        self.lane_rule = "own" if self.across else "any"
+        n = self.size if self.across else self.size * self.size
+        self.coef = float(np.float32(self.alpha / n))
+        self.top_shapes = [tuple(bottom_shapes[0])]
+        return self.top_shapes
+
+    def apply(self, params, bottoms, ctx):
+        x = bottoms[0]
+        sq = x * x
+        half = (self.size - 1) // 2
+        if self.across:
+            C = ctx.lanes if ctx.lanes and ctx.laned[0] else 0
+            v = (sq.reshape((sq.shape[0], C, -1) + tuple(sq.shape[2:]))
+                 if C else sq.unsqueeze(1))
+            c = v.shape[2]
+            padded = F.pad(v, [0, 0] * (v.dim() - 3) + [half, half])
+            ssum = padded[:, :, 0:c]
+            for d in range(1, self.size):
+                ssum = ssum + padded[:, :, d:d + c]
+            ssum = ssum.reshape(sq.shape)
+        else:
+            ssum = F.avg_pool2d(sq, self.size, 1, half,
+                                count_include_pad=True, divisor_override=1)
+        scale = ssum * self.coef + self.k
+        return [x * _PowF64.apply(scale, -self.beta)]
 
 
 @register_layer("BatchNorm")

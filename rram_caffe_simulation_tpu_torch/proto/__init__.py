@@ -13,6 +13,8 @@ POOL_MAX, POOL_AVE, POOL_STOCHASTIC = 0, 1, 2
 NORM_FULL, NORM_VALID, NORM_BATCH_SIZE, NORM_NONE = 0, 1, 2, 3
 FAN_IN, FAN_OUT, AVERAGE = 0, 1, 2
 HDF5, BINARYPROTO = 0, 1          # SolverParameter.SnapshotFormat
+ACROSS_CHANNELS, WITHIN_CHANNEL = 0, 1      # LRNParameter.NormRegion
+ELTWISE_PROD, ELTWISE_SUM, ELTWISE_MAX = 0, 1, 2
 
 __all__ = ["Message", "parse", "to_text", "decode", "decode_blob_proto",
            "decode_datum", "encode"]

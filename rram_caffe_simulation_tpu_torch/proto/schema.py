@@ -183,6 +183,15 @@ message LayerParameter {
   optional ReLUParameter relu_param = 123;
   optional ScaleParameter scale_param = 142;
   optional SoftmaxParameter softmax_param = 125;
+  optional ConcatParameter concat_param = 104;
+  optional ContrastiveLossParameter contrastive_loss_param = 105;
+  optional EltwiseParameter eltwise_param = 110;
+  optional FlattenParameter flatten_param = 135;
+  optional LRNParameter lrn_param = 118;
+  optional ReshapeParameter reshape_param = 133;
+  optional SigmoidParameter sigmoid_param = 124;
+  optional SliceParameter slice_param = 126;
+  optional TanHParameter tanh_param = 127;
 }
 message TransformationParameter {
   optional float scale = 1 [default = 1];
@@ -283,6 +292,52 @@ message SoftmaxParameter {
   enum Engine { DEFAULT = 0; CAFFE = 1; CUDNN = 2; }
   optional Engine engine = 1 [default = DEFAULT];
   optional int32 axis = 2 [default = 1];
+}
+message LRNParameter {
+  optional uint32 local_size = 1 [default = 5];
+  optional float alpha = 2 [default = 1.];
+  optional float beta = 3 [default = 0.75];
+  enum NormRegion { ACROSS_CHANNELS = 0; WITHIN_CHANNEL = 1; }
+  optional NormRegion norm_region = 4 [default = ACROSS_CHANNELS];
+  optional float k = 5 [default = 1.];
+  enum Engine { DEFAULT = 0; CAFFE = 1; CUDNN = 2; }
+  optional Engine engine = 6 [default = DEFAULT];
+}
+message EltwiseParameter {
+  enum EltwiseOp { PROD = 0; SUM = 1; MAX = 2; }
+  optional EltwiseOp operation = 1 [default = SUM];
+  repeated float coeff = 2;
+  optional bool stable_prod_grad = 3 [default = true];
+}
+message ConcatParameter {
+  optional int32 axis = 2 [default = 1];
+  optional uint32 concat_dim = 1 [default = 1];
+}
+message SliceParameter {
+  optional int32 axis = 3 [default = 1];
+  repeated uint32 slice_point = 2;
+  optional uint32 slice_dim = 1 [default = 1];
+}
+message FlattenParameter {
+  optional int32 axis = 1 [default = 1];
+  optional int32 end_axis = 2 [default = -1];
+}
+message ReshapeParameter {
+  optional BlobShape shape = 1;
+  optional int32 axis = 2 [default = 0];
+  optional int32 num_axes = 3 [default = -1];
+}
+message ContrastiveLossParameter {
+  optional float margin = 1 [default = 1.0];
+  optional bool legacy_version = 2 [default = false];
+}
+message SigmoidParameter {
+  enum Engine { DEFAULT = 0; CAFFE = 1; CUDNN = 2; }
+  optional Engine engine = 1 [default = DEFAULT];
+}
+message TanHParameter {
+  enum Engine { DEFAULT = 0; CAFFE = 1; CUDNN = 2; }
+  optional Engine engine = 1 [default = DEFAULT];
 }
 """
 

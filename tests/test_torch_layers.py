@@ -263,3 +263,140 @@ def test_fillers(filler, check):
     w = make_filler(f)(prng.PRNGKey(0), (200, 300))
     assert w.dtype == torch.float32 and w.shape == (200, 300)
     assert check(w)
+
+
+# ---------------------------------------------------------------------------
+# the layers of the in-repo CIFAR-10 "full" and siamese nets
+
+def ulps(a, b) -> int:
+    """The largest distance in float32 units in the last place."""
+    a = np.asarray(a, np.float32).view(np.int32).astype(np.int64)
+    b = b.detach().numpy() if isinstance(b, torch.Tensor) else np.asarray(b)
+    b = np.asarray(b, np.float32).view(np.int32).astype(np.int64)
+    # the two's-complement view of a negative float runs backwards
+    a = np.where(a < 0, -(a & 0x7FFFFFFF), a)
+    b = np.where(b < 0, -(b & 0x7FFFFFFF), b)
+    return int(np.abs(a - b).max())
+
+
+def wide_in(shape, seed=0):
+    """Inputs over the neurons' whole range: saturation, the small-x
+    branch and a few exact zeros."""
+    x = x_in(shape, seed) * 6
+    flat = x.reshape(-1)
+    flat[:4] = (0.0, 1e-5, -3e-4, 95.0)
+    return x
+
+
+@pytest.mark.parametrize("kind", ["Sigmoid", "TanH"])
+def test_neurons_match_bit_for_bit(kind):
+    """Sigmoid and TanH are XLA's CPU float32 expressions (logistic as
+    1 / (1 + exp(-x)), tanh as its rational approximation), forward and
+    JAX's eager backward rule: bit for bit (0 ulps)."""
+    layer = (f'layer {{ name: "n" type: "{kind}" bottom: "data" '
+             'top: "n" }')
+    check(net_text((4, 5, 6, 6), layer), {"data": wide_in((4, 5, 6, 6))},
+          "n", exact=True)
+
+
+LRN = ('layer {{ name: "lrn" type: "LRN" bottom: "data" top: "lrn" '
+       'lrn_param {{ {p} }} }}')
+
+
+@pytest.mark.parametrize("p", [
+    # cifar10_full's norm1/norm2
+    "local_size: 3 alpha: 5e-05 beta: 0.75 norm_region: WITHIN_CHANNEL",
+    "local_size: 5 alpha: 0.5 beta: 0.6 k: 2 norm_region: WITHIN_CHANNEL",
+    # AlexNet's
+    "local_size: 5 alpha: 0.0001 beta: 0.75",
+    "local_size: 3 alpha: 0.7 beta: 1.3 k: 0.5 norm_region: ACROSS_CHANNELS",
+])
+def test_lrn(p):
+    """The window sums in the reference's order (shifted channel slices;
+    the row-major box), so the scale is the reference's bit for bit; the
+    power is float64's rounded once, within 1 ulp of XLA's CPU pow (the
+    top too). Gradients within the summation tolerance."""
+    shape = (3, 7, 6, 5)
+    x = x_in(shape) * 4
+    jb, tb, jg, tg = run_both(net_text(shape, LRN.format(p=p)), {"data": x},
+                              grad_top="lrn")
+    assert ulps(jb["lrn"], tb["lrn"]) <= 1
+    close(jg[-1], tg[-1])
+
+
+EXTRA = [(4, 3, 5, 2)]
+
+
+@pytest.mark.parametrize("p", [
+    "operation: PROD", "operation: SUM",
+    "operation: SUM coeff: 0.3 coeff: -1.7", "operation: MAX",
+])
+def test_eltwise(p):
+    """Elementwise, so bit for bit; MAX's tie (the inputs share some
+    values) splits the gradient as jnp.maximum does."""
+    x, y = x_in((4, 3, 5, 2)), x_in((4, 3, 5, 2), seed=1)
+    y.reshape(-1)[:7] = x.reshape(-1)[:7]
+    text = net_text((4, 3, 5, 2), 'layer { name: "e" type: "Eltwise" '
+                    f'bottom: "data" bottom: "y" top: "e" eltwise_param {{ '
+                    f'{p} }} }}', extra_inputs=EXTRA, extra_tops=["y"])
+    check(text, {"data": x, "y": y}, "e", exact=True)
+
+
+@pytest.mark.parametrize("layer,top", [
+    ('type: "Slice" bottom: "data" top: "s0" top: "s1" top: "s2" '
+     'slice_param { slice_point: 1 slice_point: 4 }', "s1"),
+    ('type: "Slice" bottom: "data" top: "s0" top: "s1" '
+     'slice_param { slice_dim: 2 }', "s1"),
+    ('type: "Slice" bottom: "data" top: "s0" top: "s1" '
+     'slice_param { axis: -1 slice_point: 3 }', "s0"),
+    ('type: "Concat" bottom: "data" bottom: "y" top: "c"', "c"),
+    ('type: "Concat" bottom: "y" bottom: "data" top: "c" '
+     'concat_param { axis: 3 }', "c"),
+    ('type: "Split" bottom: "data" top: "a" top: "b"', "b"),
+    ('type: "Flatten" bottom: "data" top: "f"', "f"),
+    ('type: "Flatten" bottom: "data" top: "f" '
+     'flatten_param { axis: 2 end_axis: 3 }', "f"),
+    ('type: "Reshape" bottom: "data" top: "r" '
+     'reshape_param { shape { dim: 0 dim: -1 dim: 2 } }', "r"),
+    ('type: "Reshape" bottom: "data" top: "r" reshape_param { shape { '
+     'dim: 3 dim: 8 } axis: 2 num_axes: 2 }', "r"),
+])
+def test_structural_layers(layer, top):
+    """Slice (slice points, slice_dim, a negative axis), Concat (axis 1,
+    axis 3), Split, Flatten, Reshape: copies, bit for bit, with their
+    gradients."""
+    shape = (2, 6, 4, 6)
+    text = net_text(shape, f'layer {{ name: "l" {layer} }}',
+                    extra_inputs=[shape], extra_tops=["y"])
+    check(text, {"data": x_in(shape), "y": x_in(shape, seed=3)}, top,
+          exact=True)
+
+
+@pytest.mark.parametrize("axis", [1, 2, -1])
+def test_softmax(axis):
+    layer = ('layer { name: "sm" type: "Softmax" bottom: "data" top: "sm" '
+             f'softmax_param {{ axis: {axis} }} }}')
+    check(net_text((3, 5, 4), layer), {"data": x_in((3, 5, 4)) * 3}, "sm")
+
+
+def test_euclidean_loss():
+    """b read in a's shape: (4, 6) against (4, 2, 3)."""
+    text = net_text((4, 6), 'layer { name: "l" type: "EuclideanLoss" '
+                    'bottom: "data" bottom: "y" top: "l" }',
+                    extra_inputs=[(4, 2, 3)], extra_tops=["y"])
+    check(text, {"data": x_in((4, 6)), "y": x_in((4, 2, 3), seed=1)}, "l")
+
+
+@pytest.mark.parametrize("p", ["", "margin: 3", "legacy_version: true",
+                               "margin: 0.5 legacy_version: true"])
+def test_contrastive_loss(p):
+    """Similar and dissimilar pairs on both sides of the margin, and one
+    pair at distance 0 (the sqrt's floor)."""
+    a, b = x_in((8, 2)), x_in((8, 2), seed=1) * 0.5
+    b[3] = a[3]
+    sim = np.array([1, 0, 0, 1, 0, 1, 0, 0], np.float32)
+    text = net_text((8, 2), 'layer { name: "l" type: "ContrastiveLoss" '
+                    'bottom: "data" bottom: "b" bottom: "sim" top: "l" '
+                    f'contrastive_loss_param {{ {p} }} }}',
+                    extra_inputs=[(8, 2), (8,)], extra_tops=["b", "sim"])
+    check(text, {"data": a, "b": b, "sim": sim}, "l")
