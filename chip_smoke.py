@@ -27,6 +27,8 @@
     python3 chip_smoke.py --phases 23     # the experiment harness
     python3 chip_smoke.py --phases 24     # the in-repo CIFAR-10 "full"
                                           # nets and the siamese net
+    python3 chip_smoke.py --phases 25     # the ImageNet-width zoo nets
+                                          # and generated_net
     python3 chip_smoke.py --b2-path       # only time B2 through its wrapper
     python3 chip_smoke.py --b2t-path      # only time B2t (wrapper, kernel,
                                           # tile rows)
@@ -437,7 +439,40 @@ prints no "ok" line):
    the CPU's, gradients within 1e-4 of their largest value; (e)
    cifar10_full with conv_also on 128x128 tiles, 8-bit ADCs, implicit
    operands, 3 steps: B3 2 (conv2, conv3), B2t 1 (ip1), B1 1, no B2a or
-   B4 a step, finite losses.
+   B4 a step, finite losses;
+25. the ImageNet-width zoo nets (models/bvlc_alexnet,
+   bvlc_reference_caffenet, bvlc_googlenet, resnet50) from their own
+   solver files at their published widths, and generated_net (the
+   prototxt examples/pycaffe/run_pycaffe.py writes with the reference's
+   NetSpec, carried here as GENERATED_NET), under RRAM_POOL_BWD=cuda:
+   (a) a stand-in for the ILSVRC12 LMDBs (not in the repository), 64
+   3x256x256 Datums from a seed written by the port's BulkWriter into a
+   temporary directory, `mean_file` replaced by mean values 104, 117,
+   123, a gaussian failure_pattern on the InnerProduct layers at
+   N(300, 50) (int16 banks), a seed, no test; packed banks, the ternary
+   read, the fused epilogue, engine "cuda"; (b) each net's Solver on the
+   card and on the CPU (its draws made on the card, the same bits) at a
+   small batch (AlexNet and CaffeNet 4, GoogLeNet and ResNet-50 2): params
+   and banks equal at init, one step from one state, batch and key:
+   losses within 1e-4 relative, banks equal but for cells on exact-0
+   writes (checked, counted), launches a step B2a 3/3/5/1 (the
+   InnerProduct fault targets), B1a 1, B4 3/3/13/1 (the MAX pools); (c)
+   each net's Solver at its published batch (256, 256, 32, 32; crop 227,
+   227, 224, 224, mirror): a warm and 3 timed steps (median, host clock,
+   synchronized, the host feed included), the feed's ms a batch, peak
+   memory, the launches of (b) a step; (d) AlexNet's sweep at C = 4,
+   batch 256 (the host feed): each lane against a single-config Solver
+   from its state (loss within 1e-5 relative, banks equal but for
+   exact-0 writes), a warm and 3 timed steps (configs x steps per
+   second, step times by CUDA events, peak memory beside its reckoning
+   from the blob shapes), B2b 3, B1b 1, B4 3 a step, then blocks of 2
+   against the unblocked runner from one seed and one feed position:
+   banks bit for bit, losses within 1e-5; (e) generated_net (random
+   DummyData data drawn per lane from the forward key) at C = 8, as
+   phase 24 (b)'s lane checks; (f) Dropout's masks (AlexNet's drop6 at
+   (256, 4096), alone and over 4 lanes of a laned and of a shared
+   bottom) and generated_net's DummyData draws over 4 lanes: card equal
+   to CPU bit for bit.
 
 Then a JSON line of the step's numbers, a JSON line of the sweep's, one
 JSON line of per-kernel numbers (per training step, summed over the
@@ -457,7 +492,8 @@ line "telemetry" of phase 17's, a JSON line "blocks" of phase 18's, a
 JSON line "healing" of phase 19's, a JSON line "virtual_time" of phase
 20's, a JSON line "driver" of phase 21's, a JSON line "processes" of
 phase 22's, a JSON line "harness" of phase 23's, a JSON line "nets" of
-phase 24's, the card's name and power limit,
+phase 24's, a JSON line "zoo" of phase 25's, the card's name and power
+limit,
 and last {"ok": true, "device":
 {...}}.
 B2t has a row at each path's shapes: C = 1 (the tiled slice) and C
@@ -720,10 +756,15 @@ def b1_inputs_dev(shape, C, seed, device):
 
 def b1_step_operands(leaves, C, device):
     """The step's fault leaves as the solver's tail takes them: dicts of
-    data, upd and the packed banks by key, int32 counters."""
-    ops = {k: (b1_inputs(s, "int32", 1, 100 + i, device) if C == 1
+    data, upd and the packed banks by key, int32 counters; drawn on the
+    card where they have lanes or 1e7 cells (AlexNet's fc6-8: too many
+    to draw on the host quickly)."""
+    host = C == 1 and sum(math.prod(s) for s in leaves.values()) < 1e7
+    ops = {k: (b1_inputs(s, "int32", 1, 100 + i, device) if host
                else b1_inputs_dev(s, C, 100 + i, device))
            for i, (k, s) in enumerate(leaves.items())}
+    if C == 1 and not host:
+        ops = {k: [t[0] for t in v] for k, v in ops.items()}
     data = {k: v[0] for k, v in ops.items()}
     upd = {k: v[1] for k, v in ops.items()}
     state = {"life_q": {k: v[2] for k, v in ops.items()},
@@ -1092,7 +1133,8 @@ def b2_step_numbers(device, C=1, shapes=None, q_bits=2, sigma=0.0):
         k, k_call = timed(lambda: hw.crossbar_forward(x, w, br, st, seeds,
                                                       sigma, q_bits), iters)
         p, _ = timed(lambda: hw.crossbar_forward_plain(x, w, br, st, seeds,
-                                                       sigma, q_bits), iters)
+                                                       sigma, q_bits),
+                     max(2, iters // 5))
         lb, _ = timed(lib_fn, iters)
         nbytes = 4 * x.numel() + 9 * C * K * N + 4 * C * M * N
         flops = 2 * C * M * K * N
@@ -1630,10 +1672,11 @@ B4_KERNELS = ("pool_backward_kernel",)     # B4's own device activity
 
 
 def b4_step_numbers(device, C, ceiling=False, planes=32, hw=(32, 32),
-                    geometry=POOL1):
+                    geometry=POOL1, batch=100):
     """B4 at the sweep's pool1 (x (100, C*32, 32, 32); `planes` channels
-    a lane of `hw` maps under `geometry` for another pool): the kernel's
-    device time (profiled over >= 10 calls) and by CUDA events, its time
+    a lane of `hw` maps under `geometry` at `batch` for another pool):
+    the kernel's device time (profiled over >= 10 calls) and by CUDA
+    events, its time
     by device activity (an older checkout's two kernels apart), the plain
     version, and autograd's CUDA max-pool backward given the forward's
     indices (torch.ops.aten.max_pool2d_with_indices_backward on the
@@ -1646,7 +1689,7 @@ def b4_step_numbers(device, C, ceiling=False, planes=32, hw=(32, 32),
     import torch.nn.functional as F
     from rram_caffe_simulation_tpu_torch.ops import pool_backward as pb
     kernel, stride, fpad = geometry
-    x, g = b4_inputs((100, planes * C), hw, geometry, 400, device)
+    x, g = b4_inputs((batch, planes * C), hw, geometry, 400, device)
     iters = 100 if C <= 4 else 20 if C <= 64 else 10
     fn = lambda: pb.max_pool_backward(x, g, *geometry)
     plain = lambda: pb.max_pool_backward_plain(x, g, *geometry)
@@ -4229,7 +4272,7 @@ VGG_STEPS = 20                   # (b)'s lockstep steps
 VGG_TIMED_STEPS = 10             # (b)'s timed ones (20 before phase 23)
 VGG_STRATEGY_STEPS = 4           # each strategy's lockstep steps in (c)
 VGG_SWEEP_CONFIGS = (64, 32, 16)     # the largest that fits is taken
-VGG_SWEEP_STEPS = 5
+VGG_SWEEP_STEPS = 3              # (d)'s timed steps (5 before phase 25)
 VGG_TEST_ITER = 5                # test_all's batches (the template's 100)
 VGG_LEAVES = {"fc1/0": (1024, 512), "fc1/1": (1024,),
               "fc2/0": (1024, 1024), "fc2/1": (1024,),
@@ -5145,7 +5188,8 @@ TELEMETRY_DEPTH_CHUNKS = 2       # chunks of each depth's run in (a)
 TELEMETRY_DEPTH_CHUNK = 5        # (a)'s chunk (bench.py's 10 before phase 23)
 TELEMETRY_SEED = 17
 SOLVER_METRIC_STEPS = 50         # (b)'s lockstep steps, display 10
-SOLVER_TIMED_STEPS = 20          # (b)'s timed steps each way, in turns
+SOLVER_TIMED_STEPS = 10          # (b)'s timed steps each way, in turns
+                                 # (20 before phase 25)
 HEALTH_EVERY = 10
 STALL_TIMEOUT_S = 2.0
 STALL_CONFIGS = 8
@@ -8040,35 +8084,50 @@ def update_spy(rec):
         solver_mod.fused_update_fail_leaves = real
 
 
-def nets_card_vs_cpu(name, tmp):
-    """(a) one net: its Solver on the card and on the CPU from one seed
-    (params and banks equal), NETS_LOCKSTEP steps in lockstep (each CPU
-    step from the card's state, batch and key), then NETS_TIMED timed
-    card steps. Returns the part's numbers."""
+def banks_apart(got, want, u_got, u_want, rate, what):
+    """The cells where two banks differ, each checked to be a write that
+    rests on an exact-0 (or rounding-sized) update in one of the two runs
+    (`u_got`, `u_want`: their updates; None: the banks must be equal);
+    their count."""
+    import torch
+    differ = got != want
+    if not differ.any():
+        return 0
+    check(u_got is not None, f"{what}: the banks differ")
+    small = torch.minimum(u_got.abs(), u_want.abs())
+    check(bool((small[differ] <= 1e-6 * rate).all()),
+          f"{what}: the banks differ beyond exact-0 writes")
+    return int(differ.sum())
+
+
+def card_vs_cpu(label, make, steps, per_step, rel):
+    """A Solver on the card and one on the CPU from one seed (`make(device)`
+    builds each; params and banks equal at init), `steps` steps in
+    lockstep, each CPU step from the card's state, batch and key: losses
+    within `rel` relative, banks equal but for cells on exact-0 writes
+    (checked, counted), the launches `per_step` each step. Returns the
+    card's Solver after the steps and the part's numbers."""
     import torch
     from rram_caffe_simulation_tpu_torch import kernels
     from rram_caffe_simulation_tpu_torch.core import prng
-    t_net = time.perf_counter()
+    t0 = time.perf_counter()
     rec = {"on": True, "u": []}
     with update_spy(rec):
-        s = nets_solver(name, "cuda", tmp / "card")
-        c = nets_solver(name, "cpu", tmp / "cpu")
-    check(s.pack_spec["life_dtype"] == "int16" and s.pack_spec == c.pack_spec,
-          f"(a) {name}: pack specs {s.pack_spec} / {c.pack_spec}")
-    check(s._fault_keys == ["ip1/0", "ip1/1"]
+        s, c = make("cuda"), make("cpu")
+    check(s.pack_spec == c.pack_spec and s._fault_keys == c._fault_keys
           and s._step_fn.fused_epilogue_resolved,
-          f"(a) {name}: fault keys {s._fault_keys}")
+          f"{label}: pack specs or fault keys differ, or no fused tail")
     for ln, vals in s.params.items():
         for a, b in zip(vals, c.params[ln]):
             check(a is None or torch.equal(a.cpu(), b),
-                  f"(a) {name}: {ln}'s init differs between card and CPU")
+                  f"{label}: {ln}'s init differs between card and CPU")
     for k, q in s.fault_state["life_q"].items():
         check(torch.equal(q.cpu(), c.fault_state["life_q"][k]),
-              f"(a) {name}: {k}'s banks differ between card and CPU at init")
+              f"{label}: {k}'s banks differ between card and CPU at init")
+    build_s = time.perf_counter() - t0
     rate = float(s.param.base_lr)
-    worst, apart, launches, cpu_s = 0.0, 0, [], 0.0
-    build_s = time.perf_counter() - t_net
-    for it in range(NETS_LOCKSTEP):
+    worst, apart, cpu_s, losses = 0.0, 0, 0.0, []
+    for it in range(steps):
         batch = s.train_feed()
         key = prng.fold_in(s._key, it)
         state = (s.params, s.history, s.fault_state)
@@ -8079,38 +8138,51 @@ def nets_card_vs_cpu(name, tmp):
             k: torch.as_tensor(v).to(s.device) for k, v in batch.items()},
             it, key)
         torch.cuda.synchronize()
-        launches.append(_launches())
+        got = _launches()
+        check(got == per_step, f"{label} step {it}: launches {got}, "
+              f"expected {per_step}")
         t_cpu = time.perf_counter()
-        pp, ph, pf, pl, _ = c._step_fn(*cstate, {
+        _, _, pf, pl, _ = c._step_fn(*cstate, {
             k: torch.as_tensor(v) for k, v in batch.items()}, it, key)
         cpu_s += time.perf_counter() - t_cpu
         kl, pl = float(kl), float(pl)
-        rel = abs(kl - pl) / max(1.0, abs(pl))
-        worst = max(worst, rel)
-        check(math.isfinite(kl) and rel <= NETS_REL,
-              f"(a) {name} step {it}: card loss {kl} vs CPU {pl}")
-        upd = [dict(zip(s._fault_keys, u)) for u in rec["u"]]
-        check(len(upd) == 2, f"(a) {name}: {len(upd)} fused tails a step")
+        gap = abs(kl - pl) / max(1.0, abs(pl))
+        worst = max(worst, gap)
+        losses.append(kl)
+        check(math.isfinite(kl) and gap <= rel,
+              f"{label} step {it}: card loss {kl} vs CPU {pl}")
+        check(len(rec["u"]) == 2,
+              f"{label}: {len(rec['u'])} fused tails a step")
+        ku, cu = (dict(zip(s._fault_keys, u)) for u in rec["u"])
         for k in kf["life_q"]:
-            got, want = kf["life_q"][k].cpu(), pf["life_q"][k]
-            differ = got != want
-            if differ.any():
-                # each cell apart took its decrement in one package only,
-                # on an exact-0 (or rounding-sized) update in the other
-                ku, cu = upd[0][k].cpu(), upd[1][k]
-                small = torch.minimum(ku.abs(), cu.abs())
-                check(bool((small[differ] <= 1e-6 * rate).all()),
-                      f"(a) {name} step {it}: {k}'s banks differ beyond "
-                      "exact-0 writes")
-                apart += int(differ.sum())
+            apart += banks_apart(kf["life_q"][k].cpu(), pf["life_q"][k],
+                                 ku[k].cpu(), cu[k], rate,
+                                 f"{label} step {it}: {k}")
         s.params, s.history, s.fault_state = kp, kh, kf
     rec["on"] = False
     del rec["u"][:]
-    s.iter = NETS_LOCKSTEP
-    per_step = {k: sum(ln[k] for ln in launches) / len(launches)
-                for k in launches[0]}
-    check(per_step == _untiled(B2=1, B1=1, B4=0),
-          f"(a) {name}: launches a step {per_step}, expected B2a 1, B1a 1")
+    s.iter = steps
+    return s, {"lockstep_steps": steps, "loss_rel_max": worst,
+               "losses": losses, "cells_apart_exact0": apart,
+               "launches_per_step": per_step, "build_s": build_s,
+               "cpu_steps_s": cpu_s}
+
+
+def nets_card_vs_cpu(name, tmp):
+    """(a) one net: `card_vs_cpu` over NETS_LOCKSTEP steps of its Solver
+    (int16 banks, ip1 the fault target), then NETS_TIMED timed card
+    steps. Returns the part's numbers."""
+    import torch
+    from rram_caffe_simulation_tpu_torch import kernels
+    t_net = time.perf_counter()
+    s, out = card_vs_cpu(
+        f"(a) {name}", lambda dev: nets_solver(
+            name, dev, tmp / ("card" if dev == "cuda" else "cpu")),
+        NETS_LOCKSTEP, _untiled(B2=1, B1=1, B4=0), NETS_REL)
+    check(s.pack_spec["life_dtype"] == "int16"
+          and s._fault_keys == ["ip1/0", "ip1/1"],
+          f"(a) {name}: pack spec {s.pack_spec}, fault keys "
+          f"{s._fault_keys}")
     kernels.reset_launches()
     times = []
     for _ in range(NETS_TIMED):
@@ -8124,23 +8196,22 @@ def nets_card_vs_cpu(name, tmp):
     check(math.isfinite(float(s.last_loss)), f"(a) {name}: loss")
     q = [float(v) * 1e3 for v in np.percentile(times, [25, 50, 75])]
     types = {"full": ("LRN",)}.get(name, ("Sigmoid",))
-    out = {"lockstep_steps": NETS_LOCKSTEP, "loss_rel_max": worst,
-           "cells_apart_exact0": apart, "launches_per_step": per_step,
-           "launches": {"B2": timed["B2"], "B1": timed["B1"]},
-           "step_ms_quartiles": q, "broken": s.broken_fraction(),
-           "layer_ms": layer_ms(s.net, types)[0], "layer_types": types,
-           "build_s": build_s, "cpu_steps_s": cpu_s,
-           "seconds": time.perf_counter() - t_net}
+    per_step = out["launches_per_step"]
+    out.update({"launches": {"B2": timed["B2"], "B1": timed["B1"]},
+                "step_ms_quartiles": q, "broken": s.broken_fraction(),
+                "layer_ms": layer_ms(s.net, types)[0], "layer_types": types,
+                "seconds": time.perf_counter() - t_net})
     print(f"phase 24: (a) {name}: card against CPU, {NETS_LOCKSTEP} steps "
-          f"in lockstep: losses within {worst:.2e} relative (limit "
-          f"{NETS_REL:g}), banks equal but {apart} cells on exact-0 writes;"
-          f" B2a {per_step['B2']:g} and B1a {per_step['B1']:g} a step; "
+          f"in lockstep: losses within {out['loss_rel_max']:.2e} relative "
+          f"(limit {NETS_REL:g}), banks equal but "
+          f"{out['cells_apart_exact0']} cells on exact-0 writes; B2a "
+          f"{per_step['B2']:g} and B1a {per_step['B1']:g} a step; "
           f"step median {q[1]:.3f} ms (quartiles {q[0]:.3f} / {q[2]:.3f}, "
           f"host clock, synchronized) over {NETS_TIMED} steps after the "
           f"lockstep; broken {out['broken']:.4f}; {'+'.join(types)} "
           f"{out['layer_ms']:.3f} ms a step; {out['seconds']:.1f} s (the two "
-          f"Solvers' build {build_s:.1f} s, the CPU's steps {cpu_s:.1f} s)",
-          flush=True)
+          f"Solvers' build {out['build_s']:.1f} s, the CPU's steps "
+          f"{out['cpu_steps_s']:.1f} s)", flush=True)
     return out
 
 
@@ -8192,67 +8263,71 @@ def nets_hdf5_end(tmp, proc, out):
           f"HDF5 snapshot {files}", flush=True)
 
 
-def nets_lanes(solver, label, C=NETS_LANES, steps=NETS_LANE_STEPS,
-               rewind=None):
-    """(b), (c): C lanes, one step at a time, each lane against a
-    single-config Solver started from its state (loss within 1e-5
-    relative, banks identical); then a runner in blocks of 2 from the
-    same seed against the unblocked one, every state leaf bit for bit.
-    `rewind` restarts a host feed before each of the last two runners."""
-    import torch
+def lanes_vs_solvers(r, solver, label, steps, per_step, rec=None):
+    """`steps` steps of runner `r`, one at a time, each lane against
+    `solver`'s single-config step from the lane's state, batch and key:
+    loss within 1e-5 relative, banks identical (with `rec`, the update
+    spy both were built under: equal but for cells on exact-0 writes,
+    checked and counted), the launches `per_step` each step (the kinds it
+    names). Returns the worst loss gap, the cells apart and the runner's losses."""
     from rram_caffe_simulation_tpu_torch import kernels
-    from rram_caffe_simulation_tpu_torch.parallel import SweepRunner
-    opts = dict(engine="cuda", packed_state=True, dtype_policy="ternary")
-    r = SweepRunner(solver, n_configs=C, **opts)
-    check(r.engine_resolved == "cuda" and r.fused_epilogue_resolved,
-          f"{label}: the runner did not resolve to engine cuda, fused")
-    check(r._pack_spec == solver.pack_spec,
-          f"{label}: the runner's pack spec differs from the Solver's")
-    worst = 0.0
-    losses = []
+    C, rate = r.n, float(solver.param.base_lr)
+    worst, apart, losses = 0.0, 0, []
     for it in range(steps):
         batch = r._batch(r.iter)
         keys = r.lane_keys(r.iter)
         before = [r.lane_state(i) for i in range(C)]
         state = (r.params, r.history, r.fault_states)
+        if rec is not None:
+            del rec["u"][:]
         kernels.reset_launches()
         kp, kh, kf, kl, _ = r._step(*state, batch, r.iter, keys)
         got = _launches()
-        check(got["B2"] == 1 and got["B1"] == 1,
-              f"{label} step {it}: launches {got}, expected B2b 1, B1b 1")
+        check(all(got[k] == v for k, v in per_step.items()),
+              f"{label} step {it}: launches {got}, expected {per_step}")
+        lane_upd = (dict(zip(solver._fault_keys, rec["u"][0]))
+                    if rec is not None else None)
         for i in range(C):
+            if rec is not None:
+                del rec["u"][:]
             _, _, sf, sl, _ = solver._step_fn(*before[i], batch, r.iter,
                                               keys[i])
-            rel = abs(float(sl) - float(kl[i])) / max(1.0, abs(float(sl)))
-            worst = max(worst, rel)
-            check(rel <= 1e-5, f"{label} step {it} lane {i}: loss "
+            gap = abs(float(sl) - float(kl[i])) / max(1.0, abs(float(sl)))
+            worst = max(worst, gap)
+            check(gap <= 1e-5, f"{label} step {it} lane {i}: loss "
                   f"{float(kl[i])} vs Solver {float(sl)}")
+            upd = (dict(zip(solver._fault_keys, rec["u"][0]))
+                   if rec is not None else None)
             for k in sf["life_q"]:
-                check(torch.equal(sf["life_q"][k], kf["life_q"][k][i]),
-                      f"{label} step {it} lane {i}: banks differ from the "
-                      f"Solver's on {k}")
+                apart += banks_apart(
+                    kf["life_q"][k][i], sf["life_q"][k],
+                    lane_upd and lane_upd[k][i], upd and upd[k], rate,
+                    f"{label} step {it} lane {i}, {k} against the Solver")
+        del before, lane_upd, upd
         r._commit(kp, kh, kf, kl)
         r.iter += 1
         losses.append(kl.cpu().numpy())
-    broken = r.broken_fractions()
-    check(bool((broken > 0).all()), f"{label}: a lane had no broken cell")
-    # blocks of 2 against the unblocked runner, from the runner's seed
+    return worst, apart, losses
+
+
+def blocks_vs_unblocked(solver, label, C, opts, rewind=None):
+    """A runner in blocks of 2 from `solver`'s seed against the unblocked
+    one, 2 steps each (`rewind` restarts a host feed before each): the
+    banks bit for bit, the losses within 1e-5; the params' and history's
+    gap reported (small lane counts move cuDNN's algorithm for a grouped
+    convolution, groups = lanes, and for its group-1 call over a shared
+    bottom, filters = lanes x num_output; a bias before a BatchNorm has a
+    true gradient of zero, so its own is rounding in either run; the
+    large counts of nets_sweep_512 and phase 18, and the new layers alone
+    in nets_chain_blocks, hold every leaf bit for bit)."""
+    from rram_caffe_simulation_tpu_torch.parallel import SweepRunner
     runs = []
     for block in (0, 2):
         if rewind is not None:
             rewind()
         rb = SweepRunner(solver, n_configs=C, config_block=block, **opts)
-        lo = [rb.step(1)[0].copy() for _ in range(2)]
-        runs.append((rb, lo))
+        runs.append((rb, [rb.step(1)[0].copy() for _ in range(2)]))
     (a, la), (b, lb) = runs
-    # small lane counts move cuDNN's algorithm for a grouped convolution
-    # (groups = lanes) and for its group-1 call over a shared bottom
-    # (filters = lanes x num_output): the banks must agree bit for bit
-    # and the losses within 1e-5; the params' and history's gap is
-    # reported (a bias before a BatchNorm has a true gradient of zero,
-    # so its own is rounding in either run); the large counts of
-    # nets_sweep_512 and phase 18, and the new layers alone
-    # (nets_chain_blocks), hold every leaf bit for bit
     loss_gap = max(float(np.abs(x - y).max() / max(1.0, np.abs(y).max()))
                    for x, y in zip(la, lb))
     check(loss_gap <= 1e-5, f"{label}: blocked losses {lb} vs {la}")
@@ -8260,13 +8335,36 @@ def nets_lanes(solver, label, C=NETS_LANES, steps=NETS_LANE_STEPS,
     banks = [k for k in gaps["apart"] if k.startswith("fault/")]
     check(not banks, f"{label}: blocks of 2 part from unblocked on banks "
           f"{banks}")
-    for rr in (r, a, b):
-        rr.close()
-    return {"configs": C, "steps": steps, "lane_loss_rel_max": worst,
-            "broken": [float(v) for v in broken], "block": 2,
-            "block_loss_gap": loss_gap, "block_leaves": gaps["leaves"],
-            "block_leaves_apart": gaps["apart"],
+    for rb in (a, b):
+        rb.close()
+    return {"block": 2, "block_loss_gap": loss_gap,
+            "block_leaves": gaps["leaves"], "block_leaves_apart": gaps["apart"],
             "block_rel_max": gaps["rel_max"]}
+
+
+LANE_OPTS = dict(engine="cuda", packed_state=True, dtype_policy="ternary")
+
+
+def nets_lanes(solver, label, C=NETS_LANES, steps=NETS_LANE_STEPS,
+               rewind=None):
+    """(b), (c): C lanes, `lanes_vs_solvers` over `steps` steps (B2b 1,
+    B1b 1 a step), every lane with a broken cell after them; then
+    `blocks_vs_unblocked`. `rewind` restarts a host feed before each of
+    the last two runners."""
+    from rram_caffe_simulation_tpu_torch.parallel import SweepRunner
+    r = SweepRunner(solver, n_configs=C, **LANE_OPTS)
+    check(r.engine_resolved == "cuda" and r.fused_epilogue_resolved,
+          f"{label}: the runner did not resolve to engine cuda, fused")
+    check(r._pack_spec == solver.pack_spec,
+          f"{label}: the runner's pack spec differs from the Solver's")
+    worst, _, _ = lanes_vs_solvers(r, solver, label, steps,
+                                   {"B2": 1, "B1": 1})
+    broken = r.broken_fractions()
+    check(bool((broken > 0).all()), f"{label}: a lane had no broken cell")
+    r.close()
+    return {"configs": C, "steps": steps, "lane_loss_rel_max": worst,
+            "broken": [float(v) for v in broken],
+            **blocks_vs_unblocked(solver, label, C, LANE_OPTS, rewind)}
 
 
 def state_gaps(a, b):
@@ -8661,6 +8759,443 @@ def phase_nets(gpu):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 25: the ImageNet-width zoo nets and generated_net
+
+ZOO_NETS = {    # solver file, small batch of (b)
+    "alexnet": ("models/bvlc_alexnet/solver.prototxt", 4),
+    "caffenet": ("models/bvlc_reference_caffenet/solver.prototxt", 4),
+    "googlenet": ("models/bvlc_googlenet/quick_solver.prototxt", 2),
+    "resnet50": ("models/resnet50/solver.prototxt", 2),
+}
+ZOO_RECORDS = 64                 # (a): the stand-in LMDB's 3x256x256 Datums
+ZOO_SEED = 24
+ZOO_MEAN = (104.0, 117.0, 123.0)  # mean_value in place of the mean file
+ZOO_LIFE = NETS_LIFE             # int16 banks; cells die within 3-8 writes
+ZOO_REL = 1e-4                   # (b): losses, card against CPU
+ZOO_TIMED = 3                    # (c): timed Solver steps, after a warm one
+ZOO_PROFILED = 2                 # (c): profiled steps after them
+# a kernel's own device activity on the path
+ZOO_KERNEL_NAMES = {"B2": ("crossbar_kernel", "lane_absmax_kernel"),
+                    "B1": B1_KERNELS, "B4": B4_KERNELS}
+ZOO_SWEEP_LANES = 4              # (d): AlexNet's sweep at batch 256
+ZOO_SWEEP_TIMED = 3
+# examples/pycaffe/generated_net.prototxt as the reference's
+# examples/pycaffe/run_pycaffe.py writes it with its NetSpec (the file is
+# generated, not in the repository; the port has no NetSpec yet):
+# random DummyData data, constant labels
+GENERATED_NET = """layer { name: "data" type: "DummyData" top: "data" top: "label"
+  dummy_data_param { data_filler { type: "gaussian" }
+    data_filler { type: "constant" }
+    shape { dim: 8 dim: 1 dim: 8 dim: 8 } shape { dim: 8 } } }
+layer { name: "conv" type: "Convolution" bottom: "data" top: "conv"
+  convolution_param { num_output: 4 kernel_size: 3
+    weight_filler { type: "xavier" } } }
+layer { name: "relu" type: "ReLU" bottom: "conv" top: "conv" }
+layer { name: "pool" type: "Pooling" bottom: "conv" top: "pool"
+  pooling_param { pool: MAX kernel_size: 2 stride: 2 } }
+layer { name: "ip" type: "InnerProduct" bottom: "pool" top: "ip"
+  inner_product_param { num_output: 10 weight_filler { type: "xavier" } } }
+layer { name: "loss" type: "SoftmaxWithLoss" bottom: "ip" bottom: "label"
+  top: "loss" }
+"""
+# a step's launches under RRAM_POOL_BWD=cuda: B2a one a fault-target
+# InnerProduct, B1a one for every 16 fault leaves, B4 one a MAX pool
+ZOO_PER_STEP = {"alexnet": (3, 1, 3), "caffenet": (3, 1, 3),
+                "googlenet": (5, 1, 13), "resnet50": (1, 1, 1)}
+ZOO_B2_SHAPES = {"fc6": (256, 9216, 4096), "fc7": (256, 4096, 4096),
+                 "fc8": (256, 4096, 1000)}
+ZOO_LEAVES = {"fc6/0": (4096, 9216), "fc6/1": (4096,), "fc7/0": (4096, 4096),
+              "fc7/1": (4096,), "fc8/0": (1000, 4096), "fc8/1": (1000,)}
+ZOO_POOLS = ((96, 55), (256, 27), (256, 13))     # AlexNet's: planes, H=W
+POOL3X3S2 = ((3, 3), (2, 2), (0, 0, 0, 0))       # their kernel, stride, pad
+
+
+def zoo_lmdb(path, n=ZOO_RECORDS, seed=ZOO_SEED):
+    """The stand-in for the ILSVRC12 LMDBs (not in the repository): n
+    3x256x256 uint8 Datums with labels below 1000, from a seed, written
+    by the port's BulkWriter."""
+    from rram_caffe_simulation_tpu_torch import proto
+    from rram_caffe_simulation_tpu_torch.data.feed import array_to_datum
+    from rram_caffe_simulation_tpu_torch.data.lmdb_py import BulkWriter
+    rng = np.random.RandomState(seed)
+    with BulkWriter(str(path)) as w:
+        for i in range(n):
+            arr = rng.randint(0, 256, size=(3, 256, 256), dtype=np.uint8)
+            w.put(f"{i:08d}".encode(), proto.encode(
+                array_to_datum(arr, int(rng.randint(1000)))))
+    return str(path)
+
+
+def zoo_solver(name, device, db, batch=None, life=ZOO_LIFE, seed=5):
+    """`name`'s own solver file with its net's Data layers on `db`, the
+    mean file as mean values, the TRAIN batch `batch` (None: the
+    published one), a gaussian failure_pattern on its InnerProduct
+    layers, a seed, no test; packed banks, the ternary read, the fused
+    epilogue, engine "cuda"."""
+    from rram_caffe_simulation_tpu_torch import proto
+    from rram_caffe_simulation_tpu_torch.solver import Solver
+    from rram_caffe_simulation_tpu_torch.utils.io import (read_net_param,
+                                                          read_solver_param)
+    sp = read_solver_param(ZOO_NETS[name][0])
+    netp = read_net_param(sp.net)
+    for lp in netp.layer:
+        if lp.type != "Data":
+            continue
+        lp.data_param.source = db
+        if batch is not None and lp.include and \
+                lp.include[0].phase == proto.TRAIN:
+            lp.data_param.batch_size = batch
+        if lp.transform_param.HasField("mean_file"):
+            lp.transform_param.ClearField("mean_file")
+            lp.transform_param.mean_value.extend(ZOO_MEAN)
+    sp.ClearField("net")
+    sp.net_param = netp
+    sp.test_interval = 0
+    sp.random_seed = seed
+    sp.failure_pattern.type = "gaussian"
+    sp.failure_pattern.mean, sp.failure_pattern.std = life
+    return Solver(sp, device=device, hw_engine="cuda",
+                  dtype_policy="ternary", fault_format="packed",
+                  fused_epilogue=True)
+
+
+@contextlib.contextmanager
+def draws_on_card():
+    """core/prng.py's bulk draws made on the card and copied to the
+    device asked for: the same bits (phase 13 holds card draws equal to
+    CPU draws), so a full-width CPU Solver is built in seconds, not
+    minutes."""
+    import inspect
+    from rram_caffe_simulation_tpu_torch.core import prng
+    saved = {n: getattr(prng, n) for n in ("normal", "uniform",
+                                           "bernoulli", "normal_fma")}
+
+    def on_card(fn):
+        sig = inspect.signature(fn)
+
+        def draw(*a, **kw):
+            args = sig.bind(*a, **kw)
+            args.apply_defaults()
+            where = args.arguments["device"]
+            args.arguments["device"] = "cuda"
+            return fn(*args.args, **args.kwargs).to(where)
+        return draw
+    for n, fn in saved.items():
+        setattr(prng, n, on_card(fn))
+    try:
+        yield
+    finally:
+        for n, fn in saved.items():
+            setattr(prng, n, fn)
+
+
+def zoo_card_vs_cpu(name, db):
+    """(b) `name` at its small batch: `card_vs_cpu` over one step, the
+    CPU's Solver drawing on the card (the same bits), the launches of
+    ZOO_PER_STEP."""
+    import torch
+    t0 = time.perf_counter()
+    batch_n = ZOO_NETS[name][1]
+
+    def make(device):
+        if device == "cuda":
+            return zoo_solver(name, device, db, batch_n)
+        with draws_on_card():
+            return zoo_solver(name, device, db, batch_n)
+    b2, b1, b4 = ZOO_PER_STEP[name]
+    s, out = card_vs_cpu(f"(b) {name}", make, 1,
+                         _untiled(B2=b2, B1=b1, B4=b4), ZOO_REL)
+    del s
+    torch.cuda.empty_cache()
+    out.update(batch=batch_n, seconds=time.perf_counter() - t0)
+    print(f"phase 25: (b) {name} at batch {batch_n}: card against CPU, one "
+          f"step from one state: loss {out['losses'][0]:.6f}, "
+          f"{out['loss_rel_max']:.2e} relative (limit {ZOO_REL:g}); banks "
+          f"equal but {out['cells_apart_exact0']} cells on exact-0 writes; "
+          f"launches B2a {b2}, B1a {b1}, B4 {b4}; the CPU's step "
+          f"{out['cpu_steps_s']:.1f} s, the Solvers' build "
+          f"{out['build_s']:.1f} s", flush=True)
+    return out
+
+
+def zoo_timed(name, db, gpu):
+    """(c) `name` at its published batch: one warm and ZOO_TIMED timed
+    Solver steps (host clock, synchronized, the host feed included), the
+    feed's ms a batch, peak memory, the launches a step."""
+    import torch
+    from rram_caffe_simulation_tpu_torch import kernels
+    t0 = time.perf_counter()
+    s = zoo_solver(name, "cuda", db)
+    batch_n = s.net.blob_shapes["data"][0]
+    s.step(1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    times = []
+    for _ in range(ZOO_TIMED):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        s.step(1)                       # ends in a host read of the loss
+        times.append((time.perf_counter() - t1) * 1e3)
+    launches = _launches()
+    peak = torch.cuda.max_memory_allocated()
+    feed = []
+    for _ in range(ZOO_TIMED):
+        t1 = time.perf_counter()
+        s.train_feed()
+        feed.append((time.perf_counter() - t1) * 1e3)
+    b2, b1, b4 = ZOO_PER_STEP[name]
+    n = ZOO_TIMED
+    check(launches == _untiled(B2=b2 * n, B1=b1 * n, B4=b4 * n),
+          f"(c) {name}: launches {launches} in {n} steps, expected B2a "
+          f"{b2}, B1a {b1}, B4 {b4} a step")
+    loss = float(s.last_loss)
+    check(math.isfinite(loss), f"(c) {name}: loss {loss}")
+    # the kernels' device time a step on the path, by device activity
+    by_name = device_ms_by_name(lambda: s.step(1), iters=ZOO_PROFILED)
+    own = {kn: sum(v for nm, (v, _) in by_name.items()
+                   if any(k in nm for k in names))
+           for kn, names in ZOO_KERNEL_NAMES.items()}
+    busy = sum(v for v, _ in by_name.values())
+    out = {"batch": batch_n, "step_ms": times,
+           "step_ms_median": float(np.median(times)),
+           "feed_ms_median": float(np.median(feed)), "peak_bytes": int(peak),
+           "launches": launches,
+           "launches_per_step": {k: v / n for k, v in launches.items()},
+           "kernel_ms": own, "device_busy_ms": busy,
+           "loss": loss, "seconds": time.perf_counter() - t0}
+    print(f"phase 25: (c) {name} at batch {batch_n}: step median "
+          f"{out['step_ms_median']:.3f} ms ({[round(v, 3) for v in times]}, "
+          f"host clock, synchronized, the host feed included); the feed "
+          f"{out['feed_ms_median']:.3f} ms a batch; the device busy "
+          f"{busy:.3f} ms a step ({ZOO_PROFILED} profiled), of it B2a "
+          f"{own['B2']:.5f}, B1a {own['B1']:.5f}, B4 {own['B4']:.5f} ms; "
+          f"peak memory {peak / 1e9:.2f} GB; launches a step B2a {b2}, B1a "
+          f"{b1}, B4 {b4}; loss {loss:.5f}; {gpu}", flush=True)
+    del s
+    torch.cuda.empty_cache()
+    return out
+
+
+def zoo_sweep_reckoning(net, C):
+    """(d)'s memory, reckoned from AlexNet's blob shapes before the run:
+    the two LRNs' bottoms over C lanes, conv1's unfolded patches of the
+    shared bottom, and its cotangent rows padded to LANE_CHUNK lanes
+    (ops/vision.py `_SharedBottomConv2d`), in bytes."""
+    from rram_caffe_simulation_tpu_torch.ops.vision import LANE_CHUNK
+    lrn = sum(math.prod(net.blob_shapes[ly.lp.bottom[0]])
+              for ly in net.layers if ly.type_name == "LRN")
+    n, _, h, w = net.blob_shapes["conv1"]
+    patches = n * h * w * 3 * 11 * 11
+    rows = LANE_CHUNK * 96 * n * h * w
+    return {"lrn_elements": C * lrn, "lrn_bytes": 4 * C * lrn,
+            "conv1_patches_bytes": 4 * patches,
+            "conv1_cotangent_rows_bytes": 4 * rows}
+
+
+def zoo_sweep(db, gpu, C=ZOO_SWEEP_LANES):
+    """(d) AlexNet's sweep at batch 256 over C lanes (RRAM_POOL_BWD=cuda,
+    the host feed: a TRAIN crop is not materializable): one step of
+    `lanes_vs_solvers` (banks equal but for exact-0 writes), a warm and
+    ZOO_SWEEP_TIMED timed steps (configs x steps per second, step times
+    by CUDA events, peak memory beside the reckoning), then
+    `blocks_vs_unblocked` from one feed position."""
+    import torch
+    from rram_caffe_simulation_tpu_torch import kernels
+    from rram_caffe_simulation_tpu_torch.data.feed import build_feed
+    from rram_caffe_simulation_tpu_torch.parallel import SweepRunner
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    rec = {"on": True, "u": []}
+    with update_spy(rec):
+        s = zoo_solver("alexnet", "cuda", db)
+        r = SweepRunner(s, n_configs=C, **LANE_OPTS)
+    reckoned = zoo_sweep_reckoning(s.net, C)
+    check(r.engine_resolved == "cuda" and r.fused_epilogue_resolved
+          and r._dataset is None, "(d) the runner's path")
+    worst, apart, _ = lanes_vs_solvers(r, s, "(d)", 1,
+                                       _untiled(B2=3, B1=1, B4=3), rec)
+    rec["on"] = False
+    del rec["u"][:]
+    r.step(1)
+    events = []
+    inner, stepper = _event_stepper(r, events)
+    r._step = stepper
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    kernels.reset_launches()
+    start.record()
+    t1 = time.perf_counter()
+    losses = r.step(ZOO_SWEEP_TIMED, chunk=ZOO_SWEEP_TIMED)[0]
+    wall = time.perf_counter() - t1
+    launches = _launches()
+    r._step = inner
+    peak = torch.cuda.max_memory_allocated()
+    n = ZOO_SWEEP_TIMED
+    check(launches == _untiled(B2=3 * n, B1=n, B4=3 * n),
+          f"(d) timed launches {launches}")
+    check(bool(np.isfinite(losses).all()), f"(d) losses {losses}")
+    step_ms = [a.elapsed_time(b) for a, b in zip([start] + events[:-1],
+                                                 events)]
+    r.close()
+    del r
+    torch.cuda.empty_cache()
+
+    def rewind():
+        s.train_feed = build_feed(s.net)        # the same batches
+    blocks = blocks_vs_unblocked(s, "(d)", C, LANE_OPTS, rewind)
+    del s
+    torch.cuda.empty_cache()
+    out = {"configs": C, "batch": 256, "lane_loss_rel_max": worst,
+           "lane_cells_apart": apart, "timed_steps": n,
+           "configs_steps_per_s": C * n / wall, "step_ms": step_ms,
+           "step_ms_median": float(np.median(step_ms)),
+           "peak_bytes": int(peak), "reckoned": reckoned,
+           "launches": launches, **blocks, "gpu": gpu,
+           "seconds": time.perf_counter() - t0}
+    print(f"phase 25: (d) AlexNet sweep, C = {C}, batch 256, "
+          f"RRAM_POOL_BWD=cuda: each lane against a Solver from its state, "
+          f"losses within {worst:.2e} relative, {apart} bank cells apart; "
+          f"{out['configs_steps_per_s']:.2f} configs*steps/s over {n} "
+          f"steps, step median {out['step_ms_median']:.3f} ms "
+          f"({[round(v, 3) for v in step_ms]}, CUDA events); peak memory "
+          f"{peak / 1e9:.2f} GB, reckoned: LRNs "
+          f"{reckoned['lrn_bytes'] / 1e9:.2f} GB, conv1's patches "
+          f"{reckoned['conv1_patches_bytes'] / 1e9:.2f} GB and cotangent "
+          f"rows {reckoned['conv1_cotangent_rows_bytes'] / 1e9:.2f} GB; "
+          f"launches {launches}; blocks of 2: banks bit for bit, losses "
+          f"within {blocks['block_loss_gap']:.2e}, "
+          f"{len(blocks['block_leaves_apart'])} param and history leaves "
+          f"apart by {blocks['block_rel_max']:.2e} of their largest; {gpu}",
+          flush=True)
+    return out
+
+
+def zoo_masks(out):
+    """(f) Dropout's masks and DummyData's draws on the card equal the
+    CPU's bit for bit: AlexNet's drop6 at (256, 4096) over a laned and a
+    shared bottom at C = 4 and alone, generated_net's gaussian data
+    top at C = 4."""
+    import torch
+    from rram_caffe_simulation_tpu_torch import proto
+    from rram_caffe_simulation_tpu_torch.core import prng
+    from rram_caffe_simulation_tpu_torch.core.registry import LayerContext
+    from rram_caffe_simulation_tpu_torch.net import Net
+    from rram_caffe_simulation_tpu_torch.ops.neuron import DropoutLayer
+    lp = proto.parse('name: "drop6" type: "Dropout" bottom: "fc6" '
+                     'top: "fc6" dropout_param { dropout_ratio: 0.5 }',
+                     "LayerParameter")
+    layer = DropoutLayer(lp, proto.TRAIN)
+    layer.setup([(256, 4096)])
+    C = ZOO_SWEEP_LANES
+    key = prng.fold_in(prng.PRNGKey(ZOO_SEED), 7)
+    keys = prng.fold_in(key[None], np.arange(C))
+    x = torch.randn(256, C * 4096)
+    cases = 0
+    for lanes, laned, xs in ((0, (), x[:, :4096]), (C, (True,), x),
+                             (C, (False,), x[:, :4096])):
+        tops = {}
+        for dev in ("cuda", "cpu"):
+            ctx = LayerContext(phase=proto.TRAIN, rng=keys if lanes else key,
+                               lanes=lanes, laned=laned, device=dev)
+            tops[dev] = layer.apply([], [xs.to(dev)], ctx)[0].cpu()
+        check(torch.equal(tops["cuda"].view(torch.int32),
+                          tops["cpu"].view(torch.int32)),
+              f"(f) drop6's masks differ between card and CPU (lanes "
+              f"{lanes}, laned {laned})")
+        cases += 1
+    text = GENERATED_NET
+    draws = {}
+    for dev in ("cuda", "cpu"):
+        net = Net(proto.parse(text, "NetParameter"), proto.TRAIN, device=dev)
+        params = {ln: [v.unsqueeze(0).expand((C,) + tuple(v.shape))
+                       for v in vals]
+                  for ln, vals in net.init(prng.PRNGKey(1)).items()}
+        draws[dev] = net.apply(params, rng=keys, lanes=C)[0]["data"].cpu()
+    check(torch.equal(draws["cuda"].view(torch.int32),
+                      draws["cpu"].view(torch.int32)),
+          "(f) generated_net's DummyData draws differ between card and CPU")
+    out["f"] = {"dropout_cases": cases, "dummydata_lanes": C}
+    print(f"phase 25: (f) AlexNet's drop6 at (256, 4096) alone and over "
+          f"{C} lanes (laned and shared bottom) and generated_net's "
+          f"DummyData over {C} lanes: card equal to CPU bit for bit",
+          flush=True)
+
+
+def generated_solver():
+    """generated_net (GENERATED_NET: random DummyData data, constant
+    labels) in a Solver: SGD at 0.05, faults on ip at ZOO_LIFE, the
+    phase's engine and banks."""
+    from rram_caffe_simulation_tpu_torch import proto
+    from rram_caffe_simulation_tpu_torch.solver import Solver
+    text = (f"net_param {{ {GENERATED_NET} }} "
+            'base_lr: 0.05 momentum: 0.9 weight_decay: 0.0005 '
+            'lr_policy: "fixed" display: 0 max_iter: 100 random_seed: 5 '
+            f'failure_pattern {{ type: "gaussian" mean: {ZOO_LIFE[0]} '
+            f"std: {ZOO_LIFE[1]} }}")
+    return Solver(proto.parse(text, "SolverParameter"), hw_engine="cuda",
+                  dtype_policy="ternary", fault_format="packed",
+                  fused_epilogue=True)
+
+
+def phase_zoo(gpu):
+    """Phase 25: the zoo nets at their published widths, from their own
+    solver files on a stand-in LMDB, under RRAM_POOL_BWD=cuda: (a) the
+    LMDB, (b) each net card against CPU at a small batch, (c) each net's
+    Solver at its published batch, (d) AlexNet's sweep, (e)
+    generated_net over lanes, (f) Dropout's masks card against CPU."""
+    import tempfile
+    import torch
+    t0 = time.perf_counter()
+    out = {"gpu": gpu, "part_s": {}, "b": {}, "c": {}}
+    saved = os.environ.get("RRAM_POOL_BWD")
+    os.environ["RRAM_POOL_BWD"] = "cuda"
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_zoo_") as tmp:
+            t = time.perf_counter()
+            db = zoo_lmdb(Path(tmp) / "ilsvrc_standin_lmdb")
+            out["part_s"]["a"] = time.perf_counter() - t
+            out["a"] = {"records": ZOO_RECORDS, "seed": ZOO_SEED,
+                        "bytes": os.path.getsize(Path(db) / "data.mdb")}
+            print(f"phase 25: (a) stand-in LMDB of {ZOO_RECORDS} 3x256x256 "
+                  f"Datums from seed {ZOO_SEED}, {out['a']['bytes']} bytes, "
+                  f"in {out['part_s']['a']:.1f} s", flush=True)
+            t = time.perf_counter()
+            for name in ZOO_NETS:
+                out["b"][name] = zoo_card_vs_cpu(name, db)
+            out["part_s"]["b"] = time.perf_counter() - t
+            t = time.perf_counter()
+            for name in ZOO_NETS:
+                out["c"][name] = zoo_timed(name, db, gpu)
+            out["part_s"]["c"] = time.perf_counter() - t
+            t = time.perf_counter()
+            out["d"] = zoo_sweep(db, gpu)
+            out["part_s"]["d"] = time.perf_counter() - t
+            t = time.perf_counter()
+            out["e"] = nets_lanes(generated_solver(), "(e) generated_net",
+                                  C=NETS_LANES)
+            print(f"phase 25: (e) generated_net at C = {NETS_LANES}: each "
+                  "lane against a Solver from its state, losses within "
+                  f"{out['e']['lane_loss_rel_max']:.2e} relative, banks "
+                  "identical; blocks of 2 against unblocked: losses within "
+                  f"{out['e']['block_loss_gap']:.2e}, banks bit for bit",
+                  flush=True)
+            out["part_s"]["e"] = time.perf_counter() - t
+            t = time.perf_counter()
+            zoo_masks(out)
+            out["part_s"]["f"] = time.perf_counter() - t
+    finally:
+        if saved is None:
+            os.environ.pop("RRAM_POOL_BWD", None)
+        else:
+            os.environ["RRAM_POOL_BWD"] = saved
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"phase 25: parts {json.dumps(out['part_s'])}", flush=True)
+    return out
+
+
 COLD_RUNS = ("precompile", "serial", "serial", "precompile")
 
 
@@ -8794,7 +9329,7 @@ def main(argv=None) -> int:
                    help="training steps of the slice phase (default 50)")
     p.add_argument("--transition-steps", type=int, default=6)
     p.add_argument("--phases", default="all",
-                   help="comma-separated phases 2-24 to run after the "
+                   help="comma-separated phases 2-25 to run after the "
                         "build (default all; only a full run prints the "
                         "per-kernel line and the ok line)")
     p.add_argument("--b2-path", action="store_true",
@@ -8838,7 +9373,7 @@ def main(argv=None) -> int:
                         "print their seconds as JSON")
     args = p.parse_args(argv)
     t_main = time.perf_counter()
-    every = set(range(2, 25))
+    every = set(range(2, 26))
     want = every if args.phases == "all" else {
         int(v) for v in args.phases.split(",")}
 
@@ -8999,6 +9534,8 @@ def main(argv=None) -> int:
         harness = timed(23, phase_harness, gpu)
     if 24 in want:
         nets = timed(24, phase_nets, gpu)
+    if 25 in want:
+        zoo = timed(25, phase_zoo, gpu)
     if want != every:
         print(f"phases {sorted(want)} passed; no ok line for a partial run",
               flush=True)
@@ -9164,6 +9701,47 @@ def main(argv=None) -> int:
          "replaces": "rram_caffe_simulation_tpu/fault/fused.py:118",
          "launches": nsl["B1"], "max_abs_err": err_nb1b, **nb1b},
     ]
+    # phase 25's path: AlexNet's fc6-fc8 at batch 256 and their six
+    # leaves (the Solver, and the sweep's C), its three 3x3 stride-2 MAX
+    # pools over the sweep's lanes (the other nets' kernels: phase 25
+    # (c)'s profile of their path)
+    Cz = zoo["d"]["configs"]
+    zc, zsl = zoo["c"], zoo["d"]["launches"]
+    zb2, err_zb2 = b2_step_numbers(device, 1, ZOO_B2_SHAPES)
+    zb1, err_zb1 = b1_step_numbers(device, ZOO_LEAVES)
+    zb2b, err_zb2b = b2_step_numbers(device, Cz, ZOO_B2_SHAPES)
+    zb1b, err_zb1b = b1_step_numbers(device, ZOO_LEAVES, Cz)
+    zb4 = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bound_by": "bytes",
+           "library_ms": 0.0, "max_abs_err": 0.0}
+    for ch, h in ZOO_POOLS:
+        one = b4_step_numbers(device, Cz, planes=ch, hw=(h, h),
+                              geometry=POOL3X3S2, batch=256)
+        zb4 = {k: (max(v, one[k]) if k == "max_abs_err" else v + one[k])
+               if k != "bound_by" else v for k, v in zb4.items()}
+    rows += [
+        {"name": "crossbar_forward (B2a), AlexNet fc6-8, batch 256",
+         "route": "cuda", "source": f"{PKG}/csrc/crossbar.cu",
+         "replaces": "rram_caffe_simulation_tpu/fault/hw_aware.py:332",
+         "launches": zc["alexnet"]["launches"]["B2"], "max_abs_err": err_zb2,
+         **zb2},
+        {"name": "fused_update_fail (B1a), AlexNet's six leaves",
+         "route": "cuda", "source": f"{PKG}/csrc/fused_epilogue.cu",
+         "replaces": "rram_caffe_simulation_tpu/fault/fused.py:99",
+         "launches": zc["alexnet"]["launches"]["B1"], "max_abs_err": err_zb1,
+         **zb1},
+        {"name": "crossbar_forward over C lanes (B2b), AlexNet sweep",
+         "route": "cuda", "source": f"{PKG}/csrc/crossbar.cu",
+         "replaces": "rram_caffe_simulation_tpu/fault/hw_aware.py:477",
+         "launches": zsl["B2"], "max_abs_err": err_zb2b, **zb2b},
+        {"name": "fused_update_fail over C lanes (B1b), AlexNet sweep",
+         "route": "cuda", "source": f"{PKG}/csrc/fused_epilogue.cu",
+         "replaces": "rram_caffe_simulation_tpu/fault/fused.py:118",
+         "launches": zsl["B1"], "max_abs_err": err_zb1b, **zb1b},
+        {"name": "max_pool_backward (B4), AlexNet sweep's three pools",
+         "route": "cuda", "source": f"{PKG}/csrc/pool_backward.cu",
+         "replaces": "rram_caffe_simulation_tpu/ops/pool_backward.py:141",
+         "launches": zsl["B4"], **zb4},
+    ]
     # phase 22's path: B1 in the modes of read_disturb ("always") and
     # permanent_fault_map ("never"), on the steps' own tails
     for key, row in sorted(processes["b1_rows"].items()):
@@ -9199,6 +9777,7 @@ def main(argv=None) -> int:
     print(json.dumps({"processes": processes}))
     print(json.dumps({"harness": harness}))
     print(json.dumps({"nets": nets}))
+    print(json.dumps({"zoo": zoo}))
     print(json.dumps({"phase_s": {**{str(n): v for n, v in phase_s.items()},
                                   "kernels_line": time.perf_counter() - t_rows,
                                   "script": time.perf_counter() - t_main}}))

@@ -4,7 +4,9 @@ For a blob of shape (d0, d1, ...), fan_in = count / d0 and fan_out =
 count / d1.
 
 `fill(key, shape, device)` draws from a threefry key (core/prng.py) with
-the reference's key use, so a seed gives the reference's values.
+the reference's key use, so a seed gives the reference's values. A batch
+of keys (..., 2) draws key.shape[:-1] + shape, one block per key, as
+jax.vmap over the keys does (a filler that draws nothing returns shape).
 """
 from __future__ import annotations
 
@@ -48,7 +50,8 @@ def make_filler(f):
             return prng.uniform(key, shape, f.min, f.max, device)
     elif ftype == "gaussian":
         def fill(key, shape, device="cpu"):
-            kg, ks = prng.split(key)
+            ks = prng.split(key)
+            kg, ks = ks[..., 0, :], ks[..., 1, :]
             x = prng.normal(kg, shape, device) * _f32(f.std) + _f32(f.mean)
             if f.sparse >= 0:
                 # Bernoulli mask with p = sparse / fan_in keeps about
@@ -62,8 +65,9 @@ def make_filler(f):
             # one uniform draw, each row (the fan-in of an output)
             # divided by its sum (filler.hpp:160-180)
             x = prng.uniform(key, shape, 0.0, 1.0, device)
-            flat = x.reshape(shape[0], -1)
-            return (flat / flat.sum(1, keepdim=True)).reshape(shape)
+            flat = x.reshape(x.shape[:x.dim() - len(shape)]
+                             + (shape[0], -1))
+            return (flat / flat.sum(-1, keepdim=True)).reshape(x.shape)
     elif ftype == "xavier":
         def fill(key, shape, device="cpu"):
             scale = math.sqrt(3.0 / _scale_n(f, *_fans(shape)))

@@ -8,7 +8,13 @@ Forward state (BatchNorm's moving statistics, which the reference's
 `apply` returns as new params): a layer with `updates_state` writes the
 replacement values of its params into `ctx.updates[name]` when the
 caller asked for them (`ctx.updates` is a dict, else None); it never
-writes into the param tensors."""
+writes into the param tensors.
+
+The forward key (`ctx.rng`, a core/prng.py key (2,), or (C, 2) under
+config lanes) feeds the layers that draw: Dropout in TRAIN and a
+DummyData top with a random filler. Such a layer names the tops it
+draws (`draws_tops`); under lanes each of them is laned, each lane
+drawing from its own key, whatever its bottoms are."""
 from __future__ import annotations
 
 import dataclasses
@@ -40,6 +46,12 @@ def create_layer(layer_param, phase: int) -> "Layer":
 class LayerContext:
     """Per-forward context threaded through every layer apply."""
     phase: int
+    # the forward key (core/prng.py): (2,) uint32, (C, 2) under lanes (lane
+    # c's key in row c); None = no key (a layer that draws raises)
+    rng: Any = None
+    # the net's device: where a layer that makes a top from no bottom
+    # (DummyData) puts it
+    device: Any = None
     # Hardware-aware ADC model (RRAMForwardParameter.adc_bits): when
     # nonzero, crossbar (InnerProduct) layers quantize their output.
     adc_bits: int = 0
@@ -126,6 +138,21 @@ class Layer:
 
     def default_loss_weight(self, top_index: int) -> float:
         return 0.0
+
+    def draws_tops(self) -> tuple:
+        """Per top, whether apply draws it from the forward key ctx.rng;
+        () = none."""
+        return ()
+
+    def laned_tops(self, laned_bottoms: Sequence[bool]) -> list:
+        """Per top, whether it is laned under config lanes: every top of
+        a layer with params or a laned bottom, and each top the layer
+        draws (each lane draws its own, from a shared bottom or from
+        none)."""
+        base = any(laned_bottoms) or self.num_params() > 0
+        draws = self.draws_tops()
+        return [base or (i < len(draws) and bool(draws[i]))
+                for i in range(len(self.lp.top))]
 
     def __repr__(self):
         return f"<{type(self).__name__} {self.name!r}>"

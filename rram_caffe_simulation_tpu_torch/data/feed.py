@@ -33,6 +33,20 @@ def datum_to_array(datum: proto.Message):
     return arr, datum.label
 
 
+def array_to_datum(arr: np.ndarray, label: int = 0) -> proto.Message:
+    """A (C, H, W) array as a Datum (the reference's data/db.py
+    array_to_datum): uint8 pixels as `data`, any other dtype as float32
+    `float_data`; `proto.encode` serializes it."""
+    d = proto.Message("Datum")
+    d.channels, d.height, d.width = (int(v) for v in arr.shape)
+    d.label = int(label)
+    if arr.dtype == np.uint8:
+        d.data = arr.tobytes()
+    else:
+        d.float_data.extend(np.asarray(arr, np.float32).reshape(-1).tolist())
+    return d
+
+
 def open_lmdb(source: str) -> Environment:
     mdb = source if os.path.isfile(source) else os.path.join(source,
                                                              "data.mdb")

@@ -1,6 +1,5 @@
-"""Pure-Python LMDB reader: a read-only environment and a wrap-around
-cursor (a reader-only copy of the reference package's data/lmdb_py.py;
-the port never writes LMDBs).
+"""Pure-Python LMDB: a read-only environment, a wrap-around cursor and a
+bulk writer (a copy of the reference package's data/lmdb_py.py).
 
 Implements the on-disk format of LMDB 0.9 (magic 0xBEEFC0DE, data
 version 1): 4096-byte pages, meta pages 0/1, a B+tree of branch/leaf
@@ -13,13 +12,15 @@ pages, overflow pages for large values.
   mapsize u64 | free_db[48] | main_db[48] | last_pg u64 | txnid u64
 - db record (48B): pad u32 | flags u16 | depth u16 | branch u64 | leaf u64 |
   overflow u64 | entries u64 | root u64
+- overflow page: the header with the page count (u32) over lower/upper,
+  then the value
 """
 from __future__ import annotations
 
 import mmap
 import os
 import struct
-from typing import Iterator, Optional, Tuple
+from typing import Iterator, List, Optional, Tuple
 
 PAGE = 4096
 MAGIC = 0xBEEFC0DE
@@ -27,6 +28,7 @@ VERSION = 1
 
 P_BRANCH = 0x01
 P_LEAF = 0x02
+P_OVERFLOW = 0x04
 P_META = 0x08
 F_BIGDATA = 0x01
 
@@ -188,3 +190,141 @@ class Cursor:
         v = self.value()
         self.next()
         return v
+
+
+# ---------------------------------------------------------------------------
+# Bulk writer: one transaction, keys written in sorted order, the B+tree
+# built bottom-up. The reader above (and liblmdb) accepts the file: meta
+# txnid 1, an empty free DB.
+
+_MAX_NODE = (PAGE - 16 - 2) // 2 - 8   # a conservative in-page node size
+
+
+class BulkWriter:
+    """Collects (key, value) pairs with `put` and writes the LMDB at
+    `close` (or on leaving a `with` block without an error): `path` is
+    a directory holding data.mdb, or with subdir=False the file itself."""
+
+    def __init__(self, path: str, subdir: bool = True):
+        if subdir:
+            os.makedirs(path, exist_ok=True)
+            path = os.path.join(path, "data.mdb")
+        self.path = path
+        self.pages: List[bytes] = [b"", b""]   # meta pages, filled at close
+        self.items: List[Tuple[bytes, bytes]] = []
+        self.n_overflow = 0
+
+    def put(self, key: bytes, value: bytes):
+        self.items.append((bytes(key), bytes(value)))
+
+    def _alloc(self) -> int:
+        self.pages.append(b"")
+        return len(self.pages) - 1
+
+    @staticmethod
+    def _make_page(flags: int, nodes: List[bytes], pgno: int) -> bytes:
+        body = bytearray(PAGE)
+        lower = 16 + 2 * len(nodes)
+        upper = PAGE - sum(len(n) for n in nodes)
+        _PGHDR.pack_into(body, 0, pgno, 0, flags, lower, upper)
+        off, ptrs = PAGE, []
+        for n in nodes:
+            off -= len(n)
+            ptrs.append(off)
+            body[off:off + len(n)] = n
+        struct.pack_into(f"<{len(ptrs)}H", body, 16, *ptrs)
+        return bytes(body)
+
+    def _overflow(self, data: bytes) -> int:
+        n_pages = (16 + len(data) + PAGE - 1) // PAGE
+        first = len(self.pages)
+        raw = bytearray(n_pages * PAGE)
+        _PGHDR.pack_into(raw, 0, first, 0, P_OVERFLOW, 0, 0)
+        struct.pack_into("<I", raw, 12, n_pages)
+        raw[16:16 + len(data)] = data
+        self.pages.extend(bytes(raw[i * PAGE:(i + 1) * PAGE])
+                          for i in range(n_pages))
+        self.n_overflow += n_pages
+        return first
+
+    def _leaf_node(self, key: bytes, value: bytes) -> bytes:
+        if 8 + len(key) + len(value) > _MAX_NODE:
+            ovf = self._overflow(value)
+            return _NODEHDR.pack(len(value) & 0xFFFF, len(value) >> 16,
+                                 F_BIGDATA, len(key)) + key + struct.pack(
+                                     "<Q", ovf)
+        return _NODEHDR.pack(len(value) & 0xFFFF, len(value) >> 16, 0,
+                             len(key)) + key + value
+
+    @staticmethod
+    def _branch_node(key: bytes, child: int) -> bytes:
+        return _NODEHDR.pack(child & 0xFFFF, (child >> 16) & 0xFFFF,
+                             (child >> 32) & 0xFFFF, len(key)) + key
+
+    def _pages(self, flags: int, entries, node_of) -> list:
+        """Pack entries into pages of `flags`, a node each from
+        node_of(entry, first_on_page) (a branch page's first node carries
+        an empty key), built in entry order (a leaf's overflow pages
+        come before its page); returns [(first key, pgno)] of the
+        pages."""
+        out, nodes, first, space = [], [], None, PAGE - 16
+
+        def flush():
+            nonlocal nodes, first, space
+            if nodes:
+                pgno = self._alloc()
+                self.pages[pgno] = self._make_page(flags, nodes, pgno)
+                out.append((first, pgno))
+            nodes, first, space = [], None, PAGE - 16
+        for entry in entries:
+            node = node_of(entry, not nodes)
+            if nodes and len(node) + 2 > space:
+                flush()
+                if flags == P_BRANCH:
+                    node = node_of(entry, True)
+            if first is None:
+                first = entry[0]
+            nodes.append(node)
+            space -= len(node) + 2
+        flush()
+        return out
+
+    def close(self):
+        items = sorted(self.items, key=lambda kv: kv[0])
+        if len({k for k, _ in items}) != len(items):
+            raise LmdbError("duplicate keys in bulk write")
+        level = self._pages(P_LEAF, items,
+                            lambda kv, first: self._leaf_node(*kv))
+        n_leaf, n_branch, depth = len(level), 0, 1
+        while len(level) > 1:
+            level = self._pages(P_BRANCH, level, lambda e, first:
+                                self._branch_node(b"" if first else e[0],
+                                                  e[1]))
+            n_branch += len(level)
+            depth += 1
+        root = level[0][1] if level else _INVALID
+        if root == _INVALID:
+            depth = 0
+        last_pg = len(self.pages) - 1
+        for mp in (0, 1):
+            body = bytearray(PAGE)
+            _PGHDR.pack_into(body, 0, mp, 0, P_META, 0, 0)
+            _META.pack_into(body, 16, MAGIC, VERSION, 0,
+                            max(len(self.pages) * PAGE, 1 << 20))
+            free_off = 16 + _META.size
+            _DB.pack_into(body, free_off, 0, 0, 0, 0, 0, 0, 0, _INVALID)
+            main_off = free_off + _DB.size
+            _DB.pack_into(body, main_off, 0, 0, depth, n_branch, n_leaf,
+                          self.n_overflow, len(items), root)
+            struct.pack_into("<QQ", body, main_off + _DB.size, last_pg, 1)
+            self.pages[mp] = bytes(body)
+        with open(self.path, "wb") as f:
+            for p in self.pages:
+                f.write(p)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        if not exc[0]:
+            self.close()

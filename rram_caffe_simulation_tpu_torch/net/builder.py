@@ -182,18 +182,18 @@ class Net:
 
     def laned_blobs(self, laned_data: bool = False) -> set:
         """The blobs `apply(lanes=C)` returns laned, the lane axis folded
-        in: every top of a layer with params or a laned bottom, the rest
-        (blobs computed from the data alone) shared by every lane; with
-        `laned_data` the data tops and everything after them."""
+        in: every top of a layer with params or a laned bottom and every
+        top a layer draws from the forward key (Layer.laned_tops), the
+        rest (blobs computed from the data alone) shared by every lane;
+        with `laned_data` the data tops and everything after them."""
         laned = set()
         for layer in self.layers:
             if layer.is_data_source:
                 if laned_data:
                     laned.update(layer.lp.top)
                 continue
-            out = (layer.num_params() > 0
-                   or any(b in laned for b in layer.lp.bottom))
-            for t in layer.lp.top:
+            outs = layer.laned_tops([b in laned for b in layer.lp.bottom])
+            for t, out in zip(layer.lp.top, outs):
                 (laned.add if out else laned.discard)(t)
         return laned
 
@@ -240,7 +240,7 @@ class Net:
         return [params[owner][slot]
                 for owner, slot in self._layer_slots[layer.name]]
 
-    def apply(self, params, batch: Optional[dict] = None,
+    def apply(self, params, batch: Optional[dict] = None, rng=None,
               adc_bits: int = 0, crossbar: Optional[dict] = None,
               lanes: int = 0, tiles: Optional[dict] = None,
               conv_im2col: Optional[str] = None, with_updates: bool = False,
@@ -251,7 +251,10 @@ class Net:
         new_params) `with_updates`: `params` with the forward-state
         updates (BatchNorm's moving statistics) in place of the layers'
         lists, the tensors passed in untouched. `batch` feeds the
-        data-source tops; `crossbar` routes named fault-target layers
+        data-source tops; `rng` is the forward key (a core/prng.py key
+        (2,), or (C, 2) under `lanes`, lane c's in row c) that Dropout in
+        TRAIN and random DummyData draw from (None: such a layer raises);
+        `crossbar` routes named fault-target layers
         through the crossbar read, `tiles` names the layers read through
         tiles and `conv_im2col` their conv operand mode (see
         LayerContext).
@@ -277,7 +280,14 @@ class Net:
         batch = batch or {}
         if trace_sites is not None:
             from ..observe.debug import blob_mean_abs
-        ctx = LayerContext(phase=self.phase, adc_bits=adc_bits,
+        if rng is not None:
+            rng = np.asarray(rng, dtype=np.uint32)
+            if rng.shape != ((lanes, 2) if lanes else (2,)):
+                raise ValueError(
+                    f"the forward key is {((lanes, 2) if lanes else (2,))} "
+                    f"uint32 at lanes={lanes}, got shape {rng.shape}")
+        ctx = LayerContext(phase=self.phase, rng=rng, device=self.device,
+                           adc_bits=adc_bits,
                            crossbar=crossbar, lanes=lanes, tiles=tiles,
                            conv_im2col=conv_im2col,
                            updates={} if with_updates else None)
@@ -300,15 +310,15 @@ class Net:
                 if b not in blobs:
                     raise ValueError(f"batch missing data blob {b!r}")
             ctx.laned = tuple(b in laned for b in layer.lp.bottom)
-            out_laned = bool(lanes) and (any(ctx.laned)
-                                         or layer.num_params() > 0)
-            if out_laned and layer.lane_rule is None:
+            tops_laned = (layer.laned_tops(ctx.laned) if lanes
+                          else [False] * len(layer.lp.top))
+            if any(tops_laned) and layer.lane_rule is None:
                 raise NotImplementedError(
                     f"layer {layer.name!r} ({layer.type_name}) has no "
                     "config-lane rule yet")
             tops = layer.apply(self._gather_layer_params(params, layer),
                                [blobs[b] for b in layer.lp.bottom], ctx)
-            for t, v in zip(layer.lp.top, tops):
+            for t, v, out_laned in zip(layer.lp.top, tops, tops_laned):
                 if probes is not None:
                     probe = probes.get((layer.name, t))
                     if probe is not None:

@@ -93,8 +93,8 @@ class NetDebugSpec:
         self.fwd: List[tuple] = []
         bwd_per_layer: List[List[tuple]] = []
         current_site: Dict[str, Optional[tuple]] = {}
-        # whether a site's blob carries the lane axis (Net.apply's rule:
-        # a top is laned when a bottom is or the layer has params)
+        # whether a site's blob carries the lane axis (Net.apply's rule,
+        # Layer.laned_tops)
         self.laned: Dict[tuple, bool] = {}
         laned_blob: Dict[str, bool] = {}
         for layer in net.layers:
@@ -110,10 +110,9 @@ class NetDebugSpec:
             specs = layer.param_specs()
             bottom_sites = [(b, current_site.get(b))
                             for b in layer.lp.bottom]
-            out_laned = (any(laned_blob.get(b, False)
-                             for b in layer.lp.bottom)
-                         or layer.num_params() > 0)
-            for t in layer.lp.top:
+            outs = layer.laned_tops([laned_blob.get(b, False)
+                                     for b in layer.lp.bottom])
+            for t, out_laned in zip(layer.lp.top, outs):
                 site = (layer.name, t)
                 current_site[t] = site
                 laned_blob[t] = out_laned

@@ -287,6 +287,15 @@ def _fold(v):
     return v.reshape((v.shape[0], -1) + tuple(v.shape[3:]))
 
 
+def lanes_major(v, shape):
+    """C lanes' values of a per-config blob of `shape`, (C,) + shape, in
+    the laned layout: (d0, C*d1, ...) lane-major along axis 1, (d0, C)
+    for a per-config (d0,), (C,) for a per-config scalar."""
+    if not shape:
+        return v
+    return v.movedim(0, 1).reshape((shape[0], -1) + tuple(shape[2:]))
+
+
 def _spread(bottoms, ctx):
     """(C, bottoms) with every bottom laned, an unlaned one repeated for
     each lane; C = 0 where no bottom is laned."""

@@ -1,6 +1,11 @@
 """Elementwise neuron layers (counterpart of the reference package's
 ops/neuron.py): ReLU, with Caffe's optional negative slope; Sigmoid and
-TanH.
+TanH; Dropout.
+
+ReLU without a slope is the reference's jnp.maximum(x, 0), whose
+gradient at x == 0 is half the cotangent (JAX's rule for a tie; Caffe's
+is 0). A pre-activation is exactly 0 where a crossbar row reads as zeros
+beside a bias stuck at 0, and the bias's write then rests on it.
 
 Sigmoid and TanH compute the reference's float32 expressions as XLA's
 CPU backend evaluates them, from IEEE basic operations (core/prng.py's
@@ -12,14 +17,26 @@ steps; x itself where |x| < 0.0004). Their backward passes are JAX's
 rules as its transpose evaluates them eagerly: g * (y * (1 - y)), and
 t + t * y with t = g * (1 - y) (the reference's jitted step may contract
 the second into a fused multiply-add). A subnormal result flushes to a
-signed zero, as XLA's CPU code runs with denormals off."""
+signed zero, as XLA's CPU code runs with denormals off.
+
+Dropout (the reference's inverted dropout, dropout_layer.cpp:30-60): in
+TRAIN the kept mask is bernoulli(fold_in(rng, crc32(name) & 0x7FFFFFFF),
+1 - ratio) over the blob (core/prng.py, the reference's draw bit for
+bit, on the blob's device) and a kept value is divided by 1 - ratio in
+float32; in TEST, or at ratio 0, the identity. Under config lanes lane c
+draws its mask from its own key rng[c] (all lanes in one batched draw),
+also over a bottom every lane shares."""
 from __future__ import annotations
+
+import zlib
 
 import numpy as np
 import torch
 
+from .. import proto
 from ..core import prng
 from ..core.registry import Layer, register_layer
+from .common import lanes_major
 
 _TINY = float(np.finfo(np.float32).tiny)
 _TANH_CLAMP = float(np.float32(7.99881172180175781))
@@ -83,6 +100,24 @@ class _TanH(torch.autograd.Function):
         return flush(t + t * y)
 
 
+class _ReLU(torch.autograd.Function):
+    """max(x, 0) with the gradient of the reference's jnp.maximum(x, 0):
+    g * 1 where x > 0, g * 0.5 where x == 0 (JAX splits a tie evenly),
+    g * 0 below and at NaN. The factor is one heaviside pass, the product
+    a second (torch.maximum's own backward takes five and passes g at
+    NaN)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return torch.relu(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, = ctx.saved_tensors
+        return g * torch.heaviside(x, x.new_full((), 0.5))
+
+
 class _Elementwise(Layer):
     lane_rule = "any"
 
@@ -101,7 +136,7 @@ class ReLULayer(_Elementwise):
         x = bottoms[0]
         if self.negative_slope:
             return [torch.where(x > 0, x, self.negative_slope * x)]
-        return [torch.relu(x)]
+        return [_ReLU.apply(x)]
 
 
 @register_layer("Sigmoid")
@@ -114,3 +149,42 @@ class SigmoidLayer(_Elementwise):
 class TanHLayer(_Elementwise):
     def apply(self, params, bottoms, ctx):
         return [_TanH.apply(bottoms[0].float()).to(bottoms[0].dtype)]
+
+
+@register_layer("Dropout")
+class DropoutLayer(_Elementwise):
+    lane_rule = "own"
+
+    def setup(self, bottom_shapes):
+        self.ratio = self.lp.dropout_param.dropout_ratio
+        return super().setup(bottom_shapes)
+
+    def _draws(self) -> bool:
+        return self.phase == proto.TRAIN and self.ratio != 0.0
+
+    def draws_tops(self):
+        return (self._draws(),)
+
+    def apply(self, params, bottoms, ctx):
+        x = bottoms[0]
+        if not self._draws():
+            return [x]
+        if ctx.rng is None:
+            raise ValueError(f"Dropout {self.name!r} in TRAIN needs a "
+                             "forward key (Net.apply's rng)")
+        key = prng.fold_in(ctx.rng,
+                           zlib.crc32(self.name.encode()) & 0x7FFFFFFF)
+        shape = tuple(self.top_shapes[0])
+        keep = prng.bernoulli(key, 1.0 - self.ratio, shape, x.device)
+        if ctx.lanes:
+            # lane c's mask from rng[c], lane-major in the folded axis;
+            # a bottom every lane shares is repeated for each lane first
+            keep = lanes_major(keep, shape)
+            if not ctx.laned[0]:
+                x = lanes_major(x.expand((ctx.lanes,) + shape), shape)
+        # a division by a device tensor (CUDA turns a host scalar divisor
+        # into a product with its reciprocal); its backward is
+        # where(keep, g, 0) / s, as the reference's
+        s = torch.full((), float(np.float32(1.0 - self.ratio)),
+                       dtype=x.dtype, device=x.device)
+        return [torch.where(keep, x / s, 0.0)]

@@ -192,6 +192,19 @@ message LayerParameter {
   optional SigmoidParameter sigmoid_param = 124;
   optional SliceParameter slice_param = 126;
   optional TanHParameter tanh_param = 127;
+  optional DropoutParameter dropout_param = 108;
+  optional DummyDataParameter dummy_data_param = 109;
+}
+message DropoutParameter {
+  optional float dropout_ratio = 1 [default = 0.5];
+}
+message DummyDataParameter {
+  repeated FillerParameter data_filler = 1;
+  repeated BlobShape shape = 6;
+  repeated uint32 num = 2;
+  repeated uint32 channels = 3;
+  repeated uint32 height = 4;
+  repeated uint32 width = 5;
 }
 message TransformationParameter {
   optional float scale = 1 [default = 1];

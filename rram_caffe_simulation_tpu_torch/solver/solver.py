@@ -677,7 +677,9 @@ class Solver:
         sentinels; the step then returns the sixth value with the
         metrics off too. Off, the step runs the same operations as
         without it. `rng` is the step's key, fold_in(solver
-        key, it) (under lanes (C, 2), one per lane); fault key i reads
+        key, it) (under lanes (C, 2), one per lane); it is the forward
+        key Dropout and random DummyData draw from (sub-pass i of
+        iter_size > 1 takes fold_in(rng, i)); fault key i reads
         with the noise key `noise_keys(rng)[i]`, a crossbar read with its
         randint seed. The solver's threshold and remapping strategies run
         inside it; remapping on the iterations `_remap_due_at(it)` names,
@@ -1002,7 +1004,7 @@ class Solver:
                 probes = spec.make_probes(lanes, self.device)
                 trace = {}
             blobs, loss, new_params = net.apply(
-                read_params, batch, adc_bits=adc_bits,
+                read_params, batch, rng=rng, adc_bits=adc_bits,
                 crossbar=crossbar, lanes=lanes, tiles=tiles_ctx,
                 conv_im2col=conv_resolved, with_updates=True,
                 probes=probes, trace_sites=trace, laned_data=laned_data)
@@ -1578,10 +1580,12 @@ class Solver:
         totals: Dict[str, torch.Tensor] = {}
         loss_total = 0.0
         with torch.no_grad():
-            for _ in range(test_iter):
+            for i in range(test_iter):
                 batch = {k: torch.as_tensor(np.asarray(v)).to(self.device)
                          for k, v in feed().items()}
-                blobs, loss = net.apply(self.params, batch, **ctx)
+                # test batch i's forward key (reference solver.py:2114)
+                rng = prng.fold_in(prng.fold_in(self._key, self.iter), i)
+                blobs, loss = net.apply(self.params, batch, rng=rng, **ctx)
                 if self.param.test_compute_loss:
                     loss_total += float(loss)
                 for name in net.output_names:
