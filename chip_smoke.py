@@ -29,6 +29,9 @@
                                           # nets and the siamese net
     python3 chip_smoke.py --phases 25     # the ImageNet-width zoo nets
                                           # and generated_net
+    python3 chip_smoke.py --phases 26     # the data sources: ImageData,
+                                          # WindowData, the Python layer,
+                                          # LevelDB, the prefetching feed
     python3 chip_smoke.py --b2-path       # only time B2 through its wrapper
     python3 chip_smoke.py --b2t-path      # only time B2t (wrapper, kernel,
                                           # tile rows)
@@ -73,8 +76,9 @@ prints no "ok" line):
    lifetimes N(1e8, 3e7), ternary crossbar read, packed banks, fused
    epilogue, batch 100 from the in-repo LMDB, on the "cuda" engine;
    losses, the step time (median and quartiles), a breakdown into host
-   feed and device busy time, and each kernel's launch count against
-   the path's (B2 twice a step, B1 once a step for the four fault
+   feed and device busy time, 10 steps through a prefetching feed at
+   each GIL switch interval of 5 and 1 ms, and each kernel's launch
+   count against the path's (B2 twice a step, B1 once a step for the four fault
    leaves);
    then a short run with rram_forward.sigma = 0.05 (in-kernel noise);
 5. fault transitions: mean 300, std 50, the "cuda" and the "torch"
@@ -460,8 +464,10 @@ prints no "ok" line):
    each net's Solver at its published batch (256, 256, 32, 32; crop 227,
    227, 224, 224, mirror): a warm and 3 timed steps (median, host clock,
    synchronized, the host feed included), the feed's ms a batch, peak
-   memory, the launches of (b) a step; (d) AlexNet's sweep at C = 4,
-   batch 256 (the host feed): each lane against a single-config Solver
+   memory, the launches of (b) a step, then 5 steps through a
+   prefetching feed at each GIL switch interval of 5 and 1 ms; (d)
+   AlexNet's sweep
+   at C = 4, batch 256 (its own raw host feed): each lane against a single-config Solver
    from its state (loss within 1e-5 relative, banks equal but for
    exact-0 writes), a warm and 3 timed steps (configs x steps per
    second, step times by CUDA events, peak memory beside its reckoning
@@ -472,7 +478,38 @@ prints no "ok" line):
    phase 24 (b)'s lane checks; (f) Dropout's masks (AlexNet's drop6 at
    (256, 4096), alone and over 4 lanes of a laned and of a shared
    bottom) and generated_net's DummyData draws over 4 lanes: card equal
-   to CPU bit for bit.
+   to CPU bit for bit;
+26. the data sources (ImageData, WindowData, the Python layer, LevelDB,
+   a Solver's prefetching feed), under RRAM_POOL_BWD=cuda: (a)
+   stand-ins from a seed, written by the port's own writers into a
+   temporary directory: 64 PNGs of 224-288 pixels a side with train and
+   test lists (flickr_style's data/flickr_style/*.txt), 16 PNGs at
+   3x375x500 with 24 windows each, half of them foreground (the PASCAL
+   window files), a 1x3x256x256 mean .binaryproto
+   (data/ilsvrc12/imagenet_mean.binaryproto), and 64 Datums as a
+   LevelDB and as an LMDB; (b) flickr_style
+   (models/finetune_flickr_style/solver.prototxt, ImageData), pascal's
+   finetune net (examples/finetune_pascal_detection/
+   pascal_finetune_solver.prototxt, WindowData) and
+   examples/pycaffe/linreg.prototxt (the Python layer, pyloss.py) at
+   batch 4, faults on the InnerProduct layers at N(300, 50), packed
+   banks, the ternary read, the fused epilogue, engine "cuda": the card's
+   Solver (its batch from its own feed) against the CPU's
+   (its draws made on the card), one step from one state, batch and
+   key: losses within 1e-5 relative, banks equal but for cells on
+   exact-0 writes, launches a step B2a 3, B1a 1, B4 3 (linreg B2a 2,
+   B1a 1); (c) flickr_style at batch 50 and pascal at batch 128, the
+   Solver built with `prefetch`: a warm and 3 timed steps (median, host clock,
+   synchronized), the launches a step, peak memory; then one step from
+   one state through the prefetching feed (profiled: the device busy
+   ms) and, its producer stopped, through a raw feed at the same
+   position: the batch, every state leaf and the loss bit for bit, that
+   step and 2 more through the raw feed and the raw feed's ms a batch
+   timed; flickr_style's
+   Solver.test over 2 batches of its TEST ImageData layer; (d) a
+   LEVELDB Data layer's prefetched batches on the card equal to the
+   LMDB's of the same records past a wrap, and its Solver's two steps
+   (B2a 1, B1a 1 a step).
 
 Then a JSON line of the step's numbers, a JSON line of the sweep's, one
 JSON line of per-kernel numbers (per training step, summed over the
@@ -492,8 +529,8 @@ line "telemetry" of phase 17's, a JSON line "blocks" of phase 18's, a
 JSON line "healing" of phase 19's, a JSON line "virtual_time" of phase
 20's, a JSON line "driver" of phase 21's, a JSON line "processes" of
 phase 22's, a JSON line "harness" of phase 23's, a JSON line "nets" of
-phase 24's, a JSON line "zoo" of phase 25's, the card's name and power
-limit,
+phase 24's, a JSON line "zoo" of phase 25's, a JSON line
+"data_sources" of phase 26's, the card's name and power limit,
 and last {"ok": true, "device":
 {...}}.
 B2t has a row at each path's shapes: C = 1 (the tiled slice) and C
@@ -1372,6 +1409,11 @@ def phase_slice(steps, gpu):
           f"ms; kernels on the card {breakdown['device_busy_ms']:.3f} ms "
           f"({breakdown['device_busy_ms'] / (dt * 1e3):.1%} busy); top "
           f"device kernels: {breakdown['top']}", flush=True)
+    breakdown["prefetch_step_ms"] = prefetch_steps(s, PREFETCH_STEPS_P4)
+    print(f"phase 4: {PREFETCH_STEPS_P4} steps each through a prefetching "
+          f"feed, median ms by GIL switch interval: "
+          f"{json.dumps(breakdown['prefetch_step_ms'])} (the raw feed's "
+          f"{dt * 1e3:.3f} ms above)", flush=True)
 
     s2 = slice_solver(1e8, 3e7, sigma=0.05, seed=2)
     kernels.reset_launches()
@@ -1430,6 +1472,41 @@ def step_breakdown(s, steps=5):
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
     return {"feed_ms": feed_ms, "device_busy_ms": busy,
             "top": "; ".join(f"{n[:60]} {ms:.4f} ms" for n, ms in top)}
+
+
+PREFETCH_STEPS_P4 = 10          # phase 4's steps a prefetching block
+SWITCH_INTERVALS = (0.005, 0.001)   # s; Python's default first
+
+
+def prefetch_steps(s, n):
+    """The median ms of `n` Solver steps of `s` (host clock,
+    synchronized) through a prefetching feed over its net, one block at
+    each GIL switch interval of SWITCH_INTERVALS (sys.setswitchinterval),
+    after one warm step that starts the producer. The producer is closed
+    after them and `s` keeps its own (raw) feed. The batches start at the
+    source's first record: these steps time the feed, their training is
+    not checked."""
+    import torch
+    from rram_caffe_simulation_tpu_torch.data.feed import build_feed
+    own, interval = s.train_feed, sys.getswitchinterval()
+    s.train_feed = build_feed(s.net, device=s.device)
+    out = {}
+    try:
+        s.step(1)
+        for si in SWITCH_INTERVALS:
+            sys.setswitchinterval(si)
+            times = []
+            for _ in range(n):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                s.step(1)
+                times.append((time.perf_counter() - t0) * 1e3)
+            out[f"{si * 1e3:g}ms"] = float(np.median(times))
+    finally:
+        sys.setswitchinterval(interval)
+        s.train_feed.close()
+        s.train_feed = own
+    return out
 
 
 def phase_transitions(steps):
@@ -6058,7 +6135,7 @@ def blocks_evaluate(r, gpu):
     got = r.evaluate(batch)
     eval_s = time.perf_counter() - t0
     net, ctx = s.test_nets[0], s._test_context()
-    feed = {k: torch.as_tensor(np.asarray(v)).to(r.device) for k, v in
+    feed = {k: torch.as_tensor(v).to(r.device) for k, v in
             batch.items()}
     check(all(v.shape[0] == BLOCK_CONFIGS for v in got.values()),
           f"(d) evaluate's outputs {[v.shape for v in got.values()]}")
@@ -8143,7 +8220,7 @@ def card_vs_cpu(label, make, steps, per_step, rel):
               f"expected {per_step}")
         t_cpu = time.perf_counter()
         _, _, pf, pl, _ = c._step_fn(*cstate, {
-            k: torch.as_tensor(v) for k, v in batch.items()}, it, key)
+            k: torch.as_tensor(v).cpu() for k, v in batch.items()}, it, key)
         cpu_s += time.perf_counter() - t_cpu
         kl, pl = float(kl), float(pl)
         gap = abs(kl - pl) / max(1.0, abs(pl))
@@ -8774,6 +8851,7 @@ ZOO_MEAN = (104.0, 117.0, 123.0)  # mean_value in place of the mean file
 ZOO_LIFE = NETS_LIFE             # int16 banks; cells die within 3-8 writes
 ZOO_REL = 1e-4                   # (b): losses, card against CPU
 ZOO_TIMED = 3                    # (c): timed Solver steps, after a warm one
+ZOO_PREFETCH_STEPS = 5           # (c): steps a prefetching block
 ZOO_PROFILED = 2                 # (c): profiled steps after them
 # a kernel's own device activity on the path
 ZOO_KERNEL_NAMES = {"B2": ("crossbar_kernel", "lane_absmax_kernel"),
@@ -8906,6 +8984,7 @@ def zoo_card_vs_cpu(name, db):
     b2, b1, b4 = ZOO_PER_STEP[name]
     s, out = card_vs_cpu(f"(b) {name}", make, 1,
                          _untiled(B2=b2, B1=b1, B4=b4), ZOO_REL)
+    s.close()
     del s
     torch.cuda.empty_cache()
     out.update(batch=batch_n, seconds=time.perf_counter() - t0)
@@ -8922,7 +9001,9 @@ def zoo_card_vs_cpu(name, db):
 def zoo_timed(name, db, gpu):
     """(c) `name` at its published batch: one warm and ZOO_TIMED timed
     Solver steps (host clock, synchronized, the host feed included), the
-    feed's ms a batch, peak memory, the launches a step."""
+    feed's ms a batch, peak memory, the launches a step; then
+    ZOO_PREFETCH_STEPS steps a block through a prefetching feed
+    (`prefetch_steps`)."""
     import torch
     from rram_caffe_simulation_tpu_torch import kernels
     t0 = time.perf_counter()
@@ -8945,6 +9026,7 @@ def zoo_timed(name, db, gpu):
         t1 = time.perf_counter()
         s.train_feed()
         feed.append((time.perf_counter() - t1) * 1e3)
+    prefetch_ms = prefetch_steps(s, ZOO_PREFETCH_STEPS)
     b2, b1, b4 = ZOO_PER_STEP[name]
     n = ZOO_TIMED
     check(launches == _untiled(B2=b2 * n, B1=b1 * n, B4=b4 * n),
@@ -8960,7 +9042,8 @@ def zoo_timed(name, db, gpu):
     busy = sum(v for v, _ in by_name.values())
     out = {"batch": batch_n, "step_ms": times,
            "step_ms_median": float(np.median(times)),
-           "feed_ms_median": float(np.median(feed)), "peak_bytes": int(peak),
+           "feed_ms_median": float(np.median(feed)),
+           "prefetch_step_ms": prefetch_ms, "peak_bytes": int(peak),
            "launches": launches,
            "launches_per_step": {k: v / n for k, v in launches.items()},
            "kernel_ms": own, "device_busy_ms": busy,
@@ -8968,11 +9051,14 @@ def zoo_timed(name, db, gpu):
     print(f"phase 25: (c) {name} at batch {batch_n}: step median "
           f"{out['step_ms_median']:.3f} ms ({[round(v, 3) for v in times]}, "
           f"host clock, synchronized, the host feed included); the feed "
-          f"{out['feed_ms_median']:.3f} ms a batch; the device busy "
+          f"{out['feed_ms_median']:.3f} ms a batch; through a prefetching "
+          f"feed, by GIL switch interval, {json.dumps(prefetch_ms)} ms "
+          f"(median of {ZOO_PREFETCH_STEPS}); the device busy "
           f"{busy:.3f} ms a step ({ZOO_PROFILED} profiled), of it B2a "
           f"{own['B2']:.5f}, B1a {own['B1']:.5f}, B4 {own['B4']:.5f} ms; "
           f"peak memory {peak / 1e9:.2f} GB; launches a step B2a {b2}, B1a "
           f"{b1}, B4 {b4}; loss {loss:.5f}; {gpu}", flush=True)
+    s.close()
     del s
     torch.cuda.empty_cache()
     return out
@@ -9003,7 +9089,6 @@ def zoo_sweep(db, gpu, C=ZOO_SWEEP_LANES):
     `blocks_vs_unblocked` from one feed position."""
     import torch
     from rram_caffe_simulation_tpu_torch import kernels
-    from rram_caffe_simulation_tpu_torch.data.feed import build_feed
     from rram_caffe_simulation_tpu_torch.parallel import SweepRunner
     t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
@@ -9041,10 +9126,7 @@ def zoo_sweep(db, gpu, C=ZOO_SWEEP_LANES):
     r.close()
     del r
     torch.cuda.empty_cache()
-
-    def rewind():
-        s.train_feed = build_feed(s.net)        # the same batches
-    blocks = blocks_vs_unblocked(s, "(d)", C, LANE_OPTS, rewind)
+    blocks = blocks_vs_unblocked(s, "(d)", C, LANE_OPTS)
     del s
     torch.cuda.empty_cache()
     out = {"configs": C, "batch": 256, "lane_loss_rel_max": worst,
@@ -9196,6 +9278,404 @@ def phase_zoo(gpu):
     return out
 
 
+
+# ---------------------------------------------------------------------------
+# phase 26: the data sources
+
+FINETUNE_NETS = {   # solver file, the data layer it trains through
+    "flickr_style": ("models/finetune_flickr_style/solver.prototxt",
+                     "ImageData"),
+    "pascal": ("examples/finetune_pascal_detection/"
+               "pascal_finetune_solver.prototxt", "WindowData"),
+}
+LINREG_NET = "examples/pycaffe/linreg.prototxt"
+DATA_SEED = 25
+DATA_IMAGES = 64                 # (a): flickr_style's stand-in PNGs
+DATA_VOC = (16, 24)              # (a): VOC stand-ins at 3x375x500, windows each
+DATA_RECORDS = 64                # (a): the LevelDB's and the LMDB's Datums
+DATA_SMALL_BATCH = 4             # (b)
+DATA_REL = 1e-5                  # (b): losses, card against CPU
+DATA_TIMED = 3                   # (c): timed steps, after a warm one
+DATA_TEST_ITER = 2               # (c): flickr_style's Solver.test batches
+DATA_PER_STEP = {"flickr_style": (3, 1, 3), "pascal": (3, 1, 3),
+                 "linreg": (2, 1, 0)}    # B2a, B1a, B4 a step
+# the kernels line at pascal's path, batch 128 (its pools: ZOO_POOLS)
+DATA_B2_SHAPES = {"fc6": (128, 9216, 4096), "fc7": (128, 4096, 4096),
+                  "fc8_pascal": (128, 4096, 21)}
+DATA_LEAVES = {"fc6/0": (4096, 9216), "fc6/1": (4096,), "fc7/0": (4096, 4096),
+               "fc7/1": (4096,), "fc8_pascal/0": (21, 4096),
+               "fc8_pascal/1": (21,)}
+
+
+def data_standins(tmp):
+    """(a) Stand-ins for the data the nets name and the repository does not
+    hold, from DATA_SEED, written by the port's own writers: flickr_style's
+    PNGs (sizes around 256x256) and train/test lists, VOC-sized PNGs
+    (3x375x500) and a window file of foreground (overlap >= 0.5) and
+    background windows, a 1x3x256x256 mean .binaryproto, and one set of
+    Datums as a LevelDB and as an LMDB."""
+    from rram_caffe_simulation_tpu_torch import proto
+    from rram_caffe_simulation_tpu_torch.data import leveldb_py, lmdb_py
+    from rram_caffe_simulation_tpu_torch.data.feed import array_to_datum
+    from rram_caffe_simulation_tpu_torch.data.imagecodec import encode_png
+    from rram_caffe_simulation_tpu_torch.data.windows import (
+        WindowRecord, write_window_file)
+    from rram_caffe_simulation_tpu_torch.utils.io import (array_to_blob,
+                                                          write_proto_binary)
+    rng = np.random.RandomState(DATA_SEED)
+
+    def png(name, h, w):
+        path = str(tmp / name)
+        with open(path, "wb") as f:
+            f.write(encode_png(rng.randint(0, 256, (h, w, 3),
+                                           dtype=np.uint8)))
+        return path
+    lines = [f"{png(f'flickr_{i:03d}.png', *rng.randint(224, 289, 2))} "
+             f"{rng.randint(20)}\n" for i in range(DATA_IMAGES)]
+    files = {"flickr_train": tmp / "flickr_train.txt",
+             "flickr_test": tmp / "flickr_test.txt"}
+    files["flickr_train"].write_text("".join(lines))
+    files["flickr_test"].write_text("".join(lines[:16]))
+    n_img, per = DATA_VOC
+    images = [(png(f"voc_{i:03d}.png", 375, 500), (3, 375, 500))
+              for i in range(n_img)]
+    windows = []
+    for i in range(n_img):
+        for j in range(per):
+            x1, x2 = sorted(rng.randint(0, 500, 2))
+            y1, y2 = sorted(rng.randint(0, 375, 2))
+            fg = j % 2 == 0
+            windows.append(WindowRecord(
+                i, int(rng.randint(1, 21)) if fg else 0,
+                float(0.5 + 0.5 * rng.rand() if fg else 0.49 * rng.rand()),
+                (int(x1), int(y1), int(x2), int(y2))))
+    files["windows"] = tmp / "windows.txt"
+    write_window_file(str(files["windows"]), images, windows)
+    files["mean"] = tmp / "imagenet_mean.binaryproto"
+    write_proto_binary(str(files["mean"]), array_to_blob(
+        (110 + 20 * rng.randn(1, 3, 256, 256)).astype(np.float32)))
+    records = [(f"{i:08d}".encode(), proto.encode(array_to_datum(
+        rng.randint(0, 256, (3, 32, 32), dtype=np.uint8),
+        int(rng.randint(10))))) for i in range(DATA_RECORDS)]
+    files["leveldb"], files["lmdb"] = tmp / "leveldb", tmp / "lmdb"
+    for mod, key in ((leveldb_py, "leveldb"), (lmdb_py, "lmdb")):
+        with mod.BulkWriter(str(files[key])) as w:
+            for k, v in records:
+                w.put(k, v)
+    return {k: str(v) for k, v in files.items()}
+
+
+def data_solver(name, device, files, batch=None, test_iter=None,
+                life=ZOO_LIFE, seed=5, prefetch=False):
+    """`name`'s own solver file (FINETUNE_NETS, or "linreg" for
+    examples/pycaffe/linreg.prototxt under SGD) with its data layers on
+    the stand-ins `files`, the TRAIN batch `batch` (None: the published
+    one), `test_iter` batches a test (None: the file's), no automatic
+    test, a gaussian failure_pattern on the InnerProduct layers, a seed;
+    packed banks, the ternary read, the fused epilogue, engine "cuda";
+    its default feeds prefetching with `prefetch`."""
+    from rram_caffe_simulation_tpu_torch import proto
+    from rram_caffe_simulation_tpu_torch.solver import Solver
+    from rram_caffe_simulation_tpu_torch.utils.io import (read_net_param,
+                                                          read_solver_param)
+    if name == "linreg":
+        sys.path.insert(0, str(REPO / "examples/pycaffe"))   # pyloss
+        sp = proto.parse('base_lr: 0.01 momentum: 0.9 weight_decay: '
+                         '0.0005 lr_policy: "fixed" display: 0',
+                         "SolverParameter")
+        sp.net_param = read_net_param(LINREG_NET)
+    else:
+        sp = read_solver_param(FINETUNE_NETS[name][0])
+        netp = read_net_param(sp.net)
+        for lp in netp.layer:
+            if lp.type not in ("ImageData", "WindowData"):
+                continue
+            train = lp.include[0].phase == proto.TRAIN
+            param = (lp.image_data_param if lp.type == "ImageData"
+                     else lp.window_data_param)
+            param.source = (files["windows"] if lp.type == "WindowData"
+                            else files["flickr_train" if train
+                                       else "flickr_test"])
+            if batch is not None and train:
+                param.batch_size = batch
+            lp.transform_param.mean_file = files["mean"]
+        sp.ClearField("net")
+        sp.net_param = netp
+        if test_iter is not None:
+            sp.test_iter = [test_iter]
+    sp.test_interval = 0
+    sp.random_seed = seed
+    sp.failure_pattern.type = "gaussian"
+    sp.failure_pattern.mean, sp.failure_pattern.std = life
+    return Solver(sp, device=device, hw_engine="cuda",
+                  dtype_policy="ternary", fault_format="packed",
+                  fused_epilogue=True, prefetch=prefetch)
+
+
+def data_card_vs_cpu(name, files):
+    """(b) `name` at batch DATA_SMALL_BATCH: `card_vs_cpu` over one step
+    (the card Solver's batch from its own feed through its own data
+    layer), the CPU's Solver drawing on the card (the same bits), the
+    launches of DATA_PER_STEP."""
+    import torch
+    t0 = time.perf_counter()
+
+    def make(device):
+        if device == "cuda":
+            return data_solver(name, device, files, DATA_SMALL_BATCH)
+        with draws_on_card():
+            return data_solver(name, device, files, DATA_SMALL_BATCH)
+    b2, b1, b4 = DATA_PER_STEP[name]
+    s, out = card_vs_cpu(f"(b) {name}", make, 1,
+                         _untiled(B2=b2, B1=b1, B4=b4), DATA_REL)
+    s.close()
+    del s
+    torch.cuda.empty_cache()
+    out.update(seconds=time.perf_counter() - t0)
+    print(f"phase 26: (b) {name} at batch {DATA_SMALL_BATCH}: card against "
+          f"CPU, one step from one state: loss {out['losses'][0]:.6f}, "
+          f"{out['loss_rel_max']:.2e} relative (limit {DATA_REL:g}); banks "
+          f"equal but {out['cells_apart_exact0']} cells on exact-0 writes; "
+          f"launches B2a {b2}, B1a {b1}, B4 {b4}; the CPU's step "
+          f"{out['cpu_steps_s']:.1f} s", flush=True)
+    return out
+
+
+def _clone_tree(tree):
+    """A params/history/fault-state tree with every tensor cloned."""
+    import torch
+    if isinstance(tree, dict):
+        return {k: _clone_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_clone_tree(v) for v in tree)
+    return tree.clone() if isinstance(tree, torch.Tensor) else tree
+
+
+def _flat_tensors(tree, prefix=""):
+    import torch
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_flat_tensors(v, f"{prefix}{k}/"))
+        return out
+    if isinstance(tree, (list, tuple)):
+        out = {}
+        for i, v in enumerate(tree):
+            out.update(_flat_tensors(v, f"{prefix}{i}/"))
+        return out
+    return {prefix: tree} if isinstance(tree, torch.Tensor) else {}
+
+
+def data_timed(name, files, gpu):
+    """(c) `name` at its published batch, its Solver built with
+    `prefetch`: one warm and DATA_TIMED timed Solver steps (host clock,
+    synchronized), the launches a step, peak memory; then one step from
+    one state through the prefetching feed (profiled: the device busy ms)
+    and, the producer stopped, through a raw feed at the same position:
+    the batch, the state and the loss bit for bit; that step and
+    DATA_TIMED - 1 more through the raw feed timed, and the raw feed's ms
+    a batch; flickr_style's Solver.test."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from rram_caffe_simulation_tpu_torch import kernels
+    from rram_caffe_simulation_tpu_torch.data.feed import build_feed
+    t0 = time.perf_counter()
+    test_iter = DATA_TEST_ITER if name == "flickr_style" else None
+    s = data_solver(name, "cuda", files, test_iter=test_iter, prefetch=True)
+    check(s.net.layers[0].type_name == FINETUNE_NETS[name][1],
+          f"(c) {name} trains through {s.net.layers[0].type_name}")
+    batch_n = s.net.blob_shapes["data"][0]
+    prefetching, pulls, last = s.train_feed, [0], {}
+
+    def counted():
+        pulls[0] += 1
+        last["prefetched"] = prefetching()
+        return last["prefetched"]
+    s.train_feed = counted
+    s.step(1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    times = []
+    for _ in range(DATA_TIMED):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        s.step(1)                       # ends in a host read of the loss
+        times.append((time.perf_counter() - t1) * 1e3)
+    launches = _launches()
+    peak = torch.cuda.max_memory_allocated()
+    b2, b1, b4 = DATA_PER_STEP[name]
+    n = DATA_TIMED
+    check(launches == _untiled(B2=b2 * n, B1=b1 * n, B4=b4 * n),
+          f"(c) {name}: launches {launches} in {n} steps, expected B2a "
+          f"{b2}, B1a {b1}, B4 {b4} a step")
+    # one step from one state through both feeds, the first profiled
+    torch.cuda.synchronize()
+    before = _clone_tree((s.params, s.history, s.fault_state))
+    it, position = s.iter, pulls[0]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        s.step(1)
+        torch.cuda.synchronize()
+    busy = sum(ev.time_range.elapsed_us() for ev in prof.events()
+               if ev.device_type == DeviceType.CUDA) / 1e3 or None
+    got = _flat_tensors({"p": s.params, "h": s.history, "f": s.fault_state})
+    loss_prefetch = float(s.last_loss)
+    prefetching.close()                 # the raw feed's times run alone
+    raw, feed_ms = build_feed(s.net, prefetch=False), []
+    for _ in range(position):          # the batches already taken
+        t1 = time.perf_counter()
+        raw()
+        feed_ms.append((time.perf_counter() - t1) * 1e3)
+    s.params, s.history, s.fault_state = before
+    s.iter = it
+    s.train_feed = lambda: last.setdefault("raw", raw())
+    raw_times = []
+    for i in range(DATA_TIMED):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        s.step(1)
+        raw_times.append((time.perf_counter() - t1) * 1e3)
+        if i == 0:
+            want = _flat_tensors({"p": s.params, "h": s.history,
+                                  "f": s.fault_state})
+            loss_raw = float(s.last_loss)
+            s.train_feed = raw
+    raw_ms = float(np.median(raw_times))
+    apart = _leaves_differ(got, want) + _leaves_differ(
+        last["prefetched"], {k: torch.from_numpy(v)
+                             for k, v in last["raw"].items()})
+    check(not apart and loss_prefetch == loss_raw,
+          f"(c) {name}: the prefetching and the raw feed's steps part on "
+          f"{apart[:5]} (losses {loss_prefetch}, {loss_raw})")
+    check(math.isfinite(loss_prefetch), f"(c) {name}: loss {loss_prefetch}")
+    out = {"batch": batch_n, "step_ms": times,
+           "step_ms_median": float(np.median(times)),
+           "raw_step_ms": raw_times, "raw_step_ms_median": raw_ms,
+           "feed_ms_median": float(np.median(feed_ms)),
+           "peak_bytes": int(peak), "launches": launches,
+           "device_busy_ms": busy, "loss": loss_prefetch,
+           "leaves_compared": len(want)}
+    if test_iter:
+        scores = s.test(0)
+        check(all(math.isfinite(v) for v in scores.values()),
+              f"(c) {name}: Solver.test gave {scores}")
+        out["test"] = scores
+    s.close()
+    del s, before
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 26: (c) {name} at batch {batch_n} through its "
+          f"{FINETUNE_NETS[name][1]} layer, prefetching: step median "
+          f"{out['step_ms_median']:.3f} ms ({[round(v, 3) for v in times]}, "
+          f"host clock, synchronized); with the raw feed, median "
+          f"{raw_ms:.3f} ms ({[round(v, 3) for v in raw_times]}), its "
+          f"first step bit for bit with the prefetching step "
+          f"(the batch, {len(want)} leaves and the loss); the raw feed "
+          f"{out['feed_ms_median']:.3f} ms a batch ({len(feed_ms)} pulls); "
+          f"the device busy {busy and round(busy, 3)} ms in the compared "
+          f"step; peak memory {peak / 1e9:.2f} GB; launches a step B2a {b2}, B1a {b1}, B4 "
+          f"{b4}; loss {loss_prefetch:.5f}"
+          + (f"; Solver.test {json.dumps(out['test'])}" if test_iter
+             else "") + f"; {gpu}", flush=True)
+    return out
+
+
+def data_leveldb(files):
+    """(d) A LEVELDB Data layer (Caffe's default backend) against an LMDB
+    of the same records: its prefetching feed's batches on the card equal
+    the LMDB's, and its Solver takes two steps (B2a 1, B1a 1 a step)."""
+    import torch
+    from rram_caffe_simulation_tpu_torch import kernels, proto
+    from rram_caffe_simulation_tpu_torch.data.feed import build_feed
+    from rram_caffe_simulation_tpu_torch.net import Net
+    from rram_caffe_simulation_tpu_torch.solver import Solver
+
+    def net_text(source, backend):
+        return (f'layer {{ name: "data" type: "Data" top: "data" '
+                f'top: "label" transform_param {{ mirror: true crop_size: 28 '
+                f"mean_value: 110 }} data_param {{ source: \"{source}\" "
+                f"batch_size: 16 backend: {backend} }} }} "
+                'layer { name: "ip" type: "InnerProduct" bottom: "data" '
+                'top: "ip" inner_product_param { num_output: 10 '
+                'weight_filler { type: "xavier" } } } '
+                'layer { name: "loss" type: "SoftmaxWithLoss" bottom: "ip" '
+                'bottom: "label" top: "loss" }')
+    feeds = [build_feed(Net(proto.parse(net_text(files[k], b),
+                                        "NetParameter"), proto.TRAIN),
+                        device="cuda")
+             for k, b in (("leveldb", "LEVELDB"), ("lmdb", "LMDB"))]
+    pulls = DATA_RECORDS // 16 + 2             # past a wrap
+    for _ in range(pulls):
+        a, b = (f() for f in feeds)
+        check(all(v.is_cuda and torch.equal(v, b[k]) for k, v in a.items()),
+              "(d) the LevelDB's batches differ from the LMDB's")
+    for f in feeds:
+        f.close()
+    text = (f"net_param {{ {net_text(files['leveldb'], 'LEVELDB')} }} "
+            'base_lr: 0.01 lr_policy: "fixed" display: 0 random_seed: 5 '
+            f'failure_pattern {{ type: "gaussian" mean: {ZOO_LIFE[0]} '
+            f"std: {ZOO_LIFE[1]} }}")
+    s = Solver(proto.parse(text, "SolverParameter"), hw_engine="cuda",
+               dtype_policy="ternary", fault_format="packed",
+               fused_epilogue=True)
+    kernels.reset_launches()
+    s.step(2)
+    launches = _launches()
+    loss = float(s.last_loss)
+    check(launches == _untiled(B2=2, B1=2, B4=0) and math.isfinite(loss),
+          f"(d) the LEVELDB Solver: launches {launches}, loss {loss}")
+    s.close()
+    print(f"phase 26: (d) a LEVELDB Data layer: {pulls} prefetched batches "
+          f"on the card equal to the LMDB's of the same {DATA_RECORDS} "
+          f"records (a wrap included); its Solver 2 steps, loss "
+          f"{loss:.5f}, B2a 1 and B1a 1 a step", flush=True)
+    return {"pulls": pulls, "records": DATA_RECORDS, "loss": loss,
+            "launches": launches}
+
+
+def phase_data_sources(gpu):
+    """Phase 26: the data sources, under RRAM_POOL_BWD=cuda: (a) the
+    stand-ins, (b) flickr_style, pascal and linreg card against CPU at
+    batch 4, (c) the finetune Solvers at their published batches through
+    the prefetching feed, (d) a LEVELDB Data layer."""
+    import tempfile
+    import torch
+    t0 = time.perf_counter()
+    out = {"gpu": gpu, "part_s": {}, "b": {}, "c": {}}
+    saved = os.environ.get("RRAM_POOL_BWD")
+    os.environ["RRAM_POOL_BWD"] = "cuda"
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_data_") as tmp:
+            t = time.perf_counter()
+            files = data_standins(Path(tmp))
+            out["part_s"]["a"] = time.perf_counter() - t
+            print(f"phase 26: (a) stand-ins from seed {DATA_SEED}: "
+                  f"{DATA_IMAGES} flickr_style PNGs, {DATA_VOC[0]} 3x375x500 "
+                  f"PNGs with {DATA_VOC[1]} windows each, a 1x3x256x256 "
+                  f"mean file, {DATA_RECORDS} Datums as a LevelDB and an "
+                  f"LMDB, in {out['part_s']['a']:.1f} s", flush=True)
+            t = time.perf_counter()
+            for name in list(FINETUNE_NETS) + ["linreg"]:
+                out["b"][name] = data_card_vs_cpu(name, files)
+            out["part_s"]["b"] = time.perf_counter() - t
+            t = time.perf_counter()
+            for name in FINETUNE_NETS:
+                out["c"][name] = data_timed(name, files, gpu)
+            out["part_s"]["c"] = time.perf_counter() - t
+            t = time.perf_counter()
+            out["d"] = data_leveldb(files)
+            out["part_s"]["d"] = time.perf_counter() - t
+    finally:
+        if saved is None:
+            os.environ.pop("RRAM_POOL_BWD", None)
+        else:
+            os.environ["RRAM_POOL_BWD"] = saved
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"phase 26: parts {json.dumps(out['part_s'])}", flush=True)
+    return out
+
 COLD_RUNS = ("precompile", "serial", "serial", "precompile")
 
 
@@ -9329,7 +9809,7 @@ def main(argv=None) -> int:
                    help="training steps of the slice phase (default 50)")
     p.add_argument("--transition-steps", type=int, default=6)
     p.add_argument("--phases", default="all",
-                   help="comma-separated phases 2-25 to run after the "
+                   help="comma-separated phases 2-26 to run after the "
                         "build (default all; only a full run prints the "
                         "per-kernel line and the ok line)")
     p.add_argument("--b2-path", action="store_true",
@@ -9373,7 +9853,7 @@ def main(argv=None) -> int:
                         "print their seconds as JSON")
     args = p.parse_args(argv)
     t_main = time.perf_counter()
-    every = set(range(2, 26))
+    every = set(range(2, 27))
     want = every if args.phases == "all" else {
         int(v) for v in args.phases.split(",")}
 
@@ -9536,6 +10016,8 @@ def main(argv=None) -> int:
         nets = timed(24, phase_nets, gpu)
     if 25 in want:
         zoo = timed(25, phase_zoo, gpu)
+    if 26 in want:
+        data_sources = timed(26, phase_data_sources, gpu)
     if want != every:
         print(f"phases {sorted(want)} passed; no ok line for a partial run",
               flush=True)
@@ -9742,6 +10224,33 @@ def main(argv=None) -> int:
          "replaces": "rram_caffe_simulation_tpu/ops/pool_backward.py:141",
          "launches": zsl["B4"], **zb4},
     ]
+    # phase 26's path: pascal's finetune net at batch 128 (fc6-fc8_pascal,
+    # their six leaves, its three 3x3 stride-2 MAX pools), the launches of
+    # its timed Solver steps
+    dc = data_sources["c"]["pascal"]["launches"]
+    db2, err_db2 = b2_step_numbers(device, 1, DATA_B2_SHAPES)
+    db1, err_db1 = b1_step_numbers(device, DATA_LEAVES)
+    db4 = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bound_by": "bytes",
+           "library_ms": 0.0, "max_abs_err": 0.0}
+    for ch, h in ZOO_POOLS:
+        one = b4_step_numbers(device, 1, planes=ch, hw=(h, h),
+                              geometry=POOL3X3S2, batch=128)
+        db4 = {k: (max(v, one[k]) if k == "max_abs_err" else v + one[k])
+               if k != "bound_by" else v for k, v in db4.items()}
+    rows += [
+        {"name": "crossbar_forward (B2a), pascal fc6-8, batch 128",
+         "route": "cuda", "source": f"{PKG}/csrc/crossbar.cu",
+         "replaces": "rram_caffe_simulation_tpu/fault/hw_aware.py:332",
+         "launches": dc["B2"], "max_abs_err": err_db2, **db2},
+        {"name": "fused_update_fail (B1a), pascal's six leaves",
+         "route": "cuda", "source": f"{PKG}/csrc/fused_epilogue.cu",
+         "replaces": "rram_caffe_simulation_tpu/fault/fused.py:99",
+         "launches": dc["B1"], "max_abs_err": err_db1, **db1},
+        {"name": "max_pool_backward (B4), pascal's three pools, batch 128",
+         "route": "cuda", "source": f"{PKG}/csrc/pool_backward.cu",
+         "replaces": "rram_caffe_simulation_tpu/ops/pool_backward.py:141",
+         "launches": dc["B4"], **db4},
+    ]
     # phase 22's path: B1 in the modes of read_disturb ("always") and
     # permanent_fault_map ("never"), on the steps' own tails
     for key, row in sorted(processes["b1_rows"].items()):
@@ -9756,6 +10265,8 @@ def main(argv=None) -> int:
                         + ("118" if lanes else "99"),
             **{k: v for k, v in row.items() if k != "mode"}})
     print(json.dumps({"step": {"median_ms": step_s * 1e3,
+                               "prefetch_step_ms":
+                                   breakdown["prefetch_step_ms"],
                                "feed_ms": breakdown["feed_ms"],
                                "device_busy_ms":
                                    breakdown["device_busy_ms"]},
@@ -9778,6 +10289,7 @@ def main(argv=None) -> int:
     print(json.dumps({"harness": harness}))
     print(json.dumps({"nets": nets}))
     print(json.dumps({"zoo": zoo}))
+    print(json.dumps({"data_sources": data_sources}))
     print(json.dumps({"phase_s": {**{str(n): v for n, v in phase_s.items()},
                                   "kernels_line": time.perf_counter() - t_rows,
                                   "script": time.perf_counter() - t_main}}))

@@ -1,1 +1,2 @@
-"""Host-side data path: LMDB reader, Datum decode, transformer, feeds."""
+"""Host-side data path: LMDB and LevelDB readers, Datum decode, image
+codecs, the window crop, the transformer, the feeds."""

@@ -1,3 +1,3 @@
 """Layer implementations; importing this package registers every ported
 layer type."""
-from . import common, data_layers, losses, neuron, vision  # noqa: F401
+from . import common, data_layers, extra, losses, neuron, vision  # noqa: F401

@@ -183,8 +183,9 @@ import torch
 from .. import async_exec, kernels, proto
 from ..cache import SetupStats
 from ..core import prng
-from ..data.feed import (can_materialize, materialize_data_source,
-                         open_lmdb)
+from ..data.db import open_db
+from ..data.feed import (batch_to, build_feed, can_materialize,
+                         materialize_data_source)
 from ..device import resolve_device
 from ..fault import engine as fault_engine
 from ..fault import fused as fault_fused
@@ -340,7 +341,11 @@ class SweepRunner:
     is "cuda" on a CUDA device. `packed_state`, `dtype_policy`,
     `fused_epilogue` and `conv_im2col` are the solver's step options;
     `conv_im2col_requested/_resolved/_reason` record the conv operand
-    mode that runs. `pipeline_depth`, `stall_timeout_s`,
+    mode that runs. `feed` is the host feed of every step; without one
+    the runner feeds from the solver's `train_feed` where the solver was
+    given or assigned one, else from a raw feed of its own over the
+    solver's data layers, which starts at their first record (or from
+    the device-resident dataset, below). `pipeline_depth`, `stall_timeout_s`,
     `health_every`, `config_block` and `precompile_chunk` as in the
     module docstring; `engine_fallback_reason` says why the requested
     engine launches no crossbar kernel (None when it does). A context
@@ -353,7 +358,7 @@ class SweepRunner:
                  pipeline_depth: Optional[int] = None,
                  stall_timeout_s: Optional[float] = None,
                  health_every: int = 0, config_block: int = 0,
-                 precompile_chunk: int = 0, **options):
+                 precompile_chunk: int = 0, feed=None, **options):
         for name, value in options.items():
             if name not in UNPORTED_OPTIONS:
                 raise TypeError(f"SweepRunner got an unexpected option "
@@ -365,6 +370,12 @@ class SweepRunner:
                              f"one of {SWEEP_ENGINES})")
         if n_configs < 1:
             raise ValueError(f"n_configs must be >= 1, got {n_configs}")
+        # the feed the solver holds now: `_batch` refuses a later swap,
+        # which this runner would not see
+        self._solver_feed = solver.train_feed
+        if feed is None and solver.custom_train_feed:
+            feed = solver.train_feed
+        self._given_feed = feed
         self.config_block = int(config_block or 0)
         block = int(n_configs)
         if 0 < self.config_block < n_configs:
@@ -547,6 +558,14 @@ class SweepRunner:
         self._ds_batch = self._ds_n = 0
         if preload:
             self._preload(int(precompile_chunk or 0))
+        # one feed for every host path; the default is raw and this
+        # runner's own, as the reference's (parallel/sweep.py:668-680)
+        if self._given_feed is not None:
+            self._feed = self._given_feed
+        elif self._dataset is None:
+            self._feed = build_feed(solver.net, prefetch=False)
+        else:
+            self._feed = None
 
     def _output_axes(self, laned_data: bool) -> dict:
         """Each output's lane axis (a laned blob's axis 1, a per-config
@@ -561,7 +580,7 @@ class SweepRunner:
     def _materializable_layer(self):
         """The single Data layer whose DB can live on the device, or
         None (a custom feed, another layer mix, random transforms)."""
-        if self.solver.custom_train_feed or self.solver.param.iter_size > 1:
+        if self._given_feed is not None or self.solver.param.iter_size > 1:
             return None
         src = [ly for ly in self.solver.net.layers if ly.is_data_source]
         if len(src) != 1 or not can_materialize(src[0]):
@@ -616,7 +635,7 @@ class SweepRunner:
         or an empty one; the decode then raises or finds nothing on this
         thread, as without the precompile)."""
         try:
-            env = open_lmdb(layer.lp.data_param.source)
+            env = open_db(layer.lp.data_param.source)
         except Exception:
             return False
         try:
@@ -655,9 +674,15 @@ class SweepRunner:
                 t.record_stream(stream)
 
     def _batch(self, it: int) -> dict:
+        if self.solver.train_feed is not self._solver_feed:
+            raise RuntimeError(
+                "the solver's train_feed was replaced after this "
+                "SweepRunner was built, which would not feed from it; pass "
+                "the feed as SweepRunner(feed=...) or build the runner "
+                "after the swap")
         if self._dataset is None:
-            return stack_batches(self.solver.train_feed,
-                                 self.solver.param.iter_size, self.device)
+            return stack_batches(self._feed, self.solver.param.iter_size,
+                                 self.device)
         # the host cursor's wrap-around order; the offset is exact host
         # integer arithmetic
         start = (it * self._ds_batch) % self._ds_n
@@ -1329,8 +1354,7 @@ class SweepRunner:
                                               name in laned)
                         for name in net.output_names}
             self._eval_fns[id(net)] = run
-        feed = {k: torch.as_tensor(np.asarray(v)).to(self.device)
-                for k, v in batch.items()}
+        feed = batch_to(batch, self.device)
         return {k: v.cpu().numpy() for k, v in run(self.params,
                                                     feed).items()}
 

@@ -194,6 +194,61 @@ message LayerParameter {
   optional TanHParameter tanh_param = 127;
   optional DropoutParameter dropout_param = 108;
   optional DummyDataParameter dummy_data_param = 109;
+  optional HDF5DataParameter hdf5_data_param = 112;
+  optional HDF5OutputParameter hdf5_output_param = 113;
+  optional ImageDataParameter image_data_param = 115;
+  optional MemoryDataParameter memory_data_param = 119;
+  optional WindowDataParameter window_data_param = 129;
+  optional PythonParameter python_param = 130;
+}
+message HDF5DataParameter {
+  optional string source = 1;
+  optional uint32 batch_size = 2;
+  optional bool shuffle = 3 [default = false];
+}
+message HDF5OutputParameter {
+  optional string file_name = 1;
+}
+message ImageDataParameter {
+  optional string source = 1;
+  optional uint32 batch_size = 4 [default = 1];
+  optional uint32 rand_skip = 7 [default = 0];
+  optional bool shuffle = 8 [default = false];
+  optional uint32 new_height = 9 [default = 0];
+  optional uint32 new_width = 10 [default = 0];
+  optional bool is_color = 11 [default = true];
+  optional float scale = 2 [default = 1];
+  optional string mean_file = 3;
+  optional uint32 crop_size = 5 [default = 0];
+  optional bool mirror = 6 [default = false];
+  optional string root_folder = 12 [default = ''];
+}
+message MemoryDataParameter {
+  optional uint32 batch_size = 1;
+  optional uint32 channels = 2;
+  optional uint32 height = 3;
+  optional uint32 width = 4;
+}
+message WindowDataParameter {
+  optional string source = 1;
+  optional float scale = 2 [default = 1];
+  optional string mean_file = 3;
+  optional uint32 batch_size = 4;
+  optional uint32 crop_size = 5 [default = 0];
+  optional bool mirror = 6 [default = false];
+  optional float fg_threshold = 7 [default = 0.5];
+  optional float bg_threshold = 8 [default = 0.5];
+  optional float fg_fraction = 9 [default = 0.25];
+  optional uint32 context_pad = 10 [default = 0];
+  optional string crop_mode = 11 [default = 'warp'];
+  optional bool cache_images = 12 [default = false];
+  optional string root_folder = 13 [default = ''];
+}
+message PythonParameter {
+  optional string module = 1;
+  optional string layer = 2;
+  optional string param_str = 3 [default = ''];
+  optional bool share_in_parallel = 4 [default = false];
 }
 message DropoutParameter {
   optional float dropout_ratio = 1 [default = 0.5];

@@ -110,7 +110,7 @@ import torch
 
 from .. import async_exec, proto
 from ..core import prng
-from ..data.feed import build_feed
+from ..data.feed import batch_to, build_feed
 from ..device import resolve_device
 from ..fault import engine as fault_engine
 from ..fault import packed as fault_packed
@@ -264,11 +264,14 @@ class StepNoise:
 def stack_batches(feed: Callable, iter_size: int, device) -> dict:
     """One pull of `feed` as tensors on `device`, or, at iter_size > 1,
     that many pulls stacked on a leading axis (Solver::Step's
-    sub-batches, in pull order)."""
+    sub-batches, in pull order). A pull may hold host arrays or tensors
+    (a prefetching feed's, already on the device)."""
     if max(int(iter_size), 1) == 1:
-        return {k: torch.as_tensor(np.asarray(v)).to(device)
-                for k, v in feed().items()}
+        return batch_to(feed(), device)
     subs = [feed() for _ in range(int(iter_size))]
+    if any(isinstance(v, torch.Tensor) for v in subs[0].values()):
+        return {k: torch.stack([batch_to({k: sb[k]}, device)[k]
+                                for sb in subs]) for k in subs[0]}
     return {k: torch.from_numpy(np.stack([np.asarray(sb[k]) for sb in subs]))
             .to(device) for k in subs[0]}
 
@@ -347,14 +350,17 @@ class Solver:
     fault-bank format, fused epilogue) is fixed at construction;
     `make_train_step` builds other configurations for comparison.
     `test_feeds` (one callable per test net) default to each test net's
-    own Data layers."""
+    own Data layers, pulled in the step; with `prefetch` those default
+    feeds run ahead on producer threads instead (data/feed.py
+    PrefetchingFeed), which `close()` stops."""
 
     def __init__(self, param, device=None,
                  train_feed: Optional[Callable] = None, test_feeds=None,
                  fail_decrement: Optional[float] = None,
                  hw_engine: str = "auto", dtype_policy=None,
                  fault_format: str = "f32", fused_epilogue=None,
-                 tile_spec=None, conv_im2col=None, fault_process=None):
+                 tile_spec=None, conv_im2col=None, fault_process=None,
+                 prefetch: bool = False):
         if isinstance(param, str):
             param = read_solver_param(param)
         self.param = param
@@ -499,10 +505,15 @@ class Solver:
                 "read_disturb, permanent_fault_map), but the configured "
                 f"stack {self.fault_spec.canonical()!r} has none")
 
-        self.custom_train_feed = train_feed is not None
-        self.train_feed = train_feed or build_feed(self.net)
+        # the default feeds are raw unless asked to prefetch: on the card
+        # a producer thread made host-bound steps slower (PERF.md §6)
+        dev = self.device if prefetch else None
+        self._default_train_feed = (None if train_feed is not None
+                                    else build_feed(self.net, prefetch, dev))
+        self.train_feed = train_feed or self._default_train_feed
         self.test_feeds = (list(test_feeds) if test_feeds is not None
-                           else [build_feed(tn) for tn in self.test_nets])
+                           else [build_feed(tn, prefetch, dev)
+                                 for tn in self.test_nets])
         self._lr_fn = learning_rate_fn(param)
         self.pack_spec = None
         if fault_format == "packed" and self.fault_state is not None:
@@ -1231,6 +1242,18 @@ class Solver:
         return stack_batches(self.train_feed, self.param.iter_size,
                              self.device)
 
+    @property
+    def custom_train_feed(self) -> bool:
+        """Whether `train_feed` is another than the Solver's own default
+        (given at construction or assigned since)."""
+        return self.train_feed is not self._default_train_feed
+
+    def close(self) -> None:
+        """Stop the producer threads of the feeds this Solver holds."""
+        for feed in [self._default_train_feed, self.train_feed,
+                     *self.test_feeds]:
+            getattr(feed, "close", lambda: None)()
+
     def step(self, iters: int):
         """Run `iters` training iterations (Solver::Step, solver.cpp:238);
         the loss stays on the device until display or the end. With
@@ -1581,8 +1604,7 @@ class Solver:
         loss_total = 0.0
         with torch.no_grad():
             for i in range(test_iter):
-                batch = {k: torch.as_tensor(np.asarray(v)).to(self.device)
-                         for k, v in feed().items()}
+                batch = batch_to(feed(), self.device)
                 # test batch i's forward key (reference solver.py:2114)
                 rng = prng.fold_in(prng.fold_in(self._key, self.iter), i)
                 blobs, loss = net.apply(self.params, batch, rng=rng, **ctx)
